@@ -4,14 +4,21 @@
 
 1. prints the card (nvidia-smi name and power limit) and fails without CUDA;
 2. builds the kernels from this checkout (`hi3d_tpu_torch/csrc`, Triton);
-3. runs each kernel against its plain PyTorch version at the main path's
-   shapes (max abs error against a stated tolerance, CUDA-event times);
-4. runs the full-width UNet once at a small input on the card and holds it
-   against the same weights on the CPU (plain versions, fp32 and bf16);
-5. runs `hi3d_tpu_torch.pipelines.i2v.main` on `demo/3.png` at full width
-   (configs/inference-v01.yaml, 16×512², random weights) and checks the
+3. runs each forward kernel (K1, K2, K3) and each backward kernel (#3, #5,
+   and K3's autograd Function) against its plain PyTorch version at the main
+   paths' shapes (error against a stated tolerance, CUDA-event times);
+4. runs the full-width UNet once at a small input on the card and holds its
+   output, then its parameter gradient, against the same weights on the CPU
+   (plain versions, fp32 and bf16);
+5. main path 1: `hi3d_tpu_torch.pipelines.i2v.main` on `demo/3.png` at full
+   width (configs/inference-v01.yaml, 16×512², random weights); checks the
    frames and every kernel's launch count against the UNet plan;
-6. prints the kernel JSON line, the card line, and the contract line last.
+6. main path 2: `hi3d_tpu_torch.train.main` on configs/train-v01.yaml at
+   full width (2 videos × 16 × 512² per step, random weights, renders made
+   from demo/3.png) for 4 steps; checks finite losses, moved parameters, a
+   reloadable checkpoint and the launch counts of all five kernels;
+7. prints the kernel JSON line (launches per path and summed), the card
+   line, and the contract line last.
 
 Any failure raises and exits non-zero.
 """
@@ -29,6 +36,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NUM_STEPS = 25  # the configured sampler steps (configs/inference-v01.yaml)
+TRAIN_STEPS = 4  # optimizer steps of configs/train-v01.yaml
 
 
 def card_line() -> str:
@@ -130,6 +138,95 @@ def kernel_phase():
     return results
 
 
+def backward_kernel_phase():
+    """#3 and #5 against autograd through their plain versions, and K3's
+    Function (kernel forward, plain fp32 backward) against autograd of
+    `group_norm_reference`, at the training path's shapes.
+
+    Error measure: max |kernel − plain| over dq/dk/dv (dx/dγ/dβ) divided by
+    max |plain| of the same gradient; tolerance 2e-2. Both sides read the
+    same bf16 inputs; the kernels round P and dS to bf16 before their tensor
+    -core products (as the Pallas kernels do) and every gradient is rounded
+    to bf16 once, so the gap is a few bf16 ulps of the largest entry.
+
+    Returns {name: (max_abs_err, kernel ms, plain ms)} like `kernel_phase`;
+    "plain ms" times the plain version's backward alone (graph kept)."""
+    import torch
+
+    from hi3d_tpu_torch.ops import flash_attention as fa
+    from hi3d_tpu_torch.ops import group_norm as gn
+    from hi3d_tpu_torch.ops import temporal_attention as ta
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bf16 = torch.bfloat16
+    results = {}
+    tol = 2e-2
+
+    def check(name, label, got, want, ms, plain_ms):
+        abs_err, rel = 0.0, 0.0
+        for tag, a, b in zip(("d0", "d1", "d2"), got, want):
+            e = (a.float() - b.float()).abs().max().item()
+            scale = b.float().abs().max().item()
+            if not (torch.isfinite(a).all() and scale > 0):
+                raise AssertionError(f"{name} {label}: {tag} not finite or reference all zero")
+            abs_err, rel = max(abs_err, e), max(rel, e / scale)
+        print(f"[bwd] {name} {label}: max_abs_err={abs_err:.3e} rel={rel:.3e} (tol {tol:.0e}) "
+              f"kernel={ms:.3f} ms plain={plain_ms:.3f} ms", flush=True)
+        if not rel <= tol:
+            raise AssertionError(f"{name} {label}: relative error {rel} > {tol}")
+        e, k, p = results.get(name, (0.0, 0.0, 0.0))
+        results[name] = (max(e, abs_err), k + ms, p + plain_ms)
+
+    def plain_grads(fn, ins, dout):
+        leaves = [t.detach().requires_grad_() for t in ins]
+        out = fn(*leaves)
+        grads = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+        ms = time_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True), reps=3)
+        return grads, ms
+
+    for b, s, h in ((4, 4096, 5), (4, 1024, 10), (4, 256, 20), (4, 64, 20)):
+        d = 64
+        x = torch.randn((b, s, 3 * h * d), generator=gen, device=dev, dtype=bf16)
+        q, k, v = (x[..., i * h * d:(i + 1) * h * d].view(b, s, h, d) for i in range(3))
+        dout = torch.randn((b, s, h, d), generator=gen, device=dev, dtype=bf16)
+        out, lse = fa.flash_attention(q, k, v)
+        got = fa.flash_attention_backward(q, k, v, out, lse, dout)
+        torch.cuda.synchronize()
+        want, plain_ms = plain_grads(lambda *a: fa.flash_attention_reference(*a)[0], (q, k, v), dout)
+        ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout))
+        check("flash_attention_backward", f"B={b} S={s} H={h} D={d}", got, want, ms, plain_ms)
+
+    for b, t, s, c in ((2, 16, 4096, 320), (2, 16, 1024, 640), (2, 16, 256, 1280)):
+        h = c // 64
+        q, k, v, dout = (torch.randn((b, t, s, c), generator=gen, device=dev, dtype=bf16)
+                         .view(b, t, s, h, 64) for _ in range(4))
+        out = ta.temporal_attention(q, k, v)
+        got = ta.temporal_attention_backward(q, k, v, out, dout)
+        torch.cuda.synchronize()
+        want, plain_ms = plain_grads(ta.temporal_attention_reference, (q, k, v), dout)
+        ms = time_ms(lambda: ta.temporal_attention_backward(q, k, v, out, dout))
+        check("temporal_attention_backward", f"B={b} T={t} S={s} C={c}", got, want, ms,
+              plain_ms)
+
+    for shape, act in (((32, 320, 64, 64), "silu"), ((32, 320, 64, 64), None),
+                       ((2, 320, 16, 64, 64), "silu")):
+        x = torch.randn(shape, generator=gen, device=dev, dtype=bf16) * 3 + 1
+        w = torch.randn((shape[1],), generator=gen, device=dev)
+        bia = torch.randn((shape[1],), generator=gen, device=dev)
+        dy = torch.randn(shape, generator=gen, device=dev, dtype=bf16)
+        leaves = [t.detach().requires_grad_() for t in (x, w, bia)]
+        y = gn.group_norm(*leaves, 32, 1e-5, act)
+        if y.grad_fn is None:
+            raise AssertionError("group_norm output on the card has no grad_fn")
+        got = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+        want, plain_ms = plain_grads(
+            lambda *a: gn.group_norm_reference(*a, 32, 1e-5, act), (x, w, bia), dy)
+        ms = time_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True), reps=3)
+        check("group_norm_backward", f"x{tuple(shape)} act={act}", got, want, ms, plain_ms)
+    return results
+
+
 KERNELS = (
     # name, route, source, TPU kernel it replaces
     ("flash_attention", "cuda", "hi3d_tpu_torch/csrc/flash_attention.cu",
@@ -138,19 +235,31 @@ KERNELS = (
      "hi3d_tpu/ops/temporal_attention.py:375"),
     ("group_norm", "triton", "hi3d_tpu_torch/ops/group_norm.py",
      "hi3d_tpu/ops/group_norm.py:105"),
+    ("flash_attention_backward", "cuda", "hi3d_tpu_torch/csrc/flash_attention.cu",
+     "hi3d_tpu/ops/flash_attention.py:493"),
+    ("temporal_attention_backward", "cuda", "hi3d_tpu_torch/csrc/temporal_attention.cu",
+     "hi3d_tpu/ops/temporal_attention.py:392"),
 )
 
 
-def expected_launches(config_path: str, steps: int) -> dict:
-    """Launches per kernel that the UNet plan predicts for `steps` sampler
-    steps, each one CFG-batched UNet call: K1 and K2 once per transformer
-    block of every SpatialVideoTransformer; K3 four times per VideoResBlock
-    (spatial and time-stack in/out norms), once per transformer `norm`, once
-    for the UNet's `out.0`."""
+def expected_launches(config_path: str, steps: int, training: bool = False) -> dict:
+    """Launches per kernel that the UNet plan predicts.
+
+    Inference (`steps` sampler steps, each one CFG-batched UNet call): K1 and
+    K2 once per transformer block of every SpatialVideoTransformer; K3 four
+    times per VideoResBlock (spatial and time-stack in/out norms), once per
+    transformer `norm`, once for the UNet's `out.0`.
+
+    Training (`steps` optimizer steps, `accumulate_grad_batches` UNet calls
+    each): with `use_checkpoint` every VideoResBlock and
+    SpatialVideoTransformer runs its forward twice (forward, then recompute in
+    the backward), so K1, K2 and the blocks' K3 launches double while `out.0`
+    stays at one; #3 and #5 run once per transformer block."""
     from hi3d_tpu_torch.config import load_config
     from hi3d_tpu_torch.models.unet import _build_plan
 
-    p = load_config(config_path)["model"]["params"]["network_config"]["params"]
+    cfg = load_config(config_path)
+    p = cfg["model"]["params"]["network_config"]["params"]
     depth = p.get("transformer_depth", 1)
     depth = [depth] * len(p["channel_mult"]) if isinstance(depth, int) else depth
     inp, mid, out = _build_plan(p["model_channels"], p["channel_mult"], p["num_res_blocks"],
@@ -159,23 +268,21 @@ def expected_launches(config_path: str, steps: int) -> dict:
     blocks = sum(s[2] for s in specs if s[0] == "attn")
     n_attn = sum(1 for s in specs if s[0] == "attn")
     n_res = sum(1 for s in specs if s[0] == "res")
-    return {"flash_attention": steps * blocks, "temporal_attention": steps * blocks,
-            "group_norm": steps * (4 * n_res + n_attn + 1)}
+    if not training:
+        return {"flash_attention": steps * blocks, "temporal_attention": steps * blocks,
+                "group_norm": steps * (4 * n_res + n_attn + 1)}
+    calls = steps * cfg.get("lightning", {}).get("trainer", {}).get("accumulate_grad_batches", 1)
+    fwd = 2 if p.get("use_checkpoint") else 1
+    return {"flash_attention": calls * fwd * blocks, "temporal_attention": calls * fwd * blocks,
+            "group_norm": calls * (fwd * (4 * n_res + n_attn) + 1),
+            "flash_attention_backward": calls * blocks,
+            "temporal_attention_backward": calls * blocks}
 
 
-def unet_reference_phase(config_path: str) -> float:
-    """The full-width UNet of the config, one CFG-shaped call at a small input
-    (2 videos × 4 frames, 16² latent): bf16 on the card through K1/K2/K3,
-    held against the same weights in fp32 on the CPU through the plain
-    versions. The zero-initialised leaves (out convs, proj_out) get random
-    values first: with them at zero the output would be 0 whatever the
-    kernels do.
-
-    Tolerance: bf16 itself is ~1.6e-2 of relative L2 error here (the plain
-    versions in bf16 on the CPU measure that in the same run), so the card's
-    error may exceed the plain bf16 path's by at most half of it."""
-    import copy
-
+def _full_width_unet(config_path: str):
+    """The config's full-width UNet on the card, fp32 weights, seeded; the
+    zero-initialised leaves (out convs, proj_out) get random values: with
+    them at zero the output would be 0 whatever the kernels do."""
     import torch
 
     from hi3d_tpu_torch.config import instantiate_from_config, load_config
@@ -189,24 +296,42 @@ def unet_reference_phase(config_path: str) -> float:
         for p in unet.parameters():
             if not p.any():
                 p.normal_(0.0, 0.02, generator=gen)
+    p = cfg["params"]
+    b, t, hw = 2, 4, 16
+    inputs = dict(
+        x=torch.randn((b * t, p["in_channels"], hw, hw), generator=gen, device="cuda"),
+        timesteps=0.25 * torch.log(torch.rand((b * t,), generator=gen, device="cuda") * 100 + 0.01),
+        context=torch.randn((b, 1, p["context_dim"]), generator=gen, device="cuda"),
+        y=torch.randn((b, p["adm_in_channels"]), generator=gen, device="cuda"),
+        image_only_indicator=torch.zeros((b, t), device="cuda"),
+    )
+    return unet, inputs, t
+
+
+def _run_unet(net, inputs, t, dev):
+    return net(**{k: v.to(dev) for k, v in inputs.items()}, num_video_frames=t)
+
+
+def unet_reference_phase(config_path: str) -> float:
+    """The full-width UNet of the config, one CFG-shaped call at a small input
+    (2 videos × 4 frames, 16² latent): bf16 on the card through K1/K2/K3,
+    held against the same weights in fp32 on the CPU through the plain
+    versions.
+
+    Tolerance: bf16 itself is ~1.6e-2 of relative L2 error here (the plain
+    versions in bf16 on the CPU measure that in the same run), so the card's
+    error may exceed the plain bf16 path's by at most half of it."""
+    import copy
+
+    import torch
+
+    unet, inputs, t = _full_width_unet(config_path)
     cpu_fp32 = copy.deepcopy(unet).to("cpu", torch.float32)
     cpu_bf16 = copy.deepcopy(unet).to("cpu", torch.bfloat16)
     unet.to(torch.bfloat16)
-
-    p = cfg["params"]
-    b, t, hw = 2, 4, 16
-    x = torch.randn((b * t, p["in_channels"], hw, hw), generator=gen, device="cuda")
-    ts = 0.25 * torch.log(torch.rand((b * t,), generator=gen, device="cuda") * 100 + 0.01)
-    ctx = torch.randn((b, 1, p["context_dim"]), generator=gen, device="cuda")
-    y = torch.randn((b, p["adm_in_channels"]), generator=gen, device="cuda")
-    ind = torch.zeros((b, t), device="cuda")
-
-    def run(net, dev):
-        return net(x.to(dev), ts.to(dev), context=ctx.to(dev), y=y.to(dev), num_video_frames=t,
-                   image_only_indicator=ind.to(dev)).float().cpu()
-
     with torch.no_grad():
-        out, ref, plain = run(unet, "cuda"), run(cpu_fp32, "cpu"), run(cpu_bf16, "cpu")
+        out, ref, plain = (_run_unet(net, inputs, t, dev).float().cpu() for net, dev in
+                           ((unet, "cuda"), (cpu_fp32, "cpu"), (cpu_bf16, "cpu")))
     if not torch.isfinite(out).all():
         raise AssertionError("UNet output on the card is not finite")
     rel, plain_rel = (((a - ref).norm() / ref.norm()).item() for a in (out, plain))
@@ -215,6 +340,70 @@ def unet_reference_phase(config_path: str) -> float:
           flush=True)
     if not rel <= 1.5 * plain_rel:
         raise AssertionError(f"UNet on the card: error {rel} > 1.5 × plain bf16 {plain_rel}")
+    return rel
+
+
+def unet_gradient_phase(config_path: str) -> float:
+    """The gradient of a loss on the full-width UNet (same set-up as
+    `unet_reference_phase`) with respect to every parameter, training's way
+    on the card — fp32 weights, bf16 compute under the UNet's autocast,
+    `use_checkpoint` as configured, K1/K2/K3 forward and #3/#5/K3 backward —
+    against the CPU with the plain versions in fp32 (the reference) and with
+    fp32 weights under bf16 autocast (the plain bf16 path).
+
+    Loss: mean of the output times a fixed random cotangent. Pass: the
+    relative L2 error of the flattened gradient is at most 1.5× the plain
+    bf16 path's; every parameter's gradient on the card is finite, and
+    nonzero wherever the fp32 reference's is (the only exact zeros are the
+    to_q / to_k / norm2 of the cross-attentions over one context token,
+    whose softmax over one key is constant)."""
+    import copy
+
+    import torch
+
+    from hi3d_tpu_torch.ops import flash_attention as fa
+    from hi3d_tpu_torch.ops import temporal_attention as ta
+
+    unet, inputs, t = _full_width_unet(config_path)
+    cpu = copy.deepcopy(unet).to("cpu")
+    cpu.use_checkpoint = False
+    gen = torch.Generator().manual_seed(5)
+    out_shape = (inputs["x"].shape[0], 4, *inputs["x"].shape[2:])
+    cot = torch.randn(out_shape, generator=gen)
+
+    def grads(net, dev, dtype):
+        net.dtype = dtype
+        net.zero_grad(set_to_none=True)
+        loss = (_run_unet(net, inputs, t, dev).float() * cot.to(dev)).mean()
+        loss.backward()
+        gs = [torch.zeros(p.numel()) if p.grad is None else p.grad.detach().float().flatten().cpu()
+              for p in net.parameters()]
+        return gs, loss.item()
+
+    bwd0 = (fa.flash_attention_backward.launches, ta.temporal_attention_backward.launches)
+    card, card_loss = grads(unet, "cuda", torch.bfloat16)
+    if (fa.flash_attention_backward.launches, ta.temporal_attention_backward.launches) == bwd0:
+        raise AssertionError("the gradient on the card did not run #3/#5")
+    ref, ref_loss = grads(cpu, "cpu", torch.float32)
+    plain, _ = grads(cpu, "cpu", torch.bfloat16)
+    names = [n for n, _ in unet.named_parameters()]
+    zero_ref = 0
+    for name, g, r in zip(names, card, ref):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"gradient of {name} on the card is not finite")
+        if r.any() and not g.any():
+            raise AssertionError(f"gradient of {name} is 0 on the card, nonzero in the reference")
+        zero_ref += not r.any()
+    card, ref, plain = (torch.cat(v) for v in (card, ref, plain))
+    rel, plain_rel = (((a - ref).norm() / ref.norm()).item() for a in (card, plain))
+    print(f"[smoke] full-width UNet gradient ({len(names)} tensors, {ref.numel()} values), "
+          f"loss card {card_loss:.6f} ref {ref_loss:.6f}: card relative L2 error {rel:.3e}, "
+          f"plain bf16 {plain_rel:.3e} (tol {1.5 * plain_rel:.3e}); every gradient finite, "
+          f"nonzero where the reference's is ({zero_ref} structurally zero in both)", flush=True)
+    if not rel <= 1.5 * plain_rel:
+        raise AssertionError(f"UNet gradient on the card: error {rel} > 1.5 × plain bf16 {plain_rel}")
+    del unet, cpu
+    torch.cuda.empty_cache()
     return rel
 
 
@@ -251,6 +440,118 @@ def main_path(steps: int) -> dict:
     return launches
 
 
+def write_renders(root: str, folders: int = 2, frames: int = 96) -> str:
+    """Orbit-render stand-ins: `folders` folders of `frames` RGBA 512² PNGs
+    made from demo/3.png (alpha 0 on its white background), rolled by an
+    amount that grows with the azimuth and the elevation band, written with
+    the port's PNG writer."""
+    from hi3d_tpu_torch.utils.image import load_image_rgb
+    from hi3d_tpu_torch.utils.png import write_png
+
+    img = load_image_rgb(os.path.join(ROOT, "demo", "3.png"))
+    alpha = np.where(img.min(axis=-1) < 245, 255, 0).astype(np.uint8)[..., None]
+    rgba = np.concatenate([img, alpha], axis=-1)
+    for f in range(folders):
+        d = os.path.join(root, f"obj{f:02d}")
+        os.makedirs(d, exist_ok=True)
+        for i in range(frames):
+            band, az = divmod(i, 16)
+            write_png(os.path.join(d, f"{i:03d}.png"),
+                      np.roll(rgba, (8 * band - 20, 32 * az + 13 * f), axis=(0, 1)))
+    return root
+
+
+def training_path(steps: int) -> dict:
+    """`hi3d_tpu_torch.train.main` on configs/train-v01.yaml at full width
+    (16×512², the config's batch, random weights) for `steps` steps: finite
+    losses, parameters moved, a checkpoint that reloads to the trained
+    state, launch counts equal to the UNet plan with checkpointing. Returns
+    the launch count of each kernel."""
+    import shutil
+    import statistics
+
+    import torch
+
+    from hi3d_tpu_torch import train
+    from hi3d_tpu_torch.config import instantiate_from_config, load_config
+    from hi3d_tpu_torch.ops import flash_attention as fa
+    from hi3d_tpu_torch.ops import group_norm as gn
+    from hi3d_tpu_torch.ops import temporal_attention as ta
+
+    config = os.path.join(ROOT, "configs", "train-v01.yaml")
+    cfg = load_config(config)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=os.path.join(ROOT, "outputs"))
+    t0 = time.perf_counter()
+    renders = write_renders(os.path.join(out_dir, "renders"))
+    print(f"[train] wrote 2×96 RGBA 512² renders in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the seeded initial UNet, built as train.main builds it, kept on the host
+    seed = 0
+    with torch.random.fork_rng(devices=[0]), torch.device("cuda"):
+        torch.manual_seed(seed)
+        params = dict(cfg["model"]["params"])
+        params.pop("ckpt_path", None)
+        init_model = instantiate_from_config({"target": cfg["model"]["target"], "params": params})
+    init = {n: p.detach().cpu() for n, p in init_model.model.diffusion_model.named_parameters()}
+    del init_model
+    torch.cuda.empty_cache()
+
+    wrappers = {"flash_attention": fa.flash_attention, "temporal_attention": ta.temporal_attention,
+                "group_norm": gn.group_norm,
+                "flash_attention_backward": fa.flash_attention_backward,
+                "temporal_attention_backward": ta.temporal_attention_backward}
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    trainer = train.main(["--base", config, "--max_steps", str(steps), "--no_test", "True",
+                          "--device", "cuda", "--seed", str(seed), "--logdir", out_dir,
+                          f"data.params.base_folder={renders}", "data.params.num_workers=4"])
+    launches = {name: w.launches for name, w in wrappers.items()}
+    wall = time.perf_counter() - t0
+    rows = [json.loads(line) for line in open(os.path.join(trainer.logdir, "metrics.jsonl"))]
+    batch = cfg["data"]["params"]["batch_size"]
+    s_per_step = statistics.median(r["sec_per_step"] for r in rows[1:])
+    peak = max(r["peak_mem_gb"] for r in rows)
+    print(f"[train] {steps} steps in {wall:.1f} s (build, data and checkpoint included); "
+          f"batch {batch} videos × 16 frames × 512²; s/step (median of steps 2-{steps}) "
+          f"{s_per_step:.3f}; peak allocated {peak:.2f} GB; losses "
+          f"{[round(r['loss'], 5) for r in rows]}; launches {launches}", flush=True)
+    if [r["step"] for r in rows] != list(range(1, steps + 1)):
+        raise AssertionError(f"metrics rows {[r['step'] for r in rows]}")
+    if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows):
+        raise AssertionError("a training loss or gradient norm is not finite")
+
+    # From random init most tensors cannot move yet: the UNet's zero-initialised
+    # out convs leave everything below them without a gradient at step 1, and
+    # the warm-up LR (base × 1e-6 … × 3e-3 over steps 1-4) gives updates below
+    # fp32 resolution. out.2, the first layer with a gradient, must move.
+    unet = trainer.engine.model.diffusion_model
+    trained = set(trainer.param_names)
+    moved = {n for n, p in unet.named_parameters()
+             if f"diffusion_model.{n}" in trained and not torch.equal(p.detach().cpu(), init[n])}
+    if not {"out.2.weight", "out.2.bias"} <= moved:
+        raise AssertionError(f"out.2 did not move ({len(moved)} of {len(trained)} tensors moved)")
+    t0 = time.perf_counter()
+    state = trainer.checkpointer.load()
+    if state["step"] != steps:
+        raise AssertionError(f"checkpoint at step {state['step']}, expected {steps}")
+    for n, p in unet.state_dict().items():
+        if not torch.equal(state["model"][n], p.cpu()):
+            raise AssertionError(f"checkpoint tensor {n} differs from the trained model")
+    if len(state["optimizer"]["state"]) != len(trained):
+        raise AssertionError("checkpoint optimizer state does not cover the trainable parameters")
+    print(f"[train] {len(moved)} of {len(trained)} trainable tensors moved, out.2 among them; "
+          f"checkpoint {os.path.realpath(trainer.checkpointer.last)} reloads to the trained state "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    expected = expected_launches(config, steps, training=True)
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches} != UNet plan {expected}")
+    del state, trainer, unet
+    shutil.rmtree(out_dir)  # tens of GB of checkpoint
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -275,17 +576,25 @@ def main() -> None:
 
     measured = kernel_phase()
     print("[smoke] kernel phase ok", flush=True)
-    unet_reference_phase(os.path.join(ROOT, "configs", "inference-v01.yaml"))
-    print(f"[smoke] main path: configs/inference-v01.yaml, 16×512², {NUM_STEPS} steps, "
+    measured.update(backward_kernel_phase())
+    print("[smoke] backward kernel phase ok", flush=True)
+    inference = os.path.join(ROOT, "configs", "inference-v01.yaml")
+    unet_reference_phase(inference)
+    unet_gradient_phase(inference)
+    print(f"[smoke] main path 1: configs/inference-v01.yaml, 16×512², {NUM_STEPS} steps, "
           "random weights", flush=True)
-    launches = main_path(NUM_STEPS)
+    by_path = {"i2v": main_path(NUM_STEPS)}
+    print(f"[smoke] main path 2: configs/train-v01.yaml, {TRAIN_STEPS} steps, random weights",
+          flush=True)
+    by_path["train"] = training_path(TRAIN_STEPS)
 
     rows = []
     for name, route, source, replaces in KERNELS:
         err, ms, plain_ms = measured[name]
+        counts = {path: launches.get(name, 0) for path, launches in by_path.items()}
         rows.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                     "launches": launches[name], "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms})
+                     "launches": sum(counts.values()), "launches_by_path": counts,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

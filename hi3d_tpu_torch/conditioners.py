@@ -66,6 +66,9 @@ class GeneralConditioner(nn.Module):
             emb.input_key = cfg["input_key"]
             emb.ucg_rate = float(cfg.get("ucg_rate", 0.0))
             self.embedders.append(emb)
+        # parity-test hook: one (N,) keep mask per embedder (None where it has
+        # no ucg) replacing the Bernoulli draws, as the loss pins σ and ε
+        self.parity_ucg_keep: Optional[Sequence[Optional[torch.Tensor]]] = None
 
     def _add(self, out: CondDict, key: str, emb: torch.Tensor) -> None:
         out[key] = torch.cat([out[key], emb], dim=self.CAT_DIM[key]) if key in out else emb
@@ -73,18 +76,23 @@ class GeneralConditioner(nn.Module):
     @torch.no_grad()
     def forward(self, batch: Dict[str, Any], force_zero_embeddings: Optional[Sequence[str]] = None,
                 generator: Optional[torch.Generator] = None, ucg_enabled: bool = True) -> CondDict:
-        """Embed every key; with a generator, drop each embedder's output
-        per sample with probability ucg_rate (training-time CFG dropout)."""
+        """Embed every key; with a generator (or `parity_ucg_keep`), drop each
+        embedder's output per sample with probability ucg_rate (training-time
+        CFG dropout)."""
         force_zero = force_zero_embeddings or []
         out: CondDict = {}
-        for emb_mod in self.embedders:
+        pinned = self.parity_ucg_keep
+        for n, emb_mod in enumerate(self.embedders):
             emb = emb_mod(batch[emb_mod.input_key])
             key = AbstractEmbedder.OUT_KEY_BY_NDIM[emb.ndim]
-            if ucg_enabled and emb_mod.ucg_rate > 0.0 and generator is not None:
-                keep = torch.bernoulli(
-                    torch.full((emb.shape[0],), 1.0 - emb_mod.ucg_rate, device=emb.device),
-                    generator=generator,
-                )
+            if ucg_enabled and emb_mod.ucg_rate > 0.0 and (generator is not None or pinned is not None):
+                if pinned is not None:
+                    keep = torch.as_tensor(pinned[n], dtype=torch.float32, device=emb.device)
+                else:
+                    keep = torch.bernoulli(
+                        torch.full((emb.shape[0],), 1.0 - emb_mod.ucg_rate, device=emb.device),
+                        generator=generator,
+                    )
                 emb = append_dims(keep, emb.ndim).to(emb.dtype) * emb
             if emb_mod.input_key in force_zero:
                 emb = torch.zeros_like(emb)

@@ -1,12 +1,18 @@
-"""DiffusionEngine and the stage-1 VideoLDM, inference surface (counterpart of
-hi3d_tpu/engine.py).
+"""DiffusionEngine and the stage-1 VideoLDM (counterpart of hi3d_tpu/engine.py).
 
 The engine is an `nn.Module` whose children carry the reference's attribute
 names — `model.diffusion_model` (UNet behind the concat wrapper),
 `first_stage_model` (VAE), `conditioner.embedders.N` — so its state dict has
-the reference's keys. The UNet and towers run in `compute_dtype` (bf16 on the
-card) and the VAE in fp32; σ-math is fp32. Latents and frames are
-channels-last at the public boundary, as in the JAX package.
+the reference's keys. The UNet computes in `compute_dtype` (bf16 on the card)
+whatever its weights' dtype: inference casts the weights, training keeps fp32
+master weights and the UNet autocasts (models/unet.py). The VAE runs in fp32;
+σ-math is fp32. Latents and frames are channels-last at the public boundary,
+as in the JAX package.
+
+Training surface: `make_loss_fn` / `shared_step` (VAE encode, conditioner
+with ucg dropout, StandardDiffusionLoss), `trained_param_keys`,
+`scheduler_config`, `use_ema`, `base_learning_rate`; hi3d_tpu_torch.training
+drives them.
 """
 
 from __future__ import annotations
@@ -41,8 +47,11 @@ class DiffusionEngine(nn.Module):
         scale_factor: float = 1.0,
         en_and_decode_n_samples_a_time: Optional[int] = None,
         compute_dtype: str = "float32",
-        # training-surface keys of the YAML; inference does not read them
         loss_fn_config: Optional[Dict] = None,
+        scheduler_config: Optional[Dict] = None,
+        use_ema: bool = False,
+        ema_decay_rate: float = 0.9999,
+        base_learning_rate: Optional[float] = None,
         input_key: str = "jpg",
         log_keys: Optional[Sequence[str]] = None,
         disable_first_stage_autocast: bool = True,  # the VAE runs in fp32 regardless
@@ -51,7 +60,17 @@ class DiffusionEngine(nn.Module):
         self.compute_dtype = _DTYPES[compute_dtype]
         self.scale_factor = float(scale_factor)
         self.en_and_decode_n_samples_a_time = en_and_decode_n_samples_a_time
-        self.model = ConcatConditionWrapper(instantiate_from_config(network_config))
+        self.input_key = input_key
+        self.scheduler_config = scheduler_config
+        self.use_ema = bool(use_ema)
+        self.ema_decay_rate = float(ema_decay_rate)
+        self.base_learning_rate = base_learning_rate
+        self.loss_fn = instantiate_from_config(loss_fn_config) if loss_fn_config else None
+        net_params = dict(network_config.get("params") or {})
+        net_params.setdefault("dtype", compute_dtype)
+        self.model = ConcatConditionWrapper(
+            instantiate_from_config({"target": network_config["target"], "params": net_params})
+        )
         self.denoiser = instantiate_from_config(denoiser_config)
         self.sampler = instantiate_from_config(sampler_config) if sampler_config else None
         self.conditioner = (
@@ -151,8 +170,9 @@ class VideoLDM(DiffusionEngine):
     """Stage-1 image-to-orbit-video model."""
 
     def __init__(self, num_samples: int, trained_param_keys: Sequence[str] = ("",), **kwargs):
-        super().__init__(**kwargs)  # trained_param_keys: training slice, not read here
+        super().__init__(**kwargs)
         self.num_samples = int(num_samples)
+        self.trained_param_keys = list(trained_param_keys)
 
     @property
     def num_samples(self) -> int:
@@ -199,3 +219,33 @@ class VideoLDM(DiffusionEngine):
         if "image_only_indicator" not in batch:
             batch["image_only_indicator"] = torch.zeros((n, self.num_samples), device=video.device)
         return batch
+
+    def shared_step(self, batch: Dict, generator: Optional[torch.Generator] = None):
+        """Training objective on one batch; returns (loss, {"loss": loss})."""
+        batch = self.add_custom_cond(batch, infer=False, generator=generator)
+        loss = self.make_loss_fn()(batch, generator)
+        return loss, {"loss": loss}
+
+    def make_loss_fn(self):
+        """loss(batch, generator) → mean loss over frames, differentiable in
+        the UNet's parameters. `batch` has been through `add_custom_cond`:
+        the fp32 VAE encodes batch[input_key] (B, T, 3, H, W), the conditioner
+        runs with ucg dropout, StandardDiffusionLoss draws σ and ε."""
+        if self.loss_fn is None:
+            raise ValueError("make_loss_fn needs loss_fn_config")
+
+        def loss_fn(batch: Dict, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            video = batch[self.input_key]
+            b, t = video.shape[:2]
+            frames = video.reshape(b * t, *video.shape[2:]).permute(0, 2, 3, 1)
+            x = self.encode_first_stage(frames).permute(0, 3, 1, 2).contiguous()
+            cond = self.conditioner(batch, generator=generator)
+            bound = {"num_video_frames": t, "image_only_indicator": batch["image_only_indicator"]}
+
+            def network(xx, c_noise, c, **extra):
+                return self.model(xx, c_noise, c, **{**extra, **bound})  # bound keys win
+
+            loss = self.loss_fn(network, self.denoiser, cond, x, batch, generator)
+            return loss.mean()
+
+        return loss_fn

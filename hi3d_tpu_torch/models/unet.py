@@ -5,6 +5,17 @@ y (B or B·T, adm_in_channels). Parameter names are the reference's
 (`input_blocks.1.0.in_layers.0.weight`, `...time_stack...`,
 `...time_mixer.mix_factor`, `time_embed.0`, `label_emb.0.0`, `out.2`), i.e.
 what hi3d_tpu/convert/jax_to_torch.py emits.
+
+Compute dtype: `dtype` (the engine passes its `compute_dtype`, as the JAX
+engine passes `dtype=` to its flax UNet) is the dtype the layers compute in.
+When the weights are in another dtype — fp32 master weights in training —
+the forward runs under `torch.autocast` in `dtype`, so linears and convs run
+in bf16 and the kernels see bf16 activations; norm statistics stay fp32.
+With weights already in `dtype` (the inference cast) nothing is autocast.
+
+`use_checkpoint` recomputes each VideoResBlock and SpatialVideoTransformer in
+the backward pass (`torch.utils.checkpoint`, non-reentrant), as the JAX UNet
+wraps them in `nn.remat`; it only acts while gradients are recorded.
 """
 
 from __future__ import annotations
@@ -13,6 +24,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import (
     AlphaBlender,
@@ -108,9 +120,10 @@ class VideoUNet(nn.Module):
         adm_in_channels: Optional[int] = None,
         disable_temporal_crossattention: bool = False,
         max_ddpm_temb_period: int = 10000,
-        use_checkpoint: bool = False,  # training-memory option; inference ignores it
+        use_checkpoint: bool = False,
         dropout: float = 0.0,
         spatial_transformer_attn_type: str = "softmax-xformers",  # YAML parity
+        dtype: Optional[str] = None,
     ):
         super().__init__()
         if num_head_channels == -1:
@@ -126,6 +139,8 @@ class VideoUNet(nn.Module):
                 "only use_spatial_context=True with temporal cross-attention is ported "
                 "(the Hi3D configs' setting)"
             )
+        self.dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+        self.use_checkpoint = bool(use_checkpoint)
         self.in_channels = in_channels
         self.model_channels = model_channels
         self.context_dim = context_dim
@@ -190,18 +205,27 @@ class VideoUNet(nn.Module):
         )
 
     def _run(self, layers, h, emb, context, t, indicator):
+        remat = self.use_checkpoint and torch.is_grad_enabled()
         for layer in layers:
             if isinstance(layer, VideoResBlock):
-                h = layer(h, emb, t, indicator)
+                args = (h, emb, t, indicator)
             elif isinstance(layer, SpatialVideoTransformer):
-                h = layer(h, context, t, indicator)
+                args = (h, context, t, indicator)
             else:
                 h = layer(h)
+                continue
+            h = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
         return h
 
     def forward(self, x, timesteps, context=None, y=None,
                 num_video_frames: Optional[int] = None, image_only_indicator=None):
-        dtype = self.time_embed[0].weight.dtype
+        weight_dtype = self.time_embed[0].weight.dtype
+        dtype = self.dtype or weight_dtype
+        with torch.autocast(x.device.type, dtype=dtype, enabled=dtype != weight_dtype):
+            return self._forward(x, timesteps, context, y, num_video_frames,
+                                 image_only_indicator, dtype)
+
+    def _forward(self, x, timesteps, context, y, num_video_frames, image_only_indicator, dtype):
         bt = x.shape[0]
         t = num_video_frames
         emb = self.time_embed(timestep_embedding(timesteps, self.model_channels).to(dtype))

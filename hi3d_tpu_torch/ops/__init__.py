@@ -1,7 +1,9 @@
-"""Kernels of the stage-1 path, each beside its plain PyTorch version.
+"""Kernels of the stage-1 paths, each beside its plain PyTorch version.
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors it
-launches its Hopper kernel or raises. `flash_attention` and
-`temporal_attention` are CUDA C++ (`csrc/`, built by `build.py`);
-`group_norm` is Triton.
+launches its Hopper kernel or raises. When an input needs a gradient the
+wrapper runs as an autograd Function whose backward is again a kernel on
+CUDA tensors and the plain version on CPU tensors. `flash_attention` and
+`temporal_attention` (forward and backward) are CUDA C++ (`csrc/`, built by
+`build.py`); `group_norm` is Triton, with a plain fp32 backward.
 """

@@ -1,7 +1,8 @@
 """Build and load the CUDA C++ kernels of `hi3d_tpu_torch/csrc`.
 
-All `csrc/*.cu` files compile with one `nvcc` call into a shared library with
-a plain C interface, loaded with ctypes. The library lands in
+Each `csrc/*.cu` file compiles to an object in its own `nvcc` process, all
+started together, and one more `nvcc` links the objects into a shared library
+with a plain C interface, loaded with ctypes. The library lands in
 `build/kernels/` at the repository root, named by a hash of the sources and
 flags, so a checkout builds on first use and reuses the build afterwards.
 """
@@ -21,7 +22,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
 _lib: Optional[ctypes.CDLL] = None
@@ -55,13 +56,23 @@ def load_library() -> ctypes.CDLL:
     out = library_path()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        tag = f"{out.stem}.{os.getpid()}"
         t0 = time.perf_counter()
-        subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))],
-            check=True,
-        )
+        nvcc = _nvcc()
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+            objs.append(obj)
+            procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]))
+        codes = [p.wait() for p in procs]
+        if any(codes):
+            raise RuntimeError(f"nvcc failed for csrc/*.cu (exit codes {codes})")
+        tmp = out.with_name(f"{tag}.so.tmp")
+        subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                       check=True)
         os.replace(tmp, out)
+        for obj in objs:
+            obj.unlink()
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -74,6 +85,15 @@ def load_library() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, strides, f32, ptr,
     ]
     lib.hi3d_temporal_attention_fwd.restype = i32
+    lib.hi3d_flash_attention_bwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, strides,
+        f32, ptr,
+    ]
+    lib.hi3d_flash_attention_bwd.restype = i32
+    lib.hi3d_temporal_attention_bwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, strides, f32, ptr,
+    ]
+    lib.hi3d_temporal_attention_bwd.restype = i32
     _lib = lib
     return lib
 

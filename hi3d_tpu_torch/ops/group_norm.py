@@ -22,6 +22,12 @@ small (the 5-D time-stack tensors have only B·32 groups).
 `triton` is imported on the first CUDA launch only: the kernels below are
 plain functions until `_compiled()` binds `tl` and wraps them in
 `triton.jit`.
+
+Training: when x, γ or β needs a gradient, `group_norm` runs as an autograd
+Function that saves x, γ and β. Its backward is `group_norm_backward`, plain
+PyTorch that recomputes the statistics from the saved x in fp32, as the JAX
+custom VJP does (hi3d_tpu/ops/group_norm.py:_group_norm_act_bwd: the Pallas
+kernels are forward-only there too).
 """
 
 from __future__ import annotations
@@ -121,13 +127,43 @@ def group_norm_reference(
     return y.reshape(x.shape).to(x.dtype)
 
 
-def group_norm(
-    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int,
-    eps: float = 1e-5, act: Optional[str] = None,
-) -> torch.Tensor:
-    """GroupNorm over (N, C, *spatial) with optional fused SiLU."""
+def group_norm_backward(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dy: torch.Tensor,
+    num_groups: int, eps: float = 1e-5, act: Optional[str] = None,
+):
+    """(dx, dγ, dβ) of `group_norm` for the cotangent `dy`: fp32 recompute of
+    the forward's one-pass statistics, then the per-group GroupNorm backward
+    (through the SiLU when `act` is "silu"); results in the inputs' dtypes."""
+    n, c = x.shape[:2]
+    g = num_groups
+    xf = x.float().reshape(n, g, -1)
+    mean = xf.mean(-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
+    rstd = torch.rsqrt(var + eps)
+    xhat = ((xf - mean) * rstd).reshape(n, c, -1)
+    wf = weight.float()[None, :, None]
+    dz = dy.float().reshape(n, c, -1)
+    if act == "silu":
+        z = xhat * wf + bias.float()[None, :, None]
+        sig = torch.sigmoid(z)
+        dz = dz * sig * (1.0 + z * (1.0 - sig))
+    elif act is not None:
+        raise ValueError(f"unknown activation {act!r}")
+    dweight = (dz * xhat).sum((0, 2))
+    dbias = dz.sum((0, 2))
+    dxhat = (dz * wf).reshape(n, g, -1)
+    xhat = xhat.reshape(n, g, -1)
+    m = xhat.shape[-1]
+    s1 = dxhat.sum(-1, keepdim=True)
+    s2 = (dxhat * xhat).sum(-1, keepdim=True)
+    dx = rstd * (dxhat - (s1 + xhat * s2) / m)
+    return dx.reshape(x.shape).to(x.dtype), dweight.to(weight.dtype), dbias.to(bias.dtype)
+
+
+def _forward(x, weight, bias, num_groups, eps, act):
     if x.device.type == "cpu":
-        return group_norm_reference(x, weight, bias, num_groups, eps, act)
+        with torch.autocast("cpu", enabled=False):
+            return group_norm_reference(x, weight, bias, num_groups, eps, act)
     if x.device.type != "cuda":
         raise ValueError(f"group_norm: unsupported device {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
@@ -163,6 +199,30 @@ def group_norm(
         )
     group_norm.launches += 1
     return y
+
+
+class _GroupNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, num_groups, eps, act):
+        y = _forward(x, weight, bias, num_groups, eps, act)
+        ctx.save_for_backward(x, weight, bias)
+        ctx.args = (num_groups, eps, act)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, bias = ctx.saved_tensors
+        return (*group_norm_backward(x, weight, bias, dy, *ctx.args), None, None, None)
+
+
+def group_norm(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int,
+    eps: float = 1e-5, act: Optional[str] = None,
+) -> torch.Tensor:
+    """GroupNorm over (N, C, *spatial) with optional fused SiLU."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad or bias.requires_grad):
+        return _GroupNorm.apply(x, weight, bias, num_groups, eps, act)
+    return _forward(x, weight, bias, num_groups, eps, act)
 
 
 group_norm.launches = 0

@@ -1,6 +1,9 @@
 """Target-name registry: the reference's config `target` strings → the
-PyTorch classes of this package, for the targets the stage-1 inference config
-(`configs/inference-v01.yaml`) names. Entries are lazy "module:attr" strings.
+PyTorch classes of this package, for the targets the stage-1 configs
+(`configs/inference-v01.yaml`, `configs/train-v01.yaml`) name. Entries are
+lazy "module:attr" strings. Targets that name a JAX-package class
+(`hi3d_tpu.training.schedules.*`) map to the port's counterpart, so a
+config never imports the JAX package.
 """
 
 from __future__ import annotations
@@ -17,6 +20,14 @@ _ALIASES: Dict[str, str] = {
     "sgm.modules.diffusionmodules.discretizer.EDMDiscretization": f"{_P}.diffusion.discretization:EDMDiscretization",
     "sgm.modules.diffusionmodules.guiders.LinearPredictionGuider": f"{_P}.diffusion.guiders:LinearPredictionGuider",
     "sgm.modules.diffusionmodules.sampling.EulerEDMSampler": f"{_P}.diffusion.samplers:EulerEDMSampler",
+    # training objective
+    "sgm.modules.diffusionmodules.loss.StandardDiffusionLoss": f"{_P}.diffusion.loss:StandardDiffusionLoss",
+    "sgm.modules.diffusionmodules.sigma_sampling.EDMSampling": f"{_P}.diffusion.sigma_sampling:EDMSampling",
+    "sgm.modules.diffusionmodules.sigma_sampling.DiscreteSampling": f"{_P}.diffusion.sigma_sampling:DiscreteSampling",
+    "sgm.modules.diffusionmodules.loss_weighting.UnitWeighting": f"{_P}.diffusion.weighting:UnitWeighting",
+    "sgm.modules.diffusionmodules.loss_weighting.EDMWeighting": f"{_P}.diffusion.weighting:EDMWeighting",
+    "sgm.modules.diffusionmodules.loss_weighting.VWeighting": f"{_P}.diffusion.weighting:VWeighting",
+    "sgm.modules.diffusionmodules.loss_weighting.EpsWeighting": f"{_P}.diffusion.weighting:EpsWeighting",
     # networks
     "sgm.modules.diffusionmodules.video_model.VideoUNet": f"{_P}.models.unet:VideoUNet",
     "sgm.modules.diffusionmodules.wrappers.OpenAIWrapper": f"{_P}.models.wrappers:ConcatConditionWrapper",
@@ -33,6 +44,12 @@ _ALIASES: Dict[str, str] = {
     "vtdm.encoders.AesEmbedder": f"{_P}.conditioners:AesEmbedder",
     # task layer
     "vtdm.vtdm_gen_v01.VideoLDM": f"{_P}.engine:VideoLDM",
+    # data and LR schedules
+    "sgm.data.video_dataset.VideoDataset": f"{_P}.data.video_dataset:VideoDataset",
+    **{f"{pkg}.{name}": f"{_P}.training.schedules:{name}"
+       for pkg in ("sgm.lr_scheduler", "hi3d_tpu.training.schedules")
+       for name in ("LambdaLinearScheduler", "LambdaWarmUpCosineScheduler",
+                    "LambdaWarmUpCosineScheduler2")},
 }
 
 

@@ -1,0 +1,274 @@
+"""The training loop (counterpart of hi3d_tpu/training/trainer.py, one GPU).
+
+LR scaling and its printed line, `fit` over a loader, a MetricsLogger that
+writes metrics.jsonl and prints each logged step, and a Checkpointer on
+`torch.save`/`torch.load` that saves every N steps and at the end, keeps
+`save_top_k` files, resumes from `checkpoints/last.pt`, and saves when the
+process gets SIGUSR1. Peak device memory comes from
+`torch.cuda.max_memory_allocated`.
+
+`profile_steps=(start, stop)` records a `torch.profiler` trace of the steps
+in [start, stop) to `<logdir>/profile/` and prints the kernels by device
+time, as the JAX trainer's `jax.profiler` window does.
+
+Not ported yet: the ImageLogger and the post-train media dump (they need
+`log_images` and sampling), TensorBoard and wandb backends, and multi-GPU
+data parallelism.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import signal
+import time
+from typing import Dict, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .state import build_optimizer, freeze_frozen
+from .step import TrainStep
+
+
+def device_memory_stats(device: torch.device) -> Dict[str, float]:
+    """Current and peak allocated device memory in GB (CUDA only)."""
+    if device.type != "cuda":
+        return {}
+    return {"mem_gb": round(torch.cuda.memory_allocated(device) / 2**30, 3),
+            "peak_mem_gb": round(torch.cuda.max_memory_allocated(device) / 2**30, 3)}
+
+
+class MetricsLogger:
+    """Scalar metrics → `<logdir>/metrics.jsonl` and the console."""
+
+    def __init__(self, logdir: str, device: torch.device, log_every: int = 1):
+        self.path = os.path.join(logdir, "metrics.jsonl")
+        self.device = device
+        self.log_every = int(log_every)
+        self._t0 = time.time()
+
+    def __call__(self, step: int, metrics: Dict) -> None:
+        if step % self.log_every:
+            return
+        rec = {"step": step, "wall_s": round(time.time() - self._t0, 2)}
+        rec.update(device_memory_stats(self.device))
+        rec.update({k: float(v) for k, v in metrics.items()})
+        with open(self.path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        pretty = " ".join(f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
+                          for k, v in rec.items() if k != "wall_s")
+        print(f"[train] {pretty}", flush=True)
+
+
+class Checkpointer:
+    """`<logdir>/checkpoints/step-NNNNNNNN.pt` files plus `last.pt`, a
+    symlink to the newest. Keeps the newest `max_to_keep`, or with `monitor`
+    the best by that metric (its values are kept in `index.json`)."""
+
+    def __init__(self, logdir: str, every_n_steps: int = 3000, max_to_keep: int = 10,
+                 monitor: Optional[str] = None, mode: str = "min"):
+        self.dir = os.path.join(os.path.abspath(logdir), "checkpoints")
+        os.makedirs(self.dir, exist_ok=True)
+        self.every = int(every_n_steps)
+        self.max_to_keep = int(max_to_keep)
+        self.monitor = monitor
+        self.mode = mode
+        self.last = os.path.join(self.dir, "last.pt")
+
+    def save(self, step: int, state: Dict, metrics: Optional[Dict] = None) -> str:
+        name = f"step-{step:08d}.pt"
+        path = os.path.join(self.dir, name)
+        torch.save(state, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        tmp_link = self.last + ".tmp"
+        if os.path.lexists(tmp_link):
+            os.remove(tmp_link)
+        os.symlink(name, tmp_link)
+        os.replace(tmp_link, self.last)
+        self._retain(name, metrics)
+        return path
+
+    def maybe_save(self, step: int, state_fn, metrics: Optional[Dict] = None) -> None:
+        if step and step % self.every == 0:
+            self.save(step, state_fn(), metrics)
+
+    def _retain(self, newest: str, metrics: Optional[Dict]) -> None:
+        index_path = os.path.join(self.dir, "index.json")
+        index = {}
+        if os.path.exists(index_path):
+            with open(index_path) as f:
+                index = json.load(f)
+        if self.monitor is not None:
+            worst = float("inf") if self.mode == "min" else float("-inf")
+            index[newest] = float((metrics or {}).get(self.monitor, worst))
+        else:
+            index[newest] = None
+        names = sorted(n for n in index if os.path.exists(os.path.join(self.dir, n)))
+        if self.monitor is not None:
+            names.sort(key=lambda n: index[n], reverse=self.mode == "max")
+        else:
+            names.reverse()  # newest first
+        for n in names[self.max_to_keep:]:
+            if n != newest:
+                os.remove(os.path.join(self.dir, n))
+                index.pop(n)
+        with open(index_path, "w") as f:
+            json.dump(index, f)
+
+    def latest(self) -> Optional[str]:
+        return self.last if os.path.exists(self.last) else None
+
+    def load(self, path: Optional[str] = None, device="cpu") -> Dict:
+        return torch.load(path or self.last, map_location=device, weights_only=True)
+
+
+class Trainer:
+    """fit() over a loader with one TrainStep per batch, on one device."""
+
+    def __init__(self, engine, logdir: str = "logs/run", base_lr: Optional[float] = None,
+                 scale_lr: bool = True, accumulate_grad_batches: int = 1, batch_size: int = 1,
+                 ckpt_every_n_steps: int = 3000, log_every: int = 1, max_to_keep: int = 10,
+                 monitor: Optional[str] = None, monitor_mode: str = "min", seed: int = 0,
+                 grad_clip: Optional[float] = None,
+                 profile_steps: Optional[Tuple[int, int]] = None):
+        self.engine = engine
+        self.device = engine.device
+        self.logdir = logdir
+        os.makedirs(logdir, exist_ok=True)
+        self.accum = int(accumulate_grad_batches)
+        self.seed = int(seed)
+
+        base_lr = base_lr if base_lr is not None else (engine.base_learning_rate or 1e-5)
+        world = 1  # one device; data parallelism is not ported
+        self.learning_rate = base_lr * world * self.accum * batch_size if scale_lr else base_lr
+        print(f"[trainer] lr = {self.learning_rate:.3g} (base {base_lr:.3g} × world {world} × "
+              f"accum {self.accum} × bs {batch_size}, scale_lr={scale_lr})")
+
+        trainable = freeze_frozen(engine, getattr(engine, "trained_param_keys", ("all",)))
+        self.param_names = [n for n, _ in trainable]
+        params = [p for _, p in trainable]
+        self.optimizer = build_optimizer(params, self.learning_rate)
+        self.lr_scheduler = None
+        if engine.scheduler_config:
+            from ..config import instantiate_from_config
+
+            self.lr_scheduler = torch.optim.lr_scheduler.LambdaLR(
+                self.optimizer, lr_lambda=instantiate_from_config(engine.scheduler_config))
+        self.train_step = TrainStep(
+            engine.make_loss_fn(), params, self.optimizer, self.lr_scheduler,
+            accum_steps=self.accum, grad_clip=grad_clip,
+            ema_decay=engine.ema_decay_rate if engine.use_ema else None)
+        self.metrics = MetricsLogger(logdir, self.device, log_every=log_every)
+        self.checkpointer = Checkpointer(logdir, every_n_steps=ckpt_every_n_steps,
+                                         max_to_keep=max_to_keep, monitor=monitor,
+                                         mode=monitor_mode)
+        self.generator = torch.Generator(device=self.device)
+        self.profile_steps = profile_steps
+        self.last_metrics: Dict = {}
+        self._interrupted = False
+
+    # --------------------------------------------------------------- state
+    def state_dict(self) -> Dict:
+        sched = self.lr_scheduler.state_dict() if self.lr_scheduler is not None else None
+        if sched is not None:
+            sched = {k: v for k, v in sched.items() if k != "lr_lambdas"}  # a config object
+        return {
+            "step": self.train_step.step,
+            "model": self.engine.model.diffusion_model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "lr_scheduler": sched,
+            "ema": self.train_step.ema_params,
+        }
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.engine.model.diffusion_model.load_state_dict(state["model"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        if self.lr_scheduler is not None:
+            self.lr_scheduler.load_state_dict({**state["lr_scheduler"], "lr_lambdas": [None]})
+        if state["ema"] is not None and self.train_step.ema_params is not None:
+            for s, v in zip(self.train_step.ema_params, state["ema"]):
+                s.copy_(v)
+        self.train_step.step = int(state["step"])
+
+    def resume_if_possible(self) -> int:
+        path = self.checkpointer.latest()
+        if path is None:
+            return 0
+        self.load_state_dict(self.checkpointer.load(path, self.device))
+        print(f"[trainer] resumed from step {self.train_step.step} ({os.path.realpath(path)})")
+        return self.train_step.step
+
+    # ----------------------------------------------------------------- fit
+    def _device_batch(self, batch: Dict) -> Dict:
+        """numpy batch → tensors on the device; strings stay on the host."""
+        return {k: torch.from_numpy(np.asarray(v)).to(self.device)
+                for k, v in batch.items() if not isinstance(v, (str, list))}
+
+    def _install_signal_handler(self) -> None:
+        def melk(*_):
+            print("[trainer] SIGUSR1 — saving a checkpoint and stopping")
+            self._interrupted = True
+
+        try:
+            signal.signal(signal.SIGUSR1, melk)
+        except ValueError:
+            pass  # not the main thread
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda"
+                                         else [])
+        prof = profile(activities=acts)
+        prof.__enter__()
+        return prof
+
+    def _stop_profile(self, prof) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.__exit__(None, None, None)
+        out = os.path.join(self.logdir, "profile")
+        os.makedirs(out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out, "trace.json"))
+        key = "cuda_time_total" if self.device.type == "cuda" else "cpu_time_total"
+        print(prof.key_averages().table(sort_by=key, row_limit=40), flush=True)
+
+    def fit(self, data: Iterable[Dict], max_steps: int, resume: bool = True) -> int:
+        """Train until `max_steps` (or SIGUSR1); returns the step reached.
+        The final state is saved in every case."""
+        self._install_signal_handler()
+        step = self.resume_if_possible() if resume else self.train_step.step
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.device)
+        prof = None
+        try:
+            for batch in data:
+                if step >= max_steps or self._interrupted:
+                    break
+                if self.profile_steps and step == self.profile_steps[0]:
+                    prof = self._start_profile()
+                self.generator.manual_seed(self.seed * 100003 + step)
+                batch = self.engine.add_custom_cond(self._device_batch(batch), infer=False,
+                                                    generator=self.generator)
+                lr = self.optimizer.param_groups[0]["lr"]
+                t0 = time.perf_counter()
+                metrics = self.train_step(batch, self.generator)
+                metrics["lr"] = lr
+                metrics = {k: float(v) for k, v in metrics.items()}  # waits for the step
+                metrics["sec_per_step"] = time.perf_counter() - t0
+                step = self.train_step.step
+                self.last_metrics = metrics
+                self.metrics(step, metrics)
+                if prof is not None and step == self.profile_steps[1]:
+                    self._stop_profile(prof)
+                    prof = None
+                self.checkpointer.maybe_save(step, self.state_dict, metrics)
+        finally:
+            if prof is not None:
+                self._stop_profile(prof)
+            close = getattr(data, "close", None)
+            if close is not None:
+                close()  # a generator loader stops its workers
+            self.checkpointer.save(step, self.state_dict(), self.last_metrics)
+        return step

@@ -261,7 +261,8 @@ def test_cli_cuda_device_without_gpu_raises():
 
 
 def test_import_hygiene_blocks_jax():
-    """Every hi3d_tpu_torch module imports with jax and hi3d_tpu blocked."""
+    """Every hi3d_tpu_torch module imports with jax and hi3d_tpu blocked, and
+    every `target` of the stage-1 training config resolves to a port class."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -269,12 +270,27 @@ def test_import_hygiene_blocks_jax():
         "import hi3d_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(hi3d_tpu_torch.__path__, 'hi3d_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "from hi3d_tpu_torch.config import get_obj_from_str, load_config\n"
+        "def targets(node):\n"
+        "    if isinstance(node, dict):\n"
+        "        yield from ([node['target']] if 'target' in node else [])\n"
+        "        for v in node.values(): yield from targets(v)\n"
+        "    elif isinstance(node, list):\n"
+        "        for v in node: yield from targets(v)\n"
+        "found = list(targets(load_config('configs/train-v01.yaml')))\n"
+        "assert len(found) > 15 and all(get_obj_from_str(t).__module__.startswith('hi3d_tpu_torch.')"
+        " for t in found)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'hi3d_tpu.')) for k in sys.modules"
         " if sys.modules[k] is not None)\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert int(res.stdout.strip().splitlines()[-1]) >= 25
+    names = set(res.stdout.strip().splitlines()[-1].split())
+    assert len(names) >= 25
+    training = {"train", "data", "data.video_dataset", "diffusion.loss",
+                "diffusion.sigma_sampling", "diffusion.weighting", "training", "training.ema",
+                "training.schedules", "training.state", "training.step", "training.trainer"}
+    assert {f"hi3d_tpu_torch.{n}" for n in training} <= names
