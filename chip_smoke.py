@@ -1,23 +1,29 @@
-"""GPU smoke run of the PyTorch port's stage-1 path on one NVIDIA H100.
+"""GPU smoke run of the PyTorch port's stage-1 and stage-2 paths on one NVIDIA H100.
 
     python3 chip_smoke.py
 
 1. prints the card (nvidia-smi name and power limit) and fails without CUDA;
 2. builds the kernels from this checkout (`hi3d_tpu_torch/csrc`, Triton);
-3. runs each forward kernel (K1, K2, K3) and each backward kernel (#3, #5,
-   and K3's autograd Function) against its plain PyTorch version at the main
-   paths' shapes (error against a stated tolerance, CUDA-event times);
-4. runs the full-width UNet once at a small input on the card and holds its
-   output, then its parameter gradient, against the same weights on the CPU
-   (plain versions, fp32 and bf16);
+3. runs each forward kernel (K1, K2, K3, #9 GroupNorm statistics, #10
+   LayerNorm) and each backward kernel (#3, #5, and the K3 and #10 autograd
+   Functions) against its plain PyTorch version at the main paths' shapes
+   (error against a stated tolerance, CUDA-event times);
+4. runs the full-width stage-1 UNet once at a small input on the card and
+   holds its output, then its parameter gradient, against the same weights
+   on the CPU (plain versions, fp32 and bf16); the same for the output of the
+   full-width stage-2 UNet (17 input channels);
 5. main path 1: `hi3d_tpu_torch.pipelines.i2v.main` on `demo/3.png` at full
    width (configs/inference-v01.yaml, 16×512², random weights); checks the
-   frames and every kernel's launch count against the UNet plan;
+   frames and every kernel's launch count against the model's plan;
 6. main path 2: `hi3d_tpu_torch.train.main` on configs/train-v01.yaml at
    full width (2 videos × 16 × 512² per step, random weights, renders made
    from demo/3.png) for 4 steps; checks finite losses, moved parameters, a
-   reloadable checkpoint and the launch counts of all five kernels;
-7. prints the kernel JSON line (launches per path and summed), the card
+   reloadable checkpoint and the launch counts of all seven kernels;
+7. main path 3: `hi3d_tpu_torch.pipelines.v2v.main` at full width
+   (configs/inference-v02.yaml, 16×1024², 25 steps, random weights, the DPT's
+   included) on the frames main path 1 wrote; checks the refined frames and
+   the launch counts;
+8. prints the kernel JSON line (launches per path and summed), the card
    line, and the contract line last.
 
 Any failure raises and exits non-zero.
@@ -37,6 +43,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NUM_STEPS = 25  # the configured sampler steps (configs/inference-v01.yaml)
 TRAIN_STEPS = 4  # optimizer steps of configs/train-v01.yaml
+STAGE2_STEPS = 25  # the configured sampler steps (configs/inference-v02.yaml)
 
 
 def card_line() -> str:
@@ -74,6 +81,7 @@ def kernel_phase():
 
     from hi3d_tpu_torch.ops import flash_attention as fa
     from hi3d_tpu_torch.ops import group_norm as gn
+    from hi3d_tpu_torch.ops import layer_norm as ln
     from hi3d_tpu_torch.ops import temporal_attention as ta
 
     dev = torch.device("cuda")
@@ -91,8 +99,8 @@ def kernel_phase():
 
     # K1: bf16 inputs, fp32 softmax in both; P is rounded to bf16 before P·V in
     # both, and outputs are O(1), so the gap is a few bf16 ulps of the output
-    for b, s, h, d in ((4, 4096, 5, 64), (4, 1024, 10, 64), (4, 64, 20, 64)):
-        x = torch.randn((b, s, 3 * h * d), generator=gen, device=dev, dtype=bf16)
+    def check_flash(b, s, h, d, g):
+        x = torch.randn((b, s, 3 * h * d), generator=g, device=dev, dtype=bf16)
         q, k, v = (x[..., i * h * d:(i + 1) * h * d].view(b, s, h, d) for i in range(3))
         out, lse = fa.flash_attention(q, k, v)
         ref, ref_lse = fa.flash_attention_reference(q, k, v)
@@ -105,6 +113,9 @@ def kernel_phase():
                time_ms(lambda: fa.flash_attention(q, k, v)),
                time_ms(lambda: fa.flash_attention_reference(q, k, v), reps=3),
                f"B={b} S={s} H={h} D={d} (strided BSHD view)")
+
+    for b, s, h, d in ((4, 4096, 5, 64), (4, 1024, 10, 64), (4, 64, 20, 64)):
+        check_flash(b, s, h, d, gen)
 
     # K2: T=16 softmax in fp32 in both; bf16 output rounding dominates
     for b, t, s, c in ((2, 16, 4096, 320), (2, 16, 256, 1280)):
@@ -135,6 +146,51 @@ def kernel_phase():
                time_ms(lambda: gn.group_norm(x, w, bia, 32, 1e-5, act)),
                time_ms(lambda: gn.group_norm_reference(x, w, bia, 32, 1e-5, act), reps=3),
                f"x{tuple(shape)} act={act}")
+
+    # the stage-2 cases draw from their own generator, so the stage-1 cases
+    # above keep their inputs. K1 at B1 H1 S = 16384 (stage 2's largest site):
+    # the plain version's fp32 scores take 1 GB there, the full batch's 172 GB
+    gen = torch.Generator(device=dev).manual_seed(1)
+    check_flash(1, 16384, 1, 64, gen)
+
+    def stats_err(got, want):
+        """Largest |kernel − plain| of (mean, inv_std), relative to the plain
+        value's largest magnitude; both are fp32 sums of the same values in
+        another order."""
+        return max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want))
+
+    # #10: the fused pass's y in x's dtype against the plain fp32 apply (bf16:
+    # |y| < 8, so one bf16 ulp is ≤ 3.1e-2; fp32: summation order, 1e-4), and
+    # its (mean, inv_std) through `row_stats` (1e-4 relative)
+    for m, c, dtype, eps in ((32 * 16384, 320, bf16, 1e-5), (16 * 577, 768, torch.float32, 1e-6)):
+        x = torch.randn((m, c), generator=gen, device=dev, dtype=dtype) * 3 + 1
+        w = 1 + 0.1 * torch.randn((c,), generator=gen, device=dev)
+        bia = 0.1 * torch.randn((c,), generator=gen, device=dev)
+        y = ln.layer_norm(x, w, bia, eps)
+        ref = ln.layer_norm_reference(x, w, bia, eps)
+        torch.cuda.synchronize()
+        rel = stats_err(ln.row_stats(x, eps), ln.row_stats_reference(x, eps))
+        if not rel <= 1e-4:
+            raise AssertionError(f"row_stats ({m}, {c}): relative error {rel}")
+        err = (y.float() - ref.float()).abs().max().item()
+        record("layer_norm", err, 6e-2 if dtype == bf16 else 1e-4,
+               time_ms(lambda: ln.layer_norm(x, w, bia, eps)),
+               time_ms(lambda: ln.layer_norm_reference(x, w, bia, eps), reps=3),
+               f"({m}, {c}) {str(dtype).split('.')[-1]} (stats rel err {rel:.1e})")
+
+    # #9: fp32 (mean, inv_std) against the plain version, within 1e-4 of
+    # their largest magnitude (4.19 M-element sums folded in another order)
+    for shape, eps in (((1, 128, 1024, 1024), 1e-6), ((16, 256, 96, 96), 1e-5)):
+        x = torch.randn(shape, generator=gen, device=dev) * 3 + 1
+        got = gn.group_stats(x, 32, eps)
+        want = gn.group_stats_reference(x, 32, eps)
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        scale = max(b.abs().max().item() for b in want)
+        record("group_stats", err, 1e-4 * scale,
+               time_ms(lambda: gn.group_stats(x, 32, eps)),
+               time_ms(lambda: gn.group_stats_reference(x, 32, eps), reps=3),
+               f"x{tuple(shape)} fp32 (mean, inv_std up to {scale:.3f})")
     return results
 
 
@@ -155,6 +211,7 @@ def backward_kernel_phase():
 
     from hi3d_tpu_torch.ops import flash_attention as fa
     from hi3d_tpu_torch.ops import group_norm as gn
+    from hi3d_tpu_torch.ops import layer_norm as ln
     from hi3d_tpu_torch.ops import temporal_attention as ta
 
     dev = torch.device("cuda")
@@ -224,6 +281,22 @@ def backward_kernel_phase():
             lambda *a: gn.group_norm_reference(*a, 32, 1e-5, act), (x, w, bia), dy)
         ms = time_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True), reps=3)
         check("group_norm_backward", f"x{tuple(shape)} act={act}", got, want, ms, plain_ms)
+
+    # #10's Function: kernel forward, plain fp32 backward from the saved
+    # (mean, inv_std), against autograd of `layer_norm_reference`
+    for m, c in ((32 * 4096, 320), (32 * 256, 1280)):
+        x = torch.randn((m, c), generator=gen, device=dev, dtype=bf16) * 3 + 1
+        w = 1 + 0.1 * torch.randn((c,), generator=gen, device=dev)
+        bia = 0.1 * torch.randn((c,), generator=gen, device=dev)
+        dy = torch.randn((m, c), generator=gen, device=dev, dtype=bf16)
+        leaves = [t.detach().requires_grad_() for t in (x, w, bia)]
+        y = ln.layer_norm(*leaves, 1e-5)
+        if y.grad_fn is None:
+            raise AssertionError("layer_norm output on the card has no grad_fn")
+        got = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+        want, plain_ms = plain_grads(lambda *a: ln.layer_norm_reference(*a, 1e-5), (x, w, bia), dy)
+        ms = time_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True), reps=3)
+        check("layer_norm_backward", f"({m}, {c}) bf16", got, want, ms, plain_ms)
     return results
 
 
@@ -239,27 +312,98 @@ KERNELS = (
      "hi3d_tpu/ops/flash_attention.py:493"),
     ("temporal_attention_backward", "cuda", "hi3d_tpu_torch/csrc/temporal_attention.cu",
      "hi3d_tpu/ops/temporal_attention.py:392"),
+    ("group_stats", "triton", "hi3d_tpu_torch/ops/group_norm.py",
+     "hi3d_tpu/ops/group_norm.py:392"),
+    ("layer_norm", "triton", "hi3d_tpu_torch/ops/layer_norm.py",
+     "hi3d_tpu/ops/group_norm.py:461"),
 )
 
 
-def expected_launches(config_path: str, steps: int, training: bool = False) -> dict:
-    """Launches per kernel that the UNet plan predicts.
+def _wrappers() -> dict:
+    """The launch-counting wrapper of every kernel, by kernel name."""
+    from hi3d_tpu_torch.ops import flash_attention as fa
+    from hi3d_tpu_torch.ops import group_norm as gn
+    from hi3d_tpu_torch.ops import layer_norm as ln
+    from hi3d_tpu_torch.ops import temporal_attention as ta
 
-    Inference (`steps` sampler steps, each one CFG-batched UNet call): K1 and
-    K2 once per transformer block of every SpatialVideoTransformer; K3 four
-    times per VideoResBlock (spatial and time-stack in/out norms), once per
-    transformer `norm`, once for the UNet's `out.0`.
+    return {"flash_attention": fa.flash_attention, "temporal_attention": ta.temporal_attention,
+            "group_norm": gn.group_norm, "flash_attention_backward": fa.flash_attention_backward,
+            "temporal_attention_backward": ta.temporal_attention_backward,
+            "group_stats": gn.group_stats, "layer_norm": ln.layer_norm}
 
-    Training (`steps` optimizer steps, `accumulate_grad_batches` UNet calls
-    each): with `use_checkpoint` every VideoResBlock and
-    SpatialVideoTransformer runs its forward twice (forward, then recompute in
-    the backward), so K1, K2 and the blocks' K3 launches double while `out.0`
-    stays at one; #3 and #5 run once per transformer block."""
+
+def reset_launches() -> None:
+    for w in _wrappers().values():
+        w.launches = 0
+
+
+def read_launches(names) -> dict:
+    wrappers = _wrappers()
+    return {name: wrappers[name].launches for name in names}
+
+
+def norm_sites(config_path: str) -> dict:
+    """#10 and #9 launches per call of each model part of the config: its
+    LayerNorm32 and FoldedGroupNorm modules, counted on the meta device
+    (each runs once per call of its part)."""
+    import torch
+
+    from hi3d_tpu_torch.config import instantiate_from_config, load_config
+    from hi3d_tpu_torch.models.attention import LayerNorm32
+    from hi3d_tpu_torch.models.clip import vit_h_14, vit_l_14
+    from hi3d_tpu_torch.models.dpt import DPTDepthModel
+    from hi3d_tpu_torch.models.layers import FoldedGroupNorm
+    from hi3d_tpu_torch.models.vae import Decoder, Encoder
+
+    p = load_config(config_path)["model"]["params"]
+    dd = p["first_stage_config"]["params"]["ddconfig"]
+
+    def count(build, cls) -> int:
+        with torch.device("meta"):
+            return sum(isinstance(m, cls) for m in build().modules())
+
+    return {"unet": count(lambda: instantiate_from_config(p["network_config"]), LayerNorm32),
+            "vit_h": count(vit_h_14, LayerNorm32), "vit_l": count(vit_l_14, LayerNorm32),
+            "dpt_ln": count(DPTDepthModel, LayerNorm32), "dpt_gn": count(DPTDepthModel, FoldedGroupNorm),
+            "encoder": count(lambda: Encoder(**dd), FoldedGroupNorm),
+            "decoder": count(lambda: Decoder(**dd), FoldedGroupNorm)}
+
+
+def _chunks(n: int, chunk) -> int:
+    return -(-n // (chunk or n))
+
+
+def _embedder(cfg: dict, target_suffix: str) -> dict:
+    (emb,) = [e for e in cfg["model"]["params"]["conditioner_config"]["params"]["emb_models"]
+              if e["target"].endswith(target_suffix)]
+    return emb.get("params") or {}
+
+
+def expected_launches(config_path: str, steps: int, path: str) -> dict:
+    """Launches per kernel that the model's plan predicts for one run of
+    `path` ("i2v", "train" or "v2v").
+
+    UNet, per call (inference: one CFG-batched call per sampler step): K1
+    and K2 once per transformer block of every SpatialVideoTransformer; K3
+    four times per VideoResBlock (spatial and time-stack in/out norms), once
+    per transformer `norm`, once for the UNet's `out.0`; #10 once per
+    LayerNorm32 of the UNet. Training (`accumulate_grad_batches` UNet calls
+    per step): with `use_checkpoint` every VideoResBlock and
+    SpatialVideoTransformer runs its forward twice (forward, then recompute
+    in the backward), so K1, K2, #10 and the blocks' K3 launches double while
+    `out.0` stays at one; #3 and #5 run once per transformer block.
+
+    Conditioning and VAE, once per run (per UNet call in training): #10 once
+    per LayerNorm32 of the CLIP towers (ViT-H; ViT-L at stage 1) and of the
+    DPT (stage 2); #9 once per FoldedGroupNorm of each VAE encode or decode
+    call (frames in chunks of `en_and_decode_n_samples_a_time`) and of the
+    DPT (one call on all 16 frames)."""
     from hi3d_tpu_torch.config import load_config
     from hi3d_tpu_torch.models.unet import _build_plan
 
     cfg = load_config(config_path)
-    p = cfg["model"]["params"]["network_config"]["params"]
+    mp = cfg["model"]["params"]
+    p = mp["network_config"]["params"]
     depth = p.get("transformer_depth", 1)
     depth = [depth] * len(p["channel_mult"]) if isinstance(depth, int) else depth
     inp, mid, out = _build_plan(p["model_channels"], p["channel_mult"], p["num_res_blocks"],
@@ -268,15 +412,37 @@ def expected_launches(config_path: str, steps: int, training: bool = False) -> d
     blocks = sum(s[2] for s in specs if s[0] == "attn")
     n_attn = sum(1 for s in specs if s[0] == "attn")
     n_res = sum(1 for s in specs if s[0] == "res")
-    if not training:
-        return {"flash_attention": steps * blocks, "temporal_attention": steps * blocks,
-                "group_norm": steps * (4 * n_res + n_attn + 1)}
-    calls = steps * cfg.get("lightning", {}).get("trainer", {}).get("accumulate_grad_batches", 1)
-    fwd = 2 if p.get("use_checkpoint") else 1
-    return {"flash_attention": calls * fwd * blocks, "temporal_attention": calls * fwd * blocks,
-            "group_norm": calls * (fwd * (4 * n_res + n_attn) + 1),
-            "flash_attention_backward": calls * blocks,
-            "temporal_attention_backward": calls * blocks}
+    sites = norm_sites(config_path)
+    t = mp["num_samples"]
+    engine_chunk = mp.get("en_and_decode_n_samples_a_time")
+    enc_chunk = _embedder(cfg, "VideoPredictionEmbedderWithEncoder").get(
+        "en_and_decode_n_samples_a_time")
+    if path == "train":
+        calls = steps * cfg.get("lightning", {}).get("trainer", {}).get("accumulate_grad_batches", 1)
+        fwd = 2 if p.get("use_checkpoint") else 1
+        batch = cfg["data"]["params"]["batch_size"]
+        return {"flash_attention": calls * fwd * blocks, "temporal_attention": calls * fwd * blocks,
+                "group_norm": calls * (fwd * (4 * n_res + n_attn) + 1),
+                "flash_attention_backward": calls * blocks,
+                "temporal_attention_backward": calls * blocks,
+                # the VAE encodes the batch's frames, the conditioner each video's frame 0
+                "group_stats": calls * sites["encoder"] * (_chunks(batch * t, engine_chunk)
+                                                           + _chunks(batch, enc_chunk)),
+                "layer_norm": calls * (fwd * sites["unet"] + sites["vit_h"] + sites["vit_l"])}
+    unet = {"flash_attention": steps * blocks, "temporal_attention": steps * blocks,
+            "group_norm": steps * (4 * n_res + n_attn + 1)}
+    if path == "i2v":  # the conditioner encodes frame 0; the engine decodes T frames
+        return {**unet,
+                "group_stats": sites["encoder"] * _chunks(1, enc_chunk)
+                + sites["decoder"] * _chunks(t, engine_chunk),
+                "layer_norm": steps * sites["unet"] + sites["vit_h"] + sites["vit_l"]}
+    # v2v: the conditioner (DPT, then the VAE embedder) and the engine each
+    # encode the T frames; the engine decodes them
+    return {**unet,
+            "group_stats": sites["dpt_gn"] + sites["encoder"] * (_chunks(t, enc_chunk)
+                                                                 + _chunks(t, engine_chunk))
+            + sites["decoder"] * _chunks(t, engine_chunk),
+            "layer_norm": steps * sites["unet"] + sites["vit_h"] + sites["dpt_ln"]}
 
 
 def _full_width_unet(config_path: str):
@@ -335,7 +501,8 @@ def unet_reference_phase(config_path: str) -> float:
     if not torch.isfinite(out).all():
         raise AssertionError("UNet output on the card is not finite")
     rel, plain_rel = (((a - ref).norm() / ref.norm()).item() for a in (out, plain))
-    print(f"[smoke] full-width UNet, 2×4 frames at 16² latent, vs CPU fp32: card bf16 "
+    print(f"[smoke] full-width UNet of {os.path.basename(config_path)}, 2×4 frames at 16² "
+          f"latent, vs CPU fp32: card bf16 "
           f"relative L2 error {rel:.3e}, plain bf16 {plain_rel:.3e} (tol {1.5 * plain_rel:.3e})",
           flush=True)
     if not rel <= 1.5 * plain_rel:
@@ -407,36 +574,66 @@ def unet_gradient_phase(config_path: str) -> float:
     return rel
 
 
-def main_path(steps: int) -> dict:
-    """Stage-1 CLI at full width; returns the launch count of each kernel."""
-    from hi3d_tpu_torch.ops import flash_attention as fa
-    from hi3d_tpu_torch.ops import group_norm as gn
-    from hi3d_tpu_torch.ops import temporal_attention as ta
+def _check_frames(frame_dir: str, shape) -> None:
+    from hi3d_tpu_torch.utils.video import import_video
+
+    frames = import_video(frame_dir)
+    print(f"[smoke] frames {frames.shape} {frames.dtype} mean {frames.mean():.2f} "
+          f"std {frames.std():.2f}", flush=True)
+    if frames.shape != shape or frames.dtype != np.uint8:
+        raise AssertionError(f"unexpected frames {frames.shape} {frames.dtype}, want {shape} uint8")
+
+
+def _check_launches(launches: dict, expected: dict) -> None:
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches} != the model's plan {expected}")
+
+
+def main_path(steps: int):
+    """Stage-1 CLI at full width; returns the launch count of each kernel and
+    the output directory (its frames feed main path 3)."""
+    import torch
+
     from hi3d_tpu_torch.pipelines import i2v
-    from hi3d_tpu_torch.utils.png import read_png
 
     config = os.path.join(ROOT, "configs", "inference-v01.yaml")
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "outputs"))
-    wrappers = {"flash_attention": fa.flash_attention,
-                "temporal_attention": ta.temporal_attention, "group_norm": gn.group_norm}
-    for w in wrappers.values():
-        w.launches = 0
+    expected = expected_launches(config, steps, "i2v")
+    reset_launches()
     t0 = time.perf_counter()
     i2v.main(["--denoise_config", config, "--image_path", os.path.join(ROOT, "demo", "3.png"),
               "--output_dir", out_dir, "--skip_rembg", "--device", "cuda", "--seed", "0",
               "--num_steps", str(steps)])
-    launches = {name: w.launches for name, w in wrappers.items()}
-    print(f"[smoke] main path {time.perf_counter() - t0:.1f} s, launches {launches}", flush=True)
+    launches = read_launches(expected)
+    print(f"[smoke] main path 1 {time.perf_counter() - t0:.1f} s, launches {launches}", flush=True)
+    torch.cuda.empty_cache()
+    _check_frames(os.path.join(out_dir, "first_step", "frames"), (16, 512, 512, 3))
+    _check_launches(launches, expected)
+    return launches, out_dir
 
-    frame_dir = os.path.join(out_dir, "first_step", "frames")
-    frames = np.stack([read_png(os.path.join(frame_dir, n)) for n in sorted(os.listdir(frame_dir))])
-    print(f"[smoke] frames {frames.shape} {frames.dtype} mean {frames.mean():.2f} "
-          f"std {frames.std():.2f}", flush=True)
-    if frames.shape != (16, 512, 512, 3) or frames.dtype != np.uint8:
-        raise AssertionError(f"unexpected frames {frames.shape} {frames.dtype}")
-    expected = expected_launches(config, steps)
-    if launches != expected:
-        raise AssertionError(f"kernel launches {launches} != UNet plan {expected}")
+
+def stage2_path(steps: int, stage1_dir: str) -> dict:
+    """Stage-2 CLI at full width on main path 1's frames (16×512² → 16×1024²,
+    random weights, the DPT's included); returns the launch count of each
+    kernel."""
+    import torch
+
+    from hi3d_tpu_torch.pipelines import v2v
+
+    config = os.path.join(ROOT, "configs", "inference-v02.yaml")
+    expected = expected_launches(config, steps, "v2v")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    v2v.main(["--denoise_config", config, "--image_path", os.path.join(ROOT, "demo", "3.png"),
+              "--output_dir", stage1_dir, "--device", "cuda", "--seed", "0",
+              "--num_steps", str(steps)])
+    launches = read_launches(expected)
+    print(f"[smoke] main path 3 {time.perf_counter() - t0:.1f} s, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches {launches}", flush=True)
+    torch.cuda.empty_cache()
+    _check_frames(os.path.join(stage1_dir, "second_step_video", "frames"), (16, 1024, 1024, 3))
+    _check_launches(launches, expected)
     return launches
 
 
@@ -474,9 +671,6 @@ def training_path(steps: int) -> dict:
 
     from hi3d_tpu_torch import train
     from hi3d_tpu_torch.config import instantiate_from_config, load_config
-    from hi3d_tpu_torch.ops import flash_attention as fa
-    from hi3d_tpu_torch.ops import group_norm as gn
-    from hi3d_tpu_torch.ops import temporal_attention as ta
 
     config = os.path.join(ROOT, "configs", "train-v01.yaml")
     cfg = load_config(config)
@@ -496,17 +690,13 @@ def training_path(steps: int) -> dict:
     del init_model
     torch.cuda.empty_cache()
 
-    wrappers = {"flash_attention": fa.flash_attention, "temporal_attention": ta.temporal_attention,
-                "group_norm": gn.group_norm,
-                "flash_attention_backward": fa.flash_attention_backward,
-                "temporal_attention_backward": ta.temporal_attention_backward}
-    for w in wrappers.values():
-        w.launches = 0
+    expected = expected_launches(config, steps, "train")
+    reset_launches()
     t0 = time.perf_counter()
     trainer = train.main(["--base", config, "--max_steps", str(steps), "--no_test", "True",
                           "--device", "cuda", "--seed", str(seed), "--logdir", out_dir,
                           f"data.params.base_folder={renders}", "data.params.num_workers=4"])
-    launches = {name: w.launches for name, w in wrappers.items()}
+    launches = read_launches(expected)
     wall = time.perf_counter() - t0
     rows = [json.loads(line) for line in open(os.path.join(trainer.logdir, "metrics.jsonl"))]
     batch = cfg["data"]["params"]["batch_size"]
@@ -543,9 +733,7 @@ def training_path(steps: int) -> dict:
     print(f"[train] {len(moved)} of {len(trained)} trainable tensors moved, out.2 among them; "
           f"checkpoint {os.path.realpath(trainer.checkpointer.last)} reloads to the trained state "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    expected = expected_launches(config, steps, training=True)
-    if launches != expected:
-        raise AssertionError(f"kernel launches {launches} != UNet plan {expected}")
+    _check_launches(launches, expected)
     del state, trainer, unet
     shutil.rmtree(out_dir)  # tens of GB of checkpoint
     torch.cuda.empty_cache()
@@ -557,6 +745,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
+    start = time.perf_counter()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}",
@@ -566,10 +755,12 @@ def main() -> None:
 
     from hi3d_tpu_torch.ops import build
     from hi3d_tpu_torch.ops import group_norm as gn
+    from hi3d_tpu_torch.ops import layer_norm as ln
 
     t0 = time.perf_counter()
     build.load_library()
     gn._compiled()
+    ln._compiled()
     nvcc_s = build.build_seconds if build.build_seconds is not None else 0.0
     print(f"[build] {build.library_path().name}: nvcc {nvcc_s:.1f} s "
           f"(0 = reused), build+load {time.perf_counter() - t0:.1f} s", flush=True)
@@ -581,12 +772,18 @@ def main() -> None:
     inference = os.path.join(ROOT, "configs", "inference-v01.yaml")
     unet_reference_phase(inference)
     unet_gradient_phase(inference)
+    unet_reference_phase(os.path.join(ROOT, "configs", "inference-v02.yaml"))
     print(f"[smoke] main path 1: configs/inference-v01.yaml, 16×512², {NUM_STEPS} steps, "
           "random weights", flush=True)
-    by_path = {"i2v": main_path(NUM_STEPS)}
+    by_path = {}
+    by_path["i2v"], stage1_dir = main_path(NUM_STEPS)
     print(f"[smoke] main path 2: configs/train-v01.yaml, {TRAIN_STEPS} steps, random weights",
           flush=True)
     by_path["train"] = training_path(TRAIN_STEPS)
+    print(f"[smoke] main path 3: configs/inference-v02.yaml, 16×1024², {STAGE2_STEPS} steps, "
+          "random weights, on main path 1's frames", flush=True)
+    by_path["v2v"] = stage2_path(STAGE2_STEPS, stage1_dir)
+    print(f"[smoke] all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
 
     rows = []
     for name, route, source, replaces in KERNELS:

@@ -1,5 +1,5 @@
-"""Conditioning: GeneralConditioner and the stage-1 embedders (counterpart of
-hi3d_tpu/conditioners.py).
+"""Conditioning: GeneralConditioner and the stage-1 and stage-2 embedders
+(counterpart of hi3d_tpu/conditioners.py).
 
 NCHW throughout: frames are (N, 3, H, W) and videos (B, T, 3, H, W) in
 [-1, 1]. Outputs route by rank into {vector (B, D), crossattn (B, S, C),
@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from .config import instantiate_from_config
 from .models.clip import (
@@ -25,6 +26,7 @@ from .models.clip import (
     vit_h_14,
     vit_l_14,
 )
+from .models.dpt import DPTDepthModel
 from .models.layers import timestep_embedding
 from .utils.misc import append_dims
 
@@ -44,6 +46,8 @@ class AbstractEmbedder(nn.Module):
     """An embedder computes one conditioning tensor from one batch key."""
 
     OUT_KEY_BY_NDIM = {2: "vector", 3: "crossattn", 4: "concat"}
+    # whether an engine checkpoint's `conditioner.embedders.N.*` keys load here
+    loads_engine_checkpoint = True
 
     def __init__(self):
         super().__init__()
@@ -240,3 +244,48 @@ class AesEmbedder(AbstractEmbedder):
         score = self.mlp(feats.to(self.mlp.layers[0].weight.dtype)).float()
         emb = timestep_embedding(score[:, 0] * 100.0, 255)
         return torch.cat([score, emb], dim=-1)
+
+
+class DepthEmbedder(AbstractEmbedder):
+    """DPT-hybrid inverse depth of each conditioning frame, pixel-unshuffled
+    to the latent grid (stage 2): frames (N, 3, H, W) or (B, T, 3, H, W) in
+    [-1, 1] → (N, s², H/8, W/8) concat channels, s = shuffle_size.
+
+    The frames are resized (bilinear, no antialias) to
+    int(H/scale_factor/32)·32 (384 at 1024²), run through the fp32 DPT,
+    resized to (H/8·s, W/8·s), min-max normalised per frame with a floor of
+    1e-6, and unshuffled s×s → channels in (row offset, column offset) order,
+    as the JAX embedder does. Its weights come from MODEL_PATH (the
+    reference hard-codes it), not from the engine checkpoint, as in the JAX
+    package; `model_kwargs` sizes the tower (tests)."""
+
+    MODEL_PATH = "ckpts/dpt_hybrid_384.pt"
+    loads_engine_checkpoint = False
+
+    def __init__(self, freeze: bool = True, use_3d: bool = False, shuffle_size: int = 3,
+                 scale_factor: float = 2.6666, model_kwargs: Optional[Dict] = None):
+        super().__init__()
+        if use_3d:
+            raise NotImplementedError("use_3d depth is not used by Hi3D")
+        self.shuffle_size = int(shuffle_size)
+        self.scale_factor = float(scale_factor)
+        self.model = DPTDepthModel(**(model_kwargs or {}))
+        if os.path.exists(self.MODEL_PATH):
+            from .convert import load_dpt_state_dict
+
+            self.model.load_state_dict(load_dpt_state_dict(self.MODEL_PATH), strict=True)
+        else:
+            _tower_file_notice("DPT-hybrid", self.MODEL_PATH)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.ndim == 5:
+            x = x.flatten(0, 1)
+        _, _, hh, ww = x.shape
+        s = self.shuffle_size
+        size = (int(hh / self.scale_factor / 32) * 32, int(ww / self.scale_factor / 32) * 32)
+        y = resize_bilinear(x.float(), size)
+        y = self.model(y.to(self.model.pretrained.model.cls_token.dtype)).float()[:, None]
+        y = resize_bilinear(y, (hh // 8 * s, ww // 8 * s))
+        y = y - y.amin(dim=(1, 2, 3), keepdim=True)
+        y = y / y.amax(dim=(1, 2, 3), keepdim=True).clamp_min(1e-6)
+        return F.pixel_unshuffle(y, s)

@@ -50,3 +50,23 @@ def load_reference_state_dict(module: nn.Module, sd: Mapping[str, object], prefi
         ref = own.get(name)
         picked[name] = t.to(dtype=ref.dtype, device=ref.device) if ref is not None else t
     module.load_state_dict(picked, strict=True)
+
+
+# keys of the ViT classifier in MiDaS's timm backbone: DPT reads the hooked
+# block outputs only, never the final norm or the head
+DPT_CLASSIFIER_PREFIXES = ("pretrained.model.norm.", "pretrained.model.fc_norm.",
+                           "pretrained.model.head.", "pretrained.model.pre_logits.")
+
+
+def load_dpt_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """MiDaS `dpt_hybrid_384.pt` as the state dict of
+    models.dpt.DPTDepthModel, whose names are MiDaS's: the `{"model": ...,
+    "optimizer": ...}` training wrapper is unwrapped and the classifier keys
+    (`DPT_CLASSIFIER_PREFIXES`) are dropped. Nothing else is renamed or
+    dropped, so `load_state_dict(..., strict=True)` rejects any other
+    difference."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(sd, dict) and isinstance(sd.get("model"), dict) and "optimizer" in sd:
+        sd = sd["model"]
+    return {k: v for k, v in strip_deepspeed(sd).items()
+            if not k.startswith(DPT_CLASSIFIER_PREFIXES)}

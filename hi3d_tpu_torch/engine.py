@@ -1,4 +1,5 @@
-"""DiffusionEngine and the stage-1 VideoLDM (counterpart of hi3d_tpu/engine.py).
+"""DiffusionEngine, the stage-1 VideoLDM and the stage-2 VideoLDMStage2
+(counterpart of hi3d_tpu/engine.py).
 
 The engine is an `nn.Module` whose children carry the reference's attribute
 names — `model.diffusion_model` (UNet behind the concat wrapper),
@@ -46,6 +47,7 @@ class DiffusionEngine(nn.Module):
         ckpt_path: Optional[str] = None,
         scale_factor: float = 1.0,
         en_and_decode_n_samples_a_time: Optional[int] = None,
+        decode_tile_size: Optional[int] = 96,
         compute_dtype: str = "float32",
         loss_fn_config: Optional[Dict] = None,
         scheduler_config: Optional[Dict] = None,
@@ -60,6 +62,10 @@ class DiffusionEngine(nn.Module):
         self.compute_dtype = _DTYPES[compute_dtype]
         self.scale_factor = float(scale_factor)
         self.en_and_decode_n_samples_a_time = en_and_decode_n_samples_a_time
+        # the JAX engine decodes latents wider than this in feathered tiles;
+        # the port decodes untiled and refuses wider latents (none of the
+        # configs reaches it: 64² at stage 1, 128² ≤ 128 at stage 2)
+        self.decode_tile_size = decode_tile_size
         self.input_key = input_key
         self.scheduler_config = scheduler_config
         self.use_ema = bool(use_ema)
@@ -95,7 +101,8 @@ class DiffusionEngine(nn.Module):
                  ("first_stage_model.", self.first_stage_model)]
         if self.conditioner is not None:
             parts += [(f"conditioner.embedders.{n}.", emb)
-                      for n, emb in enumerate(self.conditioner.embedders)]
+                      for n, emb in enumerate(self.conditioner.embedders)
+                      if emb.loads_engine_checkpoint]
         for prefix, module in parts:
             if any(k.startswith(prefix) for k in sd):
                 load_reference_state_dict(module, sd, prefix)
@@ -131,6 +138,10 @@ class DiffusionEngine(nn.Module):
     @torch.no_grad()
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         """(N, h, w, 4) latents → (N, 8h, 8w, 3) fp32 frames, in chunks."""
+        if self.decode_tile_size is not None and max(z.shape[1:3]) > self.decode_tile_size:
+            raise NotImplementedError(
+                f"latents of {tuple(z.shape[1:3])} exceed decode_tile_size="
+                f"{self.decode_tile_size}: tiled VAE decoding is not ported")
         dt = self.first_stage_model.post_quant_conv.weight.dtype
         out = self._chunked(
             lambda v: self.first_stage_model.decode(((1.0 / self.scale_factor) * v.float()).to(dt)).float(),
@@ -249,3 +260,35 @@ class VideoLDM(DiffusionEngine):
             return loss.mean()
 
         return loss_fn
+
+
+class VideoLDMStage2(VideoLDM):
+    """Stage-2 video-to-video refiner (JAX engine.VideoLDMStage2): the
+    conditioning video is the input video itself at inference; the depth
+    channels come from the conditioner's DepthEmbedder."""
+
+    def add_custom_cond(self, batch: Dict, infer: bool = False,
+                        generator: Optional[torch.Generator] = None) -> Dict:
+        """cond_frames_without_noise = video[:, 0]; cond_frames = every frame
+        of the video (B·T, 3, H, W) plus cond_aug (0.02) Gaussian noise —
+        the noise augmentation applies at inference too; image_only_indicator
+        zeros."""
+        if not infer:
+            raise NotImplementedError(
+                "stage-2 training (degradation of the conditioning video, data/degradation.py) "
+                "is not ported yet: it is the stage-2 training slice (ROADMAP)")
+        batch = dict(batch)
+        batch["num_video_frames"] = self.num_samples
+        video = batch["video"]  # (B, T, 3, H, W)
+        n = video.shape[0]
+        batch["cond_frames_without_noise"] = video[:, 0]
+        cond_aug = torch.full((n,), 0.02, device=video.device)
+        frames = video.reshape(-1, *video.shape[2:])
+        aug = cond_aug.repeat_interleave(self.num_samples)
+        noise = torch.randn(frames.shape, generator=generator, device=frames.device,
+                            dtype=frames.dtype)
+        batch["cond_frames"] = frames + append_dims(aug, frames.ndim).to(frames.dtype) * noise
+        batch["cond_aug"] = cond_aug
+        if "image_only_indicator" not in batch:
+            batch["image_only_indicator"] = torch.zeros((n, self.num_samples), device=video.device)
+        return batch

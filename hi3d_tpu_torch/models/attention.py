@@ -1,6 +1,7 @@
 """Transformer blocks of the UNet (counterpart of hi3d_tpu/models/attention.py).
 
-Token tensors are (N, S, C). LayerNorms run in fp32; GELU is exact (erf).
+Token tensors are (N, S, C). LayerNorms run on #10 (fp32 statistics and
+apply in one pass, output in the input dtype); GELU is exact (erf).
 Parameter names follow the reference: `to_q`, `to_k`, `to_v`, `to_out.0`,
 `ff.net.0.proj`, `ff.net.2`, `norm1..3`, `proj_in`, `proj_out`, `norm`.
 """
@@ -14,16 +15,18 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import attention as attn_ops
+from ..ops.layer_norm import layer_norm
 from .layers import GroupNorm32, zero_module
 
 
 class LayerNorm32(nn.LayerNorm):
-    """LayerNorm computed in fp32, cast back to the input dtype."""
+    """LayerNorm over the last dim with fp32 statistics and apply, output in
+    the input dtype, on #10 (ops.layer_norm). Every LayerNorm of the port
+    runs here: the UNet's transformer blocks, the CLIP towers (eps 1e-5)
+    and the DPT's ViT (eps 1e-6)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(
-            x.float(), self.normalized_shape, self.weight.float(), self.bias.float(), self.eps
-        ).to(x.dtype)
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class CrossAttention(nn.Module):

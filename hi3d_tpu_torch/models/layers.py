@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.group_norm import group_norm
+from ..ops.group_norm import group_norm, group_norm_backward, group_stats
 
 
 def timestep_embedding(
@@ -54,6 +54,46 @@ class GroupNorm32(nn.GroupNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # K3 reads a group as one contiguous run of NCHW memory
         return group_norm(x.contiguous(), self.weight, self.bias, self.num_groups, self.eps, self.act)
+
+
+def _folded_affine(x, weight, bias, num_groups, eps):
+    """x·a + b with a = γ·inv_std, b = β − mean·a per (sample, channel), the
+    statistics from #9 (ops.group_stats); fp32, cast to x's dtype."""
+    n, c = x.shape[:2]
+    mean, inv = group_stats(x, num_groups, eps)
+    a = weight.float().view(1, num_groups, -1) * inv[:, :, None]
+    b = bias.float().view(1, num_groups, -1) - mean[:, :, None] * a
+    bshape = (n, c) + (1,) * (x.ndim - 2)
+    return torch.addcmul(b.reshape(bshape), x, a.reshape(bshape)).to(x.dtype)
+
+
+class _FoldedGroupNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, num_groups, eps):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.args = (num_groups, eps)
+        return _folded_affine(x, weight, bias, num_groups, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, bias = ctx.saved_tensors
+        return (*group_norm_backward(x, weight, bias, dy, *ctx.args, act=None), None, None)
+
+
+class FoldedGroupNorm(nn.GroupNorm):
+    """GroupNorm whose statistics come from #9 and whose normalise-and-affine
+    is one folded per-channel multiply-add (`torch.addcmul`), output in the
+    input dtype. The VAE's norms (eps 1e-6) and the DPT backbone's
+    GroupNormAct (eps 1e-5, ReLU after) run on it, both in fp32; the UNet's
+    norms stay on K3 (GroupNorm32). When x, γ or β needs a gradient the
+    backward is K3's plain fp32 `group_norm_backward` without activation."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.contiguous()  # #9 reads a group as one contiguous run
+        if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad
+                                        or self.bias.requires_grad):
+            return _FoldedGroupNorm.apply(x, self.weight, self.bias, self.num_groups, self.eps)
+        return _folded_affine(x, self.weight, self.bias, self.num_groups, self.eps)
 
 
 class ResBlock(nn.Module):

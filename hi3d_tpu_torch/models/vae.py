@@ -3,8 +3,8 @@
 NCHW, fp32 by default. Parameter names follow the reference
 (`encoder.down.0.block.1.norm1`, `encoder.mid.attn_1.q`,
 `decoder.up.3.upsample.conv`, `quant_conv`, `post_quant_conv`). GroupNorms
-are eps 1e-6 and stay plain `nn.GroupNorm`: the JAX package leaves them to
-XLA. The mid-block attention is single-head matmul + softmax in plain torch
+are eps 1e-6 fp32 `FoldedGroupNorm`s, whose statistics are #9. The
+mid-block attention is single-head matmul + softmax in plain torch
 (K1's plain version).
 """
 
@@ -18,10 +18,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.flash_attention import flash_attention_reference
+from .layers import FoldedGroupNorm
 
 
-def _norm(c: int) -> nn.GroupNorm:
-    return nn.GroupNorm(math.gcd(c, 32), c, eps=1e-6)
+def _norm(c: int) -> FoldedGroupNorm:
+    return FoldedGroupNorm(math.gcd(c, 32), c, eps=1e-6)
 
 
 class ResnetBlock(nn.Module):

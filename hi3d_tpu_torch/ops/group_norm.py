@@ -1,4 +1,4 @@
-"""K3: GroupNorm(+SiLU) forward.
+"""K3: GroupNorm(+SiLU) forward, and #9: GroupNorm statistics alone.
 
 Replaces hi3d_tpu/ops/group_norm.py:_fused_group_norm_nsc (Pallas
 `_stats_kernel` + `_apply_kernel`, reached through `fused_group_norm` /
@@ -19,6 +19,15 @@ apply pass folds those partials itself (no third launch, no atomics, so the
 result is deterministic). The split keeps ~1k programs in flight when N·G is
 small (the 5-D time-stack tensors have only B·32 groups).
 
+#9 replaces hi3d_tpu/ops/group_norm.py:_pallas_group_stats_impl (Pallas
+`_gstats_kernel`, reached through `pallas_group_stats` under HI3D_GN=pallas):
+fp32 per-group (mean, inv_std) of shape (N, G), one-pass and clamped as
+above. It reuses K3's partial-sum pass and folds the partials in a second,
+tiny launch (one program per group, fixed order, no atomics). Its callers
+(the VAE's and the DPT's fp32 GroupNorms, `models.layers.FoldedGroupNorm`)
+apply the folded affine themselves. The split matters there: one 1024²
+VAE frame has only 32 groups of 4.19 M elements each.
+
 `triton` is imported on the first CUDA launch only: the kernels below are
 plain functions until `_compiled()` binds `tl` and wraps them in
 `triton.jit`.
@@ -32,13 +41,14 @@ kernels are forward-only there too).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 tl = None  # bound to triton.language on the first CUDA launch
 _STATS = None
 _APPLY = None
+_FOLD = None
 
 BLOCK = 2048
 _TARGET_PROGRAMS = 1024
@@ -93,8 +103,21 @@ def _gn_apply_kernel(x_ptr, y_ptr, w_ptr, b_ptr, part_ptr, group_size, chunk, ns
         tl.store(y_ptr + base + idx, y.to(y_ptr.dtype.element_ty), mask=mask)
 
 
+def _gn_fold_kernel(part_ptr, mean_ptr, inv_ptr, group_size, nsplit, eps,
+                    SPLIT_P2: "tl.constexpr"):
+    ng = tl.program_id(0)
+    parts = tl.arange(0, SPLIT_P2)
+    pmask = parts < nsplit
+    s1 = tl.sum(tl.load(part_ptr + (ng * nsplit + parts) * 2, mask=pmask, other=0.0), axis=0)
+    s2 = tl.sum(tl.load(part_ptr + (ng * nsplit + parts) * 2 + 1, mask=pmask, other=0.0), axis=0)
+    mean = s1 / group_size
+    var = tl.maximum(s2 / group_size - mean * mean, 0.0)
+    tl.store(mean_ptr + ng, mean)
+    tl.store(inv_ptr + ng, 1.0 / tl.sqrt(var + eps))
+
+
 def _compiled():
-    global tl, _STATS, _APPLY
+    global tl, _STATS, _APPLY, _FOLD
     if _STATS is None:
         import triton
         import triton.language
@@ -102,7 +125,8 @@ def _compiled():
         tl = triton.language
         _STATS = triton.jit(_gn_stats_kernel)
         _APPLY = triton.jit(_gn_apply_kernel)
-    return _STATS, _APPLY
+        _FOLD = triton.jit(_gn_fold_kernel)
+    return _STATS, _APPLY, _FOLD
 
 
 def group_norm_reference(
@@ -160,42 +184,54 @@ def group_norm_backward(
     return dx.reshape(x.shape).to(x.dtype), dweight.to(weight.dtype), dbias.to(bias.dtype)
 
 
+def _partial_sums(x: torch.Tensor, num_groups: int, name: str):
+    """Checks a CUDA (N, C, *spatial) tensor and launches the partial-sum
+    pass: returns the (N·G, nsplit, 2) fp32 partials and the split geometry
+    (group_size, chunk, nsplit)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise TypeError(f"{name}: unsupported dtype {x.dtype}")
+    if not x.is_contiguous() or x.ndim < 3:
+        raise ValueError(f"{name}: needs a contiguous (N, C, *spatial) tensor, got {tuple(x.shape)}")
+    n, c = x.shape[:2]
+    if c % num_groups:
+        raise ValueError(f"{name}: C={c} not divisible by {num_groups} groups")
+    group_size = (c // num_groups) * (x.numel() // (n * c))
+    ngroups = n * num_groups
+    if group_size >= 2**31:
+        raise ValueError(f"{name}: group of {group_size} elements exceeds int32 indexing")
+    nsplit = max(1, min(-(-group_size // BLOCK), -(-_TARGET_PROGRAMS // ngroups)))
+    chunk = -(-(-(-group_size // nsplit)) // BLOCK) * BLOCK
+    nsplit = -(-group_size // chunk)
+    stats = _compiled()[0]
+    part = torch.empty((ngroups, nsplit, 2), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stats[(ngroups, nsplit)](x, part, group_size, chunk, nsplit, BLOCK=BLOCK, num_warps=8)
+    return part, group_size, chunk, nsplit
+
+
+def _split_p2(nsplit: int) -> int:
+    return max(2, 1 << (nsplit - 1).bit_length())
+
+
 def _forward(x, weight, bias, num_groups, eps, act):
     if x.device.type == "cpu":
         with torch.autocast("cpu", enabled=False):
             return group_norm_reference(x, weight, bias, num_groups, eps, act)
-    if x.device.type != "cuda":
-        raise ValueError(f"group_norm: unsupported device {x.device}")
-    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
-        raise TypeError(f"group_norm: unsupported dtype {x.dtype}")
-    if not x.is_contiguous() or x.ndim < 3:
-        raise ValueError(f"group_norm: needs a contiguous (N, C, *spatial) tensor, got {tuple(x.shape)}")
     if act not in (None, "silu"):
         raise ValueError(f"unknown activation {act!r}")
+    part, group_size, chunk, nsplit = _partial_sums(x, num_groups, "group_norm")
     n, c = x.shape[:2]
-    if c % num_groups:
-        raise ValueError(f"group_norm: C={c} not divisible by {num_groups} groups")
-    spatial = x.numel() // (n * c)
-    cpg = c // num_groups
-    group_size = cpg * spatial
-    ngroups = n * num_groups
-    if group_size >= 2**31:
-        raise ValueError(f"group_norm: group of {group_size} elements exceeds int32 indexing")
-    nsplit = max(1, min(-(-group_size // BLOCK), -(-_TARGET_PROGRAMS // ngroups)))
-    chunk = -(-(-(-group_size // nsplit)) // BLOCK) * BLOCK
-    nsplit = -(-group_size // chunk)
-    stats, apply = _compiled()
     w = weight.detach().to(device=x.device, dtype=torch.float32).contiguous()
     b = bias.detach().to(device=x.device, dtype=torch.float32).contiguous()
-    part = torch.empty((ngroups, nsplit, 2), dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
-    grid = (ngroups, nsplit)
+    apply = _compiled()[1]
     with torch.cuda.device(x.device):
-        stats[grid](x, part, group_size, chunk, nsplit, BLOCK=BLOCK, num_warps=8)
-        apply[grid](
-            x, y, w, b, part, group_size, chunk, nsplit, spatial, cpg, num_groups,
-            float(eps), SILU=act == "silu", BLOCK=BLOCK,
-            SPLIT_P2=max(2, 1 << (nsplit - 1).bit_length()), num_warps=8,
+        apply[part.shape[:2]](
+            x, y, w, b, part, group_size, chunk, nsplit, x.numel() // (n * c),
+            c // num_groups, num_groups, float(eps), SILU=act == "silu", BLOCK=BLOCK,
+            SPLIT_P2=_split_p2(nsplit), num_warps=8,
         )
     group_norm.launches += 1
     return y
@@ -226,3 +262,36 @@ def group_norm(
 
 
 group_norm.launches = 0
+
+
+def group_stats_reference(x: torch.Tensor, num_groups: int,
+                          eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of #9: fp32 (N, G) mean and inv_std of (N, C, *spatial),
+    one-pass moments, variance clamped at 0 (`_group_stats`)."""
+    xf = x.float().reshape(x.shape[0], num_groups, -1)
+    mean = xf.mean(-1)
+    var = torch.clamp((xf * xf).mean(-1) - mean * mean, min=0.0)
+    return mean, torch.rsqrt(var + eps)
+
+
+def group_stats(x: torch.Tensor, num_groups: int, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 per-group (mean, inv_std), each (N, G), of a contiguous
+    (N, C, *spatial) tensor: #9 (partial sums, then the fold) on CUDA
+    tensors, `group_stats_reference` on CPU tensors. No gradient flows
+    through the statistics themselves; `models.layers.FoldedGroupNorm`
+    carries the GroupNorm backward."""
+    if x.device.type == "cpu":
+        return group_stats_reference(x, num_groups, eps)
+    part, group_size, _, nsplit = _partial_sums(x, num_groups, "group_stats")
+    n = x.shape[0]
+    mean = torch.empty((n, num_groups), dtype=torch.float32, device=x.device)
+    inv = torch.empty_like(mean)
+    fold = _compiled()[2]
+    with torch.cuda.device(x.device):
+        fold[(n * num_groups,)](part, mean, inv, group_size, nsplit, float(eps),
+                                SPLIT_P2=_split_p2(nsplit), num_warps=1)
+    group_stats.launches += 1
+    return mean, inv
+
+
+group_stats.launches = 0

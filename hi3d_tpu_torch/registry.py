@@ -1,6 +1,7 @@
 """Target-name registry: the reference's config `target` strings → the
 PyTorch classes of this package, for the targets the stage-1 configs
-(`configs/inference-v01.yaml`, `configs/train-v01.yaml`) name. Entries are
+(`configs/inference-v01.yaml`, `configs/train-v01.yaml`) and the stage-2
+inference config (`configs/inference-v02.yaml`) name. Entries are
 lazy "module:attr" strings. Targets that name a JAX-package class
 (`hi3d_tpu.training.schedules.*`) map to the port's counterpart, so a
 config never imports the JAX package.
@@ -42,8 +43,10 @@ _ALIASES: Dict[str, str] = {
     "sgm.modules.encoders.modules.ConcatTimestepEmbedderND": f"{_P}.conditioners:ConcatTimestepEmbedderND",
     "sgm.modules.encoders.modules.VideoPredictionEmbedderWithEncoder": f"{_P}.conditioners:VideoPredictionEmbedderWithEncoder",
     "vtdm.encoders.AesEmbedder": f"{_P}.conditioners:AesEmbedder",
+    "vtdm.encoders.DepthEmbedder": f"{_P}.conditioners:DepthEmbedder",
     # task layer
     "vtdm.vtdm_gen_v01.VideoLDM": f"{_P}.engine:VideoLDM",
+    "vtdm.vtdm_gen_stage2_degradeImage.VideoLDM": f"{_P}.engine:VideoLDMStage2",
     # data and LR schedules
     "sgm.data.video_dataset.VideoDataset": f"{_P}.data.video_dataset:VideoDataset",
     **{f"{pkg}.{name}": f"{_P}.training.schedules:{name}"

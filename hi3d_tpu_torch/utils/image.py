@@ -1,4 +1,4 @@
-"""Host-side image preprocessing for the stage-1 CLI (counterpart of
+"""Host-side image preprocessing for the CLIs (counterpart of
 hi3d_tpu/utils/image.py), on numpy and the stdlib PNG codec only.
 
 `resize_bilinear_u8` follows cv2.resize's INTER_LINEAR sampling (half-pixel
@@ -79,3 +79,10 @@ def resize_center_crop(img: np.ndarray, resolution: Tuple[int, int]) -> np.ndarr
     rate = max(resolution[0] / h, resolution[1] / w)
     img = resize_bilinear_u8(img, (math.ceil(w * rate), math.ceil(h * rate)))
     return center_crop(img, resolution)
+
+
+def foreground_mask_from_white(img: np.ndarray, threshold: int = 220) -> np.ndarray:
+    """Float (H, W) mask: 0 where every channel exceeds `threshold`
+    (near-white background), 1 elsewhere."""
+    bg = np.all(img.astype(np.int32) > threshold, axis=-1)
+    return (~bg).astype(np.float32)

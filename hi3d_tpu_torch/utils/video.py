@@ -1,7 +1,9 @@
-"""Frame conversion and export (counterpart of hi3d_tpu/utils/video.py).
+"""Frame conversion, import and export (counterpart of hi3d_tpu/utils/video.py).
 
 Frames are always written as PNGs with the stdlib codec; an mp4 is written
-besides only when `imageio` or `cv2` can be imported on the host.
+besides only when `imageio` or `cv2` can be imported on the host. A video
+is read back from such a frames directory with the stdlib codec, or from an
+mp4 when one of those readers imports.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from .image import load_image_rgb
 from .png import write_png
 
 
@@ -85,3 +88,46 @@ def export_to_video(frames: List[np.ndarray], output_path: str, fps: int = 8) ->
         writers.append(f"mp4:{mp4}")
     print(f"[video] wrote {len(frames)} frames to {frame_dir} (writers: {', '.join(writers)})")
     return output_path if mp4 else frame_dir
+
+
+def _read_mp4(path: str) -> List[np.ndarray]:
+    try:
+        import imageio
+
+        with imageio.get_reader(path) as r:
+            return [np.asarray(f)[..., :3] for f in r]
+    except (ImportError, ValueError):  # ValueError: imageio without an mp4 backend
+        pass
+    try:
+        import cv2
+    except ImportError:
+        raise RuntimeError(
+            f"cannot read {path!r}: no mp4 reader (imageio or cv2) imports here; pass the "
+            "stage-1 frames directory (<output_dir>/first_step/frames) instead") from None
+    cap = cv2.VideoCapture(path)
+    frames = []
+    try:
+        while True:
+            ok, f = cap.read()
+            if not ok:
+                break
+            frames.append(np.ascontiguousarray(f[..., ::-1]))
+    finally:
+        cap.release()
+    if not frames:
+        raise RuntimeError(f"cv2 read no frames from {path!r}")
+    return frames
+
+
+def import_video(path: str) -> np.ndarray:
+    """(T, H, W, 3) uint8 RGB frames: a directory of frame PNGs (read in
+    name order with the stdlib codec, as `export_to_video` writes them) or
+    an mp4 file (imageio or cv2; raises when neither imports)."""
+    if os.path.isdir(path):
+        names = sorted(n for n in os.listdir(path) if n.lower().endswith(".png"))
+        if not names:
+            raise FileNotFoundError(f"no .png frames in {path!r}")
+        return np.stack([load_image_rgb(os.path.join(path, n)) for n in names])
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    return np.stack(_read_mp4(path))

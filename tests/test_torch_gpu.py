@@ -11,8 +11,10 @@ host. There, from the repository root:
 test takes the `cuda` fixture and skips without a card.
 
 Tolerances: bf16 inputs, fp32 accumulation on both sides; outputs are O(1)
-(2e-2 absolute ≈ a few bf16 ulps; 6e-2 for GroupNorm outputs up to ~8) and
-gradients are compared relative to their largest entry (2e-2).
+(2e-2 absolute ≈ a few bf16 ulps; 6e-2 for GroupNorm and LayerNorm outputs
+up to ~8) and gradients are compared relative to their largest entry
+(2e-2). Norm statistics are fp32 on both sides and differ in summation order
+only (1e-4 relative).
 """
 
 import pytest
@@ -20,6 +22,7 @@ import torch
 
 from hi3d_tpu_torch.ops import flash_attention as fa
 from hi3d_tpu_torch.ops import group_norm as gn
+from hi3d_tpu_torch.ops import layer_norm as ln
 from hi3d_tpu_torch.ops import temporal_attention as ta
 
 
@@ -133,3 +136,88 @@ def test_group_norm_backward_matches_plain(cuda):
         want = torch.autograd.grad(gn.group_norm_reference(*leaves, 32, 1e-5, "silu"), leaves, dy)
         for a, b in zip(got, want):
             assert _rel_err(a, b) < 2e-2
+
+
+def _close_rel(a, b, tol=1e-4):
+    return ((a - b).abs().max() / b.abs().max()).item() < tol
+
+
+@pytest.mark.gpu
+def test_layer_norm_kernel_matches_plain(cuda):
+    """#10 at a UNet width (bf16), the DPT's (fp32) and CLIP's (bf16, rows
+    read through a strided view as `ln_post(x[:, 0])` does)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    cases = ((torch.randn((4, 1000, 320), generator=g, device=cuda, dtype=torch.bfloat16), 1e-5),
+             (torch.randn((3, 577, 768), generator=g, device=cuda), 1e-6),
+             (torch.randn((3, 257, 1280), generator=g, device=cuda, dtype=torch.bfloat16)[:, 0],
+              1e-5))
+    for x, eps in cases:
+        x = x * 2 + 0.5
+        c = x.shape[-1]
+        w = torch.randn((c,), generator=g, device=cuda)
+        b = torch.randn((c,), generator=g, device=cuda)
+        out = ln.layer_norm(x, w, b, eps)
+        ref = ln.layer_norm_reference(x, w, b, eps)
+        assert out.dtype == x.dtype and out.shape == x.shape
+        tol = 6e-2 if x.dtype == torch.bfloat16 else 1e-4
+        assert (out.float() - ref.float()).abs().max().item() < tol
+        mean, inv = ln.row_stats(x.reshape(-1, c), eps)
+        ref_mean, ref_inv = ln.row_stats_reference(x.reshape(-1, c), eps)
+        assert _close_rel(mean, ref_mean) and _close_rel(inv, ref_inv)
+
+
+@pytest.mark.gpu
+def test_group_stats_kernel_matches_plain(cuda):
+    """#9 at a 256² VAE norm (4 groups of 2 M elements, split over programs),
+    a DPT norm and a ragged shape; and the FoldedGroupNorm module on it
+    against torch's GroupNorm."""
+    from hi3d_tpu_torch.models.layers import FoldedGroupNorm
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for shape in ((1, 128, 256, 256), (4, 256, 24, 24), (2, 64, 33, 17)):
+        x = torch.randn(shape, generator=g, device=cuda) * 3 + 1
+        mean, inv = gn.group_stats(x, 32, 1e-6)
+        ref_mean, ref_inv = gn.group_stats_reference(x, 32, 1e-6)
+        assert mean.shape == (shape[0], 32)
+        assert _close_rel(mean, ref_mean) and _close_rel(inv, ref_inv)
+        norm = FoldedGroupNorm(32, shape[1], eps=1e-6).to(cuda)
+        with torch.no_grad():
+            norm.weight.normal_(generator=g)
+            norm.bias.normal_(generator=g)
+            out = norm(x)
+            ref = torch.nn.functional.group_norm(x, 32, norm.weight, norm.bias, 1e-6)
+        assert (out - ref).abs().max().item() < 1e-3
+
+
+@pytest.mark.gpu
+def test_norm_outputs_carry_grad_fn(cuda):
+    """#10 through LayerNorm32 and #9 through FoldedGroupNorm on the card:
+    the outputs carry a grad_fn and the gradients match autograd of the
+    plain versions."""
+    from hi3d_tpu_torch.models.attention import LayerNorm32
+    from hi3d_tpu_torch.models.layers import FoldedGroupNorm
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((2, 256, 320), generator=g, device=cuda, dtype=torch.bfloat16)
+    dy = torch.randn(x.shape, generator=g, device=cuda, dtype=torch.bfloat16)
+    norm = LayerNorm32(320).to(cuda)
+    xg = x.detach().requires_grad_()
+    y = norm(xg)
+    assert y.grad_fn is not None
+    got = torch.autograd.grad(y, [xg, norm.weight, norm.bias], dy)
+    leaves = [t.detach().requires_grad_() for t in (x, norm.weight, norm.bias)]
+    want = torch.autograd.grad(ln.layer_norm_reference(*leaves, 1e-5), leaves, dy)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) < 2e-2
+
+    x = torch.randn((2, 64, 16, 16), generator=g, device=cuda)
+    dy = torch.randn(x.shape, generator=g, device=cuda)
+    gnorm = FoldedGroupNorm(32, 64, eps=1e-6).to(cuda)
+    xg = x.detach().requires_grad_()
+    y = gnorm(xg)
+    assert y.grad_fn is not None
+    got = torch.autograd.grad(y, [xg, gnorm.weight, gnorm.bias], dy)
+    leaves = [t.detach().requires_grad_() for t in (x, gnorm.weight, gnorm.bias)]
+    want = torch.autograd.grad(gn.group_norm_reference(*leaves, 32, 1e-6), leaves, dy)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) < 2e-2

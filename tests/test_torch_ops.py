@@ -1,9 +1,10 @@
 """The port's kernels' plain versions against the JAX package, on CPU, plus
 the stdlib image IO.
 
-K1 (flash attention), K2 (temporal attention) and K3 (GroupNorm) each have a
-plain PyTorch version that a CPU tensor takes; here those are held against
-the Pallas kernels in interpret mode (K1, K2) or against the JAX GroupNorm
+K1 (flash attention), K2 (temporal attention), K3 (GroupNorm), #9 (GroupNorm
+statistics) and #10 (LayerNorm row statistics) each have a plain PyTorch
+version that a CPU tensor takes; here those are held against the Pallas
+kernels in interpret mode (K1, K2, #9, #10) or against the JAX GroupNorm
 paths (the fused Pallas GN has no interpret mode; its plain reference is the
 comparison point). The same holds for the backward passes: the port's
 autograd Functions on CPU tensors run the plain versions of #3 / #5 / K3's
@@ -24,6 +25,7 @@ import torch
 from hi3d_tpu_torch.ops import attention as attn_ops
 from hi3d_tpu_torch.ops import flash_attention as fa
 from hi3d_tpu_torch.ops import group_norm as gn
+from hi3d_tpu_torch.ops import layer_norm as ln
 from hi3d_tpu_torch.ops import temporal_attention as ta
 
 # fp32 on both sides: differences are summation order only
@@ -258,6 +260,121 @@ def test_wrappers_raise_on_other_devices():
     x = torch.empty((1, 32, 4, 4), device="meta")
     with pytest.raises((ValueError, TypeError)):
         gn.group_norm(x, x[0, :, 0, 0], x[0, :, 0, 0], 32)
+    with pytest.raises((ValueError, TypeError)):
+        gn.group_stats(x, 32, 1e-6)
+    with pytest.raises((ValueError, TypeError)):
+        ln.layer_norm(x, x[0, 0, 0], x[0, 0, 0])
+    with pytest.raises((ValueError, TypeError)):
+        ln.row_stats(x[0, 0], 1e-5)
+
+
+# bf16 inputs: both sides widen the same bf16 values to fp32 and sum in fp32
+STATS_ATOL = 2e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,c", [(48, 320), (592, 768), (32, 1280)])
+def test_row_stats_plain_matches_pallas(dtype, m, c):
+    """#10's plain version against `pallas_row_stats` (interpret mode) at the
+    UNet, DPT and CLIP widths; M is a multiple of the Pallas row chunk (16)
+    but not of the kernel's row block."""
+    from hi3d_tpu.ops.group_norm import pallas_row_stats
+
+    rnd = np.random.RandomState(9)
+    x = (rnd.randn(m, c) * 3 + 1.5).astype(np.float32)
+    jx = jnp.asarray(x, dtype=jnp.dtype(dtype))
+    ref_mean, ref_inv = (np.asarray(a)[:, 0] for a in pallas_row_stats(jx, 1e-5))
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(getattr(torch, dtype))
+    before = ln.row_stats.launches
+    mean, inv = ln.row_stats(tx, 1e-5)
+    assert ln.row_stats.launches == before  # CPU tensors never count a launch
+    assert mean.dtype == inv.dtype == torch.float32
+    np.testing.assert_allclose(mean.numpy(), ref_mean, atol=STATS_ATOL, rtol=1e-6)
+    np.testing.assert_allclose(inv.numpy(), ref_inv, atol=STATS_ATOL, rtol=1e-5)
+
+
+@pytest.mark.parametrize("pallas", [False, True])
+def test_layer_norm32_matches_jax(pallas, monkeypatch):
+    """The port's LayerNorm32 (#10's plain version: one-pass moments, fp32
+    apply) against JAX's LayerNorm32 on its default path (flax LayerNorm) and
+    with HI3D_LN=pallas (`pallas_row_stats` + jnp apply), fp32 and bf16
+    inputs, with the UNet's eps 1e-5 and the DPT's 1e-6.
+
+    Tolerance: fp32 outputs of O(1) differ by summation order only (1e-5);
+    bf16 outputs by at most one bf16 ulp where the fp32 results straddle a
+    rounding boundary (3.2e-2 at |y| < 8)."""
+    from hi3d_tpu.models.attention import LayerNorm32 as JaxLayerNorm32
+    from hi3d_tpu_torch.models.attention import LayerNorm32
+
+    if pallas:
+        monkeypatch.setenv("HI3D_LN", "pallas")
+    rnd = np.random.RandomState(10)
+    x = (rnd.randn(2, 24, 64) * 2 + 0.7).astype(np.float32)
+    w = (1 + 0.1 * rnd.randn(64)).astype(np.float32)
+    b = (0.1 * rnd.randn(64)).astype(np.float32)
+    params = {"params": {"norm": {"scale": jnp.asarray(w), "bias": jnp.asarray(b)}}}
+    for eps in (1e-5, 1e-6):
+        tm = LayerNorm32(64, eps=eps)
+        with torch.no_grad():
+            tm.weight.copy_(torch.from_numpy(w))
+            tm.bias.copy_(torch.from_numpy(b))
+        for dtype, atol in (("float32", 1e-5), ("bfloat16", 3.2e-2)):
+            jx = jnp.asarray(x, dtype=jnp.dtype(dtype))
+            ref = np.asarray(JaxLayerNorm32(epsilon=eps).apply(params, jx).astype(jnp.float32))
+            tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(getattr(torch, dtype))
+            with torch.no_grad():
+                out = tm(tx)
+            assert out.dtype == tx.dtype
+            np.testing.assert_allclose(out.float().numpy(), ref, atol=atol, rtol=0)
+
+
+def test_layer_norm_grad_matches_pallas_vjp():
+    """`layer_norm`'s backward (plain fp32, from the saved mean and inv_std)
+    against jax.grad through `pallas_row_stats`'s custom VJP and the jnp
+    apply, as JAX's LayerNorm32 runs under HI3D_LN=pallas: dx, dγ, dβ."""
+    import jax
+
+    from hi3d_tpu.ops.group_norm import pallas_row_stats
+
+    rnd = np.random.RandomState(11)
+    m, c = 64, 96
+    x = (rnd.randn(m, c) * 2 + 0.5).astype(np.float32)
+    w = (1 + 0.1 * rnd.randn(c)).astype(np.float32)
+    b = (0.1 * rnd.randn(c)).astype(np.float32)
+    cot = rnd.randn(m, c).astype(np.float32)
+
+    def loss(x_, w_, b_):
+        mean, inv = pallas_row_stats(x_, 1e-5)
+        return jnp.vdot((x_ - mean) * inv * w_ + b_, jnp.asarray(cot))
+
+    rx, rw, rb = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (x, w, b)))
+    gx, gw, gb = _torch_grads(lambda *t: ln.layer_norm(*t, 1e-5), (x, w, b), cot)
+    np.testing.assert_allclose(gx, np.asarray(rx), atol=GRAD_ATOL, rtol=0)
+    # dγ, dβ sum over 64 rows of O(1) terms
+    np.testing.assert_allclose(gw, np.asarray(rw), atol=1e-3, rtol=1e-5)
+    np.testing.assert_allclose(gb, np.asarray(rb), atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape,groups", [
+    ((2, 128, 16, 16), 32),   # a VAE norm (C 128, 32 groups)
+    ((3, 64, 12, 8), 32),     # a DPT stem norm
+    ((1, 40, 4, 4), 8),
+])
+def test_group_stats_plain_matches_pallas(shape, groups):
+    """#9's plain version against `pallas_group_stats` (interpret mode) on
+    the channels-last transpose of the same tensor."""
+    from hi3d_tpu.ops.group_norm import pallas_group_stats
+
+    rnd = np.random.RandomState(12)
+    x = (rnd.randn(*shape) * 2 + 0.5).astype(np.float32)
+    ref_mean, ref_inv = (np.asarray(a) for a in
+                         pallas_group_stats(jnp.asarray(np.moveaxis(x, 1, -1)), groups, 1e-6))
+    before = gn.group_stats.launches
+    mean, inv = gn.group_stats(torch.from_numpy(x), groups, 1e-6)
+    assert gn.group_stats.launches == before
+    assert tuple(mean.shape) == (shape[0], groups)
+    np.testing.assert_allclose(mean.numpy(), ref_mean, atol=STATS_ATOL, rtol=1e-6)
+    np.testing.assert_allclose(inv.numpy(), ref_inv, atol=STATS_ATOL, rtol=1e-5)
 
 
 # ------------------------------------------------------------------ image IO

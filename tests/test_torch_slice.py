@@ -262,7 +262,8 @@ def test_cli_cuda_device_without_gpu_raises():
 
 def test_import_hygiene_blocks_jax():
     """Every hi3d_tpu_torch module imports with jax and hi3d_tpu blocked, and
-    every `target` of the stage-1 training config resolves to a port class."""
+    every `target` of the stage-1 training config and of the stage-2
+    inference config resolves to a port class."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -277,9 +278,10 @@ def test_import_hygiene_blocks_jax():
         "        for v in node.values(): yield from targets(v)\n"
         "    elif isinstance(node, list):\n"
         "        for v in node: yield from targets(v)\n"
-        "found = list(targets(load_config('configs/train-v01.yaml')))\n"
-        "assert len(found) > 15 and all(get_obj_from_str(t).__module__.startswith('hi3d_tpu_torch.')"
-        " for t in found)\n"
+        "for cfg in ('configs/train-v01.yaml', 'configs/inference-v02.yaml'):\n"
+        "    found = list(targets(load_config(cfg)))\n"
+        "    assert len(found) > 15 and all(get_obj_from_str(t).__module__.startswith("
+        "'hi3d_tpu_torch.') for t in found)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'hi3d_tpu.')) for k in sys.modules"
         " if sys.modules[k] is not None)\n"
         "print(' '.join(names))\n"
@@ -294,3 +296,5 @@ def test_import_hygiene_blocks_jax():
                 "diffusion.sigma_sampling", "diffusion.weighting", "training", "training.ema",
                 "training.schedules", "training.state", "training.step", "training.trainer"}
     assert {f"hi3d_tpu_torch.{n}" for n in training} <= names
+    stage2 = {"ops.layer_norm", "models.dpt", "pipelines.v2v"}
+    assert {f"hi3d_tpu_torch.{n}" for n in stage2} <= names
