@@ -1,30 +1,38 @@
-"""GPU smoke run of the PyTorch port's stage-1 and stage-2 paths on one NVIDIA H100.
+"""GPU smoke run of the PyTorch port's stage-1, stage-2 and serving paths on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase below
+    python3 chip_smoke.py --profile-serve  # only a 2-step profile of the serve batch
 
 1. prints the card (nvidia-smi name and power limit) and fails without CUDA;
 2. builds the kernels from this checkout (`hi3d_tpu_torch/csrc`, Triton);
-3. runs each forward kernel (K1, K2, K3, #9 GroupNorm statistics, #10
-   LayerNorm) and each backward kernel (#3, #5, and the K3 and #10 autograd
-   Functions) against its plain PyTorch version at the main paths' shapes
-   (error against a stated tolerance, CUDA-event times);
+3. runs each forward kernel (K1, K2, #6 segment attention, K3, #9 GroupNorm
+   statistics, #10 LayerNorm) and each backward kernel (#3, #5, #7, and the
+   K3 and #10 autograd Functions) against its plain PyTorch version at the
+   main paths' shapes (error against a stated tolerance, CUDA-event times),
+   beside the one PyTorch call that computes the same function, where there
+   is one (`library_ms`), and the least time the card could take (`bound_ms`);
 4. runs the full-width stage-1 UNet once at a small input on the card and
    holds its output, then its parameter gradient, against the same weights
    on the CPU (plain versions, fp32 and bf16); the same for the output of the
-   full-width stage-2 UNet (17 input channels);
+   full-width stage-2 UNet (17 input channels), and for the stage-1 UNet's
+   output and gradient at a 40-frame clip (every frame-axis site on #6/#7);
 5. main path 1: `hi3d_tpu_torch.pipelines.i2v.main` on `demo/3.png` at full
    width (configs/inference-v01.yaml, 16×512², random weights); checks the
    frames and every kernel's launch count against the model's plan;
 6. main path 2: `hi3d_tpu_torch.train.main` on configs/train-v01.yaml at
    full width (2 videos × 16 × 512² per step, random weights, renders made
    from demo/3.png) for 4 steps; checks finite losses, moved parameters, a
-   reloadable checkpoint and the launch counts of all seven kernels;
+   reloadable checkpoint and the launch counts;
 7. main path 3: `hi3d_tpu_torch.pipelines.v2v.main` at full width
    (configs/inference-v02.yaml, 16×1024², 25 steps, random weights, the DPT's
    included) on the frames main path 1 wrote; checks the refined frames and
    the launch counts;
-8. prints the kernel JSON line (launches per path and summed), the card
-   line, and the contract line last.
+8. main path 4: `hi3d_tpu_torch.pipelines.serve.main` in orbit mode on two
+   images (demo/3.png and a rolled copy) at full width, 2 assets × 48 frames
+   × 512² in one batch, 25 steps; checks the frames and the launch counts
+   (#6 on every frame-axis site, K2 none);
+9. prints the kernel JSON line (launches per path and summed, errors, times,
+   bounds), the card line, and the contract line last.
 
 Any failure raises and exits non-zero.
 """
@@ -72,12 +80,57 @@ def time_ms(fn, reps: int = 10) -> float:
     return times[len(times) // 2]
 
 
-def kernel_phase():
-    """Each kernel against its plain version at main-path shapes.
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA H100 datasheet)
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (same source)
 
-    Returns {kernel name: (max_abs_err, kernel ms, plain ms)}: the worst
-    error over the cases and the median times summed over the cases."""
+
+def bound(nbytes: float, flops: float):
+    """(ms, "bytes" or "operations"): the least time one H100 could take for
+    work that moves `nbytes` (each input read once, each output written
+    once) and does `flops` operations."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+class Results(dict):
+    """{kernel name: {"err", "ms", "plain_ms", "library_ms", "bound_ms",
+    "bound_by"}}: the worst error over a kernel's cases and its times summed
+    over them. `library_ms` is None when some case has no single PyTorch
+    call that computes the same function; `bound_by` is that of the case
+    with the largest bound."""
+
+    def add(self, name, err, ms, plain_ms, library_ms, nbytes, flops):
+        b_ms, b_by = bound(nbytes, flops)
+        r = self.setdefault(name, {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                                   "bound_ms": 0.0, "bound_by": b_by, "_top": 0.0})
+        r["err"] = max(r["err"], err)
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["library_ms"] = None if library_ms is None or r["library_ms"] is None \
+            else r["library_ms"] + library_ms
+        r["bound_ms"] += b_ms
+        if b_ms > r["_top"]:
+            r["_top"], r["bound_by"] = b_ms, b_by
+        return b_ms, b_by
+
+
+def _fmt(x) -> str:
+    return "none" if x is None else f"{x:.3f} ms"
+
+
+def _sdpa_frames(x, h, d):
+    """A (B, T, S, H·D) projection as SDPA's (B, S·H, T, D) view: attention
+    along the frame axis, one "head" per (location, head)."""
+    b, t, s, _ = x.shape
+    return x.view(b, t, s * h, d).transpose(1, 2)
+
+
+def kernel_phase() -> Results:
+    """Each forward kernel against its plain version at main-path shapes,
+    with the time of the one PyTorch call that computes the same function
+    (`library_ms`, a yardstick the port never calls) and the bound."""
     import torch
+    import torch.nn.functional as F
 
     from hi3d_tpu_torch.ops import flash_attention as fa
     from hi3d_tpu_torch.ops import group_norm as gn
@@ -87,18 +140,19 @@ def kernel_phase():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
-    results = {}
+    results = Results()
 
-    def record(name, err, tol, ms, plain_ms, label):
+    def record(name, err, tol, ms, plain_ms, label, library_ms, nbytes, flops):
+        b_ms, b_by = results.add(name, err, ms, plain_ms, library_ms, nbytes, flops)
         print(f"[kernel] {name} {label}: max_abs_err={err:.3e} (tol {tol:.1e}) "
-              f"kernel={ms:.3f} ms plain={plain_ms:.3f} ms", flush=True)
+              f"kernel={ms:.3f} ms plain={plain_ms:.3f} ms library={_fmt(library_ms)} "
+              f"bound={b_ms:.4f} ms ({b_by})", flush=True)
         if not err <= tol:
             raise AssertionError(f"{name} {label}: max abs error {err} > {tol}")
-        e, k, p = results.get(name, (0.0, 0.0, 0.0))
-        results[name] = (max(e, err), k + ms, p + plain_ms)
 
     # K1: bf16 inputs, fp32 softmax in both; P is rounded to bf16 before P·V in
-    # both, and outputs are O(1), so the gap is a few bf16 ulps of the output
+    # both, and outputs are O(1), so the gap is a few bf16 ulps of the output.
+    # Library: F.scaled_dot_product_attention on the (B, H, S, D) views.
     def check_flash(b, s, h, d, g):
         x = torch.randn((b, s, 3 * h * d), generator=g, device=dev, dtype=bf16)
         q, k, v = (x[..., i * h * d:(i + 1) * h * d].view(b, s, h, d) for i in range(3))
@@ -109,10 +163,13 @@ def kernel_phase():
         lse_err = (lse - ref_lse).abs().max().item()
         if not lse_err <= 1e-3:
             raise AssertionError(f"flash_attention lse error {lse_err}")
+        qt, kt, vt = (y.transpose(1, 2) for y in (q, k, v))
         record("flash_attention", err, 2e-2,
                time_ms(lambda: fa.flash_attention(q, k, v)),
                time_ms(lambda: fa.flash_attention_reference(q, k, v), reps=3),
-               f"B={b} S={s} H={h} D={d} (strided BSHD view)")
+               f"B={b} S={s} H={h} D={d} (strided BSHD view)",
+               time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+               4 * b * s * h * d * 2 + b * h * s * 4, 4 * b * h * s * s * d)
 
     for b, s, h, d in ((4, 4096, 5, 64), (4, 1024, 10, 64), (4, 64, 20, 64)):
         check_flash(b, s, h, d, gen)
@@ -120,19 +177,53 @@ def kernel_phase():
     # K2: T=16 softmax in fp32 in both; bf16 output rounding dominates
     for b, t, s, c in ((2, 16, 4096, 320), (2, 16, 256, 1280)):
         h = c // 64
-        q, k, v = (torch.randn((b, t, s, c), generator=gen, device=dev, dtype=bf16)
-                   .view(b, t, s, h, 64) for _ in range(3))
+        base = [torch.randn((b, t, s, c), generator=gen, device=dev, dtype=bf16)
+                for _ in range(3)]
+        q, k, v = (x.view(b, t, s, h, 64) for x in base)
         out = ta.temporal_attention(q, k, v)
         ref = ta.temporal_attention_reference(q, k, v)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
+        lib = [_sdpa_frames(x, h, 64) for x in base]
         record("temporal_attention", err, 2e-2,
                time_ms(lambda: ta.temporal_attention(q, k, v)),
                time_ms(lambda: ta.temporal_attention_reference(q, k, v), reps=3),
-               f"B={b} T={t} S={s} C={c}")
+               f"B={b} T={t} S={s} C={c}",
+               time_ms(lambda: F.scaled_dot_product_attention(*lib)),
+               4 * b * t * s * c * 2, 4 * b * s * c * t * t)
+
+    # #6 at the serve path's four frame-axis sites (2 assets × CFG = 4 videos
+    # of 48 frames at 512²), a ragged T = 33 and T = 64 at D = 128; the inputs
+    # are (B, T, S, C) projections handed over as (B, S, T, H, D) views, as
+    # the UNet does. Out within 2e-2 (bf16 output, P rounded to bf16 before
+    # P·V), lse within 1e-3 (fp32 in both).
+    for b, t, s, c, d in ((4, 48, 4096, 320, 64), (4, 48, 1024, 640, 64),
+                          (4, 48, 256, 1280, 64), (4, 48, 64, 1280, 64),
+                          (4, 33, 256, 1280, 64), (2, 64, 256, 1280, 128)):
+        h = c // d
+        base = [torch.randn((b, t, s, c), generator=gen, device=dev, dtype=bf16)
+                for _ in range(3)]
+        q, k, v = (x.view(b, t, s, h, d).transpose(1, 2) for x in base)
+        out, lse = ta._block_forward(q, k, v, None)
+        ref, ref_lse = ta.temporal_block_attention_reference(q, k, v)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        print(f"[kernel] temporal_block_attention T={t} S={s} C={c} D={d}: lse "
+              f"max_abs_err={lse_err:.3e} (tol 1.0e-03)", flush=True)
+        if not lse_err <= 1e-3:
+            raise AssertionError(f"temporal_block_attention lse error {lse_err}")
+        lib = [_sdpa_frames(x, h, d) for x in base]
+        record("temporal_block_attention", err, 2e-2,
+               time_ms(lambda: ta.segment_attention(q, k, v)),
+               time_ms(lambda: ta.temporal_block_attention_reference(q, k, v), reps=3),
+               f"B={b} T={t} S={s} C={c} D={d} (transposed views)",
+               time_ms(lambda: F.scaled_dot_product_attention(*lib)),
+               4 * b * t * s * c * 2 + b * h * s * t * 4, 4 * b * s * c * t * t)
 
     # K3: same one-pass fp32 arithmetic; outputs are O(1) bf16, so the gap is
-    # one bf16 ulp from a different summation order
+    # one bf16 ulp from a different summation order. Library: F.group_norm,
+    # for the cases without SiLU (with it no single call computes the same)
     for shape, act in (((32, 320, 64, 64), None), ((32, 320, 64, 64), "silu"),
                        ((2, 640, 16, 32, 32), "silu")):
         x = torch.randn(shape, generator=gen, device=dev, dtype=bf16) * 3 + 1
@@ -142,10 +233,14 @@ def kernel_phase():
         ref = gn.group_norm_reference(x, w, bia, 32, 1e-5, act)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
+        wx, bx = w.to(bf16), bia.to(bf16)
+        n = x.numel()
         record("group_norm", err, 6e-2,
                time_ms(lambda: gn.group_norm(x, w, bia, 32, 1e-5, act)),
                time_ms(lambda: gn.group_norm_reference(x, w, bia, 32, 1e-5, act), reps=3),
-               f"x{tuple(shape)} act={act}")
+               f"x{tuple(shape)} act={act}",
+               None if act else time_ms(lambda: F.group_norm(x, 32, wx, bx, 1e-5)),
+               2 * n * 2 + 2 * shape[1] * 4, 8 * n)
 
     # the stage-2 cases draw from their own generator, so the stage-1 cases
     # above keep their inputs. K1 at B1 H1 S = 16384 (stage 2's largest site):
@@ -161,7 +256,8 @@ def kernel_phase():
 
     # #10: the fused pass's y in x's dtype against the plain fp32 apply (bf16:
     # |y| < 8, so one bf16 ulp is ≤ 3.1e-2; fp32: summation order, 1e-4), and
-    # its (mean, inv_std) through `row_stats` (1e-4 relative)
+    # its (mean, inv_std) through `row_stats` (1e-4 relative). Library:
+    # F.layer_norm with γ, β in x's dtype
     for m, c, dtype, eps in ((32 * 16384, 320, bf16, 1e-5), (16 * 577, 768, torch.float32, 1e-6)):
         x = torch.randn((m, c), generator=gen, device=dev, dtype=dtype) * 3 + 1
         w = 1 + 0.1 * torch.randn((c,), generator=gen, device=dev)
@@ -173,13 +269,17 @@ def kernel_phase():
         if not rel <= 1e-4:
             raise AssertionError(f"row_stats ({m}, {c}): relative error {rel}")
         err = (y.float() - ref.float()).abs().max().item()
+        wx, bx = w.to(dtype), bia.to(dtype)
         record("layer_norm", err, 6e-2 if dtype == bf16 else 1e-4,
                time_ms(lambda: ln.layer_norm(x, w, bia, eps)),
                time_ms(lambda: ln.layer_norm_reference(x, w, bia, eps), reps=3),
-               f"({m}, {c}) {str(dtype).split('.')[-1]} (stats rel err {rel:.1e})")
+               f"({m}, {c}) {str(dtype).split('.')[-1]} (stats rel err {rel:.1e})",
+               time_ms(lambda: F.layer_norm(x, (c,), wx, bx, eps)),
+               2 * m * c * x.element_size() + 2 * c * 4, 8 * m * c)
 
     # #9: fp32 (mean, inv_std) against the plain version, within 1e-4 of
-    # their largest magnitude (4.19 M-element sums folded in another order)
+    # their largest magnitude (4.19 M-element sums folded in another order).
+    # Library: torch.var_mean over the group view
     for shape, eps in (((1, 128, 1024, 1024), 1e-6), ((16, 256, 96, 96), 1e-5)):
         x = torch.randn(shape, generator=gen, device=dev) * 3 + 1
         got = gn.group_stats(x, 32, eps)
@@ -187,17 +287,20 @@ def kernel_phase():
         torch.cuda.synchronize()
         err = max((a - b).abs().max().item() for a, b in zip(got, want))
         scale = max(b.abs().max().item() for b in want)
+        xg = x.view(shape[0], 32, -1)
         record("group_stats", err, 1e-4 * scale,
                time_ms(lambda: gn.group_stats(x, 32, eps)),
                time_ms(lambda: gn.group_stats_reference(x, 32, eps), reps=3),
-               f"x{tuple(shape)} fp32 (mean, inv_std up to {scale:.3f})")
+               f"x{tuple(shape)} fp32 (mean, inv_std up to {scale:.3f})",
+               time_ms(lambda: torch.var_mean(xg, dim=-1, correction=0)),
+               x.numel() * 4 + shape[0] * 32 * 2 * 4, 3 * x.numel())
     return results
 
 
-def backward_kernel_phase():
-    """#3 and #5 against autograd through their plain versions, and K3's
+def backward_kernel_phase() -> Results:
+    """#3, #5 and #7 against autograd through their plain versions, and K3's
     Function (kernel forward, plain fp32 backward) against autograd of
-    `group_norm_reference`, at the training path's shapes.
+    `group_norm_reference`, at the training and serve paths' shapes.
 
     Error measure: max |kernel − plain| over dq/dk/dv (dx/dγ/dβ) divided by
     max |plain| of the same gradient; tolerance 2e-2. Both sides read the
@@ -205,9 +308,11 @@ def backward_kernel_phase():
     -core products (as the Pallas kernels do) and every gradient is rounded
     to bf16 once, so the gap is a few bf16 ulps of the largest entry.
 
-    Returns {name: (max_abs_err, kernel ms, plain ms)} like `kernel_phase`;
-    "plain ms" times the plain version's backward alone (graph kept)."""
+    Returns `Results` like `kernel_phase`; "plain ms" times the plain
+    version's backward alone (graph kept), "library ms" the autograd
+    backward of F.scaled_dot_product_attention on the same views."""
     import torch
+    import torch.nn.functional as F
 
     from hi3d_tpu_torch.ops import flash_attention as fa
     from hi3d_tpu_torch.ops import group_norm as gn
@@ -217,10 +322,10 @@ def backward_kernel_phase():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     bf16 = torch.bfloat16
-    results = {}
+    results = Results()
     tol = 2e-2
 
-    def check(name, label, got, want, ms, plain_ms):
+    def check(name, label, got, want, ms, plain_ms, library_ms=None, nbytes=0, flops=0):
         abs_err, rel = 0.0, 0.0
         for tag, a, b in zip(("d0", "d1", "d2"), got, want):
             e = (a.float() - b.float()).abs().max().item()
@@ -228,12 +333,12 @@ def backward_kernel_phase():
             if not (torch.isfinite(a).all() and scale > 0):
                 raise AssertionError(f"{name} {label}: {tag} not finite or reference all zero")
             abs_err, rel = max(abs_err, e), max(rel, e / scale)
+        b_ms, b_by = results.add(name, abs_err, ms, plain_ms, library_ms, nbytes, flops)
         print(f"[bwd] {name} {label}: max_abs_err={abs_err:.3e} rel={rel:.3e} (tol {tol:.0e}) "
-              f"kernel={ms:.3f} ms plain={plain_ms:.3f} ms", flush=True)
+              f"kernel={ms:.3f} ms plain={plain_ms:.3f} ms library={_fmt(library_ms)} "
+              f"bound={b_ms:.4f} ms ({b_by})", flush=True)
         if not rel <= tol:
             raise AssertionError(f"{name} {label}: relative error {rel} > {tol}")
-        e, k, p = results.get(name, (0.0, 0.0, 0.0))
-        results[name] = (max(e, abs_err), k + ms, p + plain_ms)
 
     def plain_grads(fn, ins, dout):
         leaves = [t.detach().requires_grad_() for t in ins]
@@ -241,6 +346,15 @@ def backward_kernel_phase():
         grads = torch.autograd.grad(out, leaves, dout, retain_graph=True)
         ms = time_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True), reps=3)
         return grads, ms
+
+    def library_grad_ms(fn, ins, dout):
+        leaves = [t.detach().requires_grad_() for t in ins]
+        out = fn(*leaves)
+        return time_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True), reps=3)
+
+    def sdpa_bshd(q, k, v):
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2))
 
     for b, s, h in ((4, 4096, 5), (4, 1024, 10), (4, 256, 20), (4, 64, 20)):
         d = 64
@@ -252,19 +366,45 @@ def backward_kernel_phase():
         torch.cuda.synchronize()
         want, plain_ms = plain_grads(lambda *a: fa.flash_attention_reference(*a)[0], (q, k, v), dout)
         ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout))
-        check("flash_attention_backward", f"B={b} S={s} H={h} D={d}", got, want, ms, plain_ms)
+        check("flash_attention_backward", f"B={b} S={s} H={h} D={d}", got, want, ms, plain_ms,
+              library_grad_ms(sdpa_bshd, (q, k, v), dout.transpose(1, 2)),
+              8 * b * s * h * d * 2 + b * h * s * 4, 10 * b * h * s * s * d)
 
     for b, t, s, c in ((2, 16, 4096, 320), (2, 16, 1024, 640), (2, 16, 256, 1280)):
         h = c // 64
-        q, k, v, dout = (torch.randn((b, t, s, c), generator=gen, device=dev, dtype=bf16)
-                         .view(b, t, s, h, 64) for _ in range(4))
+        base = [torch.randn((b, t, s, c), generator=gen, device=dev, dtype=bf16)
+                for _ in range(4)]
+        q, k, v, dout = (x.view(b, t, s, h, 64) for x in base)
         out = ta.temporal_attention(q, k, v)
         got = ta.temporal_attention_backward(q, k, v, out, dout)
         torch.cuda.synchronize()
         want, plain_ms = plain_grads(ta.temporal_attention_reference, (q, k, v), dout)
         ms = time_ms(lambda: ta.temporal_attention_backward(q, k, v, out, dout))
         check("temporal_attention_backward", f"B={b} T={t} S={s} C={c}", got, want, ms,
-              plain_ms)
+              plain_ms, library_grad_ms(
+                  lambda *a: F.scaled_dot_product_attention(*(_sdpa_frames(y, h, 64) for y in a)),
+                  base[:3], _sdpa_frames(base[3], h, 64)),
+              8 * b * t * s * c * 2, 10 * b * s * c * t * t)
+
+    # #7 at #6's shapes, from #6's own O and lse
+    for b, t, s, c, d in ((4, 48, 4096, 320, 64), (4, 48, 1024, 640, 64),
+                          (4, 48, 256, 1280, 64), (4, 48, 64, 1280, 64),
+                          (4, 33, 256, 1280, 64), (2, 64, 256, 1280, 128)):
+        h = c // d
+        base = [torch.randn((b, t, s, c), generator=gen, device=dev, dtype=bf16)
+                for _ in range(4)]
+        q, k, v, dout = (x.view(b, t, s, h, d).transpose(1, 2) for x in base)
+        out, lse = ta._block_forward(q, k, v, None)
+        got = ta.temporal_block_attention_backward(q, k, v, out, lse, dout)
+        torch.cuda.synchronize()
+        want, plain_ms = plain_grads(lambda *a: ta.temporal_block_attention_reference(*a)[0],
+                                     (q, k, v), dout)
+        ms = time_ms(lambda: ta.temporal_block_attention_backward(q, k, v, out, lse, dout))
+        check("temporal_block_attention_backward", f"B={b} T={t} S={s} C={c} D={d}", got, want,
+              ms, plain_ms, library_grad_ms(
+                  lambda *a: F.scaled_dot_product_attention(*(_sdpa_frames(y, h, d) for y in a)),
+                  base[:3], _sdpa_frames(base[3], h, d)),
+              8 * b * t * s * c * 2 + b * h * s * t * 4, 10 * b * s * c * t * t)
 
     for shape, act in (((32, 320, 64, 64), "silu"), ((32, 320, 64, 64), None),
                        ((2, 320, 16, 64, 64), "silu")):
@@ -316,6 +456,10 @@ KERNELS = (
      "hi3d_tpu/ops/group_norm.py:392"),
     ("layer_norm", "triton", "hi3d_tpu_torch/ops/layer_norm.py",
      "hi3d_tpu/ops/group_norm.py:461"),
+    ("temporal_block_attention", "cuda", "hi3d_tpu_torch/csrc/block_attention.cu",
+     "hi3d_tpu/ops/temporal_attention.py:152"),
+    ("temporal_block_attention_backward", "cuda", "hi3d_tpu_torch/csrc/block_attention.cu",
+     "hi3d_tpu/ops/temporal_attention.py:173"),
 )
 
 
@@ -329,7 +473,9 @@ def _wrappers() -> dict:
     return {"flash_attention": fa.flash_attention, "temporal_attention": ta.temporal_attention,
             "group_norm": gn.group_norm, "flash_attention_backward": fa.flash_attention_backward,
             "temporal_attention_backward": ta.temporal_attention_backward,
-            "group_stats": gn.group_stats, "layer_norm": ln.layer_norm}
+            "group_stats": gn.group_stats, "layer_norm": ln.layer_norm,
+            "temporal_block_attention": ta.temporal_block_attention,
+            "temporal_block_attention_backward": ta.temporal_block_attention_backward}
 
 
 def reset_launches() -> None:
@@ -379,19 +525,40 @@ def _embedder(cfg: dict, target_suffix: str) -> dict:
     return emb.get("params") or {}
 
 
-def expected_launches(config_path: str, steps: int, path: str) -> dict:
+def _frame_kernels(t: int, fwd: int, bwd: int) -> dict:
+    """Launches of the frame-axis kernels at `t` frames: the route that
+    `ops.attention.frame_attention_kernel` picks carries `fwd` forward and
+    `bwd` backward launches, the other route none."""
+    from hi3d_tpu_torch.ops.attention import frame_attention_kernel
+
+    frame = frame_attention_kernel(t)
+    counts = {}
+    for name in ("temporal_attention", "temporal_block_attention"):
+        counts[name] = fwd if name == frame else 0
+        counts[f"{name}_backward"] = bwd if name == frame else 0
+    return counts
+
+
+def expected_launches(config_path: str, steps: int, path: str, clip_size=None,
+                      assets: int = 1) -> dict:
     """Launches per kernel that the model's plan predicts for one run of
-    `path` ("i2v", "train" or "v2v").
+    `path` ("i2v", "train", "v2v", "serve": `assets` assets of `clip_size`
+    frames in one batch, or "unet_grad": one forward and backward of the
+    UNet alone at `clip_size` frames; the config's clip length by default).
 
     UNet, per call (inference: one CFG-batched call per sampler step): K1
-    and K2 once per transformer block of every SpatialVideoTransformer; K3
-    four times per VideoResBlock (spatial and time-stack in/out norms), once
-    per transformer `norm`, once for the UNet's `out.0`; #10 once per
+    and the frame-axis kernel once per transformer block of every
+    SpatialVideoTransformer — K2 up to 32 frames, #6 above, as
+    `ops.attention.frame_attention_kernel` decides; K3 four times per
+    VideoResBlock (spatial and time-stack in/out norms), once per
+    transformer `norm`, once for the UNet's `out.0`; #10 once per
     LayerNorm32 of the UNet. Training (`accumulate_grad_batches` UNet calls
     per step): with `use_checkpoint` every VideoResBlock and
     SpatialVideoTransformer runs its forward twice (forward, then recompute
-    in the backward), so K1, K2, #10 and the blocks' K3 launches double while
-    `out.0` stays at one; #3 and #5 run once per transformer block.
+    in the backward), so K1, the frame kernel, #10 and the blocks' K3
+    launches double while `out.0` stays at one; #3 and the frame kernel's
+    backward (#5 or #7) run once per transformer block. Inference launches
+    no backward kernel.
 
     Conditioning and VAE, once per run (per UNet call in training): #10 once
     per LayerNorm32 of the CLIP towers (ViT-H; ViT-L at stage 1) and of the
@@ -413,28 +580,34 @@ def expected_launches(config_path: str, steps: int, path: str) -> dict:
     n_attn = sum(1 for s in specs if s[0] == "attn")
     n_res = sum(1 for s in specs if s[0] == "res")
     sites = norm_sites(config_path)
-    t = mp["num_samples"]
+    t = clip_size or mp["num_samples"]
     engine_chunk = mp.get("en_and_decode_n_samples_a_time")
     enc_chunk = _embedder(cfg, "VideoPredictionEmbedderWithEncoder").get(
         "en_and_decode_n_samples_a_time")
-    if path == "train":
-        calls = steps * cfg.get("lightning", {}).get("trainer", {}).get("accumulate_grad_batches", 1)
+    if path in ("train", "unet_grad"):
+        calls = 1 if path == "unet_grad" else steps * cfg.get("lightning", {}).get(
+            "trainer", {}).get("accumulate_grad_batches", 1)
         fwd = 2 if p.get("use_checkpoint") else 1
-        batch = cfg["data"]["params"]["batch_size"]
-        return {"flash_attention": calls * fwd * blocks, "temporal_attention": calls * fwd * blocks,
+        grad = {"flash_attention": calls * fwd * blocks,
+                **_frame_kernels(t, calls * fwd * blocks, calls * blocks),
                 "group_norm": calls * (fwd * (4 * n_res + n_attn) + 1),
-                "flash_attention_backward": calls * blocks,
-                "temporal_attention_backward": calls * blocks,
-                # the VAE encodes the batch's frames, the conditioner each video's frame 0
+                "flash_attention_backward": calls * blocks}
+        if path == "unet_grad":  # one UNet forward and backward, nothing else
+            return {**grad, "group_stats": 0, "layer_norm": fwd * sites["unet"]}
+        batch = cfg["data"]["params"]["batch_size"]
+        # the VAE encodes the batch's frames, the conditioner each video's frame 0
+        return {**grad,
                 "group_stats": calls * sites["encoder"] * (_chunks(batch * t, engine_chunk)
                                                            + _chunks(batch, enc_chunk)),
                 "layer_norm": calls * (fwd * sites["unet"] + sites["vit_h"] + sites["vit_l"])}
-    unet = {"flash_attention": steps * blocks, "temporal_attention": steps * blocks,
+    unet = {"flash_attention": steps * blocks, "flash_attention_backward": 0,
+            **_frame_kernels(t, steps * blocks, 0),
             "group_norm": steps * (4 * n_res + n_attn + 1)}
-    if path == "i2v":  # the conditioner encodes frame 0; the engine decodes T frames
+    if path in ("i2v", "serve"):  # the conditioner encodes each asset's frame 0; the
+        # engine decodes the assets' T frames
         return {**unet,
-                "group_stats": sites["encoder"] * _chunks(1, enc_chunk)
-                + sites["decoder"] * _chunks(t, engine_chunk),
+                "group_stats": sites["encoder"] * _chunks(assets, enc_chunk)
+                + sites["decoder"] * _chunks(assets * t, engine_chunk),
                 "layer_norm": steps * sites["unet"] + sites["vit_h"] + sites["vit_l"]}
     # v2v: the conditioner (DPT, then the VAE embedder) and the engine each
     # encode the T frames; the engine decodes them
@@ -445,10 +618,11 @@ def expected_launches(config_path: str, steps: int, path: str) -> dict:
             "layer_norm": steps * sites["unet"] + sites["vit_h"] + sites["dpt_ln"]}
 
 
-def _full_width_unet(config_path: str):
+def _full_width_unet(config_path: str, b: int = 2, t: int = 4):
     """The config's full-width UNet on the card, fp32 weights, seeded; the
     zero-initialised leaves (out convs, proj_out) get random values: with
-    them at zero the output would be 0 whatever the kernels do."""
+    them at zero the output would be 0 whatever the kernels do. Inputs: `b`
+    videos of `t` frames at a 16² latent."""
     import torch
 
     from hi3d_tpu_torch.config import instantiate_from_config, load_config
@@ -463,7 +637,7 @@ def _full_width_unet(config_path: str):
             if not p.any():
                 p.normal_(0.0, 0.02, generator=gen)
     p = cfg["params"]
-    b, t, hw = 2, 4, 16
+    hw = 16
     inputs = dict(
         x=torch.randn((b * t, p["in_channels"], hw, hw), generator=gen, device="cuda"),
         timesteps=0.25 * torch.log(torch.rand((b * t,), generator=gen, device="cuda") * 100 + 0.01),
@@ -478,11 +652,21 @@ def _run_unet(net, inputs, t, dev):
     return net(**{k: v.to(dev) for k, v in inputs.items()}, num_video_frames=t)
 
 
-def unet_reference_phase(config_path: str) -> float:
-    """The full-width UNet of the config, one CFG-shaped call at a small input
-    (2 videos × 4 frames, 16² latent): bf16 on the card through K1/K2/K3,
-    held against the same weights in fp32 on the CPU through the plain
-    versions.
+def _check_frame_route(t: int, backward: bool) -> None:
+    """The frame-axis kernels that ran since the last `reset_launches` are
+    the route's for `t` frames (and its backward when `backward`), and the
+    other route's did not run."""
+    want = _frame_kernels(t, 1, 1 if backward else 0)
+    got = read_launches(want)
+    if {n: min(c, 1) for n, c in got.items()} != want:
+        raise AssertionError(f"frame-axis kernels at T={t}: launches {got}, route {want}")
+
+
+def unet_reference_phase(config_path: str, b: int = 2, t: int = 4) -> float:
+    """The full-width UNet of the config, one call at a small input (`b`
+    videos × `t` frames, 16² latent): bf16 on the card through K1, the frame
+    kernel of `t` frames (K2 or #6) and K3, held against the same weights in
+    fp32 on the CPU through the plain versions.
 
     Tolerance: bf16 itself is ~1.6e-2 of relative L2 error here (the plain
     versions in bf16 on the CPU measure that in the same run), so the card's
@@ -491,47 +675,50 @@ def unet_reference_phase(config_path: str) -> float:
 
     import torch
 
-    unet, inputs, t = _full_width_unet(config_path)
+    t0 = time.perf_counter()
+    unet, inputs, t = _full_width_unet(config_path, b, t)
     cpu_fp32 = copy.deepcopy(unet).to("cpu", torch.float32)
     cpu_bf16 = copy.deepcopy(unet).to("cpu", torch.bfloat16)
     unet.to(torch.bfloat16)
+    reset_launches()
     with torch.no_grad():
-        out, ref, plain = (_run_unet(net, inputs, t, dev).float().cpu() for net, dev in
-                           ((unet, "cuda"), (cpu_fp32, "cpu"), (cpu_bf16, "cpu")))
+        out = _run_unet(unet, inputs, t, "cuda").float().cpu()
+        _check_frame_route(t, backward=False)
+        ref, plain = (_run_unet(net, inputs, t, "cpu").float() for net in (cpu_fp32, cpu_bf16))
     if not torch.isfinite(out).all():
         raise AssertionError("UNet output on the card is not finite")
     rel, plain_rel = (((a - ref).norm() / ref.norm()).item() for a in (out, plain))
-    print(f"[smoke] full-width UNet of {os.path.basename(config_path)}, 2×4 frames at 16² "
+    print(f"[smoke] full-width UNet of {os.path.basename(config_path)}, {b}×{t} frames at 16² "
           f"latent, vs CPU fp32: card bf16 "
-          f"relative L2 error {rel:.3e}, plain bf16 {plain_rel:.3e} (tol {1.5 * plain_rel:.3e})",
-          flush=True)
+          f"relative L2 error {rel:.3e}, plain bf16 {plain_rel:.3e} (tol {1.5 * plain_rel:.3e}) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
     if not rel <= 1.5 * plain_rel:
         raise AssertionError(f"UNet on the card: error {rel} > 1.5 × plain bf16 {plain_rel}")
     return rel
 
 
-def unet_gradient_phase(config_path: str) -> float:
+def unet_gradient_phase(config_path: str, b: int = 2, t: int = 4) -> dict:
     """The gradient of a loss on the full-width UNet (same set-up as
     `unet_reference_phase`) with respect to every parameter, training's way
     on the card — fp32 weights, bf16 compute under the UNet's autocast,
-    `use_checkpoint` as configured, K1/K2/K3 forward and #3/#5/K3 backward —
-    against the CPU with the plain versions in fp32 (the reference) and with
-    fp32 weights under bf16 autocast (the plain bf16 path).
+    `use_checkpoint` as configured, K1/frame kernel/K3 forward and #3/the
+    frame kernel's backward (#5 or #7)/K3 backward — against the CPU with
+    the plain versions in fp32 (the reference) and with fp32 weights under
+    bf16 autocast (the plain bf16 path).
 
     Loss: mean of the output times a fixed random cotangent. Pass: the
     relative L2 error of the flattened gradient is at most 1.5× the plain
     bf16 path's; every parameter's gradient on the card is finite, and
     nonzero wherever the fp32 reference's is (the only exact zeros are the
     to_q / to_k / norm2 of the cross-attentions over one context token,
-    whose softmax over one key is constant)."""
+    whose softmax over one key is constant); the card's launches equal the
+    UNet's plan for one forward and backward. Returns those launches."""
     import copy
 
     import torch
 
-    from hi3d_tpu_torch.ops import flash_attention as fa
-    from hi3d_tpu_torch.ops import temporal_attention as ta
-
-    unet, inputs, t = _full_width_unet(config_path)
+    t0 = time.perf_counter()
+    unet, inputs, t = _full_width_unet(config_path, b, t)
     cpu = copy.deepcopy(unet).to("cpu")
     cpu.use_checkpoint = False
     gen = torch.Generator().manual_seed(5)
@@ -547,10 +734,11 @@ def unet_gradient_phase(config_path: str) -> float:
               for p in net.parameters()]
         return gs, loss.item()
 
-    bwd0 = (fa.flash_attention_backward.launches, ta.temporal_attention_backward.launches)
+    expected = expected_launches(config_path, 1, "unet_grad", clip_size=t)
+    reset_launches()
     card, card_loss = grads(unet, "cuda", torch.bfloat16)
-    if (fa.flash_attention_backward.launches, ta.temporal_attention_backward.launches) == bwd0:
-        raise AssertionError("the gradient on the card did not run #3/#5")
+    launches = read_launches(expected)
+    _check_launches(launches, expected)
     ref, ref_loss = grads(cpu, "cpu", torch.float32)
     plain, _ = grads(cpu, "cpu", torch.bfloat16)
     names = [n for n, _ in unet.named_parameters()]
@@ -563,15 +751,16 @@ def unet_gradient_phase(config_path: str) -> float:
         zero_ref += not r.any()
     card, ref, plain = (torch.cat(v) for v in (card, ref, plain))
     rel, plain_rel = (((a - ref).norm() / ref.norm()).item() for a in (card, plain))
-    print(f"[smoke] full-width UNet gradient ({len(names)} tensors, {ref.numel()} values), "
-          f"loss card {card_loss:.6f} ref {ref_loss:.6f}: card relative L2 error {rel:.3e}, "
-          f"plain bf16 {plain_rel:.3e} (tol {1.5 * plain_rel:.3e}); every gradient finite, "
-          f"nonzero where the reference's is ({zero_ref} structurally zero in both)", flush=True)
+    print(f"[smoke] full-width UNet gradient, {b}×{t} frames ({len(names)} tensors, "
+          f"{ref.numel()} values), loss card {card_loss:.6f} ref {ref_loss:.6f}: card relative L2 "
+          f"error {rel:.3e}, plain bf16 {plain_rel:.3e} (tol {1.5 * plain_rel:.3e}); every "
+          f"gradient finite, nonzero where the reference's is ({zero_ref} structurally zero in "
+          f"both) ({time.perf_counter() - t0:.1f} s)", flush=True)
     if not rel <= 1.5 * plain_rel:
         raise AssertionError(f"UNet gradient on the card: error {rel} > 1.5 × plain bf16 {plain_rel}")
     del unet, cpu
     torch.cuda.empty_cache()
-    return rel
+    return launches
 
 
 def _check_frames(frame_dir: str, shape) -> None:
@@ -740,6 +929,130 @@ def training_path(steps: int) -> dict:
     return launches
 
 
+SERVE_CLIP = 48  # a 48-view orbit: three times the 16 views, 7.5° apart
+SERVE_ASSETS = 2
+
+
+def write_serve_images(root: str) -> str:
+    """demo/3.png and a copy of it rolled by a quarter of its width, as PNGs
+    in `root`."""
+    from hi3d_tpu_torch.utils.image import load_image_rgb
+    from hi3d_tpu_torch.utils.png import write_png
+
+    img = load_image_rgb(os.path.join(ROOT, "demo", "3.png"))
+    os.makedirs(root, exist_ok=True)
+    write_png(os.path.join(root, "asset0.png"), img)
+    write_png(os.path.join(root, "asset1.png"), np.roll(img, img.shape[1] // 4, axis=1))
+    return root
+
+
+def serve_path(steps: int) -> dict:
+    """The serve CLI in orbit mode at full width (configs/inference-v01.yaml,
+    2 assets × 48 frames × 512² in one batch, random weights): 2 × 48 uint8
+    frames, launch counts equal to the plan (every frame-axis site on #6),
+    peak memory, s per batch, sampler s/step. Returns the launch counts."""
+    import torch
+
+    from hi3d_tpu_torch.pipelines import serve
+
+    config = os.path.join(ROOT, "configs", "inference-v01.yaml")
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_serve_", dir=os.path.join(ROOT, "outputs"))
+    image_dir = write_serve_images(os.path.join(out_dir, "images"))
+    expected = expected_launches(config, steps, "serve", clip_size=SERVE_CLIP, assets=SERVE_ASSETS)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 1e9
+    reset_launches()
+    t0 = time.perf_counter()
+    result = serve.main(["--image_dir", image_dir, "--output_dir", os.path.join(out_dir, "orbits"),
+                         "--mode", "orbit", "--batch", str(SERVE_ASSETS), "--clip_size",
+                         str(SERVE_CLIP), "--device", "cuda", "--seed", "0",
+                         "--stage1_config", config])
+    launches = read_launches(expected)
+    wall = time.perf_counter() - t0
+    phases = result["phases"]
+    per_batch = sum(phases.values()) / result["batches"]
+    print(f"[serve] main path 4 {wall:.1f} s (model build included): {SERVE_ASSETS} assets × "
+          f"{SERVE_CLIP} × 512² in {result['batches']} batch; {per_batch:.3f} s per batch, "
+          f"{per_batch / SERVE_ASSETS:.3f} s/asset; sampler {phases['sampler']:.3f} s "
+          f"({phases['sampler'] / steps:.4f} s/step); peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({held:.2f} GB held before the "
+          f"path); phases "
+          f"{json.dumps({k: round(v, 3) for k, v in phases.items()})}; launches {launches}",
+          flush=True)
+    torch.cuda.empty_cache()
+    if len(result["outputs"]) != SERVE_ASSETS:
+        raise AssertionError(f"serve wrote {result['outputs']}, want {SERVE_ASSETS} assets")
+    for name in ("asset0", "asset1"):
+        _check_frames(os.path.join(out_dir, "orbits", name, "frames"), (SERVE_CLIP, 512, 512, 3))
+    _check_launches(launches, expected)
+    return launches
+
+
+def profile_serve(steps: int = 2) -> None:
+    """torch.profiler over `steps` sampler steps of the serve path's batch
+    (2 assets × 48 × 512², full width, random weights) after a 1-step
+    warm-up: host ms/step, launches a step, device idle share of the span,
+    and device time by bucket.
+
+        python3 chip_smoke.py --profile-serve"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hi3d_tpu_torch.pipelines.common import load_inference_model
+    from hi3d_tpu_torch.pipelines.serve import OrbitServer, load_images
+
+    config = os.path.join(ROOT, "configs", "inference-v01.yaml")
+    image_dir = write_serve_images(tempfile.mkdtemp(prefix="chip_profile_",
+                                                    dir=os.path.join(ROOT, "outputs")))
+    model = load_inference_model(config, None, "cuda", tag="profile", clip_size=SERVE_CLIP)
+    images = load_images(sorted(os.path.join(image_dir, f) for f in os.listdir(image_dir)),
+                         (512, 512))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    c, uc = OrbitServer(model).condition(images, generator=gen)
+    shape = (SERVE_ASSETS * SERVE_CLIP, 64, 64, 4)
+    with torch.no_grad():
+        model.sample(c, uc, shape, num_video_frames=SERVE_CLIP, generator=gen, num_steps=1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.sample(c, uc, shape, num_video_frames=SERVE_CLIP, generator=gen,
+                         num_steps=steps)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    idle = 1.0 - busy / (spans[-1][1] - spans[0][0])
+    buckets = (("#6 block attention", ("block_attn",)), ("K1 flash attention", ("fa_fwd",)),
+               ("K2 temporal attention", ("temporal_attn",)),
+               ("K3 GroupNorm", ("_gn_",)), ("#10 LayerNorm", ("_ln_kernel",)),
+               ("strided elementwise", ("elementwise_kernel",)),
+               ("convolutions", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
+               ("GEMMs", ("nvjet", "gemm", "cutlass", "xmma")),
+               ("NCHW↔NHWC transposes", ("nchwToNhwc", "nhwcToNchw")))
+    totals = {name: [0.0, 0] for name, _ in buckets + (("other", ()),)}
+    for e in kernels:
+        name = next((n for n, keys in buckets if any(k in e.name for k in keys)), "other")
+        totals[name][0] += (e.time_range.end - e.time_range.start) / 1e3
+        totals[name][1] += 1
+    print(f"[profile] serve sampler, {SERVE_ASSETS}×{SERVE_CLIP} frames at 512², {steps} steps: "
+          f"{host_ms:.2f} ms/step on the host clock, {len(kernels) / steps:.0f} launches a step, "
+          f"device idle {100 * idle:.2f}% of the span; card {card_line()}", flush=True)
+    for name, (ms, n) in sorted(totals.items(), key=lambda kv: -kv[1][0]):
+        print(f"[profile] {name}: {ms / steps:.2f} ms/step, {n // steps} launches a step, "
+              f"{100 * ms / (busy / 1e3):.1f}% of busy", flush=True)
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
+        print(f"[profile] kernel: {ms / steps:.2f} ms/step, {n // steps} a step: {name[:140]}",
+              flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -764,6 +1077,9 @@ def main() -> None:
     nvcc_s = build.build_seconds if build.build_seconds is not None else 0.0
     print(f"[build] {build.library_path().name}: nvcc {nvcc_s:.1f} s "
           f"(0 = reused), build+load {time.perf_counter() - t0:.1f} s", flush=True)
+    if sys.argv[1:] == ["--profile-serve"]:
+        profile_serve()
+        return
 
     measured = kernel_phase()
     print("[smoke] kernel phase ok", flush=True)
@@ -773,9 +1089,12 @@ def main() -> None:
     unet_reference_phase(inference)
     unet_gradient_phase(inference)
     unet_reference_phase(os.path.join(ROOT, "configs", "inference-v02.yaml"))
+    # a long clip: every frame-axis site on #6 forward and #7 backward (the
+    # gradient is #7's path: no CLI runs a backward past 32 frames yet)
+    unet_reference_phase(inference, b=1, t=40)
+    by_path = {"unet_grad_t40": unet_gradient_phase(inference, b=1, t=40)}
     print(f"[smoke] main path 1: configs/inference-v01.yaml, 16×512², {NUM_STEPS} steps, "
           "random weights", flush=True)
-    by_path = {}
     by_path["i2v"], stage1_dir = main_path(NUM_STEPS)
     print(f"[smoke] main path 2: configs/train-v01.yaml, {TRAIN_STEPS} steps, random weights",
           flush=True)
@@ -783,15 +1102,21 @@ def main() -> None:
     print(f"[smoke] main path 3: configs/inference-v02.yaml, 16×1024², {STAGE2_STEPS} steps, "
           "random weights, on main path 1's frames", flush=True)
     by_path["v2v"] = stage2_path(STAGE2_STEPS, stage1_dir)
+    print(f"[smoke] main path 4: serve --mode orbit, configs/inference-v01.yaml, "
+          f"{SERVE_ASSETS} assets × {SERVE_CLIP}×512², {NUM_STEPS} steps, random weights",
+          flush=True)
+    by_path["serve"] = serve_path(NUM_STEPS)
     print(f"[smoke] all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
 
     rows = []
     for name, route, source, replaces in KERNELS:
-        err, ms, plain_ms = measured[name]
+        m = measured[name]
         counts = {path: launches.get(name, 0) for path, launches in by_path.items()}
         rows.append({"name": name, "route": route, "source": source, "replaces": replaces,
                      "launches": sum(counts.values()), "launches_by_path": counts,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                     "max_abs_err": m["err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
+                     "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                     "library_ms": m["library_ms"]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,8 +3,9 @@
 A wrapper given CPU tensors computes the plain version; given CUDA tensors it
 launches its Hopper kernel or raises. When an input needs a gradient the
 wrapper runs as an autograd Function whose backward is again a kernel on
-CUDA tensors and the plain version on CPU tensors. `flash_attention` and
-`temporal_attention` (forward and backward) are CUDA C++ (`csrc/`, built by
-`build.py`); `group_norm`, `group_stats` and `layer_norm` are Triton, the
-norms with plain fp32 backwards.
+CUDA tensors and the plain version on CPU tensors. `flash_attention`,
+`temporal_attention` and `temporal_block_attention` (each forward and
+backward) are CUDA C++ (`csrc/`, built by `build.py`); `group_norm`,
+`group_stats` and `layer_norm` are Triton, the norms with plain fp32
+backwards.
 """

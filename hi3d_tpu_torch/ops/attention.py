@@ -2,11 +2,22 @@
 
 One path per op:
 - spatial self-attention → K1 (`flash_attention`), at every sequence length;
-- frame-axis self-attention over (B, T, S, H, D) → K2 (`temporal_attention`);
+- frame-axis self-attention over (B, T, S, H, D) → K2 (`temporal_attention`)
+  up to MAX_FRAMES = 32 frames, #6 (`segment_attention` on the transposed
+  (B, S, T, H, D) views, no copy) above; `frame_attention_kernel` is the one
+  predicate for that split;
 - cross-attention against a single kv token → a value broadcast (softmax over
   one key is identically 1);
 - cross-attention against several per-video tokens → plain torch (K1's
   plain version), as the JAX package leaves that einsum to XLA.
+
+The JAX package splits frame-axis attention by a TPU VMEM budget instead
+(`temporal_attention_fused`): its natural-layout kernel while a
+(T, 8, C) tile fits 640 KB, else the location-major #6. At T = 48 in bf16
+that is the natural kernel at the sites with C ≤ 640 and #6 at those with
+C = 1280. The port's K2 stops at T = 32 (a warp per problem), so the port
+sends every site with T > 32 to #6. This is deliberate: both kernels compute
+the same (query, key) pairs with the same fp32 softmax.
 """
 
 from __future__ import annotations
@@ -14,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from .flash_attention import flash_attention, flash_attention_reference
-from .temporal_attention import temporal_attention
+from .temporal_attention import MAX_FRAMES, segment_attention, temporal_attention
 
 
 def self_attention(q, k, v) -> torch.Tensor:
@@ -29,9 +40,19 @@ def cross_attention(q, k, v) -> torch.Tensor:
     return flash_attention_reference(q, k, v)[0]
 
 
+def frame_attention_kernel(t: int) -> str:
+    """The kernel that carries frame-axis self-attention over `t` frames:
+    "temporal_attention" (K2) up to MAX_FRAMES, "temporal_block_attention"
+    (#6) above. Each one's backward is the same name + "_backward"."""
+    return "temporal_attention" if t <= MAX_FRAMES else "temporal_block_attention"
+
+
 def time_self_attention(q, k, v) -> torch.Tensor:
     """(B, T, S, H, D) self-attention along the frame axis."""
-    return temporal_attention(q, k, v)
+    if frame_attention_kernel(q.shape[1]) == "temporal_attention":
+        return temporal_attention(q, k, v)
+    return segment_attention(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2)).transpose(1, 2)
 
 
 def time_cross_attention(q, k, v) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""K2: frame-axis (temporal) self-attention forward, and #5: its backward.
+"""Frame-axis (temporal) self-attention: K2 and its backward #5 for clips of
+up to 32 frames, #6 and its backward #7 for longer ones.
 
 K2 replaces hi3d_tpu/ops/temporal_attention.py:_nat_fwd (Pallas, reached
 through `temporal_attention_natural` ← `temporal_attention_fused`); #5
@@ -15,6 +16,18 @@ as the JAX custom VJP does, and whose backward is #5. CPU tensors take the
 plain versions (`temporal_attention_reference`,
 `temporal_attention_backward_reference`); CUDA tensors take the kernels,
 which need bf16, T ≤ 32 and D ∈ {64, 128}.
+
+#6 replaces `_fwd3` (segment-local attention on location-major tokens, O and
+an fp32 lse) and #7 replaces `_bwd3` (its backward from lse and Δ); both are
+CUDA C++ in `csrc/block_attention.cu`, one thread block per segment.
+`segment_attention(q, k, v)` takes strided (B, S, T, H, D) views, the
+segment along axis 2, so the UNet's (B, T, S, H, D) projections go in as
+`.transpose(1, 2)` views with no copy; `temporal_block_attention(q, k, v,
+seg_len)` is the JAX package's (B, S·T, H, D) signature on top of it. With a
+gradient it runs as an autograd Function that saves q, k, v, O and lse, as
+`_block_local_fwd` does, and whose backward is #7
+(`temporal_block_attention_backward`). CUDA tensors need bf16,
+2 ≤ T ≤ 128 and D ∈ {64, 128}; the plain versions have no limit.
 """
 
 from __future__ import annotations
@@ -25,7 +38,8 @@ import torch
 
 from . import build
 
-MAX_FRAMES = 32
+MAX_FRAMES = 32  # K2's limit (a warp per (b, s, h))
+MAX_SEGMENT = 128  # #6/#7's limit (a segment's Q, K, V and scores in shared memory)
 SUPPORTED_HEAD_DIMS = (64, 128)
 
 
@@ -100,10 +114,13 @@ def _forward(q, k, v, scale):
     return out
 
 
-def _packed(x: torch.Tensor) -> bool:
+def _packed(x: torch.Tensor, elems: int = 2) -> bool:
+    """Packed heads (head stride D, unit dim stride), and the three leading
+    strides and the base aligned to `elems` bf16 elements: K2/#5 move bf16
+    pairs (2), #6/#7 16-byte vectors (8)."""
     d = x.shape[-1]
-    return (x.stride(-1) == 1 and x.stride(-2) == d and not any(s % 2 for s in x.stride()[:3])
-            and x.data_ptr() % 4 == 0)
+    return (x.stride(-1) == 1 and x.stride(-2) == d
+            and not any(s % elems for s in x.stride()[:3]) and x.data_ptr() % (2 * elems) == 0)
 
 
 def temporal_attention_backward(
@@ -167,3 +184,171 @@ def temporal_attention(
 
 
 temporal_attention.launches = 0
+
+
+# ---------------------------------------------------------------- #6 and #7
+
+
+def temporal_block_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of #6 on (B, S, T, H, D) segments: fp32 scores and
+    softmax over each segment's T frames. Returns O (B, S, T, H, D) in v's
+    dtype and the natural-log lse (B, H, S, T) in fp32."""
+    d = q.shape[-1]
+    scale = d**-0.5 if scale is None else scale
+    logits = torch.einsum("bsqhd,bskhd->bhsqk", q.float(), k.float()) * scale
+    lse = torch.logsumexp(logits, dim=-1)
+    probs = torch.exp(logits - lse[..., None])
+    out = torch.einsum("bhsqk,bskhd->bsqhd", probs, v.float())
+    return out.to(v.dtype), lse
+
+
+def temporal_block_attention_backward_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+    dout: torch.Tensor, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of #7's arithmetic in fp32: P = exp(Q Kᵀ·scale − lse),
+    Δ = rowsum(dO∘O), dV = Pᵀ dO, dS = P∘(dO Vᵀ − Δ), dQ = dS K·scale,
+    dK = dSᵀ Q·scale; gradients in the inputs' dtypes."""
+    d = q.shape[-1]
+    scale = d**-0.5 if scale is None else scale
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, dout))
+    p = torch.exp(torch.einsum("bsqhd,bskhd->bhsqk", qf, kf) * scale - lse.float()[..., None])
+    delta = torch.einsum("bsqhd,bsqhd->bhsq", gf, out.float())
+    dv = torch.einsum("bhsqk,bsqhd->bskhd", p, gf)
+    ds = p * (torch.einsum("bsqhd,bskhd->bhsqk", gf, vf) - delta[..., None])
+    dq = torch.einsum("bhsqk,bskhd->bsqhd", ds, kf) * scale
+    dk = torch.einsum("bhsqk,bsqhd->bskhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_segments(name: str, *xs: torch.Tensor) -> None:
+    q = xs[0]
+    if q.ndim != 5 or any(x.shape != q.shape for x in xs):
+        raise ValueError(f"{name}: (B, S, T, H, D) inputs of one shape, got "
+                         f"{[tuple(x.shape) for x in xs]}")
+    _, _, t, _, d = q.shape
+    for x in xs:
+        if x.device.type != "cuda" or x.device != q.device:
+            raise ValueError(f"{name}: inputs must be on {q.device}, got {x.device}")
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: inputs must be bfloat16, got {x.dtype}")
+        if not _packed(x, 8):
+            raise ValueError(f"{name}: strides {x.stride()} need packed heads and (b, s, t) "
+                             "strides that are multiples of 8 on a 16-byte aligned base")
+    if not 2 <= t <= MAX_SEGMENT:
+        raise ValueError(f"{name}: segment length T={t} outside 2..{MAX_SEGMENT}")
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {SUPPORTED_HEAD_DIMS}")
+
+
+def _empty_like(x: torch.Tensor) -> torch.Tensor:
+    """An output in x's memory order (so a transposed view stays one), or
+    contiguous when that order would not be aligned."""
+    y = torch.empty_like(x)
+    return y if _packed(y, 8) else torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+
+def _block_forward(q, k, v, scale):
+    if q.device.type == "cpu":
+        with torch.autocast("cpu", enabled=False):
+            return temporal_block_attention_reference(q, k, v, scale)
+    _check_segments("temporal_block_attention", q, k, v)
+    b, s, t, h, d = q.shape
+    scale = d**-0.5 if scale is None else scale
+    lib = build.load_library()
+    out = _empty_like(q)
+    lse = torch.empty((b, h, s, t), dtype=torch.float32, device=q.device)
+    strides = build.stride_array([st for x in (q, k, v, out) for st in x.stride()[:3]])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.hi3d_block_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            b, s, t, h, d, strides, float(scale), stream,
+        )
+    build.check(err, "temporal_block_attention")
+    temporal_block_attention.launches += 1
+    return out, lse
+
+
+def temporal_block_attention_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+    dout: torch.Tensor, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """#7: (dq, dk, dv) of `segment_attention` for the cotangent `dout` of O,
+    from the forward's saved O and lse (B, H, S, T); each gradient in its
+    input's memory order."""
+    if q.device.type == "cpu":
+        with torch.autocast("cpu", enabled=False):
+            return temporal_block_attention_backward_reference(q, k, v, out, lse, dout, scale)
+    out = out if _packed(out, 8) else out.contiguous()
+    dout = dout if _packed(dout, 8) else dout.contiguous()
+    _check_segments("temporal_block_attention_backward", q, k, v, out, dout)
+    b, s, t, h, d = q.shape
+    if lse.shape != (b, h, s, t) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"temporal_block_attention_backward: lse must be contiguous fp32 "
+                         f"{(b, h, s, t)}, got {lse.dtype} {tuple(lse.shape)}")
+    scale = d**-0.5 if scale is None else scale
+    lib = build.load_library()
+    dq, dk, dv = _empty_like(q), _empty_like(k), _empty_like(v)
+    strides = build.stride_array([st for x in (q, k, v, out, dout, dq, dk, dv)
+                                  for st in x.stride()[:3]])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.hi3d_block_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, t, h, d,
+            strides, float(scale), stream,
+        )
+    build.check(err, "temporal_block_attention_backward")
+    temporal_block_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+temporal_block_attention_backward.launches = 0
+
+
+class _TemporalBlockAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = _block_forward(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*temporal_block_attention_backward(q, k, v, out, lse, dout, ctx.scale), None)
+
+
+def segment_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
+) -> torch.Tensor:
+    """(B, S, T, H, D) segments, any (b, s, t) strides → O (B, S, T, H, D):
+    for each (b, s, h), softmax over the segment's T frames (#6)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _TemporalBlockAttention.apply(q, k, v, scale)
+    return _block_forward(q, k, v, scale)[0]
+
+
+def temporal_block_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seg_len: int,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """(B, S·T, H, D) segment-local attention, tokens location-major and
+    frame-minor: query i attends key j iff i // seg_len == j // seg_len (the
+    signature of hi3d_tpu.ops.temporal_attention.temporal_block_attention)."""
+    b, st, h, d = q.shape
+    if st % seg_len:
+        raise ValueError(f"temporal_block_attention: {st} tokens are not whole segments of "
+                         f"{seg_len}")
+
+    def seg(x):
+        return x.unflatten(1, (st // seg_len, seg_len))
+
+    return segment_attention(seg(q), seg(k), seg(v), scale).flatten(1, 2)
+
+
+temporal_block_attention.launches = 0

@@ -31,9 +31,12 @@ def create_model(config_path: Union[str, Iterable[str]],
 
 
 def load_inference_model(config_path: str, ckpt_path: Optional[str], device="cuda",
-                         vae_bf16: bool = False, tag: str = "load", seed: int = 0):
+                         vae_bf16: bool = False, tag: str = "load", seed: int = 0,
+                         clip_size: Optional[int] = None):
     """Build + checkpoint-load + inference-cast one engine. A missing
-    checkpoint leaves the random weights, with a printed notice."""
+    checkpoint leaves the random weights, with a printed notice. `clip_size`
+    sets the engine's `num_samples` (its embedders and per-frame guider
+    follow)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"[{tag}] --device {device} requested but CUDA is not available")
@@ -44,4 +47,6 @@ def load_inference_model(config_path: str, ckpt_path: Optional[str], device="cud
     else:
         print(f"[{tag}] checkpoint {ckpt_path!r} not found — random weights (smoke mode)")
     model.cast_weights_to_compute_dtype(include_first_stage=vae_bf16)
+    if clip_size is not None:
+        model.num_samples = int(clip_size)
     return model

@@ -205,15 +205,20 @@ class Trainer:
         return {k: torch.from_numpy(np.asarray(v)).to(self.device)
                 for k, v in batch.items() if not isinstance(v, (str, list))}
 
-    def _install_signal_handler(self) -> None:
+    def _install_signal_handler(self):
+        """SIGUSR1 saves a checkpoint and stops the run. Returns the handler
+        it replaced, which `fit` puts back when it ends: the handler holds the
+        trainer, and with it the weights and optimizer state on the device.
+        None off the main thread, where no handler can be installed."""
         def melk(*_):
             print("[trainer] SIGUSR1 — saving a checkpoint and stopping")
             self._interrupted = True
 
         try:
-            signal.signal(signal.SIGUSR1, melk)
+            previous = signal.signal(signal.SIGUSR1, melk)
         except ValueError:
-            pass  # not the main thread
+            return None
+        return signal.SIG_DFL if previous is None else previous
 
     def _start_profile(self):
         from torch.profiler import ProfilerActivity, profile
@@ -237,11 +242,11 @@ class Trainer:
     def fit(self, data: Iterable[Dict], max_steps: int, resume: bool = True) -> int:
         """Train until `max_steps` (or SIGUSR1); returns the step reached.
         The final state is saved in every case."""
-        self._install_signal_handler()
         step = self.resume_if_possible() if resume else self.train_step.step
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
         prof = None
+        previous_handler = self._install_signal_handler()
         try:
             for batch in data:
                 if step >= max_steps or self._interrupted:
@@ -271,4 +276,6 @@ class Trainer:
             if close is not None:
                 close()  # a generator loader stops its workers
             self.checkpointer.save(step, self.state_dict(), self.last_metrics)
+            if previous_handler is not None:
+                signal.signal(signal.SIGUSR1, previous_handler)
         return step

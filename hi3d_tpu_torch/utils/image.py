@@ -33,9 +33,25 @@ def composite_white(rgba: np.ndarray) -> np.ndarray:
     return out.round().astype(np.uint8)
 
 
+def _read_cv2(path: str) -> np.ndarray:
+    """uint8 HWC in RGB(A) channel order, through cv2 (formats other than PNG)."""
+    try:
+        import cv2
+    except ImportError:
+        raise RuntimeError(f"cannot read {path!r}: only PNG decodes without cv2, which does not "
+                           "import here; convert the image to PNG") from None
+    img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    if img is None:
+        raise FileNotFoundError(path)
+    if img.ndim == 2:  # gray
+        return img[..., None]
+    return img[..., [2, 1, 0, 3][:img.shape[-1]]]  # BGR(A) → RGB(A)
+
+
 def load_image_rgb(path: str) -> np.ndarray:
-    """uint8 HWC RGB; RGBA is composited onto white, gray is replicated."""
-    img = read_png(path)
+    """uint8 HWC RGB; RGBA is composited onto white, gray is replicated. PNG
+    goes through the stdlib codec; other formats need cv2."""
+    img = read_png(path) if path.lower().endswith(".png") else _read_cv2(path)
     if img.shape[-1] == 1:
         return np.repeat(img, 3, axis=-1)
     if img.shape[-1] == 2:  # gray + alpha

@@ -221,3 +221,78 @@ def test_norm_outputs_carry_grad_fn(cuda):
     want = torch.autograd.grad(gn.group_norm_reference(*leaves, 32, 1e-6), leaves, dy)
     for a, b in zip(got, want):
         assert _rel_err(a, b) < 2e-2
+
+
+def _segments(g, cuda, b, t, s, h, d, n=3):
+    """n (B, S, T, H, D) views of (B, T, S, H·D) projections, as the UNet
+    hands them to #6."""
+    return [torch.randn((b, t, s, h * d), generator=g, device=cuda, dtype=torch.bfloat16)
+            .view(b, t, s, h, d).transpose(1, 2) for _ in range(n)]
+
+
+@pytest.mark.gpu
+def test_block_attention_kernel_matches_plain(cuda):
+    """#6 at ragged and padded segment lengths and both head dims, on
+    transposed views (no copy in) and on a contiguous (B, S·T, H, D) input."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    for t, d in ((33, 64), (48, 64), (64, 128), (48, 128)):
+        q, k, v = _segments(g, cuda, 2, t, 24, 2, d)
+        out = ta.segment_attention(q, k, v)
+        ref, ref_lse = ta.temporal_block_attention_reference(q, k, v)
+        _, lse = ta._block_forward(q, k, v, None)
+        assert out.stride() == q.stride()  # written in the callers' (B, T, S, H, D) order
+        assert (out.float() - ref.float()).abs().max().item() < 2e-2
+        assert (lse - ref_lse).abs().max().item() < 1e-3
+    x = [torch.randn((2, 8 * 40, 3, 64), generator=g, device=cuda, dtype=torch.bfloat16)
+         for _ in range(3)]
+    out = ta.temporal_block_attention(*x, 40)
+    ref, _ = ta.temporal_block_attention_reference(*(y.unflatten(1, (8, 40)) for y in x))
+    assert (out.float() - ref.flatten(1, 2).float()).abs().max().item() < 2e-2
+
+
+@pytest.mark.gpu
+def test_block_attention_backward_kernel_matches_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for t, d in ((33, 64), (48, 64), (64, 128)):
+        q, k, v, dout = _segments(g, cuda, 2, t, 24, 2, d, n=4)
+        out, lse = ta._block_forward(q, k, v, None)
+        got = ta.temporal_block_attention_backward(q, k, v, out, lse, dout)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        want = torch.autograd.grad(ta.temporal_block_attention_reference(*leaves)[0], leaves, dout)
+        for a, b in zip(got, want):
+            assert _rel_err(a, b) < 2e-2
+
+
+@pytest.mark.gpu
+def test_block_attention_carries_grad_fn_and_limits(cuda):
+    """#6's output is in the autograd graph and its gradients reach q, k, v
+    through #7; a 129-frame segment raises."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q, k, v = (x.detach().requires_grad_() for x in _segments(g, cuda, 2, 40, 16, 2, 64))
+    before = ta.temporal_block_attention_backward.launches
+    out = ta.segment_attention(q, k, v)
+    assert out.grad_fn is not None
+    out.float().square().sum().backward()
+    assert ta.temporal_block_attention_backward.launches == before + 1
+    for x in (q, k, v):
+        assert x.grad is not None and torch.isfinite(x.grad).all() and x.grad.abs().max() > 0
+    with pytest.raises(ValueError, match="outside 2..128"):
+        ta.segment_attention(*_segments(g, cuda, 1, 129, 8, 1, 64))
+
+
+@pytest.mark.gpu
+def test_time_self_attention_routes_long_clips_to_block_kernel(cuda):
+    """T = 33 and T = 48 go through #6 and not K2; T = 32 stays on K2."""
+    from hi3d_tpu_torch.ops import attention as attn_ops
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    for t, kernel in ((33, "block"), (48, "block"), (32, "k2")):
+        q, k, v = (torch.randn((2, t, 64, 320), generator=g, device=cuda, dtype=torch.bfloat16)
+                   .view(2, t, 64, 5, 64) for _ in range(3))
+        k2, blk = ta.temporal_attention.launches, ta.temporal_block_attention.launches
+        out = attn_ops.time_self_attention(q, k, v)
+        assert (ta.temporal_attention.launches - k2, ta.temporal_block_attention.launches - blk) \
+            == ((0, 1) if kernel == "block" else (1, 0))
+        assert out.shape == q.shape
+        ref = ta.temporal_attention_reference(q, k, v)
+        assert (out.float() - ref.float()).abs().max().item() < 2e-2

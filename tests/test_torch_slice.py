@@ -298,3 +298,5 @@ def test_import_hygiene_blocks_jax():
     assert {f"hi3d_tpu_torch.{n}" for n in training} <= names
     stage2 = {"ops.layer_norm", "models.dpt", "pipelines.v2v"}
     assert {f"hi3d_tpu_torch.{n}" for n in stage2} <= names
+    serving = {"pipelines.serve", "pipelines.common", "ops.temporal_attention", "ops.attention"}
+    assert {f"hi3d_tpu_torch.{n}" for n in serving} <= names

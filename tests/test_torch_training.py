@@ -561,3 +561,33 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(["--base", "configs/train-v01.yaml", "--no_test", "True", "--device", "cuda"])
+
+
+def test_trainer_is_freed_after_fit(tmp_path):
+    """`fit` puts the previous SIGUSR1 handler back, so a finished trainer
+    (its weights, gradients and optimizer state on the device) does not
+    outlive its run: the handler's closure used to keep it alive."""
+    import gc
+    import signal
+    import weakref
+
+    from hi3d_tpu_torch.train import main
+
+    renders = _write_renders(tmp_path / "renders", 1, RES, seed=2)
+    model = train_config("test_torch_slice.TinyImageEmbedderTorch")
+    model["params"]["ckpt_path"] = str(tmp_path / "missing.safetensors")
+    cfg = {"model": model,
+           "data": {"target": "sgm.data.video_dataset.VideoDataset",
+                    "params": {"base_folder": renders, "width": RES, "height": RES,
+                               "sample_frames": T, "batch_size": B, "num_workers": 1}}}
+    path = tmp_path / "tiny-train.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    before = signal.getsignal(signal.SIGUSR1)
+    trainer = main(["--base", str(path), "--no_test", "True", "--device", "cpu", "--seed", "1",
+                    "--logdir", str(tmp_path / "logs"), "--max_steps", "1"])
+    assert trainer.train_step.step == 1
+    assert signal.getsignal(signal.SIGUSR1) == before
+    ref = weakref.ref(trainer)
+    del trainer
+    gc.collect()
+    assert ref() is None
