@@ -3,8 +3,10 @@
 Each `csrc/*.cu` file compiles to an object in its own `nvcc` process, all
 started together, and one more `nvcc` links the objects into a shared library
 with a plain C interface, loaded with ctypes. The library lands in
-`build/kernels/` at the repository root, named by a hash of the sources and
-flags, so a checkout builds on first use and reuses the build afterwards.
+`build/kernels/` at the repository root, named by a hash of every file under
+`csrc/` (the `.cu` sources and the headers they include) and of the flags, so
+a checkout builds on first use and reuses the build afterwards, and an edit
+of a header rebuilds.
 """
 
 from __future__ import annotations
@@ -40,10 +42,10 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted(p for p in CSRC.rglob("*") if p.is_file())
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sources:
-        digest.update(p.name.encode())
+        digest.update(p.relative_to(CSRC).as_posix().encode())
         digest.update(p.read_bytes())
     return BUILD_DIR / f"libhi3d_kernels_{digest.hexdigest()[:16]}.so"
 

@@ -18,11 +18,14 @@ def configure_precision() -> None:
 
 
 def create_model(config_path: Union[str, Iterable[str]],
-                 device: Union[str, torch.device] = "cpu", seed: int = 0):
-    """Build the config's model on `device`; random init is seeded by `seed`
-    without touching the global RNG state."""
-    cfg = load_config(config_path)
+                 device: Union[str, torch.device] = "cuda", seed: int = 0):
+    """Build the config's model on `device` (the card unless the caller asks
+    for the CPU); random init is seeded by `seed` without touching the global
+    RNG state."""
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"create_model: device {device} requested but CUDA is not available")
+    cfg = load_config(config_path)
     devices = [device] if device.type == "cuda" else []
     with torch.random.fork_rng(devices=devices), torch.device(device):
         torch.manual_seed(seed)

@@ -107,6 +107,68 @@ def test_flash_attention_backward_kernel_matches_plain(cuda):
             assert _rel_err(a, b) < 2e-2
 
 
+# K1 and #3 at the lengths the 128-row blocks and 64/128-row tiles make
+# delicate (1, one short of a tile, a tile, one past it, ...), equal and
+# unequal query and key lengths, and every head dim the kernels take; q, k, v
+# are head-strided views of one (B, S, 3·H·D) projection (sliced to their
+# lengths), as the UNet hands them over.
+FLASH_LENGTHS = [(s, s) for s in (1, 63, 64, 65, 127, 129, 200)] + [
+    (65, 200), (200, 63), (1, 129), (129, 1)]
+
+
+def _flash_inputs(g, cuda, sq, sk, d, h=3, b=2):
+    x = torch.randn((b, max(sq, sk), 3 * h * d), generator=g, device=cuda, dtype=torch.bfloat16)
+    q = x[:, :sq, :h * d].view(b, sq, h, d)
+    k = x[:, :sk, h * d:2 * h * d].view(b, sk, h, d)
+    v = x[:, :sk, 2 * h * d:].view(b, sk, h, d)
+    return q, k, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("sq,sk", FLASH_LENGTHS)
+def test_flash_attention_kernel_ragged_lengths(cuda, sq, sk, d):
+    g = torch.Generator(device=cuda).manual_seed(sq * 1000 + sk + d)
+    q, k, v = _flash_inputs(g, cuda, sq, sk, d)
+    out, lse = fa.flash_attention(q, k, v)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v)
+    assert out.shape == q.shape and lse.shape == (2, 3, sq)
+    assert (out.float() - ref.float()).abs().max().item() < 2e-2
+    assert (lse - ref_lse).abs().max().item() < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("sq,sk", FLASH_LENGTHS)
+def test_flash_attention_backward_ragged_lengths(cuda, sq, sk, d):
+    """Within 2e-2 of each gradient's largest entry; at a single key the
+    softmax is constant and dq, dk vanish, so the scale has a floor of 1e-3."""
+    g = torch.Generator(device=cuda).manual_seed(sq * 1000 + sk + d + 1)
+    q, k, v = _flash_inputs(g, cuda, sq, sk, d)
+    dout = torch.randn(q.shape, generator=g, device=cuda, dtype=torch.bfloat16)
+    out, lse = fa.flash_attention(q, k, v)
+    got = fa.flash_attention_backward(q, k, v, out, lse, dout)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(fa.flash_attention_reference(*leaves)[0], leaves, dout)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        scale = max(b.float().abs().max().item(), 1e-3)
+        assert (a.float() - b.float()).abs().max().item() < 2e-2 * scale
+
+
+@pytest.mark.gpu
+def test_flash_attention_backward_is_deterministic(cuda):
+    """No atomics: two runs of #3 on the same inputs agree bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v = _flash_inputs(g, cuda, 1000, 1000, 64, h=5)
+    dout = torch.randn(q.shape, generator=g, device=cuda, dtype=torch.bfloat16)
+    out, lse = fa.flash_attention(q, k, v)
+    first = fa.flash_attention_backward(q, k, v, out, lse, dout)
+    second = fa.flash_attention_backward(q, k, v, out, lse, dout)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.gpu
 def test_temporal_attention_backward_kernel_matches_plain(cuda):
     g = torch.Generator(device=cuda).manual_seed(3)
