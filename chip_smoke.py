@@ -260,13 +260,17 @@ def kernel_phase() -> Results:
                4 * b * t * s * c * 2, 4 * b * s * c * t * t)
 
     # #6 at the serve path's four frame-axis sites (2 assets × CFG = 4 videos
-    # of 48 frames at 512²), a ragged T = 33 and T = 64 at D = 128; the inputs
-    # are (B, T, S, C) projections handed over as (B, S, T, H, D) views, as
-    # the UNet does. Out within 2e-2 (bf16 output, P rounded to bf16 before
-    # P·V), lse within 1e-3 (fp32 in both).
-    for b, t, s, c, d in ((4, 48, 4096, 320, 64), (4, 48, 1024, 640, 64),
-                          (4, 48, 256, 1280, 64), (4, 48, 64, 1280, 64),
-                          (4, 33, 256, 1280, 64), (2, 64, 256, 1280, 128)):
+    # of 48 frames at 512²), a ragged T = 33, T = 64 at D = 128, and past 128
+    # frames (T = 136: two query chunks and three key blocks; T = 256; printed,
+    # not in the JSON sums); the inputs are (B, T, S, C) projections handed
+    # over as (B, S, T, H, D) views, as the UNet does. Out within 2e-2
+    # absolute and within 2e-2 of max |plain O| (bf16 output, P rounded to
+    # bf16 before P·V), lse within 1e-3 (fp32 in both).
+    for b, t, s, c, d, summed in ((4, 48, 4096, 320, 64, True), (4, 48, 1024, 640, 64, True),
+                                  (4, 48, 256, 1280, 64, True), (4, 48, 64, 1280, 64, True),
+                                  (4, 33, 256, 1280, 64, True), (2, 64, 256, 1280, 128, True),
+                                  (1, 136, 256, 1280, 64, False),
+                                  (1, 256, 256, 1280, 64, False)):
         h = c // d
         base = [torch.randn((b, t, s, c), generator=gen, device=dev, dtype=bf16)
                 for _ in range(3)]
@@ -275,18 +279,18 @@ def kernel_phase() -> Results:
         ref, ref_lse = ta.temporal_block_attention_reference(q, k, v)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
-        print(f"[kernel] temporal_block_attention T={t} S={s} C={c} D={d}: lse "
-              f"max_abs_err={lse_err:.3e} (tol 1.0e-03)", flush=True)
         if not lse_err <= 1e-3:
-            raise AssertionError(f"temporal_block_attention lse error {lse_err}")
+            raise AssertionError(f"temporal_block_attention T={t} lse error {lse_err}")
         lib = [_sdpa_frames(x, h, d) for x in base]
-        record("temporal_block_attention", err, 2e-2,
+        record("temporal_block_attention", err, min(2e-2, 2e-2 * scale),
                time_ms(lambda: ta.segment_attention(q, k, v)),
                time_ms(lambda: ta.temporal_block_attention_reference(q, k, v), reps=3),
-               f"B={b} T={t} S={s} C={c} D={d} (transposed views)",
+               f"B={b} T={t} S={s} C={c} D={d} (transposed views, max |O| {scale:.3e}, "
+               f"lse err {lse_err:.3e}, tol 1.0e-03)",
                time_ms(lambda: F.scaled_dot_product_attention(*lib)),
-               4 * b * t * s * c * 2 + b * h * s * t * 4, 4 * b * s * c * t * t)
+               4 * b * t * s * c * 2 + b * h * s * t * 4, 4 * b * s * c * t * t, summed)
 
     # K3: same one-pass fp32 arithmetic; outputs are O(1) bf16, so the gap is
     # one bf16 ulp from a different summation order. Library: F.group_norm,
@@ -493,10 +497,13 @@ def backward_kernel_phase() -> Results:
                   base[:3], _sdpa_frames(base[3], h, 64)),
               8 * b * t * s * c * 2, 10 * b * s * c * t * t)
 
-    # #7 at #6's shapes, from #6's own O and lse
-    for b, t, s, c, d in ((4, 48, 4096, 320, 64), (4, 48, 1024, 640, 64),
-                          (4, 48, 256, 1280, 64), (4, 48, 64, 1280, 64),
-                          (4, 33, 256, 1280, 64), (2, 64, 256, 1280, 128)):
+    # #7 at #6's shapes, from #6's own O and lse (T = 136: two key blocks of
+    # up to 128 frames; T = 256: four of 64; printed, not in the JSON sums)
+    for b, t, s, c, d, summed in ((4, 48, 4096, 320, 64, True), (4, 48, 1024, 640, 64, True),
+                                  (4, 48, 256, 1280, 64, True), (4, 48, 64, 1280, 64, True),
+                                  (4, 33, 256, 1280, 64, True), (2, 64, 256, 1280, 128, True),
+                                  (1, 136, 256, 1280, 64, False),
+                                  (1, 256, 256, 1280, 64, False)):
         h = c // d
         base = [torch.randn((b, t, s, c), generator=gen, device=dev, dtype=bf16)
                 for _ in range(4)]
@@ -511,7 +518,7 @@ def backward_kernel_phase() -> Results:
               ms, plain_ms, library_grad_ms(
                   lambda *a: F.scaled_dot_product_attention(*(_sdpa_frames(y, h, d) for y in a)),
                   base[:3], _sdpa_frames(base[3], h, d)),
-              8 * b * t * s * c * 2 + b * h * s * t * 4, 10 * b * s * c * t * t)
+              8 * b * t * s * c * 2 + b * h * s * t * 4, 10 * b * s * c * t * t, summed)
 
     for shape, act in (((32, 320, 64, 64), "silu"), ((32, 320, 64, 64), None),
                        ((2, 320, 16, 64, 64), "silu")):

@@ -19,15 +19,18 @@ which need bf16, T ≤ 32 and D ∈ {64, 128}.
 
 #6 replaces `_fwd3` (segment-local attention on location-major tokens, O and
 an fp32 lse) and #7 replaces `_bwd3` (its backward from lse and Δ); both are
-CUDA C++ in `csrc/block_attention.cu`, one thread block per segment.
+CUDA C++ in `csrc/block_attention.cu`: #6 a persistent kernel over groups of
+segments with keys in blocks of 64 frames and an online softmax, #7 one
+thread block per segment with keys in blocks of up to 128 frames.
 `segment_attention(q, k, v)` takes strided (B, S, T, H, D) views, the
 segment along axis 2, so the UNet's (B, T, S, H, D) projections go in as
 `.transpose(1, 2)` views with no copy; `temporal_block_attention(q, k, v,
 seg_len)` is the JAX package's (B, S·T, H, D) signature on top of it. With a
 gradient it runs as an autograd Function that saves q, k, v, O and lse, as
 `_block_local_fwd` does, and whose backward is #7
-(`temporal_block_attention_backward`). CUDA tensors need bf16,
-2 ≤ T ≤ 128 and D ∈ {64, 128}; the plain versions have no limit.
+(`temporal_block_attention_backward`). CUDA tensors need bf16, T ≥ 2 and
+D ∈ {64, 128}; #7 also T ≤ MAX_BACKWARD_SEGMENT (a segment's Q and dO stay
+in one block's shared memory). The plain versions have no limit.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import torch
 from . import build
 
 MAX_FRAMES = 32  # K2's limit (a warp per (b, s, h))
-MAX_SEGMENT = 128  # #6/#7's limit (a segment's Q, K, V and scores in shared memory)
+MAX_BACKWARD_SEGMENT = 256  # #7's limit (one warp per 16 query rows of a segment)
 SUPPORTED_HEAD_DIMS = (64, 128)
 
 
@@ -223,7 +226,7 @@ def temporal_block_attention_backward_reference(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_segments(name: str, *xs: torch.Tensor) -> None:
+def _check_segments(name: str, *xs: torch.Tensor, max_t: float = float("inf")) -> None:
     q = xs[0]
     if q.ndim != 5 or any(x.shape != q.shape for x in xs):
         raise ValueError(f"{name}: (B, S, T, H, D) inputs of one shape, got "
@@ -237,8 +240,8 @@ def _check_segments(name: str, *xs: torch.Tensor) -> None:
         if not _packed(x, 8):
             raise ValueError(f"{name}: strides {x.stride()} need packed heads and (b, s, t) "
                              "strides that are multiples of 8 on a 16-byte aligned base")
-    if not 2 <= t <= MAX_SEGMENT:
-        raise ValueError(f"{name}: segment length T={t} outside 2..{MAX_SEGMENT}")
+    if not 2 <= t <= max_t:
+        raise ValueError(f"{name}: segment length T={t} outside 2..{max_t}")
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not in {SUPPORTED_HEAD_DIMS}")
 
@@ -284,7 +287,8 @@ def temporal_block_attention_backward(
             return temporal_block_attention_backward_reference(q, k, v, out, lse, dout, scale)
     out = out if _packed(out, 8) else out.contiguous()
     dout = dout if _packed(dout, 8) else dout.contiguous()
-    _check_segments("temporal_block_attention_backward", q, k, v, out, dout)
+    _check_segments("temporal_block_attention_backward", q, k, v, out, dout,
+                    max_t=MAX_BACKWARD_SEGMENT)
     b, s, t, h, d = q.shape
     if lse.shape != (b, h, s, t) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"temporal_block_attention_backward: lse must be contiguous fp32 "

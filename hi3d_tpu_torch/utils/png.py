@@ -1,8 +1,10 @@
 """PNG reader and writer on the standard library (zlib + struct) and numpy.
 
 The GPU host has no cv2/PIL/imageio guarantee, so the port reads its input
-image and writes its frames with this module. Reader scope: 8-bit grayscale,
-gray+alpha, RGB and RGBA, non-interlaced, all five scanline filter types.
+image and writes its frames with this module. Reader scope: non-interlaced,
+all five scanline filter types; 8-bit grayscale, gray+alpha, RGB and RGBA,
+and palette images at 1, 2, 4 and 8 bits, expanded to RGB (RGBA when a tRNS
+chunk is present), as cv2's `IMREAD_UNCHANGED` decodes them.
 """
 
 from __future__ import annotations
@@ -14,10 +16,12 @@ import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG colour type → samples per pixel
+_PALETTE = 3  # colour type of indexed-colour images
 
 
-def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
-    stride = w * bpp
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the scanline filters of `h` rows of `stride` bytes; `bpp` is the
+    filters' byte distance (bytes per pixel, at least 1)."""
     data = np.frombuffer(raw, np.uint8)
     if data.size != h * (stride + 1):
         raise ValueError(f"PNG data size {data.size} != {h}×({stride}+1)")
@@ -30,7 +34,7 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
         if ftype == 0:  # None
             cur = line
         elif ftype == 1:  # Sub: a running sum along each byte lane
-            cur = np.cumsum(line.reshape(w, bpp), axis=0).reshape(-1) & 0xFF
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(-1) & 0xFF
         elif ftype == 2:  # Up
             cur = (line + prev) & 0xFF
         elif ftype in (3, 4):  # Average, Paeth: sequential along the row
@@ -55,8 +59,30 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _expand_palette(rows: np.ndarray, w: int, depth: int, plte: bytes,
+                    trns: bytes) -> np.ndarray:
+    """Unfiltered index rows (H, stride) at `depth` bits → (H, W, 3) RGB, or
+    (H, W, 4) RGBA when the image has a tRNS chunk (entries past its end are
+    opaque). Indices past the end of PLTE read as black."""
+    if depth < 8:  # MSB-first sub-byte indices, each row padded to whole bytes
+        bits = np.unpackbits(rows, axis=1).reshape(rows.shape[0], -1, depth)
+        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        idx = (bits * weights).sum(axis=-1, dtype=np.uint8)[:, :w]
+    else:
+        idx = rows[:, :w]
+    table = np.zeros((256, 4), np.uint8)
+    table[:, 3] = 255
+    n = min(len(plte) // 3, 256)
+    table[:n, :3] = np.frombuffer(plte[:3 * n], np.uint8).reshape(n, 3)
+    if trns:
+        table[:len(trns), 3] = np.frombuffer(trns[:256], np.uint8)
+        return table[idx]
+    return table[idx, :3]
+
+
 def read_png(path: str) -> np.ndarray:
-    """uint8 (H, W, C) with C = 1, 2, 3 or 4 samples as stored."""
+    """uint8 (H, W, C): C = 1, 2, 3 or 4 samples as stored, or a palette
+    expanded to 3 (RGB) or, with a tRNS chunk, 4 (RGBA)."""
     with open(path, "rb") as f:
         blob = f.read()
     if not blob.startswith(_SIGNATURE):
@@ -64,6 +90,7 @@ def read_png(path: str) -> np.ndarray:
     pos = len(_SIGNATURE)
     idat = []
     header = None
+    plte = trns = b""
     while pos < len(blob):
         (length,) = struct.unpack(">I", blob[pos:pos + 4])
         kind = blob[pos + 4:pos + 8]
@@ -73,19 +100,28 @@ def read_png(path: str) -> np.ndarray:
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"PLTE":
+            plte = body
+        elif kind == b"tRNS":
+            trns = body
         elif kind == b"IEND":
             break
     if header is None:
         raise ValueError(f"{path}: PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = header
-    if depth != 8 or ctype not in _CHANNELS or interlace != 0:
+    palette = ctype == _PALETTE and depth in (1, 2, 4, 8) and plte
+    if not (palette or (depth == 8 and ctype in _CHANNELS)) or interlace != 0:
         raise ValueError(
             f"{path}: unsupported PNG (bit depth {depth}, colour type {ctype}, "
-            f"interlace {interlace}); need 8-bit non-interlaced gray/RGB(A)"
+            f"interlace {interlace}); need non-interlaced 8-bit gray/RGB(A) or a "
+            "1/2/4/8-bit palette"
         )
+    raw = zlib.decompress(b"".join(idat))
+    if palette:
+        rows = _unfilter(raw, h, (w * depth + 7) // 8, 1)
+        return _expand_palette(rows, w, depth, plte, trns)
     ch = _CHANNELS[ctype]
-    pixels = _unfilter(zlib.decompress(b"".join(idat)), h, w, ch)
-    return pixels.reshape(h, w, ch)
+    return _unfilter(raw, h, w * ch, ch).reshape(h, w, ch)
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

@@ -72,21 +72,24 @@ def _write_mp4(frames: List[np.ndarray], path: str, fps: int) -> str:
 
 def export_to_video(frames: List[np.ndarray], output_path: str, fps: int = 8) -> str:
     """Write `frames/NNN.png` beside `output_path`, and the mp4 when a writer
-    imports. Returns the mp4 path, or the frames directory without one."""
+    imports. Both hold the clip padded with its last frame to a whole number
+    of seconds at `fps` (reference vtdm/util.py:44-47), so a reader of either
+    sees the same frames. Returns the mp4 path, or the frames directory
+    without one."""
     out_dir = os.path.dirname(output_path) or "."
     frame_dir = os.path.join(out_dir, "frames")
     os.makedirs(frame_dir, exist_ok=True)
-    for i, f in enumerate(frames):
-        write_png(os.path.join(frame_dir, f"{i:03d}.png"), f)
-    writers = ["png"]
-    # pad so the clip is a whole number of seconds (reference vtdm/util.py:44-47)
     padded = list(frames)
     if len(padded) % fps:
         padded += [padded[-1]] * (fps - len(padded) % fps)
+    for i, f in enumerate(padded):
+        write_png(os.path.join(frame_dir, f"{i:03d}.png"), f)
+    writers = ["png"]
     mp4 = _write_mp4(padded, output_path, fps)
     if mp4:
         writers.append(f"mp4:{mp4}")
-    print(f"[video] wrote {len(frames)} frames to {frame_dir} (writers: {', '.join(writers)})")
+    print(f"[video] wrote {len(frames)} frames, padded to {len(padded)}, to {frame_dir} "
+          f"(writers: {', '.join(writers)})")
     return output_path if mp4 else frame_dir
 
 

@@ -325,10 +325,50 @@ def test_block_attention_backward_kernel_matches_plain(cuda):
             assert _rel_err(a, b) < 2e-2
 
 
+# #6 and #7 at segment lengths around their 16-row tiles, #6's 64-frame key
+# blocks and 8-tile query chunks, and #7's 128-frame key blocks
+SEGMENT_LENGTHS = [2, 17, 33, 48, 64, 129, 136, 256]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("t", SEGMENT_LENGTHS)
+def test_block_attention_any_length_matches_plain(cuda, t, d):
+    """#6 (O and lse) and #7 against their plain versions on transposed
+    views, 5 segments a (b, s) so groups of segments end mid-location."""
+    g = torch.Generator(device=cuda).manual_seed(100 + t + d)
+    q, k, v, dout = _segments(g, cuda, 2, t, 3, 5, d, n=4)
+    out, lse = ta._block_forward(q, k, v, None)
+    ref, ref_lse = ta.temporal_block_attention_reference(q, k, v)
+    assert out.stride() == q.stride() and torch.isfinite(out).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err < 2e-2 and err < 2e-2 * ref.float().abs().max().item()
+    assert (lse - ref_lse).abs().max().item() < 1e-3
+    got = ta.temporal_block_attention_backward(q, k, v, out, lse, dout)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(ta.temporal_block_attention_reference(*leaves)[0], leaves, dout)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all() and _rel_err(a, b) < 2e-2
+
+
+@pytest.mark.gpu
+def test_block_attention_backward_is_deterministic(cuda):
+    """No atomics: two runs of #7 on the same inputs agree bit for bit, with
+    one key block (T = 48) and several (T = 256)."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    for t, d in ((48, 64), (256, 128)):
+        q, k, v, dout = _segments(g, cuda, 2, t, 8, 2, d, n=4)
+        out, lse = ta._block_forward(q, k, v, None)
+        first = ta.temporal_block_attention_backward(q, k, v, out, lse, dout)
+        second = ta.temporal_block_attention_backward(q, k, v, out, lse, dout)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.gpu
 def test_block_attention_carries_grad_fn_and_limits(cuda):
     """#6's output is in the autograd graph and its gradients reach q, k, v
-    through #7; a 129-frame segment raises."""
+    through #7; #6 runs a 300-frame segment, #7 raises above 256 frames."""
     g = torch.Generator(device=cuda).manual_seed(10)
     q, k, v = (x.detach().requires_grad_() for x in _segments(g, cuda, 2, 40, 16, 2, 64))
     before = ta.temporal_block_attention_backward.launches
@@ -338,8 +378,12 @@ def test_block_attention_carries_grad_fn_and_limits(cuda):
     assert ta.temporal_block_attention_backward.launches == before + 1
     for x in (q, k, v):
         assert x.grad is not None and torch.isfinite(x.grad).all() and x.grad.abs().max() > 0
-    with pytest.raises(ValueError, match="outside 2..128"):
-        ta.segment_attention(*_segments(g, cuda, 1, 129, 8, 1, 64))
+    seg300 = _segments(g, cuda, 1, 300, 8, 1, 64, n=4)
+    out, lse = ta._block_forward(*seg300[:3], None)
+    ref, _ = ta.temporal_block_attention_reference(*seg300[:3])
+    assert (out.float() - ref.float()).abs().max().item() < 2e-2
+    with pytest.raises(ValueError, match="outside 2..256"):
+        ta.temporal_block_attention_backward(*seg300[:3], out, lse, seg300[3])
 
 
 @pytest.mark.gpu

@@ -1,9 +1,11 @@
 """Long orbits (more than 32 frames) in the port against hi3d_tpu, on CPU.
 
 Past 32 frames the port's frame-axis attention leaves K2 for #6
-(`segment_attention` / `temporal_block_attention`, backward #7). On the CPU
-the wrappers take their plain versions; the JAX side runs its Pallas #6/#7
-(`_fwd3`/`_bwd3`) in interpret mode, as tests/test_temporal_kernel.py does.
+(`segment_attention` / `temporal_block_attention`, backward #7), at any
+length. On the CPU the wrappers take their plain versions; the JAX side runs
+its Pallas #6/#7 (`_fwd3`/`_bwd3`) in interpret mode, as
+tests/test_temporal_kernel.py does, where `default_block` finds a block
+(T = 136 here), else its einsum (`xla_attention_time`, T = 129 here).
 Inputs come from numpy.random.RandomState; everything is fp32.
 
 Tolerances: the kernel-level comparisons sum a few dozen products in another
@@ -20,6 +22,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from hi3d_tpu.ops import attention as jax_attn
 from hi3d_tpu.ops import temporal_attention as jax_ta
 from hi3d_tpu_torch.ops import attention as attn_ops
 from hi3d_tpu_torch.ops import temporal_attention as ta
@@ -33,17 +36,46 @@ def _inputs(t, n=3, seed=0):
     return [rnd.randn(B, S * t, H, D).astype(np.float32) for _ in range(n)]
 
 
-@pytest.mark.parametrize("t", [33, 40, 48])
-def test_block_attention_matches_jax_kernel(t):
+@pytest.fixture
+def jax_lm_kernels(monkeypatch):
+    """The JAX frame axis on its location-major kernels wherever they apply."""
+    monkeypatch.setenv("HI3D_TEMPORAL_FUSED", "force")
+    monkeypatch.setenv("HI3D_TEMPORAL_LAYOUT", "lm")
+
+
+def _jax_block_attention(q, k, v, t):
+    """JAX's segment-local attention on (B, S·T, H, D) tokens as its frame
+    axis runs it: the Pallas #6 where `default_block` finds a block, else the
+    einsum of `xla_attention_time` on the (B, T, S, H, D) view."""
+    if jax_ta.default_block(t, S * t):
+        return jax_ta.temporal_block_attention(q, k, v, t)
+
+    def to5(x):
+        return x.reshape(B, S, t, H, D).transpose(0, 2, 1, 3, 4)
+
+    assert not jax_attn._temporal_fused_engages(to5(q), to5(k), to5(v))
+    out = jax_attn.xla_attention_time(to5(q), to5(k), to5(v))
+    return out.transpose(0, 2, 1, 3, 4).reshape(B, S * t, H, D)
+
+
+@pytest.mark.parametrize("t", [33, 40, 48, 129, 136])
+def test_block_attention_matches_jax_kernel(t, jax_lm_kernels):
+    assert bool(jax_ta.default_block(t, S * t)) == (t != 129)
     q, k, v = _inputs(t)
-    ref = np.asarray(jax_ta.temporal_block_attention(*map(jnp.asarray, (q, k, v)), t))
+    ref = np.asarray(_jax_block_attention(*map(jnp.asarray, (q, k, v)), t))
     out = ta.temporal_block_attention(*map(torch.from_numpy, (q, k, v)), t).numpy()
     np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
 
     def to3(x):  # the JAX kernel's (B·H, S·T, D) layout
         return jnp.asarray(x).transpose(0, 2, 1, 3).reshape(B * H, S * t, D)
 
-    _, lse_ref = jax_ta._fwd3(to3(q), to3(k), to3(v), D**-0.5, jax_ta.default_block(t, S * t), t)
+    if jax_ta.default_block(t, S * t):
+        _, lse_ref = jax_ta._fwd3(to3(q), to3(k), to3(v), D**-0.5,
+                                  jax_ta.default_block(t, S * t), t)
+    else:  # the einsum's logits, (B, H, S, T, T)
+        seg = [to3(x).reshape(B, H, S, t, D) for x in (q, k, v)]
+        lse_ref = jax.nn.logsumexp(
+            jnp.einsum("bhsqd,bhskd->bhsqk", seg[0], seg[1]) * D**-0.5, axis=-1)
     _, lse = ta.temporal_block_attention_reference(
         *(torch.from_numpy(x).unflatten(1, (S, t)) for x in (q, k, v)))
     assert lse.shape == (B, H, S, t)
@@ -51,14 +83,15 @@ def test_block_attention_matches_jax_kernel(t):
                                rtol=0)
 
 
-@pytest.mark.parametrize("t", [33, 40, 48])
-def test_block_attention_grad_matches_jax(t):
+@pytest.mark.parametrize("t", [33, 40, 48, 129, 136])
+def test_block_attention_grad_matches_jax(t, jax_lm_kernels):
     """Through the port's autograd Function (plain #7 on the CPU) against
-    jax.grad through `_block_local` (`_bwd3` interpreted)."""
+    jax.grad through `_block_local` (`_bwd3` interpreted), or through the
+    einsum where JAX has no block (T = 129)."""
     q, k, v, g = _inputs(t, n=4, seed=100)
 
     def loss(q_, k_, v_):
-        return jnp.sum(jax_ta.temporal_block_attention(q_, k_, v_, t) * jnp.asarray(g))
+        return jnp.sum(_jax_block_attention(q_, k_, v_, t) * jnp.asarray(g))
 
     want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
     leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
@@ -81,6 +114,34 @@ def test_frame_attention_route_splits_at_32():
         out = attn_ops.time_self_attention(q, k, v)
         torch.testing.assert_close(out, ta.temporal_attention_reference(q, k, v), atol=1e-5,
                                    rtol=0)
+
+
+def test_segment_attention_any_length_stays_on_block_kernel(monkeypatch):
+    """A 200-frame clip (above #6's old 128-frame limit) goes through #6 and
+    nothing else: on CPU tensors `segment_attention` runs, and the frame-axis
+    dispatch never reaches K2."""
+    t = 200
+    assert attn_ops.frame_attention_kernel(t) == "temporal_block_attention"
+    calls = []
+
+    def no_k2(*a, **kw):
+        raise AssertionError("K2 reached at T = 200")
+
+    def spy(q, k, v, *a, **kw):
+        calls.append(q.shape[2])
+        return ta.segment_attention(q, k, v, *a, **kw)
+
+    monkeypatch.setattr(attn_ops, "temporal_attention", no_k2)
+    monkeypatch.setattr(attn_ops, "segment_attention", spy)
+    rnd = np.random.RandomState(200)
+    q, k, v = (torch.from_numpy(rnd.randn(1, t, 3, 2, 16).astype(np.float32)) for _ in range(3))
+    out = attn_ops.time_self_attention(q, k, v)
+    assert calls == [t]
+    torch.testing.assert_close(out, ta.temporal_attention_reference(q, k, v), atol=1e-5, rtol=0)
+    seg = [x.transpose(1, 2) for x in (q, k, v)]
+    out, lse = ta._block_forward(*seg, None)
+    assert out.shape == seg[0].shape and lse.shape == (1, 2, 3, t)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
 
 
 def test_video_unet_long_clip_matches_jax(monkeypatch):

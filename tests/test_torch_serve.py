@@ -81,9 +81,10 @@ def test_serve_cli_orbit_mode_pads_and_drops(tmp_path):
     for name in ("a", "b", "c"):
         frame_dir = out_dir / name / "frames"
         names = sorted(os.listdir(frame_dir))
-        assert names == [f"{i:03d}.png" for i in range(t)]
+        assert names == [f"{i:03d}.png" for i in range(8)]  # padded to 1 s at --fps 8
         frames = np.stack([read_png(str(frame_dir / f)) for f in names])
-        assert frames.shape == (t, 32, 32, 3) and frames.dtype == np.uint8
+        assert frames.shape == (8, 32, 32, 3) and frames.dtype == np.uint8
+        assert (frames[t:] == frames[t - 1]).all()
     assert {"conditioner", "sampler", "vae_decode", "io"} <= set(result["phases"])
 
 

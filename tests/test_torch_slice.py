@@ -246,9 +246,10 @@ def test_cli_writes_png_frames(tmp_path):
     assert "[i2v] phases" in res.stdout
     frame_dir = out_dir / "first_step" / "frames"
     names = sorted(os.listdir(frame_dir))
-    assert names == [f"{i:03d}.png" for i in range(T)]
+    assert names == [f"{i:03d}.png" for i in range(8)]  # T frames padded to 1 s at fps 8
     frames = np.stack([read_png(str(frame_dir / n)) for n in names])
-    assert frames.shape == (T, 64, 64, 3) and frames.dtype == np.uint8
+    assert frames.shape == (8, 64, 64, 3) and frames.dtype == np.uint8
+    assert (frames[T:] == frames[T - 1]).all()
 
 
 def test_cli_cuda_device_without_gpu_raises():

@@ -376,6 +376,7 @@ def test_v2v_cli_reads_stage1_frames(tmp_path):
     assert phases and all(k in phases[0] for k in ("conditioner", "dpt", "vae_encode", "sampler"))
     out_frames = out_dir / "second_step_video" / "frames"
     names = sorted(os.listdir(out_frames))
-    assert names == [f"{i:03d}.png" for i in range(T)]
+    assert names == [f"{i:03d}.png" for i in range(8)]  # T frames padded to 1 s at fps 8
     got = np.stack([read_png(str(out_frames / n)) for n in names])
-    assert got.shape == (T, RES, RES, 3) and got.dtype == np.uint8
+    assert got.shape == (8, RES, RES, 3) and got.dtype == np.uint8
+    assert (got[T:] == got[T - 1]).all()
