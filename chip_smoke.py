@@ -3,6 +3,11 @@
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --profile-serve  # only a 2-step profile of the serve batch
     python3 chip_smoke.py --profile-stage2 # only a 3-step profile of the stage-2 sampler
+    python3 chip_smoke.py --profile-train  # only 2-step profiles of training (2×16, 1×48)
+                                           # and #10's device time against F.layer_norm
+    python3 chip_smoke.py --time-block-backward [MAX_T]  # only #7's times, to compare trees
+    python3 chip_smoke.py --time-png       # only a 512² Average/Paeth PNG decode, C against
+                                           # the plain Python unfilter, on the host's CPU
 
 1. prints the card (nvidia-smi name and power limit) and fails without CUDA;
 2. builds the kernels from this checkout (`hi3d_tpu_torch/csrc`, Triton);
@@ -23,7 +28,9 @@
 6. main path 2: `hi3d_tpu_torch.train.main` on configs/train-v01.yaml at
    full width (2 videos × 16 × 512² per step, random weights, renders made
    from demo/3.png) for 4 steps; checks finite losses, moved parameters, a
-   reloadable checkpoint and the launch counts;
+   reloadable checkpoint and the launch counts; then 3 steps on one video of
+   48 frames a step (a dense ring of renders, `long_clip_config`): finite
+   losses and launch counts with #6/#7 on every frame-axis site;
 7. main path 3: `hi3d_tpu_torch.pipelines.v2v.main` at full width
    (configs/inference-v02.yaml, 16×1024², 25 steps, random weights, the DPT's
    included) on the frames main path 1 wrote; checks the refined frames and
@@ -372,6 +379,113 @@ def kernel_phase() -> Results:
     return results
 
 
+# #7's shapes: the serve path's four frame-axis sites, a ragged T = 33, T = 64
+# at D = 128, and past 64 frames (B1 S256 C1280); (B, T, S, C, D, in the
+# JSON sums)
+BLOCK_BACKWARD_CASES = ((4, 48, 4096, 320, 64, True), (4, 48, 1024, 640, 64, True),
+                        (4, 48, 256, 1280, 64, True), (4, 48, 64, 1280, 64, True),
+                        (4, 33, 256, 1280, 64, True), (2, 64, 256, 1280, 128, True),
+                        (1, 136, 256, 1280, 64, False), (1, 256, 256, 1280, 64, False),
+                        (1, 512, 256, 1280, 64, False))
+
+
+def block_backward_work(b, t, s, c, d):
+    """(bytes, flops) of #7 at one shape: q, k, v, O, dO read and dq, dk, dv
+    written once, lse read; 10·T²·D flops a segment."""
+    return 8 * b * t * s * c * 2 + b * (c // d) * s * t * 4, 10 * b * s * c * t * t
+
+
+def block_backward_case(b, t, s, c, d, gen, plain=True, reps=10):
+    """#7 on (B, T, S, C) projections as (B, S, T, H, D) views, from #6's own
+    O and lse: (its gradients, the plain version's (None unless `plain`),
+    kernel ms, plain ms, SDPA backward ms)."""
+    import torch
+    import torch.nn.functional as F
+
+    from hi3d_tpu_torch.ops import temporal_attention as ta
+
+    h = c // d
+    base = [torch.randn((b, t, s, c), generator=gen, device="cuda", dtype=torch.bfloat16)
+            for _ in range(4)]
+    q, k, v, dout = (x.view(b, t, s, h, d).transpose(1, 2) for x in base)
+    out, lse = ta._block_forward(q, k, v, None)
+    got = ta.temporal_block_attention_backward(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    want, plain_ms = None, None
+    if plain:
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        ref = ta.temporal_block_attention_reference(*leaves)[0]
+        want = torch.autograd.grad(ref, leaves, dout, retain_graph=True)
+        plain_ms = time_ms(lambda: torch.autograd.grad(ref, leaves, dout, retain_graph=True),
+                           reps=3)
+        del ref, leaves
+    ms = time_ms(lambda: ta.temporal_block_attention_backward(q, k, v, out, lse, dout), reps)
+    leaves = [x.detach().requires_grad_() for x in base[:3]]
+    lib = F.scaled_dot_product_attention(*(_sdpa_frames(y, h, d) for y in leaves))
+    library_ms = time_ms(lambda: torch.autograd.grad(lib, leaves, _sdpa_frames(base[3], h, d),
+                                                     retain_graph=True), reps)
+    return got, want, ms, plain_ms, library_ms
+
+
+def time_png_decode(size: int = 512, reps: int = 5) -> None:
+    """Seconds to decode one size² RGBA PNG whose scanlines alternate the
+    Average and Paeth filters, with `read_png` (the C unfilter; best of
+    `reps`, its build excluded) and with the plain Python unfilter, on this
+    host's CPU. The scanlines are random bytes: any bytes are a valid
+    filtered image, and both decoders must give the same one."""
+    import struct
+    import zlib
+
+    from hi3d_tpu_torch.utils import png
+
+    stride = size * 4
+    rows = np.random.RandomState(0).randint(0, 256, (size, 1 + stride)).astype(np.uint8)
+    rows[:, 0] = np.arange(size) % 2 + 3
+    raw = rows.tobytes()
+    os.makedirs(os.path.join(ROOT, "outputs"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_png_",
+                                     dir=os.path.join(ROOT, "outputs")) as tmp:
+        path = os.path.join(tmp, "frame.png")
+        with open(path, "wb") as f:
+            f.write(png._SIGNATURE)
+            f.write(png._chunk(b"IHDR", struct.pack(">IIBBBBB", size, size, 8, 6, 0, 0, 0)))
+            f.write(png._chunk(b"IDAT", zlib.compress(raw, 6)))
+            f.write(png._chunk(b"IEND", b""))
+        fast = png.read_png(path)  # builds the C unfilter
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            png.read_png(path)
+            times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    plain = png._unfilter_reference(raw, size, stride, 4)
+    plain_s = time.perf_counter() - t0
+    if not np.array_equal(fast.reshape(size, stride), plain):
+        raise AssertionError("read_png and the plain unfilter disagree")
+    print(f"[png] {size}² RGBA, Average/Paeth rows: read_png {min(times):.4f} s, plain "
+          f"unfilter {plain_s:.4f} s ({plain_s / min(times):.0f}×)", flush=True)
+
+
+def time_block_backward(max_t: int = 1 << 30) -> None:
+    """#7's kernel and SDPA-backward times alone, at every case of
+    BLOCK_BACKWARD_CASES up to `max_t` frames (20 runs each), for comparing
+    two trees on one card:
+
+        python3 chip_smoke.py --time-block-backward [MAX_T]"""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for b, t, s, c, d, _ in BLOCK_BACKWARD_CASES:
+        if t > max_t:
+            continue
+        _, _, ms, _, library_ms = block_backward_case(b, t, s, c, d, gen, plain=False, reps=20)
+        nbytes, flops = block_backward_work(b, t, s, c, d)
+        b_ms, b_by = bound(nbytes, flops)
+        print(f"[time] temporal_block_attention_backward B={b} T={t} S={s} C={c} D={d}: "
+              f"kernel={ms:.3f} ms ({flops / ms / 1e9:.1f} TF/s, {100 * b_ms / ms:.1f}% of the "
+              f"bound) sdpa_bwd={library_ms:.3f} ms bound={b_ms:.4f} ms ({b_by})", flush=True)
+
+
 def backward_kernel_phase() -> Results:
     """#3, #5 and #7 against autograd through their plain versions, and K3's
     Function (kernel forward, plain fp32 backward) against autograd of
@@ -497,28 +611,12 @@ def backward_kernel_phase() -> Results:
                   base[:3], _sdpa_frames(base[3], h, 64)),
               8 * b * t * s * c * 2, 10 * b * s * c * t * t)
 
-    # #7 at #6's shapes, from #6's own O and lse (T = 136: two key blocks of
-    # up to 128 frames; T = 256: four of 64; printed, not in the JSON sums)
-    for b, t, s, c, d, summed in ((4, 48, 4096, 320, 64, True), (4, 48, 1024, 640, 64, True),
-                                  (4, 48, 256, 1280, 64, True), (4, 48, 64, 1280, 64, True),
-                                  (4, 33, 256, 1280, 64, True), (2, 64, 256, 1280, 128, True),
-                                  (1, 136, 256, 1280, 64, False),
-                                  (1, 256, 256, 1280, 64, False)):
-        h = c // d
-        base = [torch.randn((b, t, s, c), generator=gen, device=dev, dtype=bf16)
-                for _ in range(4)]
-        q, k, v, dout = (x.view(b, t, s, h, d).transpose(1, 2) for x in base)
-        out, lse = ta._block_forward(q, k, v, None)
-        got = ta.temporal_block_attention_backward(q, k, v, out, lse, dout)
-        torch.cuda.synchronize()
-        want, plain_ms = plain_grads(lambda *a: ta.temporal_block_attention_reference(*a)[0],
-                                     (q, k, v), dout)
-        ms = time_ms(lambda: ta.temporal_block_attention_backward(q, k, v, out, lse, dout))
+    # #7 at #6's shapes, from #6's own O and lse (past 64 frames several
+    # frame blocks a segment; T = 136, 256, 512 printed, not in the JSON sums)
+    for b, t, s, c, d, summed in BLOCK_BACKWARD_CASES:
+        got, want, ms, plain_ms, library_ms = block_backward_case(b, t, s, c, d, gen)
         check("temporal_block_attention_backward", f"B={b} T={t} S={s} C={c} D={d}", got, want,
-              ms, plain_ms, library_grad_ms(
-                  lambda *a: F.scaled_dot_product_attention(*(_sdpa_frames(y, h, d) for y in a)),
-                  base[:3], _sdpa_frames(base[3], h, d)),
-              8 * b * t * s * c * 2 + b * h * s * t * 4, 10 * b * s * c * t * t, summed)
+              ms, plain_ms, library_ms, *block_backward_work(b, t, s, c, d), summed)
 
     for shape, act in (((32, 320, 64, 64), "silu"), ((32, 320, 64, 64), None),
                        ((2, 320, 16, 64, 64), "silu")):
@@ -940,17 +1038,22 @@ def stage2_path(steps: int, stage1_dir: str) -> dict:
     return launches
 
 
-def write_renders(root: str, folders: int = 2, frames: int = 96) -> str:
-    """Orbit-render stand-ins: `folders` folders of `frames` RGBA 512² PNGs
-    made from demo/3.png (alpha 0 on its white background), rolled by an
-    amount that grows with the azimuth and the elevation band, written with
-    the port's PNG writer."""
+def _demo_rgba() -> np.ndarray:
+    """demo/3.png as RGBA, alpha 0 on its white background."""
     from hi3d_tpu_torch.utils.image import load_image_rgb
-    from hi3d_tpu_torch.utils.png import write_png
 
     img = load_image_rgb(os.path.join(ROOT, "demo", "3.png"))
     alpha = np.where(img.min(axis=-1) < 245, 255, 0).astype(np.uint8)[..., None]
-    rgba = np.concatenate([img, alpha], axis=-1)
+    return np.concatenate([img, alpha], axis=-1)
+
+
+def write_renders(root: str, folders: int = 2, frames: int = 96) -> str:
+    """Orbit-render stand-ins: `folders` folders of `frames` RGBA 512² PNGs
+    made from demo/3.png (`_demo_rgba`), rolled by an amount that grows with
+    the azimuth and the elevation band, written with the port's PNG writer."""
+    from hi3d_tpu_torch.utils.png import write_png
+
+    rgba = _demo_rgba()
     for f in range(folders):
         d = os.path.join(root, f"obj{f:02d}")
         os.makedirs(d, exist_ok=True)
@@ -1043,6 +1146,123 @@ def training_path(steps: int) -> dict:
     return launches
 
 
+LONG_CLIP = 48  # frames a clip of the long-clip training run: a 48-view ring
+LONG_CLIP_STEPS = 3
+
+
+def write_ring(root: str, frames: int = LONG_CLIP) -> str:
+    """One folder of `frames` RGBA 512² PNGs made from demo/3.png
+    (`_demo_rgba`), one ring at one elevation: view i rolled by i/frames of
+    the width."""
+    from hi3d_tpu_torch.utils.png import write_png
+
+    rgba = _demo_rgba()
+    d = os.path.join(root, "ring00")
+    os.makedirs(d, exist_ok=True)
+    for i in range(frames):
+        write_png(os.path.join(d, f"{i:03d}.png"),
+                  np.roll(rgba, (0, rgba.shape[1] * i // frames), axis=(0, 1)))
+    return root
+
+
+def dense_orbit_data(**params):
+    """The `data:` module of a dense-orbit fine-tune, as a config target
+    (`data.target=chip_smoke.dense_orbit_data`), with VideoDataset's params:
+    every folder under `base_folder` holds one ring of views at one elevation
+    (10°), and a sample is a cyclic window of `sample_frames` of them from a
+    random start. VideoDataset, in the port as in the JAX package, takes its
+    window inside one 16-frame elevation band of a render folder, so it
+    yields at most 16 frames a clip whatever `sample_frames` says."""
+    from hi3d_tpu_torch.data.video_dataset import VideoDataset, VideoTrainDataset
+
+    class RingDataset(VideoTrainDataset):
+        def sample(self, rng):
+            folder = self.folders[int(rng.randint(len(self.folders)))]
+            path = os.path.join(self.base_folder, folder)
+            names = sorted(os.listdir(path))
+            start = int(rng.randint(len(names)))
+            chosen = [names[(start + i) % len(names)] for i in range(self.sample_frames)]
+            return {"video": np.stack([self._load_frame(os.path.join(path, n)) for n in chosen]),
+                    "elevation": np.float32(10.0), "caption": f"{folder}_{chosen[0]}",
+                    "fps_id": np.int32(7), "motion_bucket_id": np.int32(127)}
+
+    class RingData(VideoDataset):
+        def setup(self):
+            self.train_dataset = RingDataset(self.base_folder, self.width, self.height,
+                                             self.sample_frames)
+            return self
+
+    return RingData(**params)
+
+
+def long_clip_config(path: str, frames: int = LONG_CLIP, renders: str = "") -> str:
+    """configs/train-v01.yaml for one video of `frames` frames a step, written
+    whole to `path`: model.params.num_samples, the loss's num_frames and the
+    n_copies of every embedder tied to the clip length (the cond-frame VAE
+    latent's: n_copies equal to num_samples) set to `frames`, batch 1, data
+    from `dense_orbit_data` under `renders`. These are the keys both
+    trainers read; a CLI dotlist cannot reach n_copies inside the emb_models
+    list in either package, so the config is written out."""
+    import yaml
+
+    from hi3d_tpu_torch.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, "configs", "train-v01.yaml"))
+    mp = cfg["model"]["params"]
+    for emb in mp["conditioner_config"]["params"]["emb_models"]:
+        if (emb.get("params") or {}).get("n_copies") == mp["num_samples"]:
+            emb["params"]["n_copies"] = frames
+    mp["num_samples"] = frames
+    mp["loss_fn_config"]["params"]["num_frames"] = frames
+    cfg["data"]["target"] = "chip_smoke.dense_orbit_data"
+    cfg["data"]["params"].update(base_folder=renders, batch_size=1, sample_frames=frames)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+    return path
+
+
+def long_clip_training_path(steps: int = LONG_CLIP_STEPS, frames: int = LONG_CLIP) -> dict:
+    """`hi3d_tpu_torch.train.main` at full width on one video of `frames`
+    frames at 512² a step (`long_clip_config`) for `steps` steps: every
+    frame-axis site on #6 forward and #7 backward. Checks finite losses and
+    launch counts equal to the plan; prints s/step (median of steps 2 on)
+    and peak allocated memory. Returns the launch count of each kernel."""
+    import shutil
+    import statistics
+
+    import torch
+
+    from hi3d_tpu_torch import train
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train48_", dir=os.path.join(ROOT, "outputs"))
+    renders = write_ring(os.path.join(out_dir, "renders"), frames)
+    config = long_clip_config(os.path.join(out_dir, "train-long.yaml"), frames, renders)
+    expected = expected_launches(config, steps, "train")
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer = train.main(["--base", config, "--max_steps", str(steps), "--no_test", "True",
+                          "--device", "cuda", "--seed", "0", "--logdir", out_dir,
+                          "data.params.num_workers=4"])
+    launches = read_launches(expected)
+    wall = time.perf_counter() - t0
+    rows = [json.loads(line) for line in open(os.path.join(trainer.logdir, "metrics.jsonl"))]
+    s_per_step = statistics.median(r["sec_per_step"] for r in rows[1:])
+    peak = max(r["peak_mem_gb"] for r in rows)
+    print(f"[train48] {steps} steps in {wall:.1f} s (build, data and checkpoint included); "
+          f"batch 1 video × {frames} frames × 512²; s/step (median of steps 2-{steps}) "
+          f"{s_per_step:.3f}; peak allocated {peak:.2f} GiB; losses "
+          f"{[round(r['loss'], 5) for r in rows]}; launches {launches}", flush=True)
+    if [r["step"] for r in rows] != list(range(1, steps + 1)):
+        raise AssertionError(f"metrics rows {[r['step'] for r in rows]}")
+    if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows):
+        raise AssertionError("a training loss or gradient norm is not finite")
+    _check_launches(launches, expected)
+    del trainer
+    shutil.rmtree(out_dir)  # tens of GB of checkpoint
+    torch.cuda.empty_cache()
+    return launches
+
+
 SERVE_CLIP = 48  # a 48-view orbit: three times the 16 views, 7.5° apart
 SERVE_ASSETS = 2
 
@@ -1102,19 +1322,33 @@ def serve_path(steps: int) -> dict:
     return launches
 
 
+def _device_kernels(prof) -> list:
+    """The profiler's device events that are kernels: not the user
+    annotations (such as Optimizer.step) that it also puts on the device's
+    timeline."""
+    import torch
+
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
 def _profile_report(prof, label: str, steps: int, host_ms: float) -> None:
     """Print host ms/step, launches a step, the device's idle share of the
     traced span, device time by bucket and the 20 largest kernels."""
     import torch
 
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _device_kernels(prof)
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0.0, spans[0][0]
     for a, b in spans:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
     idle = 1.0 - busy / (spans[-1][1] - spans[0][0])
-    buckets = (("#6 block attention", ("block_attn",)), ("K1 flash attention", ("fa_fwd",)),
+    buckets = (("#7 block attention backward", ("block_attn_bwd",)),
+               ("#6 block attention", ("block_attn",)),
+               ("#3 flash attention backward", ("fa_bwd",)),
+               ("#5 temporal attention backward", ("temporal_attn_bwd",)),
+               ("K1 flash attention", ("fa_fwd",)),
                ("K2 temporal attention", ("temporal_attn",)),
                ("K3 GroupNorm", ("_gn_",)), ("#10 LayerNorm", ("_ln_kernel",)),
                ("strided elementwise", ("elementwise_kernel",)),
@@ -1176,6 +1410,94 @@ def profile_serve(steps: int = 2) -> None:
                     host_ms)
 
 
+def profile_train(steps: int = 2) -> None:
+    """torch.profiler over `steps` optimizer steps at full width, after one
+    step that is not traced, at configs/train-v01.yaml as written (2 videos
+    × 16 frames × 512²) and at `long_clip_config` (1 × 48): random videos in
+    [-1, 1] made on the card (the loader is not in the window, as it is not
+    in the trainer's s/step); the same report as `profile_serve`. Then #10's
+    device time a call, apart from its host launch, against F.layer_norm's.
+
+        python3 chip_smoke.py --profile-train"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hi3d_tpu_torch.config import instantiate_from_config, load_config
+    from hi3d_tpu_torch.training.trainer import Trainer
+
+    out_dir = tempfile.mkdtemp(prefix="chip_profile_train_", dir=os.path.join(ROOT, "outputs"))
+    long_cfg = long_clip_config(os.path.join(out_dir, "train-long.yaml"))
+    for config in (os.path.join(ROOT, "configs", "train-v01.yaml"), long_cfg):
+        cfg = load_config(config)
+        params = dict(cfg["model"]["params"])
+        params.pop("ckpt_path", None)
+        params.setdefault("base_learning_rate", cfg["model"].get("base_learning_rate"))
+        with torch.random.fork_rng(devices=[0]), torch.device("cuda"):
+            torch.manual_seed(0)
+            engine = instantiate_from_config({"target": cfg["model"]["target"], "params": params})
+        b, t = cfg["data"]["params"]["batch_size"], params["num_samples"]
+        trainer = Trainer(engine, logdir=os.path.join(out_dir, f"run{t}"), batch_size=b)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        batch = {"video": torch.rand((b, t, 3, 512, 512), generator=gen, device="cuda") * 2 - 1,
+                 "elevation": torch.full((b,), 10.0, device="cuda")}
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        for i in range(1 + steps):
+            if i == 1:
+                torch.cuda.synchronize()
+                prof.start()
+                t0 = time.perf_counter()
+            trainer.train_step(engine.add_custom_cond(batch, infer=False, generator=gen), gen)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / steps
+        prof.stop()
+        _profile_report(prof, f"training, {b} × {t} frames at 512², peak allocated "
+                        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", steps, host_ms)
+        del trainer, engine, batch, prof
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    layer_norm_device_time()
+
+
+def layer_norm_device_time(calls: int = 100) -> None:
+    """#10 (`ops.layer_norm.layer_norm`) and F.layer_norm at the DPT's fp32
+    rows and the UNet's bf16 rows: the mean device time of a kernel from the
+    profiler's kernel spans over `calls` calls (each call is one kernel; the
+    kernels the profiler caught are counted and named), and the time a call
+    by CUDA events around `calls` calls (launch and wrapper work included)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from hi3d_tpu_torch.ops import layer_norm as ln
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for m, c, dtype, eps in ((16 * 577, 768, torch.float32, 1e-6),
+                             (32 * 16384, 320, torch.bfloat16, 1e-5)):
+        x = torch.randn((m, c), generator=gen, device="cuda", dtype=dtype)
+        w = 1 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
+        bia = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+        wx, bx = w.to(dtype), bia.to(dtype)
+        for name, fn in (("#10", lambda: ln.layer_norm(x, w, bia, eps)),
+                         ("F.layer_norm", lambda: F.layer_norm(x, (c,), wx, bx, eps))):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            kernels = _device_kernels(prof)
+            if not kernels:
+                raise AssertionError(f"the profiler caught no kernel of {name}")
+            spans = [e.time_range.end - e.time_range.start for e in kernels]
+            dev_ms = sum(spans) / 1e3 / len(spans)
+            host_ms = time_ms(lambda: [fn() for _ in range(calls)]) / calls
+            names = sorted({e.name[:40] for e in kernels})
+            print(f"[layer_norm] {name} ({m}, {c}) {str(dtype).split('.')[-1]}: device "
+                  f"{dev_ms * 1e3:.1f} us a kernel ({len(kernels)} kernels caught over {calls} "
+                  f"calls: {names}), {host_ms * 1e3:.1f} us a call by CUDA events; card "
+                  f"{card_line()}", flush=True)
+
+
 def profile_stage2(steps: int = 3) -> None:
     """torch.profiler over `steps` stage-2 sampler steps (configs/
     inference-v02.yaml at full width, random weights: one CFG-batched UNet
@@ -1232,6 +1554,9 @@ def main() -> None:
     print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}",
           flush=True)
     sys.path.insert(0, ROOT)
+    if sys.argv[1:] == ["--time-png"]:
+        time_png_decode()
+        return
     os.makedirs(os.path.join(ROOT, "outputs"), exist_ok=True)
 
     from hi3d_tpu_torch.ops import build
@@ -1251,6 +1576,12 @@ def main() -> None:
     if sys.argv[1:] == ["--profile-stage2"]:
         profile_stage2()
         return
+    if sys.argv[1:] == ["--profile-train"]:
+        profile_train()
+        return
+    if sys.argv[1:2] == ["--time-block-backward"]:
+        time_block_backward(*map(int, sys.argv[2:3]))
+        return
 
     measured = kernel_phase()
     print("[smoke] kernel phase ok", flush=True)
@@ -1260,8 +1591,7 @@ def main() -> None:
     unet_reference_phase(inference)
     unet_gradient_phase(inference)
     unet_reference_phase(os.path.join(ROOT, "configs", "inference-v02.yaml"))
-    # a long clip: every frame-axis site on #6 forward and #7 backward (the
-    # gradient is #7's path: no CLI runs a backward past 32 frames yet)
+    # a long clip: every frame-axis site on #6 forward and #7 backward
     unet_reference_phase(inference, b=1, t=40)
     by_path = {"unet_grad_t40": unet_gradient_phase(inference, b=1, t=40)}
     print(f"[smoke] main path 1: configs/inference-v01.yaml, 16×512², {NUM_STEPS} steps, "
@@ -1270,6 +1600,9 @@ def main() -> None:
     print(f"[smoke] main path 2: configs/train-v01.yaml, {TRAIN_STEPS} steps, random weights",
           flush=True)
     by_path["train"] = training_path(TRAIN_STEPS)
+    print(f"[smoke] main path 2b: configs/train-v01.yaml at 1 × {LONG_CLIP} frames, "
+          f"{LONG_CLIP_STEPS} steps, random weights (#7 on every frame-axis site)", flush=True)
+    by_path["train48"] = long_clip_training_path()
     print(f"[smoke] main path 3: configs/inference-v02.yaml, 16×1024², {STAGE2_STEPS} steps, "
           "random weights, on main path 1's frames", flush=True)
     by_path["v2v"] = stage2_path(STAGE2_STEPS, stage1_dir)

@@ -52,34 +52,51 @@
 //   of the stage's Q tile and leaves as 16-byte coalesced row stores; lse is
 //   written as fp32 in natural-log units, (B, H, S, T) contiguous, for #7.
 //
-// Backward (#7): one thread block owns one segment (Tp/16
-// warps, T ≤ 256): Q and dO of the whole segment stay in shared memory, keys
-// go in blocks of at most 128 frames (fewer where shared memory is short;
-// T ≤ 128 is one block). Per key block
-// P = exp2(S·scale·log2e − lse·log2e) is recomputed from the forward's lse,
-// so no online softmax; dK and dV of the block's keys are complete when the
-// block is done, and dQ accumulates in fp32 fragments across key blocks in
-// the warp that owns its rows: no atomics, the same result every run. WMMA
-// bf16 m16n16k16 tiles, P and dS rounded to bf16 before their products as
-// in the Pallas kernel. Shared memory: 4·Tp·D + 4·KB·D + 4·Tp·KB + 128·Tp
-// bytes for key blocks of KB rows (208 KB at T = 256, D = 128, KB = 32).
+// Backward (#7): per segment 10·T·T·D flops (14 as computed: S and dP are
+// formed twice, once key-major and once query-major) against 8·T·D bf16
+// moved (Q, K, V, O, dO in; dQ, dK, dV out), about 0.6·T flops a byte: bytes
+// bound it up to T ≈ 470, tensor cores past that.
+// - Work item: a group of G adjacent segments (as #6) and one own frame
+//   block (BR = 64 frames; see MULTI below). Its warps take two roles over
+//   (segment, own 16-row tile, 64-column half of D): a key-major warp sums
+//   dK and dV of its key tile, a query-major warp dQ of its query tile. So
+//   dQ needs no atomics and no second launch, and each gradient element is
+//   summed by one warp in a fixed order: the same result every run.
+//   Splitting D in halves keeps a key-major warp at 64 fp32 accumulators at
+//   D = 128 as at D = 64.
+// - The item streams every frame block of its segments (its own block
+//   first) through the same two-stage cp.async ring as #6: a stage holds Q,
+//   K, V, dO, O and lse of one block for the G segments, swizzled, zero-
+//   filled past T and past the last segment. Δ = rowsum(dO∘O) is formed from
+//   the stage's tiles (16-byte shared reads, a shuffle reduction a row) and
+//   lse goes to log2 units once, with padded rows at 1e30 so their P is 0.
+//   T ≤ 64 is one block: an item reads each input once and both roles read
+//   the one stage, while the next item's copies are in flight. Past 64
+//   frames (MULTI) the own block is copied out of the ring at the item's
+//   first step and the other blocks come again (from L2, the segment's items
+//   being neighbours), so any T runs in bounded shared memory; there Δ comes
+//   from a pre-pass kernel instead of O, so a stage holds four tiles, and
+//   the blocks are 128 frames at D = 64 from 256 frames.
+// - mma.sync.m16n8k16 as in #6. A key-major warp forms Sᵀ = K Qᵀ and
+//   dPᵀ = V dOᵀ for 16 keys × 16 queries; Pᵀ = exp2(Sᵀ·scale·log2e − lse2)
+//   and dSᵀ = Pᵀ∘(dPᵀ − Δ), packed to bf16, are the A fragments of dV += Pᵀ dO
+//   and dK += dSᵀ Q (dO and Q by ldmatrix.trans). A query-major warp forms S
+//   and dP for 16 queries × 16 keys and dS is the A fragment of dQ += dS K.
+//   No P, dS or fp32 tile goes through shared memory.
+// - Epilogue: each gradient tile, scaled and rounded to bf16, goes through
+//   the warp's own 2 KB of the spent stage and leaves as 16-byte row stores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <algorithm>
-
-using namespace nvcuda;
 
 namespace {
 
 constexpr int KB = 64;              // forward key block (frames)
 constexpr int FWD_WARPS = 8;        // forward warps a block, at most (query tiles a chunk)
 constexpr int FWD_GROUP_WARPS = 4;  // forward: segments are grouped up to this many warps
-constexpr int MAX_BWD_T = 256;      // backward: one warp per 16 query rows
-constexpr int BWD_KB = 128;         // backward key block, at most
 constexpr int SMEM_MAX = 232448;    // dynamic shared memory a block may use
 constexpr int FWD_RING_CAP = 113 * 1024;  // two forward blocks to an SM
 constexpr float NEG_BIG = -1e30f;  // not -inf: exp2(-inf - -inf) is NaN
@@ -380,210 +397,347 @@ block_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 // ----------------------------------------------------------------- backward
 //
 // Per segment, from the forward's lse (natural log) and O:
-//   P = exp(Q K^T·scale − lse), Δ_i = dO_i·O_i, dV = P^T dO,
-//   dS = P∘(dO V^T − Δ), dQ = dS K·scale, dK = dS^T Q·scale.
+//   P = exp(Q Kᵀ·scale − lse), Δ_i = dO_i·O_i, dV = Pᵀ dO,
+//   dS = P∘(dO Vᵀ − Δ), dQ = dS K·scale, dK = dSᵀ Q·scale.
 // As in the Pallas kernel, P and dS are rounded to bf16 before their
 // products; everything else is fp32 until the bf16 gradients are written.
-//
-// Per key block of kb rows: phase 1, warp w forms rows 16w.. of P and dS
-// (bf16, shared, kb columns) one 16x16 tile at a time through two fp32
-// staging tiles (S, then dO V^T). Phase 2, the block's (key tile, column
-// tile) pairs of dK and dV go round the warps, each reading P and dS
-// transposed (col-major fragments) over every query tile, and warp w adds
-// dS rows 16w.. times the block's K to its fp32 dQ fragments. Each gradient
-// element is written by exactly one warp: no atomics, the same result every
-// run.
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragAt = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+constexpr int BR = 64;              // backward frame block: rows of a stage (or 2·BR)
+constexpr float LSE_PAD = 1e30f;    // lse2 of a padded query row: exp2(S − 1e30) = 0
 
-// Rows [0, Tp) of a segment into a dense (Tp, D) shared tile, 16 bytes a
-// thread; rows from T on are zero.
-template <int D>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long st, int T, int Tp) {
-  constexpr int CHUNKS = D / 8;
-  for (int i = threadIdx.x; i < Tp * CHUNKS; i += blockDim.x) {
-    const int r = i / CHUNKS, c = i % CHUNKS;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < T) val = *reinterpret_cast<const uint4*>(src + r * st + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * D + c * 8) = val;
+struct BwdArgs {                     // pointers and (b, s, t) strides
+  const __nv_bfloat16* in[5];        // q, k, v, dO, o: the order of a stage's tiles
+  Strides ist[5];
+  const float* lse;                  // (B, H, S, T) fp32, natural log
+  const float* delta;                // (B, H, S, T) fp32 Δ, past BR frames (MULTI)
+  __nv_bfloat16* out[3];             // dq, dk, dv
+  Strides ost[3];
+};
+
+struct BwdPlan {      // the host's blocking of one launch
+  int G;              // segments a work item
+  int kr;             // rows a frame block holds: Tp up to BR, else BR or 2·BR
+  int tiles;          // 16-row tiles a block: kr / 16
+  int halves;         // 64-column halves of D
+  int nb;             // blocks a segment
+  int nseg;           // B·S·H
+  int items;          // ceil(nseg / G) · nb
+};
+
+// One stage: bf16 [G][NT][kr][D] (Q, K, V, dO and, at T ≤ BR, O of frame
+// block i, swizzled), then fp32 [G][2][kr] (lse2, Δ of the block's rows).
+// MULTI (T > BR, G = 1): Δ comes from `block_attn_bwd_delta_kernel`, not O.
+template <bool MULTI>
+__host__ __device__ constexpr int bwd_tensors() {
+  return MULTI ? 4 : 5;
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+template <int D, bool MULTI>
+__device__ __forceinline__ void bwd_issue(__nv_bfloat16* stage, const BwdArgs& a,
+                                          const BwdPlan& p, int S, int T, int H, int item,
+                                          int step) {
+  constexpr int CH = D / 8;
+  const int grp = item / p.nb, j = item % p.nb;
+  const int row0 = (j + step) % p.nb * p.kr;  // the frame block streamed at this step
+  const int seg = bwd_tensors<MULTI>() * p.kr * D;
+  float* fbase = reinterpret_cast<float*>(stage + p.G * seg);
+  for (int g = 0; g < p.G; ++g) {
+    const int u = grp * p.G + g;
+    const bool live = u < p.nseg;
+    const int h = u % H, s = u / H % S, b = u / H / S;
+    __nv_bfloat16* d = stage + g * seg;
+#pragma unroll
+    for (int x = 0; x < bwd_tensors<MULTI>(); ++x) {
+      const __nv_bfloat16* src = a.in[x];
+      const Strides st = a.ist[x];
+      const __nv_bfloat16* sb = live ? seg_base(src, st, b, s, h, D) : src;
+      for (int e = threadIdx.x; e < p.kr * CH; e += blockDim.x) {
+        const int c = e % CH, r = e / CH, t = row0 + r;
+        const bool ok = live && t < T;
+        cp_async16(smem_u32(d + x * p.kr * D + swz<D>(r, c)), ok ? sb + t * st.t + c * 8 : src,
+                   ok);
+      }
+    }
+    const long long rb = live ? (((long long)b * H + h) * S + s) * T + row0 : 0;
+    float* fl = fbase + g * 2 * p.kr;
+    for (int r = threadIdx.x; r < p.kr; r += blockDim.x) {
+      const bool ok = live && row0 + r < T;
+      cp_async4(smem_u32(fl + r), ok ? a.lse + rb + r : a.lse, ok);
+      if (MULTI) cp_async4(smem_u32(fl + p.kr + r), ok ? a.delta + rb + r : a.delta, ok);
+    }
   }
 }
 
-// A warp writes a 16x16 fp32 tile (row-major, ld 16) as bf16 rows row0.. of a
-// segment, scaled by `mul`; lane l takes row l/2, columns (l%2)*8 .. +8 (one
-// 16-byte store). Rows from T on are not written.
-__device__ __forceinline__ void store_tile(__nv_bfloat16* dst, long long st, const float* tile,
-                                           int row0, int T, float mul) {
-  const int lane = threadIdx.x & 31, r = lane >> 1, c = (lane & 1) * 8;
-  if (row0 + r >= T) return;
-  const float* src = tile + r * 16 + c;
-  uint4 val;
-  val.x = pack(src[0] * mul, src[1] * mul);
-  val.y = pack(src[2] * mul, src[3] * mul);
-  val.z = pack(src[4] * mul, src[5] * mul);
-  val.w = pack(src[6] * mul, src[7] * mul);
-  *reinterpret_cast<uint4*>(dst + (row0 + r) * st + c) = val;
+__device__ __forceinline__ float dot8(uint4 x, uint4 y) {
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 a = unpack(xs[i]), b = unpack(ys[i]);
+    acc = fmaf(a.x, b.x, fmaf(a.y, b.y, acc));
+  }
+  return acc;
 }
 
-// ONE_BLOCK (T ≤ 128, 256 threads): Q and dO fragments stay in registers
-// and each dQ tile leaves as soon as it is summed. Otherwise
-// (T ≤ 256, 512 threads, so at most 128 registers) the fragments are read
-// from shared memory where they are used and dQ stays in fp32 fragments
-// across the key blocks.
-template <int D, bool ONE_BLOCK>
-__global__ void __launch_bounds__(ONE_BLOCK ? 256 : 512)
-block_attn_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
-                      const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                      __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv, int S, int T, int H, int kbr, Strides qs,
-                      Strides ks, Strides vs, Strides os, Strides gs, Strides dqs, Strides dks,
-                      Strides dvs, float scale, float scale_log2) {
+// A warp's 16×64 fp32 accumulator (rows gr, gr + 8 of 8-column tiles) × mul,
+// as bf16 through the warp's 2 KB of shared staging, then out as 16-byte
+// row stores to rows row0.. (those below T) of a (rows, ld) bf16 array.
+__device__ __forceinline__ void bwd_store(__nv_bfloat16* stg, const float (&acc)[8][4],
+                                          float mul, __nv_bfloat16* dst, long long ld,
+                                          int row0, int T, bool live) {
+  const int lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
+  uint32_t* stg32 = reinterpret_cast<uint32_t*>(stg);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    stg32[(swz<64>(gr, n) + 2 * tq) >> 1] = pack(acc[n][0] * mul, acc[n][1] * mul);
+    stg32[(swz<64>(gr + 8, n) + 2 * tq) >> 1] = pack(acc[n][2] * mul, acc[n][3] * mul);
+  }
+  __syncwarp();
+  for (int e = lane; e < 16 * 8; e += 32) {
+    const int r = e / 8, c = e % 8;
+    if (live && row0 + r < T)
+      *reinterpret_cast<uint4*>(dst + (long long)(row0 + r) * ld + c * 8) =
+          *reinterpret_cast<const uint4*>(stg + swz<64>(r, c));
+  }
+  __syncwarp();
+}
+
+// Work item: G adjacent segments × one own frame block j (≤ 64 frames). Its
+// warps come in two roles, each over (segment, own 16-row tile, 64-column
+// half of D): key-major warps own a key tile and sum its dK and dV, query-
+// major warps own a query tile and sum its dQ. The item streams every frame
+// block i of its segments, j first, through the two-stage ring (Q, K, V,
+// dO, O and lse of block i): key-major warps take block i's query tiles,
+// query-major warps its key tiles. T ≤ 64 is one block, so an item reads
+// each input once, and both roles read its one stage; past 64 frames the
+// own block is copied out of the ring at the item's first step and the
+// other blocks are read again from L2, once per own block (MULTI: Δ from
+// the pre-pass instead of O; with 64-frame blocks at D = 64 the ring and
+// the own block take 100 KB and two blocks fit an SM).
+template <int D, bool MULTI>
+__global__ void __launch_bounds__(D == 64 && !MULTI ? 256 : 512)
+block_attn_bwd_kernel(BwdArgs a, int S, int T, int H, float scale, float scale_log2,
+                      BwdPlan p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int CH = D / 8;
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const int seg = bwd_tensors<MULTI>() * p.kr * D;
+  const int stage_elems = p.G * seg + p.G * 2 * p.kr * 2;  // bf16 units: floats count twice
+  __nv_bfloat16* own = ring + 2 * stage_elems;  // MULTI: a copy of block j's stage
   const int Tp = pad16(T);
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sG = sQ + Tp * D;  // dO
-  __nv_bfloat16* sK = sG + Tp * D;  // this key block's K and V, kbr rows
-  __nv_bfloat16* sV = sK + kbr * D;
-  __nv_bfloat16* sP = sV + kbr * D;  // (Tp, kbr)
-  __nv_bfloat16* sD = sP + Tp * kbr;  // dS
-  float* sStage = reinterpret_cast<float*>(sD + Tp * kbr);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int role_warps = p.G * p.tiles * p.halves;
+  const bool key_major = warp < role_warps;
+  const int wr = key_major ? warp : warp - role_warps;
+  const int my_g = wr / (p.tiles * p.halves), my_t = wr / p.halves % p.tiles,
+            hf = wr % p.halves;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
-  const long long item = blockIdx.x;
-  const int h = (int)(item % H);
-  const long long bs = item / H;
-  const int s = (int)(bs % S), b = (int)(bs / S);
+  float acc0[8][4], acc1[8][4];  // key-major: dK, dV; query-major: dQ in acc0
 
-  load_rows<D>(sQ, seg_base(q, qs, b, s, h, D), qs.t, T, Tp);
-  load_rows<D>(sG, seg_base(dout, gs, b, s, h, D), gs.t, T, Tp);
-  __syncthreads();
-
-  // row statistics of row i (lanes 2r, 2r+1): lse in log2 units, and
-  // Δ_i = dO_i·O_i with O read once from device memory
-  const int i0 = warp * 16, r = lane >> 1, half = lane & 1, i = i0 + r;
-  float lse2 = 0.f, delta = 0.f;
-  if (i < T) {
-    lse2 = lse[(((long long)b * H + h) * S + s) * T + i] * LOG2E;
-    const uint32_t* orow = reinterpret_cast<const uint32_t*>(
-        seg_base(o, os, b, s, h, D) + i * os.t + half * (D / 2));
-    const uint32_t* grow = reinterpret_cast<const uint32_t*>(sG + i * D + half * (D / 2));
-    for (int w = 0; w < D / 4; ++w) {
-      const float2 a = unpack(orow[w]), g = unpack(grow[w]);
-      delta = fmaf(a.x, g.x, fmaf(a.y, g.y, delta));
+  int item = blockIdx.x, step = 0, slot = 0;
+  if (item < p.items) bwd_issue<D, MULTI>(ring, a, p, S, T, H, item, 0);
+  cp_async_commit();
+  while (item < p.items) {
+    int next = item, next_step = step + 1;
+    if (next_step == p.nb) {
+      next_step = 0;
+      next += gridDim.x;
     }
-  }
-  delta += __shfl_xor_sync(FULL, delta, 1);
+    if (next < p.items)
+      bwd_issue<D, MULTI>(ring + (slot ^ 1) * stage_elems, a, p, S, T, H, next, next_step);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();  // this stage's copies, from every thread, have landed
 
-  float* st0 = sStage + warp * 512;  // S tile, then the output staging tile
-  float* st1 = st0 + 256;            // dO V^T tile
-  __nv_bfloat16* dqb = seg_base(dq, dqs, b, s, h, D);
-  __nv_bfloat16* dkb = seg_base(dk, dks, b, s, h, D);
-  __nv_bfloat16* dvb = seg_base(dv, dvs, b, s, h, D);
-  constexpr int NQF = ONE_BLOCK ? D / 16 : 1, NAQ = ONE_BLOCK ? 1 : D / 16;
-  FragC aq[NAQ];
-#pragma unroll
-  for (int n = 0; n < NAQ; ++n) wmma::fill_fragment(aq[n], 0.f);
-  FragA qf[NQF], gf[NQF];
-  if (ONE_BLOCK) {
-#pragma unroll
-    for (int kk = 0; kk < NQF; ++kk) {
-      wmma::load_matrix_sync(qf[kk], sQ + i0 * D + kk * 16, D);
-      wmma::load_matrix_sync(gf[kk], sG + i0 * D + kk * 16, D);
-    }
-  }
-
-  for (int kb0 = 0; kb0 < Tp; kb0 += kbr) {
-    const int nk = min(kbr, Tp - kb0), nkt = nk / 16;
-    if (kb0 > 0) __syncthreads();  // the previous key block is no longer read
-    load_rows<D>(sK, seg_base(k, ks, b, s, h, D) + kb0 * ks.t, ks.t, T - kb0, nk);
-    load_rows<D>(sV, seg_base(v, vs, b, s, h, D) + kb0 * vs.t, vs.t, T - kb0, nk);
-    __syncthreads();
-
-    for (int n = 0; n < nkt; ++n) {
-      FragC sf, dpf;
-      wmma::fill_fragment(sf, 0.f);
-      wmma::fill_fragment(dpf, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int f = ONE_BLOCK ? kk : 0;
-        if (!ONE_BLOCK) {
-          wmma::load_matrix_sync(qf[0], sQ + i0 * D + kk * 16, D);
-          wmma::load_matrix_sync(gf[0], sG + i0 * D + kk * 16, D);
+    const int grp = item / p.nb, j = item % p.nb, i = (j + step) % p.nb;
+    __nv_bfloat16* stage = ring + slot * stage_elems;
+    float* fbase = reinterpret_cast<float*>(stage + p.G * seg);
+    if (MULTI) {
+      // lse to log2 units (padded rows: LSE_PAD, so their P is 0); at the
+      // item's first step the stage is also copied out as the own block
+      float* of = reinterpret_cast<float*>(own + seg);
+      for (int r = threadIdx.x; r < p.kr; r += blockDim.x) {
+        const float l2 = grp < p.nseg && i * p.kr + r < T ? fbase[r] * LOG2E : LSE_PAD;
+        fbase[r] = l2;
+        if (step == 0) {
+          of[r] = l2;
+          of[p.kr + r] = fbase[p.kr + r];
         }
-        FragBt kf, vf;
-        wmma::load_matrix_sync(kf, sK + n * 16 * D + kk * 16, D);
-        wmma::mma_sync(sf, qf[f], kf, sf);
-        wmma::load_matrix_sync(vf, sV + n * 16 * D + kk * 16, D);
-        wmma::mma_sync(dpf, gf[f], vf, dpf);
       }
-      wmma::store_matrix_sync(st0, sf, 16, wmma::mem_row_major);
-      wmma::store_matrix_sync(st1, dpf, 16, wmma::mem_row_major);
-      __syncwarp();
+      if (step == 0)
+        for (int e = threadIdx.x; e < 4 * p.kr * CH; e += blockDim.x)
+          reinterpret_cast<uint4*>(own)[e] = reinterpret_cast<const uint4*>(stage)[e];
+    } else {
+      // Δ = rowsum(dO∘O) from the stage's tiles, CH lanes a row; lse as above
+      for (int e = threadIdx.x; e < p.G * p.kr * CH; e += blockDim.x) {
+        const int c = e % CH, r = e / CH % p.kr, g = e / CH / p.kr;
+        const __nv_bfloat16* xs = stage + g * seg + swz<D>(r, c);
+        float dl = dot8(*reinterpret_cast<const uint4*>(xs + 3 * p.kr * D),
+                        *reinterpret_cast<const uint4*>(xs + 4 * p.kr * D));
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int c = half * 8 + e, j = kb0 + n * 16 + c;
-        float p = 0.f, ds = 0.f;
-        if (i < T && j < T) {
-          p = exp2f(st0[r * 16 + c] * scale_log2 - lse2);
-          ds = p * (st1[r * 16 + c] - delta);
+        for (int m = CH / 2; m; m >>= 1) dl += __shfl_xor_sync(FULL, dl, m);
+        if (c == 0) {
+          float* fl = fbase + g * 2 * p.kr;
+          fl[r] = grp * p.G + g < p.nseg && r < T ? fl[r] * LOG2E : LSE_PAD;
+          fl[p.kr + r] = dl;
         }
-        sP[i * kbr + n * 16 + c] = __float2bfloat16(p);
-        sD[i * kbr + n * 16 + c] = __float2bfloat16(ds);
       }
-      __syncwarp();
     }
-    __syncthreads();  // every warp's rows of P and dS are in place
+    __syncthreads();  // Δ, lse2 (and the own block) are in place
 
-    // dV_j = Σ_i P_ij dO_i and dK_j = Σ_i dS_ij Q_i for the block's key tiles
-    for (int unit = warp; unit < nkt * (D / 16); unit += nwarps) {
-      const int j0 = (unit % nkt) * 16, n = unit / nkt;
-      FragC av, ak;
-      wmma::fill_fragment(av, 0.f);
-      wmma::fill_fragment(ak, 0.f);
-      for (int t = 0; t < Tp / 16; ++t) {
-        FragAt pt, dst;
-        FragB gb, qb;
-        wmma::load_matrix_sync(pt, sP + t * 16 * kbr + j0, kbr);
-        wmma::load_matrix_sync(gb, sG + t * 16 * D + n * 16, D);
-        wmma::mma_sync(av, pt, gb, av);
-        wmma::load_matrix_sync(dst, sD + t * 16 * kbr + j0, kbr);
-        wmma::load_matrix_sync(qb, sQ + t * 16 * D + n * 16, D);
-        wmma::mma_sync(ak, dst, qb, ak);
-      }
-      wmma::store_matrix_sync(st0, av, 16, wmma::mem_row_major);
-      __syncwarp();
-      store_tile(dvb + n * 16, dvs.t, st0, kb0 + j0, T, 1.f);
-      __syncwarp();
-      wmma::store_matrix_sync(st0, ak, 16, wmma::mem_row_major);
-      __syncwarp();
-      store_tile(dkb + n * 16, dks.t, st0, kb0 + j0, T, scale);
-      __syncwarp();
-    }
-    // dQ_i += Σ_j dS_ij K_j over this block's keys (rows i0.. of dS)
+    if (step == 0) {
 #pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragC& acc = aq[ONE_BLOCK ? 0 : n];
-      if (ONE_BLOCK) wmma::fill_fragment(acc, 0.f);
-      for (int t = 0; t < nkt; ++t) {
-        FragA dsf;
-        FragB kf;
-        wmma::load_matrix_sync(dsf, sD + i0 * kbr + t * 16, kbr);
-        wmma::load_matrix_sync(kf, sK + t * 16 * D + n * 16, D);
-        wmma::mma_sync(acc, dsf, kf, acc);
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc0[n][e] = acc1[n][e] = 0.f;
+    }
+    // this warp's segment in the stage (block i) and in the own block j
+    const __nv_bfloat16* sx = stage + my_g * seg;
+    const float* sf = fbase + my_g * 2 * p.kr;
+    const __nv_bfloat16* ox = MULTI ? own : sx;
+    const float* of = MULTI ? reinterpret_cast<const float*>(own + seg) : sf;
+    const int kr = p.kr;
+    const int t16 = my_t * 16;
+    // block i's live rows (a multiple of 16); none for a warp whose own tile
+    // lies past T, in the last block of a ragged T > BR
+    const int rows = t16 < Tp - j * kr ? min(kr, Tp - i * kr) : 0;
+
+    if (key_major) {
+      // Sᵀ = K_j Qᵢᵀ and dPᵀ = V_j dOᵢᵀ (16 keys × 16 queries), then
+      // dV += Pᵀ dOᵢ and dK += dSᵀ Qᵢ with Pᵀ, dSᵀ as A fragments
+      const __nv_bfloat16* oK = ox + kr * D;
+      const __nv_bfloat16* oV = ox + 2 * kr * D;
+      const __nv_bfloat16* sQ = sx;
+      const __nv_bfloat16* sG = sx + 3 * kr * D;
+      for (int uq = 0; uq * 16 < rows; ++uq) {
+        float st[2][4], dp[2][4];
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t fa[4], fb[4];
+          const int ca = 2 * kk + (lane >> 4), ra = t16 + (lane & 15);
+          const int cb = 2 * kk + ((lane >> 3) & 1),
+                    rb = uq * 16 + (lane & 7) + ((lane >> 4) << 3);
+          ldsm_x4(smem_u32(oK + swz<D>(ra, ca)), fa);
+          ldsm_x4(smem_u32(sQ + swz<D>(rb, cb)), fb);
+          mma16816(st[0], fa, fb[0], fb[1]);
+          mma16816(st[1], fa, fb[2], fb[3]);
+          ldsm_x4(smem_u32(oV + swz<D>(ra, ca)), fa);
+          ldsm_x4(smem_u32(sG + swz<D>(rb, cb)), fb);
+          mma16816(dp[0], fa, fb[0], fb[1]);
+          mma16816(dp[1], fa, fb[2], fb[3]);
+        }
+        float pr[2][4], ds[2][4];
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = uq * 16 + n * 8 + 2 * tq + (e & 1);
+            pr[n][e] = exp2f(st[n][e] * scale_log2 - sf[q]);
+            ds[n][e] = pr[n][e] * (dp[n][e] - sf[kr + q]);
+          }
+        }
+        const uint32_t pa[4] = {pack(pr[0][0], pr[0][1]), pack(pr[0][2], pr[0][3]),
+                                pack(pr[1][0], pr[1][1]), pack(pr[1][2], pr[1][3])};
+        const uint32_t da[4] = {pack(ds[0][0], ds[0][1]), pack(ds[0][2], ds[0][3]),
+                                pack(ds[1][0], ds[1][1]), pack(ds[1][2], ds[1][3])};
+        const int rt = uq * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+#pragma unroll
+        for (int dc = 0; dc < 4; ++dc) {
+          const int ct = 2 * (hf * 4 + dc) + (lane >> 4);
+          uint32_t fb[4];
+          ldsm_x4_trans(smem_u32(sG + swz<D>(rt, ct)), fb);
+          mma16816(acc1[2 * dc], pa, fb[0], fb[1]);
+          mma16816(acc1[2 * dc + 1], pa, fb[2], fb[3]);
+          ldsm_x4_trans(smem_u32(sQ + swz<D>(rt, ct)), fb);
+          mma16816(acc0[2 * dc], da, fb[0], fb[1]);
+          mma16816(acc0[2 * dc + 1], da, fb[2], fb[3]);
+        }
       }
-      if (kb0 + nk == Tp) {  // the last key block: dQ rows i0.., columns n·16.. are done
-        wmma::store_matrix_sync(st0, acc, 16, wmma::mem_row_major);
-        __syncwarp();
-        store_tile(dqb + n * 16, dqs.t, st0, i0, T, scale);
-        __syncwarp();
+    } else {
+      // S = Q_j Kᵢᵀ and dP = dO_j Vᵢᵀ (16 queries × 16 keys), then
+      // dQ += dS Kᵢ with dS as the A fragment; keys past T get P = 0
+      const __nv_bfloat16* oQ = ox;
+      const __nv_bfloat16* oG = ox + 3 * kr * D;
+      const __nv_bfloat16* sK = sx + kr * D;
+      const __nv_bfloat16* sV = sx + 2 * kr * D;
+      const float l0 = of[t16 + gr], l1 = of[t16 + gr + 8];
+      const float d0 = of[kr + t16 + gr], d1 = of[kr + t16 + gr + 8];
+      for (int uk = 0; uk * 16 < rows; ++uk) {
+        float st[2][4], dp[2][4];
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t fa[4], fb[4];
+          const int ca = 2 * kk + (lane >> 4), ra = t16 + (lane & 15);
+          const int cb = 2 * kk + ((lane >> 3) & 1),
+                    rb = uk * 16 + (lane & 7) + ((lane >> 4) << 3);
+          ldsm_x4(smem_u32(oQ + swz<D>(ra, ca)), fa);
+          ldsm_x4(smem_u32(sK + swz<D>(rb, cb)), fb);
+          mma16816(st[0], fa, fb[0], fb[1]);
+          mma16816(st[1], fa, fb[2], fb[3]);
+          ldsm_x4(smem_u32(oG + swz<D>(ra, ca)), fa);
+          ldsm_x4(smem_u32(sV + swz<D>(rb, cb)), fb);
+          mma16816(dp[0], fa, fb[0], fb[1]);
+          mma16816(dp[1], fa, fb[2], fb[3]);
+        }
+        float ds[2][4];
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = i * kr + uk * 16 + n * 8 + 2 * tq + (e & 1);
+            const float pv = key < T ? exp2f(st[n][e] * scale_log2 - (e < 2 ? l0 : l1)) : 0.f;
+            ds[n][e] = pv * (dp[n][e] - (e < 2 ? d0 : d1));
+          }
+        }
+        const uint32_t da[4] = {pack(ds[0][0], ds[0][1]), pack(ds[0][2], ds[0][3]),
+                                pack(ds[1][0], ds[1][1]), pack(ds[1][2], ds[1][3])};
+        const int rt = uk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+#pragma unroll
+        for (int dc = 0; dc < 4; ++dc) {
+          uint32_t fb[4];
+          ldsm_x4_trans(smem_u32(sK + swz<D>(rt, 2 * (hf * 4 + dc) + (lane >> 4))), fb);
+          mma16816(acc0[2 * dc], da, fb[0], fb[1]);
+          mma16816(acc0[2 * dc + 1], da, fb[2], fb[3]);
+        }
       }
     }
+
+    if (step == p.nb - 1) {  // epilogue: every warp has read this stage
+      __syncthreads();
+      const int u = grp * p.G + my_g;
+      const bool live = u < p.nseg;
+      const int h = u % H, s = u / H % S, b = u / H / S;
+      const int row0 = j * kr + t16;
+      __nv_bfloat16* stg = stage + warp * 16 * 64;
+      if (key_major) {
+        bwd_store(stg, acc1, 1.f, seg_base(a.out[2], a.ost[2], b, s, h, D) + hf * 64,
+                  a.ost[2].t, row0, T, live);
+        bwd_store(stg, acc0, scale, seg_base(a.out[1], a.ost[1], b, s, h, D) + hf * 64,
+                  a.ost[1].t, row0, T, live);
+      } else {
+        bwd_store(stg, acc0, scale, seg_base(a.out[0], a.ost[0], b, s, h, D) + hf * 64,
+                  a.ost[0].t, row0, T, live);
+      }
+    }
+    __syncthreads();  // this stage is free for the copies issued next round
+    item = next;
+    step = next_step;
+    slot ^= 1;
   }
 }
 
@@ -636,33 +790,100 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
   return cudaGetLastError();
 }
 
-size_t bwd_smem(int Tp, int kbr, int D) {
-  return (size_t)4 * Tp * D + (size_t)4 * kbr * D + (size_t)4 * Tp * kbr + (size_t)128 * Tp;
+// Δ = rowsum(dO∘O) for T > BR, where every block of a segment is streamed
+// once per own block: (B, H, S, T) fp32 into `delta`, D/8 lanes a row, 16
+// bytes a lane.
+template <int D>
+__global__ void __launch_bounds__(256)
+block_attn_bwd_delta_kernel(BwdArgs a, float* __restrict__ delta, int S, int T, int H,
+                            long long rows) {
+  constexpr int CH = D / 8;
+  const long long lanes = rows * CH;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       e - (threadIdx.x & 31) < lanes; e += (long long)gridDim.x * blockDim.x) {
+    const bool live = e < lanes;
+    const long long row = live ? e / CH : 0;
+    const int c = (int)(e % CH), t = (int)(row % T);
+    const int u = (int)(row / T), h = u % H, s = u / H % S, b = u / H / S;
+    float dl = 0.f;
+    if (live) {
+      const __nv_bfloat16* g = seg_base(a.in[3], a.ist[3], b, s, h, D) + t * a.ist[3].t + c * 8;
+      const __nv_bfloat16* o = seg_base(a.in[4], a.ist[4], b, s, h, D) + t * a.ist[4].t + c * 8;
+      dl = dot8(*reinterpret_cast<const uint4*>(g), *reinterpret_cast<const uint4*>(o));
+    }
+#pragma unroll
+    for (int m = CH / 2; m; m >>= 1) dl += __shfl_xor_sync(FULL, dl, m);
+    if (live && c == 0) delta[(((long long)b * H + h) * S + s) * T + t] = dl;
+  }
 }
 
-template <int D, bool ONE_BLOCK>
+template <int D, bool MULTI>
+cudaError_t launch_bwd_kernel(const BwdArgs& a, BwdPlan p, int S, int T, int H, float scale,
+                              cudaStream_t stream) {
+  const int seg_warps = 2 * p.tiles * p.halves;  // both roles
+  const int max_warps = D == 64 && !MULTI ? 8 : 16;
+  const size_t seg_bytes = (size_t)bwd_tensors<MULTI>() * p.kr * D * 2 + (size_t)2 * p.kr * 4;
+  const size_t own_bytes = MULTI ? seg_bytes : 0;
+  p.G = MULTI ? 1 : std::max(1, max_warps / seg_warps);
+  while (p.G > 1 && 2 * p.G * seg_bytes + own_bytes > (size_t)SMEM_MAX) --p.G;
+  const size_t smem = 2 * p.G * seg_bytes + own_bytes;
+  if (smem > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
+  p.items = (p.nseg + p.G - 1) / p.G * p.nb;
+  const int threads = p.G * seg_warps * 32;
+  cudaError_t err = cudaFuncSetAttribute(block_attn_bwd_kernel<D, MULTI>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, block_attn_bwd_kernel<D, MULTI>,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int grid = std::min(p.items, per_sm * sm_count());
+  block_attn_bwd_kernel<D, MULTI><<<(unsigned)grid, threads, smem, stream>>>(
+      a, S, T, H, scale, scale * LOG2E, p);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
-                       const void* dout, const void* lse, void* dq, void* dk, void* dv, int B,
-                       int S, int T, int H, const long long* st, float scale,
+                       const void* dout, const void* lse, void* delta, void* dq, void* dk,
+                       void* dv, int B, int S, int T, int H, const long long* st, float scale,
                        cudaStream_t stream) {
   const int Tp = pad16(T);
-  int kbr = Tp < BWD_KB ? Tp : BWD_KB;
-  while (kbr > 16 && bwd_smem(Tp, kbr, D) > (size_t)SMEM_MAX) kbr /= 2;
-  const size_t smem = bwd_smem(Tp, kbr, D);
-  if (smem > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      block_attn_bwd_kernel<D, ONE_BLOCK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  BwdPlan p;
+  // frames a block: BR up to BR (one block), then 64, or at D = 64 from 256
+  // frames 128 (half the re-streaming and twice the work a barrier; at
+  // T = 136 the smaller blocks pad less and won, by timing variants)
+  const int rb = D == 64 && Tp >= 256 ? 2 * BR : BR;
+  p.kr = Tp < rb ? Tp : rb;
+  p.tiles = p.kr / 16;
+  p.halves = D / 64;
+  p.nb = (Tp + rb - 1) / rb;
+  const long long nseg = (long long)B * S * H;
+  if (nseg * p.nb >= (1ll << 31)) return cudaErrorInvalidValue;
+  p.nseg = (int)nseg;
+  BwdArgs a;
+  const void* ins[5] = {q, k, v, dout, o};
+  const int in_idx[5] = {0, 1, 2, 4, 3};  // strides arrive as q, k, v, o, dO
+  for (int x = 0; x < 5; ++x) {
+    a.in[x] = static_cast<const __nv_bfloat16*>(ins[x]);
+    a.ist[x] = strides_at(st, in_idx[x]);
+  }
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  void* outs[3] = {dq, dk, dv};
+  for (int x = 0; x < 3; ++x) {
+    a.out[x] = static_cast<__nv_bfloat16*>(outs[x]);
+    a.ost[x] = strides_at(st, 5 + x);
+  }
+  if (Tp <= BR) return launch_bwd_kernel<D, false>(a, p, S, T, H, scale, stream);
+  const long long rows = nseg * T;
+  const long long blocks = std::min<long long>((rows * (D / 8) + 255) / 256, 16ll * sm_count());
+  block_attn_bwd_delta_kernel<D><<<(unsigned)blocks, 256, 0, stream>>>(
+      a, static_cast<float*>(delta), S, T, H, rows);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long items = (long long)B * S * H;
-  block_attn_bwd_kernel<D, ONE_BLOCK><<<(unsigned)items, Tp * 2, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(o),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), S, T, H, kbr, strides_at(st, 0), strides_at(st, 1),
-      strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), strides_at(st, 5),
-      strides_at(st, 6), strides_at(st, 7), scale, scale * LOG2E);
-  return cudaGetLastError();
+  return launch_bwd_kernel<D, true>(a, p, S, T, H, scale, stream);
 }
 
 }  // namespace
@@ -684,16 +905,22 @@ extern "C" int hi3d_block_attention_fwd(const void* q, const void* k, const void
 }
 
 // strides: 24 element strides (b, s, t) for q, k, v, o, dO, dq, dk, dv in that
-// order; lse is the forward's (B, H, S, T) fp32. 2 ≤ T ≤ 256.
+// order; lse is the forward's (B, H, S, T) fp32; delta is (B, H, S, T) fp32
+// scratch, used past 64 frames. T ≥ 2.
 extern "C" int hi3d_block_attention_bwd(const void* q, const void* k, const void* v,
                                         const void* o, const void* dout, const void* lse,
-                                        void* dq, void* dk, void* dv, int B, int S, int T,
-                                        int H, int D, const long long* strides, float scale,
-                                        void* stream) {
-  if (T < 2 || T > MAX_BWD_T || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
+                                        void* delta, void* dq, void* dk, void* dv, int B,
+                                        int S, int T, int H, int D, const long long* strides,
+                                        float scale, void* stream) {
+  if (T < 2) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool one = pad16(T) <= BWD_KB;
-  auto launch = D == 64 ? (one ? launch_bwd<64, true> : launch_bwd<64, false>)
-                        : (one ? launch_bwd<128, true> : launch_bwd<128, false>);
-  return (int)launch(q, k, v, o, dout, lse, dq, dk, dv, B, S, T, H, strides, scale, st);
+  switch (D) {
+    case 64:
+      return (int)launch_bwd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, T, H, strides,
+                                 scale, st);
+    case 128:
+      return (int)launch_bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, T, H, strides,
+                                  scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -101,7 +101,8 @@ def load_library() -> ctypes.CDLL:
     ]
     lib.hi3d_block_attention_fwd.restype = i32
     lib.hi3d_block_attention_bwd.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, strides, f32, ptr,
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, strides, f32,
+        ptr,
     ]
     lib.hi3d_block_attention_bwd.restype = i32
     _lib = lib

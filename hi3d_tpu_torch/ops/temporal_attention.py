@@ -20,8 +20,10 @@ which need bf16, T ≤ 32 and D ∈ {64, 128}.
 #6 replaces `_fwd3` (segment-local attention on location-major tokens, O and
 an fp32 lse) and #7 replaces `_bwd3` (its backward from lse and Δ); both are
 CUDA C++ in `csrc/block_attention.cu`: #6 a persistent kernel over groups of
-segments with keys in blocks of 64 frames and an online softmax, #7 one
-thread block per segment with keys in blocks of up to 128 frames.
+segments with keys in blocks of 64 frames and an online softmax, #7 a
+persistent kernel over groups of segments and frame blocks of 64 (128 at
+D = 64 from 256 frames; past 64 frames after a Δ pre-pass), whose key-major
+warps sum dK and dV and whose query-major warps sum dQ.
 `segment_attention(q, k, v)` takes strided (B, S, T, H, D) views, the
 segment along axis 2, so the UNet's (B, T, S, H, D) projections go in as
 `.transpose(1, 2)` views with no copy; `temporal_block_attention(q, k, v,
@@ -29,8 +31,7 @@ seg_len)` is the JAX package's (B, S·T, H, D) signature on top of it. With a
 gradient it runs as an autograd Function that saves q, k, v, O and lse, as
 `_block_local_fwd` does, and whose backward is #7
 (`temporal_block_attention_backward`). CUDA tensors need bf16, T ≥ 2 and
-D ∈ {64, 128}; #7 also T ≤ MAX_BACKWARD_SEGMENT (a segment's Q and dO stay
-in one block's shared memory). The plain versions have no limit.
+D ∈ {64, 128}.
 """
 
 from __future__ import annotations
@@ -42,7 +43,6 @@ import torch
 from . import build
 
 MAX_FRAMES = 32  # K2's limit (a warp per (b, s, h))
-MAX_BACKWARD_SEGMENT = 256  # #7's limit (one warp per 16 query rows of a segment)
 SUPPORTED_HEAD_DIMS = (64, 128)
 
 
@@ -226,7 +226,7 @@ def temporal_block_attention_backward_reference(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_segments(name: str, *xs: torch.Tensor, max_t: float = float("inf")) -> None:
+def _check_segments(name: str, *xs: torch.Tensor) -> None:
     q = xs[0]
     if q.ndim != 5 or any(x.shape != q.shape for x in xs):
         raise ValueError(f"{name}: (B, S, T, H, D) inputs of one shape, got "
@@ -240,8 +240,8 @@ def _check_segments(name: str, *xs: torch.Tensor, max_t: float = float("inf")) -
         if not _packed(x, 8):
             raise ValueError(f"{name}: strides {x.stride()} need packed heads and (b, s, t) "
                              "strides that are multiples of 8 on a 16-byte aligned base")
-    if not 2 <= t <= max_t:
-        raise ValueError(f"{name}: segment length T={t} outside 2..{max_t}")
+    if t < 2:
+        raise ValueError(f"{name}: segment length T={t} below 2")
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not in {SUPPORTED_HEAD_DIMS}")
 
@@ -287,8 +287,7 @@ def temporal_block_attention_backward(
             return temporal_block_attention_backward_reference(q, k, v, out, lse, dout, scale)
     out = out if _packed(out, 8) else out.contiguous()
     dout = dout if _packed(dout, 8) else dout.contiguous()
-    _check_segments("temporal_block_attention_backward", q, k, v, out, dout,
-                    max_t=MAX_BACKWARD_SEGMENT)
+    _check_segments("temporal_block_attention_backward", q, k, v, out, dout)
     b, s, t, h, d = q.shape
     if lse.shape != (b, h, s, t) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"temporal_block_attention_backward: lse must be contiguous fp32 "
@@ -296,14 +295,15 @@ def temporal_block_attention_backward(
     scale = d**-0.5 if scale is None else scale
     lib = build.load_library()
     dq, dk, dv = _empty_like(q), _empty_like(k), _empty_like(v)
+    delta = torch.empty_like(lse)  # Δ scratch of the pre-pass that runs past 64 frames
     strides = build.stride_array([st for x in (q, k, v, out, dout, dq, dk, dv)
                                   for st in x.stride()[:3]])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.hi3d_block_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, t, h, d,
-            strides, float(scale), stream,
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, s, t, h, d, strides, float(scale), stream,
         )
     build.check(err, "temporal_block_attention_backward")
     temporal_block_attention_backward.launches += 1

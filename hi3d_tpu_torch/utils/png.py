@@ -1,4 +1,5 @@
-"""PNG reader and writer on the standard library (zlib + struct) and numpy.
+"""PNG reader and writer on the standard library (zlib + struct), numpy and a
+small C unfilter built at first use (`csrc/png_unfilter.c`).
 
 The GPU host has no cv2/PIL/imageio guarantee, so the port reads its input
 image and writes its frames with this module. Reader scope: non-interlaced,
@@ -9,8 +10,17 @@ chunk is present), as cv2's `IMREAD_UNCHANGED` decodes them.
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
+import os
+import shutil
 import struct
+import subprocess
+import tempfile
+import threading
 import zlib
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -18,10 +28,69 @@ _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG colour type → samples per pixel
 _PALETTE = 3  # colour type of indexed-colour images
 
+_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "png_unfilter.c"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
+_CFLAGS = ["-O3", "-shared", "-fPIC"]
+_lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+
+
+def _native() -> ctypes.CDLL:
+    """The C unfilter (`csrc/png_unfilter.c`), compiled once per source hash
+    with the host C compiler into build/host/ and loaded with ctypes. One
+    thread of a process builds it while the others wait; the library is
+    written under a name of its own and renamed into place, so processes
+    that build it at once do not race."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        src = _SOURCE.read_bytes()
+        digest = hashlib.sha256(src + " ".join(_CFLAGS).encode()).hexdigest()[:16]
+        out = _BUILD_DIR / f"libhi3d_png_{digest}.so"
+        if not out.exists():
+            cc = os.environ.get("CC") or shutil.which("cc") or shutil.which("gcc")
+            if cc is None:
+                raise RuntimeError("read_png: no C compiler (cc, gcc or $CC) to build "
+                                   f"{_SOURCE.name}")
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(prefix=f"{out.name}.", suffix=".tmp", dir=_BUILD_DIR)
+            os.close(fd)
+            try:
+                done = subprocess.run([cc, *_CFLAGS, "-o", tmp, str(_SOURCE)],
+                                      capture_output=True, text=True)
+                if done.returncode != 0:
+                    raise RuntimeError(f"read_png: building {_SOURCE.name} failed:\n"
+                                       f"{done.stderr}")
+                os.replace(tmp, out)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        lib = ctypes.CDLL(str(out))
+        lib.hi3d_png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                          ctypes.c_long, ctypes.c_int]
+        lib.hi3d_png_unfilter.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
 
 def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     """Undo the scanline filters of `h` rows of `stride` bytes; `bpp` is the
     filters' byte distance (bytes per pixel, at least 1)."""
+    data = np.frombuffer(raw, np.uint8)
+    if data.size != h * (stride + 1):
+        raise ValueError(f"PNG data size {data.size} != {h}×({stride}+1)")
+    out = np.empty((h, stride), np.uint8)
+    bad = _native().hi3d_png_unfilter(data.ctypes.data, out.ctypes.data, h, stride, bpp)
+    if bad:
+        y = bad - 1
+        raise ValueError(f"unknown PNG filter type {data[y * (stride + 1)]} in row {y}")
+    return out
+
+
+def _unfilter_reference(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Plain version of `_unfilter`, one Python step a byte on Average and
+    Paeth rows."""
     data = np.frombuffer(raw, np.uint8)
     if data.size != h * (stride + 1):
         raise ValueError(f"PNG data size {data.size} != {h}×({stride}+1)")

@@ -326,8 +326,9 @@ def test_block_attention_backward_kernel_matches_plain(cuda):
 
 
 # #6 and #7 at segment lengths around their 16-row tiles, #6's 64-frame key
-# blocks and 8-tile query chunks, and #7's 128-frame key blocks
-SEGMENT_LENGTHS = [2, 17, 33, 48, 64, 129, 136, 256]
+# blocks and 8-tile query chunks, and #7's 64-frame blocks (one block up to
+# T = 64, then several, past the 256 frames an older #7 took)
+SEGMENT_LENGTHS = [2, 17, 33, 48, 64, 129, 136, 256, 257, 300, 512]
 
 
 @pytest.mark.gpu
@@ -354,9 +355,9 @@ def test_block_attention_any_length_matches_plain(cuda, t, d):
 @pytest.mark.gpu
 def test_block_attention_backward_is_deterministic(cuda):
     """No atomics: two runs of #7 on the same inputs agree bit for bit, with
-    one key block (T = 48) and several (T = 256)."""
+    one frame block (T = 48) and several (T = 256, 512)."""
     g = torch.Generator(device=cuda).manual_seed(13)
-    for t, d in ((48, 64), (256, 128)):
+    for t, d in ((48, 64), (256, 128), (512, 64)):
         q, k, v, dout = _segments(g, cuda, 2, t, 8, 2, d, n=4)
         out, lse = ta._block_forward(q, k, v, None)
         first = ta.temporal_block_attention_backward(q, k, v, out, lse, dout)
@@ -368,7 +369,7 @@ def test_block_attention_backward_is_deterministic(cuda):
 @pytest.mark.gpu
 def test_block_attention_carries_grad_fn_and_limits(cuda):
     """#6's output is in the autograd graph and its gradients reach q, k, v
-    through #7; #6 runs a 300-frame segment, #7 raises above 256 frames."""
+    through #7; #6 and #7 run a 300-frame segment (no segment limit)."""
     g = torch.Generator(device=cuda).manual_seed(10)
     q, k, v = (x.detach().requires_grad_() for x in _segments(g, cuda, 2, 40, 16, 2, 64))
     before = ta.temporal_block_attention_backward.launches
@@ -382,8 +383,15 @@ def test_block_attention_carries_grad_fn_and_limits(cuda):
     out, lse = ta._block_forward(*seg300[:3], None)
     ref, _ = ta.temporal_block_attention_reference(*seg300[:3])
     assert (out.float() - ref.float()).abs().max().item() < 2e-2
-    with pytest.raises(ValueError, match="outside 2..256"):
-        ta.temporal_block_attention_backward(*seg300[:3], out, lse, seg300[3])
+    got = ta.temporal_block_attention_backward(*seg300[:3], out, lse, seg300[3])
+    leaves = [x.detach().requires_grad_() for x in seg300[:3]]
+    want = torch.autograd.grad(ta.temporal_block_attention_reference(*leaves)[0], leaves,
+                               seg300[3])
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all() and _rel_err(a, b) < 2e-2
+    with pytest.raises(ValueError, match="below 2"):
+        ta.temporal_block_attention_backward(*(x[:, :, :1] for x in seg300[:3]), out[:, :, :1],
+                                             lse[..., :1], seg300[3][:, :, :1])
 
 
 @pytest.mark.gpu

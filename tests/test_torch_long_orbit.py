@@ -83,11 +83,12 @@ def test_block_attention_matches_jax_kernel(t, jax_lm_kernels):
                                rtol=0)
 
 
-@pytest.mark.parametrize("t", [33, 40, 48, 129, 136])
+@pytest.mark.parametrize("t", [33, 40, 48, 129, 136, 264])
 def test_block_attention_grad_matches_jax(t, jax_lm_kernels):
     """Through the port's autograd Function (plain #7 on the CPU) against
-    jax.grad through `_block_local` (`_bwd3` interpreted), or through the
-    einsum where JAX has no block (T = 129)."""
+    jax.grad through `_block_local` (`_bwd3` interpreted, at T = 264 on
+    264-token blocks), or through the einsum where JAX has no block
+    (T = 129)."""
     q, k, v, g = _inputs(t, n=4, seed=100)
 
     def loss(q_, k_, v_):

@@ -9,7 +9,8 @@ conditioner's key splits and handing the masks to the port's
 `parity_ucg_keep`, cond_frames/cond_aug through the batch.
 
 Tolerances, all fp32 with different summation orders (XLA vs ATen):
-- loss value: 1e-5 relative;
+- loss value: 1e-5 relative, at 4 frames and at a 34-frame clip (the
+  port's frame axis past K2's 32 frames, on #6/#7's plain versions);
 - parameter gradients: max |port − jax| ≤ 1e-4 · max |jax| per tensor plus
   1e-6 · the largest gradient of the network (measured: ~3e-6 of the
   tensor's max; the second term covers tensors whose gradient is ~1e-10,
@@ -20,6 +21,7 @@ Tolerances, all fp32 with different summation orders (XLA vs ATen):
   level (the port's float bilinear against cv2's fixed-point weights).
 """
 
+import copy
 import json
 import os
 
@@ -33,6 +35,7 @@ import yaml
 from test_torch_slice import CTX, RES, T, _randomize_zeros, tiny_config
 
 B = 2
+LONG_T = 34  # a clip past K2's 32 frames: every frame-axis site on #6/#7's plain versions
 UCG_EMBEDDERS = (0, 2)  # the image embedder (crossattn) and the cond-frame VAE (concat)
 LOSS_CFG = {
     "target": "sgm.modules.diffusionmodules.loss.StandardDiffusionLoss",
@@ -50,25 +53,30 @@ LOSS_CFG = {
 INFERENCE_KEYS = ["diffusion_model.label_emb.0.0.weight", ".emb_layers.", ".time_stack."]
 
 
-def train_config(embedder_target, **unet_params):
+def train_config(embedder_target, frames=T, **unet_params):
+    """The tiny training engine on clips of `frames` frames: num_samples,
+    the loss's num_frames and the frame-tied n_copies and guider follow."""
     cfg = tiny_config(embedder_target)
     p = cfg["params"]
-    p["loss_fn_config"] = LOSS_CFG
+    p["loss_fn_config"] = copy.deepcopy(LOSS_CFG)
+    p["loss_fn_config"]["params"]["num_frames"] = frames
+    p["num_samples"] = frames
+    p["conditioner_config"]["params"]["emb_models"][2]["params"]["n_copies"] = frames
+    p["sampler_config"]["params"]["guider_config"]["params"]["num_frames"] = frames
     p["network_config"]["params"].update(unet_params)
     for i in UCG_EMBEDDERS:
         p["conditioner_config"]["params"]["emb_models"][i]["ucg_rate"] = 0.5
     return cfg
 
 
-@pytest.fixture(scope="module")
-def engines():
+def _engines(frames):
     from hi3d_tpu.config import instantiate_from_config as jax_instantiate
     from hi3d_tpu.convert.jax_to_torch import _export_tree, export_engine_state_dict, vae_path_to_torch
     from hi3d_tpu.convert.torch_to_jax import convert_state_dict, convert_vae_key, load_engine_params
     from hi3d_tpu_torch.config import instantiate_from_config
     from hi3d_tpu_torch.convert import load_reference_state_dict
 
-    jm = jax_instantiate(train_config("test_torch_slice.TinyImageEmbedderJax"))
+    jm = jax_instantiate(train_config("test_torch_slice.TinyImageEmbedderJax", frames))
     jm.init(latent_hw=(RES // 8, RES // 8), num_frames=2)
     sd = _randomize_zeros(export_engine_state_dict(jm), 0)
     load_engine_params(jm, sd)
@@ -77,15 +85,21 @@ def engines():
     jenc.params = convert_state_dict(enc_sd, convert_vae_key)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
-        tm = instantiate_from_config(train_config("test_torch_slice.TinyImageEmbedderTorch"))
+        tm = instantiate_from_config(train_config("test_torch_slice.TinyImageEmbedderTorch",
+                                                  frames))
     tm.init_from_ckpt(sd)
     load_reference_state_dict(tm.conditioner.embedders[2].encoder, enc_sd)
     return jm, tm
 
 
-def _pinned_inputs(seed=0):
+@pytest.fixture(scope="module")
+def engines():
+    return _engines(T)
+
+
+def _pinned_inputs(seed=0, frames=T):
     rnd = np.random.RandomState(seed)
-    video = (rnd.rand(B, T, RES, RES, 3) * 2 - 1).astype(np.float32)
+    video = (rnd.rand(B, frames, RES, RES, 3) * 2 - 1).astype(np.float32)
     cond_frames = (video[:, 0] + 0.05 * rnd.randn(B, RES, RES, 3)).astype(np.float32)
     return {
         "video": video,
@@ -93,17 +107,17 @@ def _pinned_inputs(seed=0):
         "cond_frames_without_noise": video[:, 0],
         "cond_frames": cond_frames,
         "cond_aug": np.array([0.05, 0.02], np.float32),
-        "image_only_indicator": np.zeros((B, T), np.float32),
+        "image_only_indicator": np.zeros((B, frames), np.float32),
         "sigmas": np.array([0.7, 3.0], np.float32),
-        "noise": rnd.randn(B * T, RES // 8, RES // 8, 4).astype(np.float32),
+        "noise": rnd.randn(B * frames, RES // 8, RES // 8, 4).astype(np.float32),
     }
 
 
-def _jax_ucg_masks(jm, rng):
+def _jax_ucg_masks(jm, rng, frames=T):
     """Replay the JAX loss_fn's key splits (engine.make_loss_fn →
     GeneralConditioner.__call__) to get the keep masks it draws."""
     r_cond, _ = jax.random.split(rng)
-    sizes = {0: B, 2: B * T}
+    sizes = {0: B, 2: B * frames}
     masks = []
     for i, emb in enumerate(jm.conditioner.embedders):
         r_cond, _, ucg_rng = jax.random.split(r_cond, 3)
@@ -132,7 +146,7 @@ def _torch_batch(inp):
         "cond_frames": nchw(inp["cond_frames"]),
         "cond_aug": torch.from_numpy(inp["cond_aug"]),
         "image_only_indicator": torch.from_numpy(inp["image_only_indicator"]),
-        "num_video_frames": T,
+        "num_video_frames": inp["video"].shape[1],
     }
 
 
@@ -151,14 +165,24 @@ def _torch_loss_and_grads(tm, inp, masks):
                          for n, p in unet.named_parameters()}
 
 
-@pytest.fixture(scope="module")
-def grads(engines):
-    jm, tm = engines
-    inp = _pinned_inputs()
+def _grads(jm, tm, frames):
+    inp = _pinned_inputs(frames=frames)
     rng = jax.random.PRNGKey(3)
-    masks = _jax_ucg_masks(jm, rng)
+    masks = _jax_ucg_masks(jm, rng, frames)
     assert all(0 < m.sum() < m.size for m in masks if m is not None), "masks exercise no dropout"
     return inp, masks, _jax_loss_and_grads(jm, inp, rng), _torch_loss_and_grads(tm, inp, masks)
+
+
+@pytest.fixture(scope="module")
+def grads(engines):
+    return _grads(*engines, T)
+
+
+@pytest.fixture(scope="module")
+def long_grads():
+    """`grads` on clips of LONG_T frames: the port's frame axis on #6/#7
+    (their plain versions on the CPU), JAX's on its own long-clip route."""
+    return _grads(*_engines(LONG_T), LONG_T)
 
 
 def test_loss_matches_jax(engines, grads):
@@ -172,8 +196,11 @@ def test_loss_matches_jax(engines, grads):
     assert loss.grad_fn is not None and torch.isfinite(loss) and logs["loss"] is loss
 
 
-def test_loss_gradients_match_jax(grads):
-    _, _, (_, jg, _), (_, tg) = grads
+@pytest.mark.parametrize("frames", [T, LONG_T])
+def test_loss_gradients_match_jax(request, frames):
+    _, _, (jloss, jg, _), (tloss, tg) = request.getfixturevalue(
+        "grads" if frames == T else "long_grads")
+    assert abs(tloss - jloss) <= 1e-5 * abs(jloss)
     assert set(jg) == set(tg)
     unreached = 0
     gmax = max(np.abs(v).max() for v in jg.values())
