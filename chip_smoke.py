@@ -3,14 +3,17 @@
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --profile-serve  # only a 2-step profile of the serve batch
     python3 chip_smoke.py --profile-stage2 # only a 3-step profile of the stage-2 sampler
+    python3 chip_smoke.py --profile-stage1 # only profiles of main path 1's conditioner and
+                                           # of 2 of its sampler steps
     python3 chip_smoke.py --profile-train  # only 2-step profiles of training (2×16, 1×48)
-                                           # and #10's device time against F.layer_norm
     python3 chip_smoke.py --time-block-backward [MAX_T]  # only #7's times, to compare trees
+    python3 chip_smoke.py --time-norms     # only #10's and #9's times (CUDA events and
+                                           # device time) against their library calls
     python3 chip_smoke.py --time-png       # only a 512² Average/Paeth PNG decode, C against
                                            # the plain Python unfilter, on the host's CPU
 
 1. prints the card (nvidia-smi name and power limit) and fails without CUDA;
-2. builds the kernels from this checkout (`hi3d_tpu_torch/csrc`, Triton);
+2. builds the kernels from this checkout (`hi3d_tpu_torch/csrc`, K3's Triton);
 3. runs each forward kernel (K1, K2, #6 segment attention, K3, #9 GroupNorm
    statistics, #10 LayerNorm) and each backward kernel (#3, #5, #7, and the
    K3 and #10 autograd Functions) against its plain PyTorch version at the
@@ -664,9 +667,9 @@ KERNELS = (
      "hi3d_tpu/ops/flash_attention.py:493"),
     ("temporal_attention_backward", "cuda", "hi3d_tpu_torch/csrc/temporal_attention.cu",
      "hi3d_tpu/ops/temporal_attention.py:392"),
-    ("group_stats", "triton", "hi3d_tpu_torch/ops/group_norm.py",
+    ("group_stats", "cuda", "hi3d_tpu_torch/csrc/norm_stats.cu",
      "hi3d_tpu/ops/group_norm.py:392"),
-    ("layer_norm", "triton", "hi3d_tpu_torch/ops/layer_norm.py",
+    ("layer_norm", "cuda", "hi3d_tpu_torch/csrc/norm_stats.cu",
      "hi3d_tpu/ops/group_norm.py:461"),
     ("temporal_block_attention", "cuda", "hi3d_tpu_torch/csrc/block_attention.cu",
      "hi3d_tpu/ops/temporal_attention.py:152"),
@@ -1350,7 +1353,9 @@ def _profile_report(prof, label: str, steps: int, host_ms: float) -> None:
                ("#5 temporal attention backward", ("temporal_attn_bwd",)),
                ("K1 flash attention", ("fa_fwd",)),
                ("K2 temporal attention", ("temporal_attn",)),
-               ("K3 GroupNorm", ("_gn_",)), ("#10 LayerNorm", ("_ln_kernel",)),
+               ("#10 LayerNorm", ("_ln_kernel", "norm_rows_kernel")),
+               ("#9 GroupNorm statistics", ("_gn_fold_kernel", "group_moments_kernel")),
+               ("K3 GroupNorm", ("_gn_",)),
                ("strided elementwise", ("elementwise_kernel",)),
                ("convolutions", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
                ("GEMMs", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -1415,8 +1420,7 @@ def profile_train(steps: int = 2) -> None:
     step that is not traced, at configs/train-v01.yaml as written (2 videos
     × 16 frames × 512²) and at `long_clip_config` (1 × 48): random videos in
     [-1, 1] made on the card (the loader is not in the window, as it is not
-    in the trainer's s/step); the same report as `profile_serve`. Then #10's
-    device time a call, apart from its host launch, against F.layer_norm's.
+    in the trainer's s/step); the same report as `profile_serve`.
 
         python3 chip_smoke.py --profile-train"""
     import torch
@@ -1455,47 +1459,130 @@ def profile_train(steps: int = 2) -> None:
         del trainer, engine, batch, prof
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    layer_norm_device_time()
 
 
-def layer_norm_device_time(calls: int = 100) -> None:
-    """#10 (`ops.layer_norm.layer_norm`) and F.layer_norm at the DPT's fp32
-    rows and the UNet's bf16 rows: the mean device time of a kernel from the
-    profiler's kernel spans over `calls` calls (each call is one kernel; the
-    kernels the profiler caught are counted and named), and the time a call
-    by CUDA events around `calls` calls (launch and wrapper work included)."""
+# #10's and #9's shapes in the kernel table (PERF.md §6): (kernel, shape, dtype, eps)
+NORM_CASES = (("layer_norm", (16 * 577, 768), "float32", 1e-6),
+              ("layer_norm", (32 * 16384, 320), "bfloat16", 1e-5),
+              ("group_stats", (1, 128, 1024, 1024), "float32", 1e-6),
+              ("group_stats", (16, 256, 96, 96), "float32", 1e-5))
+
+
+def _device_time(fn, calls: int):
+    """(device µs a kernel, kernels a call, kernel names) of `calls` calls of
+    `fn`, from the profiler's kernel spans after one call that is not traced."""
     import torch
-    import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = _device_kernels(prof)
+    if not kernels:
+        raise AssertionError("the profiler caught no kernel")
+    spans = sum(e.time_range.end - e.time_range.start for e in kernels)
+    return spans / len(kernels), len(kernels) / calls, sorted({e.name[:40] for e in kernels})
+
+
+def time_norms(calls: int = 100) -> None:
+    """#10 (`ln.layer_norm`) and #9 (`gn.group_stats`) at NORM_CASES, beside
+    their library calls (F.layer_norm with γ, β in x's dtype; torch.var_mean
+    over the group view): the CUDA-event ms of one call (median of 10, as the
+    kernel table), the µs a call over `calls` back-to-back calls, and the
+    device µs a kernel and kernels a call by the profiler; and the bound.
+    Only the public calls run, so the same script times a parent tree:
+
+        python3 chip_smoke.py --time-norms"""
+    import torch
+    import torch.nn.functional as F
+
+    from hi3d_tpu_torch.ops import group_norm as gn
     from hi3d_tpu_torch.ops import layer_norm as ln
 
+    card = card_line()
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for m, c, dtype, eps in ((16 * 577, 768, torch.float32, 1e-6),
-                             (32 * 16384, 320, torch.bfloat16, 1e-5)):
-        x = torch.randn((m, c), generator=gen, device="cuda", dtype=dtype)
-        w = 1 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
-        bia = 0.1 * torch.randn((c,), generator=gen, device="cuda")
-        wx, bx = w.to(dtype), bia.to(dtype)
-        for name, fn in (("#10", lambda: ln.layer_norm(x, w, bia, eps)),
-                         ("F.layer_norm", lambda: F.layer_norm(x, (c,), wx, bx, eps))):
-            fn()
+    for name, shape, dtype, eps in NORM_CASES:
+        dt = getattr(torch, dtype)
+        x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1).to(dt)
+        if name == "layer_norm":
+            c = shape[-1]
+            w = 1 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
+            bia = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+            wx, bx = w.to(dt), bia.to(dt)
+            fns = {"kernel": lambda: ln.layer_norm(x, w, bia, eps),
+                   "F.layer_norm": lambda: F.layer_norm(x, (c,), wx, bx, eps)}
+            nbytes, flops = 2 * x.numel() * x.element_size() + 2 * c * 4, 8 * x.numel()
+        else:
+            xg = x.view(shape[0], 32, -1)
+            fns = {"kernel": lambda: gn.group_stats(x, 32, eps),
+                   "torch.var_mean": lambda: torch.var_mean(xg, dim=-1, correction=0)}
+            nbytes, flops = x.numel() * x.element_size() + shape[0] * 32 * 2 * 4, 3 * x.numel()
+        b_ms, b_by = bound(nbytes, flops)
+        parts = []
+        for label, fn in fns.items():
+            one_ms = time_ms(fn)
+            call_us = time_ms(lambda: [fn() for _ in range(calls)]) / calls * 1e3
+            dev_us, per_call, names = _device_time(fn, calls)
+            parts.append(f"{label} {one_ms:.4f} ms a call, {call_us:.1f} us a call over {calls}, "
+                         f"device {dev_us:.1f} us a kernel, {per_call:.2f} kernels a call "
+                         f"{names}")
+        print(f"[norms] {name} {tuple(shape)} {dtype}: " + "; ".join(parts)
+              + f"; bound {b_ms:.4f} ms ({b_by}); card {card}", flush=True)
+        del x, fns
+
+
+def profile_stage1(steps: int = 2) -> None:
+    """torch.profiler over main path 1's conditioner (configs/
+    inference-v01.yaml at full width, random weights: the CLIP towers and the
+    VAE encode of the cond frame from demo/3.png at 512²) after one call that
+    is not traced, then over `steps` sampler steps (one CFG-batched UNet call
+    over 2 × 16 frames at a 64² latent a step) after a 1-step warm-up; the
+    same report as `profile_serve` for each.
+
+        python3 chip_smoke.py --profile-stage1"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hi3d_tpu_torch.pipelines import i2v
+    from hi3d_tpu_torch.pipelines.common import load_inference_model
+    from hi3d_tpu_torch.utils.video import range_from_uint8
+
+    config = os.path.join(ROOT, "configs", "inference-v01.yaml")
+    model = load_inference_model(config, None, "cuda", tag="profile")
+    t = model.num_samples
+    frames = i2v.prepare_frames(os.path.join(ROOT, "demo", "3.png"), t, (512, 512))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def condition():  # as i2v.generate_orbit does
+        video = range_from_uint8(torch.as_tensor(frames).to("cuda"))
+        batch = {"video": video.permute(0, 3, 1, 2)[None],
+                 "elevation": torch.zeros((1,), dtype=torch.float32, device="cuda")}
+        batch = model.add_custom_cond(batch, infer=True, generator=gen)
+        return model.conditioner.get_unconditional_conditioning(
+            batch, force_uc_zero_embeddings=list(i2v.UC_ZERO_KEYS))
+
+    shape = (t, 64, 64, 4)
+    with torch.no_grad():
+        condition()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            c, uc = condition()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-            kernels = _device_kernels(prof)
-            if not kernels:
-                raise AssertionError(f"the profiler caught no kernel of {name}")
-            spans = [e.time_range.end - e.time_range.start for e in kernels]
-            dev_ms = sum(spans) / 1e3 / len(spans)
-            host_ms = time_ms(lambda: [fn() for _ in range(calls)]) / calls
-            names = sorted({e.name[:40] for e in kernels})
-            print(f"[layer_norm] {name} ({m}, {c}) {str(dtype).split('.')[-1]}: device "
-                  f"{dev_ms * 1e3:.1f} us a kernel ({len(kernels)} kernels caught over {calls} "
-                  f"calls: {names}), {host_ms * 1e3:.1f} us a call by CUDA events; card "
-                  f"{card_line()}", flush=True)
+            host_ms = (time.perf_counter() - t0) * 1e3
+        _profile_report(prof, "stage-1 conditioner (CLIP towers, VAE encode), 1 call", 1,
+                        host_ms)
+        model.sample(c, uc, shape, num_video_frames=t, generator=gen, num_steps=1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.sample(c, uc, shape, num_video_frames=t, generator=gen, num_steps=steps)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    _profile_report(prof, f"stage-1 sampler, {t} frames at 512²", steps, host_ms)
 
 
 def profile_stage2(steps: int = 3) -> None:
@@ -1561,12 +1648,10 @@ def main() -> None:
 
     from hi3d_tpu_torch.ops import build
     from hi3d_tpu_torch.ops import group_norm as gn
-    from hi3d_tpu_torch.ops import layer_norm as ln
 
     t0 = time.perf_counter()
     build.load_library()
-    gn._compiled()
-    ln._compiled()
+    gn._compiled()  # K3's Triton kernels
     nvcc_s = build.build_seconds if build.build_seconds is not None else 0.0
     print(f"[build] {build.library_path().name}: nvcc {nvcc_s:.1f} s "
           f"(0 = reused), build+load {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1576,8 +1661,14 @@ def main() -> None:
     if sys.argv[1:] == ["--profile-stage2"]:
         profile_stage2()
         return
+    if sys.argv[1:] == ["--profile-stage1"]:
+        profile_stage1()
+        return
     if sys.argv[1:] == ["--profile-train"]:
         profile_train()
+        return
+    if sys.argv[1:] == ["--time-norms"]:
+        time_norms()
         return
     if sys.argv[1:2] == ["--time-block-backward"]:
         time_block_backward(*map(int, sys.argv[2:3]))

@@ -6,7 +6,8 @@ with a plain C interface, loaded with ctypes. The library lands in
 `build/kernels/` at the repository root, named by a hash of every file under
 `csrc/` (the `.cu` sources and the headers they include) and of the flags, so
 a checkout builds on first use and reuses the build afterwards, and an edit
-of a header rebuilds.
+of a header rebuilds. `SIGNATURES` gives ctypes every entry point's
+argtypes, and `launch` calls one on PyTorch's current stream.
 """
 
 from __future__ import annotations
@@ -20,12 +21,38 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+
+# The argtypes of every `extern "C"` entry point of csrc/*.cu, in declaration
+# order; each returns its cudaError_t as an int. ctypes would pass an argument
+# of an entry point missing here as a 32-bit int, cutting its pointers, so
+# tests/test_torch_build.py checks this table against the sources.
+SIGNATURES = {
+    "hi3d_flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES, _F, _P),
+    "hi3d_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _STRIDES, _F, _P),
+    "hi3d_temporal_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES, _F, _P),
+    "hi3d_temporal_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _STRIDES, _F, _P),
+    "hi3d_block_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES, _F, _P),
+    "hi3d_block_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _STRIDES, _F, _P),
+    "hi3d_layer_norm": (_P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _F, _P),
+    "hi3d_group_stats": (_P, _P, _P, _L, _L, _L, _I, _I, _F, _P),
+}
+
+# the dtype codes of csrc/norm_stats.cu
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # wall time of the build this process ran
@@ -77,40 +104,28 @@ def load_library() -> ctypes.CDLL:
             obj.unlink()
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    strides = ctypes.POINTER(ctypes.c_longlong)
-    lib.hi3d_flash_attention_fwd.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, strides, f32, ptr,
-    ]
-    lib.hi3d_flash_attention_fwd.restype = i32
-    lib.hi3d_temporal_attention_fwd.argtypes = [
-        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, strides, f32, ptr,
-    ]
-    lib.hi3d_temporal_attention_fwd.restype = i32
-    lib.hi3d_flash_attention_bwd.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, strides,
-        f32, ptr,
-    ]
-    lib.hi3d_flash_attention_bwd.restype = i32
-    lib.hi3d_temporal_attention_bwd.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, strides, f32, ptr,
-    ]
-    lib.hi3d_temporal_attention_bwd.restype = i32
-    lib.hi3d_block_attention_fwd.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, strides, f32, ptr,
-    ]
-    lib.hi3d_block_attention_fwd.restype = i32
-    lib.hi3d_block_attention_bwd.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, strides, f32,
-        ptr,
-    ]
-    lib.hi3d_block_attention_bwd.restype = i32
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
     _lib = lib
     return lib
 
 
 def stride_array(values) -> ctypes.Array:
     return (ctypes.c_longlong * len(values))(*[int(v) for v in values])
+
+
+def launch(fn, device: int, *args) -> int:
+    """fn(*args, stream) for an entry point whose last argument is the
+    stream: PyTorch's current stream on CUDA device `device` (an index) as
+    the raw cudaStream_t, with the current device switched only when it is
+    another. Returns fn's cudaError_t."""
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    if device == torch._C._cuda_getDevice():
+        return fn(*args, stream)
+    with torch.cuda.device(device):
+        return fn(*args, stream)
 
 
 def check(err: int, name: str) -> None:

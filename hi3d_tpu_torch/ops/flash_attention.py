@@ -95,12 +95,11 @@ def _forward(q, k, v, scale):
     strides = build.stride_array(
         [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]]
     )
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.hi3d_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            b, sq, sk, h, d, strides, float(scale), stream,
-        )
+    err = build.launch(
+        lib.hi3d_flash_attention_fwd, q.get_device(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        b, sq, sk, h, d, strides, float(scale),
+    )
     build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out, lse
@@ -134,13 +133,12 @@ def flash_attention_backward(
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
     strides = build.stride_array([*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                   *out.stride()[:3], *dout.stride()[:3]])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.hi3d_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, sq, sk, h, d, strides, float(scale), stream,
-        )
+    err = build.launch(
+        lib.hi3d_flash_attention_bwd, q.get_device(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, sq, sk, h, d, strides, float(scale),
+    )
     build.check(err, "flash_attention_backward")
     flash_attention_backward.launches += 1
     return dq, dk, dv

@@ -22,14 +22,17 @@ small (the 5-D time-stack tensors have only B·32 groups).
 #9 replaces hi3d_tpu/ops/group_norm.py:_pallas_group_stats_impl (Pallas
 `_gstats_kernel`, reached through `pallas_group_stats` under HI3D_GN=pallas):
 fp32 per-group (mean, inv_std) of shape (N, G), one-pass and clamped as
-above. It reuses K3's partial-sum pass and folds the partials in a second,
-tiny launch (one program per group, fixed order, no atomics). Its callers
-(the VAE's and the DPT's fp32 GroupNorms, `models.layers.FoldedGroupNorm`)
-apply the folded affine themselves. The split matters there: one 1024²
-VAE frame has only 32 groups of 4.19 M elements each.
+above. It is CUDA C++ (`csrc/norm_stats.cu`, built by `build.py`), one
+launch a call: a thread-block cluster of 1–8 CTAs a group streams the
+group's slices, and its rank 0 folds the partial sums from the other CTAs'
+shared memory (no scratch tensor, no atomics, deterministic). The cluster
+size comes from `plan_group_stats`. Its callers (the VAE's and the DPT's
+fp32 GroupNorms, `models.layers.FoldedGroupNorm`) apply the folded affine
+themselves. The split matters there: one 1024² VAE frame has only 32 groups
+of 4.19 M elements each.
 
-`triton` is imported on the first CUDA launch only: the kernels below are
-plain functions until `_compiled()` binds `tl` and wraps them in
+K3's `triton` is imported on the first CUDA launch only: its kernels below
+are plain functions until `_compiled()` binds `tl` and wraps them in
 `triton.jit`.
 
 Training: when x, γ or β needs a gradient, `group_norm` runs as an autograd
@@ -41,14 +44,16 @@ kernels are forward-only there too).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
+from . import build
+
 tl = None  # bound to triton.language on the first CUDA launch
 _STATS = None
 _APPLY = None
-_FOLD = None
 
 BLOCK = 2048
 _TARGET_PROGRAMS = 1024
@@ -103,21 +108,8 @@ def _gn_apply_kernel(x_ptr, y_ptr, w_ptr, b_ptr, part_ptr, group_size, chunk, ns
         tl.store(y_ptr + base + idx, y.to(y_ptr.dtype.element_ty), mask=mask)
 
 
-def _gn_fold_kernel(part_ptr, mean_ptr, inv_ptr, group_size, nsplit, eps,
-                    SPLIT_P2: "tl.constexpr"):
-    ng = tl.program_id(0)
-    parts = tl.arange(0, SPLIT_P2)
-    pmask = parts < nsplit
-    s1 = tl.sum(tl.load(part_ptr + (ng * nsplit + parts) * 2, mask=pmask, other=0.0), axis=0)
-    s2 = tl.sum(tl.load(part_ptr + (ng * nsplit + parts) * 2 + 1, mask=pmask, other=0.0), axis=0)
-    mean = s1 / group_size
-    var = tl.maximum(s2 / group_size - mean * mean, 0.0)
-    tl.store(mean_ptr + ng, mean)
-    tl.store(inv_ptr + ng, 1.0 / tl.sqrt(var + eps))
-
-
 def _compiled():
-    global tl, _STATS, _APPLY, _FOLD
+    global tl, _STATS, _APPLY
     if _STATS is None:
         import triton
         import triton.language
@@ -125,8 +117,7 @@ def _compiled():
         tl = triton.language
         _STATS = triton.jit(_gn_stats_kernel)
         _APPLY = triton.jit(_gn_apply_kernel)
-        _FOLD = triton.jit(_gn_fold_kernel)
-    return _STATS, _APPLY, _FOLD
+    return _STATS, _APPLY
 
 
 def group_norm_reference(
@@ -184,13 +175,12 @@ def group_norm_backward(
     return dx.reshape(x.shape).to(x.dtype), dweight.to(weight.dtype), dbias.to(bias.dtype)
 
 
-def _partial_sums(x: torch.Tensor, num_groups: int, name: str):
-    """Checks a CUDA (N, C, *spatial) tensor and launches the partial-sum
-    pass: returns the (N·G, nsplit, 2) fp32 partials and the split geometry
-    (group_size, chunk, nsplit)."""
-    if x.device.type != "cuda":
+def _check_groups(x: torch.Tensor, num_groups: int, name: str) -> int:
+    """Checks a CUDA (N, C, *spatial) tensor for K3 or #9; returns the
+    group size (C/G)·prod(spatial)."""
+    if not x.is_cuda:
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+    if x.dtype not in build.DTYPE_CODES:
         raise TypeError(f"{name}: unsupported dtype {x.dtype}")
     if not x.is_contiguous() or x.ndim < 3:
         raise ValueError(f"{name}: needs a contiguous (N, C, *spatial) tensor, got {tuple(x.shape)}")
@@ -198,9 +188,17 @@ def _partial_sums(x: torch.Tensor, num_groups: int, name: str):
     if c % num_groups:
         raise ValueError(f"{name}: C={c} not divisible by {num_groups} groups")
     group_size = (c // num_groups) * (x.numel() // (n * c))
-    ngroups = n * num_groups
     if group_size >= 2**31:
         raise ValueError(f"{name}: group of {group_size} elements exceeds int32 indexing")
+    return group_size
+
+
+def _partial_sums(x: torch.Tensor, num_groups: int, name: str):
+    """Checks a CUDA (N, C, *spatial) tensor and launches K3's partial-sum
+    pass: returns the (N·G, nsplit, 2) fp32 partials and the split geometry
+    (group_size, chunk, nsplit)."""
+    group_size = _check_groups(x, num_groups, name)
+    ngroups = x.shape[0] * num_groups
     nsplit = max(1, min(-(-group_size // BLOCK), -(-_TARGET_PROGRAMS // ngroups)))
     chunk = -(-(-(-group_size // nsplit)) // BLOCK) * BLOCK
     nsplit = -(-group_size // chunk)
@@ -274,23 +272,50 @@ def group_stats_reference(x: torch.Tensor, num_groups: int,
     return mean, torch.rsqrt(var + eps)
 
 
+# #9's launch geometry (csrc/norm_stats.cu): CTAs of 256 threads, clusters of
+# at most 8 (the portable size), about two CTAs an SM of an H100's 132, and a
+# CTA no smaller than MIN_CTA_ELEMENTS unless its whole group is
+MAX_CLUSTER = 8
+TARGET_CTAS = 2 * 132
+MIN_CTA_ELEMENTS = 1 << 14
+
+
+@functools.lru_cache(maxsize=256)
+def plan_group_stats(groups: int, group_size: int, vec: int) -> Tuple[int, int]:
+    """(cluster, chunk) for #9 on `groups` groups of `group_size` elements:
+    the CTAs a group (a power of two up to MAX_CLUSTER, doubled while the
+    grid stays within TARGET_CTAS and every CTA keeps MIN_CTA_ELEMENTS), and
+    the elements a CTA owns, a multiple of `vec` (the elements in 16 bytes)
+    so that the slices of a 16-byte aligned group start aligned. Rank r of a
+    group owns [min(r·chunk, group_size), min((r + 1)·chunk, group_size))."""
+    cluster = 1
+    while (cluster < MAX_CLUSTER and groups * cluster * 2 <= TARGET_CTAS
+           and group_size >= cluster * 2 * MIN_CTA_ELEMENTS):
+        cluster *= 2
+    chunk = -(-(-(-group_size // cluster)) // vec) * vec
+    return cluster, chunk
+
+
 def group_stats(x: torch.Tensor, num_groups: int, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp32 per-group (mean, inv_std), each (N, G), of a contiguous
-    (N, C, *spatial) tensor: #9 (partial sums, then the fold) on CUDA
-    tensors, `group_stats_reference` on CPU tensors. No gradient flows
-    through the statistics themselves; `models.layers.FoldedGroupNorm`
-    carries the GroupNorm backward."""
+    (N, C, *spatial) tensor: #9 (one launch) on CUDA tensors,
+    `group_stats_reference` on CPU tensors. No gradient flows through the
+    statistics themselves; `models.layers.FoldedGroupNorm` carries the
+    GroupNorm backward."""
     if x.device.type == "cpu":
         return group_stats_reference(x, num_groups, eps)
-    part, group_size, _, nsplit = _partial_sums(x, num_groups, "group_stats")
+    group_size = _check_groups(x, num_groups, "group_stats")
     n = x.shape[0]
-    mean = torch.empty((n, num_groups), dtype=torch.float32, device=x.device)
-    inv = torch.empty_like(mean)
-    fold = _compiled()[2]
-    with torch.cuda.device(x.device):
-        fold[(n * num_groups,)](part, mean, inv, group_size, nsplit, float(eps),
-                                SPLIT_P2=_split_p2(nsplit), num_warps=1)
+    groups = n * num_groups
+    cluster, chunk = plan_group_stats(groups, group_size, 16 // x.element_size())
+    stats = torch.empty((2, n, num_groups), dtype=torch.float32, device=x.device)
+    ptr = stats.data_ptr()
+    err = build.launch(build.load_library().hi3d_group_stats, x.get_device(), x.data_ptr(), ptr,
+                       ptr + 4 * groups, groups, group_size, chunk, cluster,
+                       build.DTYPE_CODES[x.dtype], eps)
+    build.check(err, "group_stats")
     group_stats.launches += 1
+    mean, inv = stats.unbind(0)
     return mean, inv
 
 

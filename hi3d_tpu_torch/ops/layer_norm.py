@@ -10,13 +10,14 @@ nothing, so here the same pass also writes y = (x − mean)·inv_std·γ + β in
 fp32, cast to x's dtype. That removes the fp32 copy of x and the cast back
 that `F.layer_norm(x.float())` needed.
 
-What bounds it on the H100: one read of x and one write of y, no matrix
-product, so device-memory bandwidth. One program owns BLOCK_M whole rows
-(C ≤ 8192, padded to a power of two): the row sums are register reductions
-inside the program, so no partial sums cross programs and the result does
-not depend on the launch order.
-
-`triton` is imported on the first CUDA launch only (see `_compiled`).
+The kernel is CUDA C++ (`csrc/norm_stats.cu`, built by `build.py`), whose
+notes say what bounds it on the H100 (one read of x, one write of y: memory
+bandwidth, and the launch at small shapes) and how the design answers: one
+warp per row up to C = 2048 with the row in registers, a block per row up
+to 8192, fixed-order shuffle sums (bitwise repeatable), γ and β read in
+their own dtype, any row stride. Each call is one kernel launched through
+one ctypes call on PyTorch's current stream: no cast, copy or fill beside
+it.
 
 Training: when x, γ or β needs a gradient `layer_norm` runs as an autograd
 Function that saves x, mean, inv_std and γ; its backward is plain PyTorch
@@ -30,43 +31,9 @@ from typing import Optional, Tuple
 
 import torch
 
-tl = None  # bound to triton.language on the first CUDA launch
-_KERNEL = None
+from . import build
 
 MAX_C = 8192
-_TILE = 4096  # elements a program holds: BLOCK_M · BLOCK_C
-
-
-def _ln_kernel(x_ptr, y_ptr, w_ptr, b_ptr, mean_ptr, inv_ptr, m, c, stride_x, eps,
-               APPLY: "tl.constexpr", BLOCK_M: "tl.constexpr", BLOCK_C: "tl.constexpr"):
-    rows = tl.program_id(0) * BLOCK_M + tl.arange(0, BLOCK_M)
-    cols = tl.arange(0, BLOCK_C)
-    rmask = rows < m
-    cmask = cols < c
-    mask = rmask[:, None] & cmask[None, :]
-    r64 = rows.to(tl.int64)
-    x = tl.load(x_ptr + r64[:, None] * stride_x + cols[None, :], mask=mask, other=0.0).to(tl.float32)
-    mean = tl.sum(x, axis=1) / c
-    var = tl.maximum(tl.sum(x * x, axis=1) / c - mean * mean, 0.0)
-    inv = 1.0 / tl.sqrt(var + eps)
-    tl.store(mean_ptr + rows, mean, mask=rmask)
-    tl.store(inv_ptr + rows, inv, mask=rmask)
-    if APPLY:
-        w = tl.load(w_ptr + cols, mask=cmask, other=0.0)
-        b = tl.load(b_ptr + cols, mask=cmask, other=0.0)
-        y = (x - mean[:, None]) * inv[:, None] * w[None, :] + b[None, :]
-        tl.store(y_ptr + r64[:, None] * c + cols[None, :], y.to(y_ptr.dtype.element_ty), mask=mask)
-
-
-def _compiled():
-    global tl, _KERNEL
-    if _KERNEL is None:
-        import triton
-        import triton.language
-
-        tl = triton.language
-        _KERNEL = triton.jit(_ln_kernel)
-    return _KERNEL
 
 
 def row_stats_reference(x2d: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -106,37 +73,53 @@ def layer_norm_backward(x, weight, mean, inv, dy):
 
 
 def _launch(x: torch.Tensor, weight: Optional[torch.Tensor], bias: Optional[torch.Tensor],
-            eps: float):
-    """One #10 launch on a CUDA tensor: (y or None, mean, inv_std)."""
-    if x.device.type != "cuda":
+            eps: float, stats: bool = True):
+    """One #10 launch on a CUDA tensor: (y, or None without γ and β;
+    mean, inv_std, or None and None unless `stats`). The host path is kept to
+    a few tensor calls: it runs ~3000 times a stage-1 run."""
+    if not x.is_cuda:
         raise ValueError(f"layer_norm: unsupported device {x.device}")
-    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+    code = build.DTYPE_CODES.get(x.dtype)
+    if code is None:
         raise TypeError(f"layer_norm: unsupported dtype {x.dtype}")
     c = x.shape[-1]
     if not 1 <= c <= MAX_C:
         raise ValueError(f"layer_norm: C={c} outside 1..{MAX_C}")
-    x2d = x.reshape(-1, c)
-    if x2d.stride(-1) != 1:
-        x2d = x2d.contiguous()
-    m = x2d.shape[0]
-    block_c = max(16, 1 << (c - 1).bit_length())
-    block_m = max(1, _TILE // block_c)
-    mean = torch.empty((m,), dtype=torch.float32, device=x.device)
-    inv = torch.empty_like(mean)
-    apply = weight is not None
-    if apply:
-        y = torch.empty((m, c), dtype=x.dtype, device=x.device)
-        w = weight.detach().to(device=x.device, dtype=torch.float32).contiguous()
-        b = bias.detach().to(device=x.device, dtype=torch.float32).contiguous()
+    if x.is_contiguous():
+        x2d, m, row_stride = x, x.numel() // c, c
     else:
-        y = w = b = mean  # unread placeholders
-    kernel = _compiled()
-    with torch.cuda.device(x.device):
-        kernel[(-(-m // block_m),)](
-            x2d, y, w, b, mean, inv, m, c, x2d.stride(0), float(eps),
-            APPLY=apply, BLOCK_M=block_m, BLOCK_C=block_c, num_warps=4 if block_c <= 1024 else 8,
-        )
-    return (y.reshape(x.shape) if apply else None), mean, inv
+        x2d = x.reshape(-1, c)
+        if x2d.stride(-1) != 1:
+            x2d = x2d.contiguous()
+        m, row_stride = x2d.shape[0], x2d.stride(0)
+    dev = x.get_device()
+    nbytes = x.element_size()
+    x_ptr = x2d.data_ptr()
+    vec = x_ptr % 16 == 0 and row_stride * nbytes % 16 == 0 and c * nbytes % 16 == 0
+    y = mean = inv = None
+    y_ptr = w_ptr = b_ptr = mean_ptr = inv_ptr = None
+    w_code = 0
+    if weight is not None:
+        w_code = build.DTYPE_CODES.get(weight.dtype)
+        if w_code is None or weight.shape != (c,) or bias.shape != (c,):
+            raise TypeError(f"layer_norm: γ {weight.dtype}{tuple(weight.shape)}, β "
+                            f"{bias.dtype}{tuple(bias.shape)} for C={c}")
+        if weight.get_device() != dev or bias.get_device() != dev:
+            raise ValueError(f"layer_norm: γ on {weight.device}, β on {bias.device}, x on "
+                             f"{x.device}")
+        if bias.dtype != weight.dtype:
+            bias = bias.to(weight.dtype)
+        w_ptr, b_ptr = weight.contiguous().data_ptr(), bias.contiguous().data_ptr()
+        vec = vec and w_ptr % 16 == 0 and b_ptr % 16 == 0
+        y = torch.empty(x.shape, dtype=x.dtype, device=dev)
+        y_ptr = y.data_ptr()
+    if stats:
+        mean, inv = torch.empty((2, m), dtype=torch.float32, device=dev).unbind(0)
+        mean_ptr, inv_ptr = mean.data_ptr(), inv.data_ptr()
+    err = build.launch(build.load_library().hi3d_layer_norm, dev, x_ptr, y_ptr, w_ptr, b_ptr,
+                       mean_ptr, inv_ptr, m, c, row_stride, code, w_code, vec, eps)
+    build.check(err, "layer_norm")
+    return y, mean, inv
 
 
 def row_stats(x2d: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -149,21 +132,22 @@ def row_stats(x2d: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor
     return mean, inv
 
 
-def _forward(x, weight, bias, eps):
-    """(y, mean, inv_std) of LayerNorm over the last dim."""
+def _forward(x, weight, bias, eps, stats):
+    """(y, mean, inv_std) of LayerNorm over the last dim; on the card the
+    statistics are written only when `stats` (else None)."""
     if x.device.type == "cpu":
         with torch.autocast("cpu", enabled=False):
             mean, inv = row_stats_reference(x.reshape(-1, x.shape[-1]), eps)
             return _apply_reference(x, weight, bias, mean, inv), mean, inv
-    y, mean, inv = _launch(x, weight, bias, eps)
+    out = _launch(x, weight, bias, eps, stats)
     layer_norm.launches += 1
-    return y, mean, inv
+    return out
 
 
 class _LayerNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
-        y, mean, inv = _forward(x, weight, bias, eps)
+        y, mean, inv = _forward(x, weight, bias, eps, True)
         ctx.save_for_backward(x, weight, mean, inv)
         return y
 
@@ -179,7 +163,7 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     x's dtype: the #10 kernel on CUDA tensors, the plain version on CPU."""
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad or bias.requires_grad):
         return _LayerNorm.apply(x, weight, bias, eps)
-    return _forward(x, weight, bias, eps)[0]
+    return _forward(x, weight, bias, eps, False)[0]
 
 
 layer_norm.launches = 0

@@ -106,12 +106,11 @@ def _forward(q, k, v, scale):
     lib = build.load_library()
     out = torch.empty((b, t, s, h, d), dtype=q.dtype, device=q.device)
     strides = build.stride_array([*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.hi3d_temporal_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, t, s, h, d, strides, float(scale), stream,
-        )
+    err = build.launch(
+        lib.hi3d_temporal_attention_fwd, q.get_device(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, t, s, h, d, strides, float(scale),
+    )
     build.check(err, "temporal_attention")
     temporal_attention.launches += 1
     return out
@@ -148,13 +147,12 @@ def temporal_attention_backward(
     dq, dk, dv = (torch.empty((b, t, s, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
     strides = build.stride_array([*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                   *out.stride()[:3], *dout.stride()[:3]])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.hi3d_temporal_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, s, h, d, strides,
-            float(scale), stream,
-        )
+    err = build.launch(
+        lib.hi3d_temporal_attention_bwd, q.get_device(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, s, h, d, strides,
+        float(scale),
+    )
     build.check(err, "temporal_attention_backward")
     temporal_attention_backward.launches += 1
     return dq, dk, dv
@@ -264,12 +262,11 @@ def _block_forward(q, k, v, scale):
     out = _empty_like(q)
     lse = torch.empty((b, h, s, t), dtype=torch.float32, device=q.device)
     strides = build.stride_array([st for x in (q, k, v, out) for st in x.stride()[:3]])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.hi3d_block_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            b, s, t, h, d, strides, float(scale), stream,
-        )
+    err = build.launch(
+        lib.hi3d_block_attention_fwd, q.get_device(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        b, s, t, h, d, strides, float(scale),
+    )
     build.check(err, "temporal_block_attention")
     temporal_block_attention.launches += 1
     return out, lse
@@ -298,13 +295,12 @@ def temporal_block_attention_backward(
     delta = torch.empty_like(lse)  # Δ scratch of the pre-pass that runs past 64 frames
     strides = build.stride_array([st for x in (q, k, v, out, dout, dq, dk, dv)
                                   for st in x.stride()[:3]])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.hi3d_block_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, s, t, h, d, strides, float(scale), stream,
-        )
+    err = build.launch(
+        lib.hi3d_block_attention_bwd, q.get_device(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, s, t, h, d, strides, float(scale),
+    )
     build.check(err, "temporal_block_attention_backward")
     temporal_block_attention_backward.launches += 1
     return dq, dk, dv

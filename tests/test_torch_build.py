@@ -1,11 +1,17 @@
-"""The kernel library's name and the model factory's device, on the CPU.
+"""The kernel library's name and entry points, and the model factory's
+device, on the CPU.
 
 `build.library_path()` names the library by a hash of every file under
 `csrc/`, so an edit of a header the kernels include (`hopper.cuh`) rebuilds
-as an edit of a `.cu` does. `create_model` builds on the card unless the
-caller asks for the CPU, and says so clearly where there is no card.
+as an edit of a `.cu` does. Every `extern "C"` entry point of `csrc/*.cu`
+has its argtypes in `build.SIGNATURES`, one ctypes type per parameter, or
+ctypes would cut its pointers to 32 bits. `create_model` builds on the card
+unless the caller asks for the CPU, and says so clearly where there is no
+card.
 """
 
+import ctypes
+import re
 import shutil
 
 import pytest
@@ -37,6 +43,32 @@ def test_library_path_follows_a_new_header(csrc_copy):
     before = build.library_path()
     (csrc_copy / "extra.h").write_text("#pragma once\n")
     assert build.library_path() != before
+
+
+def _ctype(param: str):
+    """The ctypes type a C parameter declaration needs."""
+    if "*" in param:
+        return ctypes.POINTER(ctypes.c_longlong) if "long long" in param else ctypes.c_void_p
+    if "long long" in param:
+        return ctypes.c_longlong
+    if "float" in param:
+        return ctypes.c_float
+    assert re.match(r"\s*int\s+\w+\s*$", param), param
+    return ctypes.c_int
+
+
+def test_every_entry_point_has_argtypes():
+    """Each `extern "C"` function of csrc/*.cu is in the table with the
+    ctypes type of each of its parameters, and the table names no other."""
+    found = {}
+    for src in sorted(build.CSRC.glob("*.cu")):
+        text = src.read_text()
+        for name, params in re.findall(r'extern "C"\s+int\s+(\w+)\s*\(([^)]*)\)', text):
+            found[name] = [_ctype(p) for p in params.split(",")]
+    assert "hi3d_layer_norm" in found and "hi3d_group_stats" in found
+    assert set(found) == set(build.SIGNATURES)
+    for name, types in found.items():
+        assert list(build.SIGNATURES[name]) == types, name
 
 
 def _tiny_unet_config(tmp_path):

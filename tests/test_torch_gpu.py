@@ -204,44 +204,89 @@ def _close_rel(a, b, tol=1e-4):
     return ((a - b).abs().max() / b.abs().max()).item() < tol
 
 
+def _layer_norm_cases(g, cuda):
+    """(x, γ/β dtype, eps): a UNet width (bf16), the DPT's (fp32), CLIP's
+    (bf16, rows read through a strided view as `ln_post(x[:, 0])` does); γ
+    and β in bf16; C = 333 (not a multiple of a vector); a misaligned view
+    (`x[:, 1:]` of a wider tensor); C = 4096 and 8192 (a block a row); M = 1.
+    Up to a few thousand rows take a block a row; the cases of 8192 rows and
+    more take 8, 16 and 32 lanes a row, aligned and not."""
+    bf16 = torch.bfloat16
+
+    def rnd(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=cuda, dtype=dtype)
+
+    return ((rnd((4, 1000, 320), bf16), torch.float32, 1e-5),
+            (rnd((3, 577, 768)), torch.float32, 1e-6),
+            (rnd((3, 257, 1280), bf16)[:, 0], torch.float32, 1e-5),
+            (rnd((2, 100, 640), bf16), bf16, 1e-5),
+            (rnd((3, 77, 1024)), bf16, 1e-5),
+            (rnd((50, 333)), torch.float32, 1e-5),
+            (rnd((50, 333), bf16), bf16, 1e-5),
+            (rnd((64, 769))[:, 1:], torch.float32, 1e-5),
+            (rnd((64, 1281), bf16)[:, 1:], torch.float32, 1e-5),
+            (rnd((40, 4096), bf16), torch.float32, 1e-5),
+            (rnd((20, 8192)), torch.float32, 1e-5),
+            (rnd((7, 8192), torch.float16), torch.float16, 1e-5),
+            (rnd((1, 1280), bf16), torch.float32, 1e-5),
+            (rnd((1, 5000)), torch.float32, 1e-5),
+            (rnd((32, 1024, 320), bf16), torch.float32, 1e-5),
+            (rnd((16 * 577, 768)), bf16, 1e-6),
+            (rnd((8192, 333), bf16), torch.float32, 1e-5),
+            (rnd((8192, 769))[:, 1:], torch.float32, 1e-5),
+            (rnd((8192, 1281), bf16)[:, 1:], bf16, 1e-5))
+
+
 @pytest.mark.gpu
 def test_layer_norm_kernel_matches_plain(cuda):
-    """#10 at a UNet width (bf16), the DPT's (fp32) and CLIP's (bf16, rows
-    read through a strided view as `ln_post(x[:, 0])` does)."""
+    """#10 against its plain version at the cases of `_layer_norm_cases`:
+    y in x's dtype, (mean, inv_std) through `row_stats`; and a second call
+    gives bitwise the same results."""
     g = torch.Generator(device=cuda).manual_seed(5)
-    cases = ((torch.randn((4, 1000, 320), generator=g, device=cuda, dtype=torch.bfloat16), 1e-5),
-             (torch.randn((3, 577, 768), generator=g, device=cuda), 1e-6),
-             (torch.randn((3, 257, 1280), generator=g, device=cuda, dtype=torch.bfloat16)[:, 0],
-              1e-5))
-    for x, eps in cases:
-        x = x * 2 + 0.5
+    for x, wdtype, eps in _layer_norm_cases(g, cuda):
+        x = x * 2 + 0.5 if x.is_contiguous() else x.mul_(2).add_(0.5)
         c = x.shape[-1]
-        w = torch.randn((c,), generator=g, device=cuda)
-        b = torch.randn((c,), generator=g, device=cuda)
+        # |y| < 8, so that a bf16 rounding flip (the fp32 sums differ in
+        # order) is at most one ulp of 3.1e-2
+        w = (1 + 0.1 * torch.randn((c,), generator=g, device=cuda)).to(wdtype)
+        b = (0.1 * torch.randn((c,), generator=g, device=cuda)).to(wdtype)
         out = ln.layer_norm(x, w, b, eps)
         ref = ln.layer_norm_reference(x, w, b, eps)
         assert out.dtype == x.dtype and out.shape == x.shape
-        tol = 6e-2 if x.dtype == torch.bfloat16 else 1e-4
-        assert (out.float() - ref.float()).abs().max().item() < tol
-        mean, inv = ln.row_stats(x.reshape(-1, c), eps)
-        ref_mean, ref_inv = ln.row_stats_reference(x.reshape(-1, c), eps)
-        assert _close_rel(mean, ref_mean) and _close_rel(inv, ref_inv)
+        tol = 1e-4 if x.dtype == torch.float32 else 6e-2
+        assert (out.float() - ref.float()).abs().max().item() < tol, (tuple(x.shape), x.dtype)
+        assert torch.equal(ln.layer_norm(x, w, b, eps), out)
+        x2d = x.reshape(-1, c)
+        mean, inv = ln.row_stats(x2d, eps)
+        ref_mean, ref_inv = ln.row_stats_reference(x2d, eps)
+        assert _close_rel(mean, ref_mean) and _close_rel(inv, ref_inv), tuple(x.shape)
+        again = ln.row_stats(x2d, eps)
+        assert torch.equal(again[0], mean) and torch.equal(again[1], inv)
 
 
 @pytest.mark.gpu
 def test_group_stats_kernel_matches_plain(cuda):
-    """#9 at a 256² VAE norm (4 groups of 2 M elements, split over programs),
-    a DPT norm and a ragged shape; and the FoldedGroupNorm module on it
-    against torch's GroupNorm."""
+    """#9 at a 256² VAE norm (4 groups of 2 M elements a cluster), a DPT norm
+    and a ragged shape, bf16 input, a group of 15 elements (not a multiple
+    of 4) and at a misaligned start, a 1024² frame (clusters of 8) and 512
+    groups (a CTA a group); a second call gives bitwise the same results;
+    and the FoldedGroupNorm module on it against torch's GroupNorm."""
     from hi3d_tpu_torch.models.layers import FoldedGroupNorm
 
     g = torch.Generator(device=cuda).manual_seed(6)
-    for shape in ((1, 128, 256, 256), (4, 256, 24, 24), (2, 64, 33, 17)):
-        x = torch.randn(shape, generator=g, device=cuda) * 3 + 1
+    for shape, dtype in (((1, 128, 256, 256), torch.float32), ((4, 256, 24, 24), torch.float32),
+                         ((2, 64, 33, 17), torch.float32), ((2, 64, 33, 17), torch.bfloat16),
+                         ((3, 96, 3, 5), torch.float32), ((1, 128, 1024, 1024), torch.float32),
+                         ((16, 256, 96, 96), torch.float32)):
+        x = (torch.randn(shape, generator=g, device=cuda) * 3 + 1).to(dtype)
         mean, inv = gn.group_stats(x, 32, 1e-6)
         ref_mean, ref_inv = gn.group_stats_reference(x, 32, 1e-6)
         assert mean.shape == (shape[0], 32)
-        assert _close_rel(mean, ref_mean) and _close_rel(inv, ref_inv)
+        assert _close_rel(mean, ref_mean) and _close_rel(inv, ref_inv), (shape, dtype)
+        again = gn.group_stats(x, 32, 1e-6)
+        assert torch.equal(again[0], mean) and torch.equal(again[1], inv)
+        if dtype != torch.float32 or x.numel() > 1 << 24:
+            continue
         norm = FoldedGroupNorm(32, shape[1], eps=1e-6).to(cuda)
         with torch.no_grad():
             norm.weight.normal_(generator=g)
@@ -249,6 +294,40 @@ def test_group_stats_kernel_matches_plain(cuda):
             out = norm(x)
             ref = torch.nn.functional.group_norm(x, 32, norm.weight, norm.bias, 1e-6)
         assert (out - ref).abs().max().item() < 1e-3
+    # a group that starts off a 16-byte boundary: 15-element groups after one element
+    x = torch.randn((2 * 96 * 15 + 1,), generator=g, device=cuda)[1:].view(2, 96, 3, 5)
+    mean, inv = gn.group_stats(x, 32, 1e-6)
+    ref_mean, ref_inv = gn.group_stats_reference(x, 32, 1e-6)
+    assert _close_rel(mean, ref_mean) and _close_rel(inv, ref_inv)
+
+
+@pytest.mark.gpu
+def test_norm_calls_launch_one_kernel(cuda):
+    """By the profiler, one `ln.layer_norm`, `ln.row_stats` or
+    `gn.group_stats` call runs exactly one device kernel: no cast, copy,
+    fill or fold beside it, with γ and β in bf16 too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn((16 * 577, 768), generator=g, device=cuda)
+    w, b = (torch.randn((768,), generator=g, device=cuda) for _ in range(2))
+    xb = torch.randn((4096, 320), generator=g, device=cuda, dtype=torch.bfloat16)
+    wb, bb = (torch.randn((320,), generator=g, device=cuda, dtype=torch.bfloat16)
+              for _ in range(2))
+    xg = torch.randn((1, 128, 1024, 1024), generator=g, device=cuda)
+    calls = (lambda: ln.layer_norm(x, w, b, 1e-6), lambda: ln.layer_norm(xb, wb, bb, 1e-5),
+             lambda: ln.row_stats(x, 1e-6), lambda: gn.group_stats(xg, 32, 1e-6),
+             lambda: gn.group_stats(xg.view(16, 256, 128, 256), 32, 1e-6))
+    for call in calls:
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation]
+        assert len(kernels) == 1, kernels
 
 
 @pytest.mark.gpu

@@ -268,6 +268,41 @@ def test_wrappers_raise_on_other_devices():
         ln.row_stats(x[0, 0], 1e-5)
 
 
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 128, 1024, 1024), torch.float32),  # a 1024² VAE frame, chip_smoke's #9 case
+    ((16, 256, 96, 96), torch.float32),  # a DPT backbone norm, chip_smoke's #9 case
+    ((1, 128, 512, 512), torch.float32),  # the 512² VAE encoder's first norms
+    ((1, 512, 64, 64), torch.float32),  # the VAE's mid-block at a 64² latent
+    ((4, 512, 128, 128), torch.float32),  # the decoder at 4 frames
+    ((16, 1024, 24, 24), torch.float32),  # the DPT's last stage
+    ((2, 64, 33, 17), torch.bfloat16),  # a ragged group, bf16
+    ((1, 96, 3, 5), torch.float16),  # a group of 15 elements
+])
+def test_group_stats_plan_covers_every_element(shape, dtype):
+    """#9's planner: every element of every group in exactly one CTA slice
+    (rank r owns [min(r·chunk, gs), min((r + 1)·chunk, gs)), as the kernel
+    reads it), a cluster of 1–16 CTAs that divides the grid, slices of whole
+    16-byte vectors, and about two CTAs an SM when a 1024² frame leaves only
+    N·G = 32 groups."""
+    n, c = shape[:2]
+    groups, gs = n * 32, (c // 32) * int(np.prod(shape[2:]))
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    cluster, chunk = gn.plan_group_stats(groups, gs, vec)
+    assert 1 <= cluster <= 16 and cluster & (cluster - 1) == 0
+    assert (groups * cluster) % cluster == 0
+    assert chunk % vec == 0 and chunk * cluster >= gs
+    covered = np.zeros(gs, dtype=np.int64)
+    for r in range(cluster):
+        start = min(r * chunk, gs)
+        end = min(start + chunk, gs)
+        np.add.at(covered, np.arange(start, end), 1)
+    assert (covered == 1).all()
+    if groups == 32 and gs >= 1 << 20:
+        assert groups * cluster >= 0.9 * gn.TARGET_CTAS
+    if groups >= gn.TARGET_CTAS:
+        assert cluster == 1
+
+
 # bf16 inputs: both sides widen the same bf16 values to fp32 and sum in fp32
 STATS_ATOL = 2e-5
 
