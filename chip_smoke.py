@@ -7,13 +7,15 @@
                                            # of 2 of its sampler steps
     python3 chip_smoke.py --profile-train  # only 2-step profiles of training (2×16, 1×48)
     python3 chip_smoke.py --time-block-backward [MAX_T]  # only #7's times, to compare trees
-    python3 chip_smoke.py --time-norms     # only #10's and #9's times (CUDA events and
-                                           # device time) against their library calls
+    python3 chip_smoke.py --time-norms     # only K3's, #10's and #9's times (CUDA events
+                                           # and device time) against their library calls
+    python3 chip_smoke.py --time-frame-attention  # only K2's times at its five main-path
+                                           # sites, against #6 and SDPA
     python3 chip_smoke.py --time-png       # only a 512² Average/Paeth PNG decode, C against
                                            # the plain Python unfilter, on the host's CPU
 
 1. prints the card (nvidia-smi name and power limit) and fails without CUDA;
-2. builds the kernels from this checkout (`hi3d_tpu_torch/csrc`, K3's Triton);
+2. builds the kernels from this checkout (`hi3d_tpu_torch/csrc`);
 3. runs each forward kernel (K1, K2, #6 segment attention, K3, #9 GroupNorm
    statistics, #10 LayerNorm) and each backward kernel (#3, #5, #7, and the
    K3 and #10 autograd Functions) against its plain PyTorch version at the
@@ -177,6 +179,45 @@ def plain_flash(q, k, v):
     return out, lse
 
 
+# K2's main-path sites (B, T, S, C), D = 64: the stage-1 UNet's four
+# frame-axis sites (one CFG-batched call over 2 × 16 frames, 64² to 8²) and
+# stage 2's level-1 site (128²)
+K2_SITES = ((2, 16, 4096, 320), (2, 16, 1024, 640), (2, 16, 256, 1280), (2, 16, 64, 1280),
+            (2, 16, 16384, 320))
+
+# K3's cases (shape, act, time-stack view): the 2-D norms of a stage-1 UNet
+# call at 64² (2 × 16 frames), a 32² time stack, the stage-1 and serve (4
+# videos × 48 frames) time-stack views at 64², and a stage-2 2-D norm at 128²
+K3_CASES = (((32, 320, 64, 64), None, False), ((32, 320, 64, 64), "silu", False),
+            ((2, 640, 16, 32, 32), "silu", False), ((2, 320, 16, 64, 64), "silu", True),
+            ((4, 320, 48, 64, 64), "silu", True), ((32, 320, 128, 128), "silu", False))
+
+
+def frame_attention_work(b, t, s, c):
+    """(bytes, flops) of K2 at one site: q, k, v read and O written once;
+    4·T²·D flops a segment."""
+    return 4 * b * t * s * c * 2, 4 * b * s * c * t * t
+
+
+def group_norm_work(shape):
+    """(bytes, flops) of K3 on bf16 x of `shape`: x read and y written once,
+    fp32 γ and β read; about 8 flops an element."""
+    n = int(np.prod(shape))
+    return 2 * n * 2 + 2 * shape[1] * 4, 8 * n
+
+
+def _k3_input(shape, view: bool, gen):
+    """bf16 x of `shape` (N, C, *spatial), O(3) around 1; with `view`, the
+    (B, C, T, H, W) permuted view of a contiguous (B, T, C, H, W) tensor."""
+    import torch
+
+    if not view:
+        return torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16) * 3 + 1
+    b, c, t, h, w = shape
+    x = torch.randn((b, t, c, h, w), generator=gen, device="cuda", dtype=torch.bfloat16) * 3 + 1
+    return x.permute(0, 2, 1, 3, 4)
+
+
 def kernel_phase() -> Results:
     """Each forward kernel against its plain version at main-path shapes,
     with the time of the one PyTorch call that computes the same function
@@ -251,8 +292,11 @@ def kernel_phase() -> Results:
         if not (err <= tol and lse_err <= 1e-3):
             raise AssertionError(f"flash_attention Sq={sq} Sk={sk} D={d}: errors {err}, {lse_err}")
 
-    # K2: T=16 softmax in fp32 in both; bf16 output rounding dominates
-    for b, t, s, c in ((2, 16, 4096, 320), (2, 16, 256, 1280)):
+    # K2: softmax in fp32 in both, P rounded to bf16 before P·V in the
+    # kernel (as the Pallas kernel), so the gap is a few bf16 ulps of O; a
+    # second call gives bitwise the same O. At the stage-1 UNet's four
+    # frame-axis sites (T = 16, 64² to 8²) and stage 2's level-1 site (128²)
+    for b, t, s, c in K2_SITES:
         h = c // 64
         base = [torch.randn((b, t, s, c), generator=gen, device=dev, dtype=bf16)
                 for _ in range(3)]
@@ -261,13 +305,28 @@ def kernel_phase() -> Results:
         ref = ta.temporal_attention_reference(q, k, v)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
+        if not torch.equal(ta.temporal_attention(q, k, v), out):
+            raise AssertionError(f"temporal_attention B={b} T={t} S={s}: not repeatable")
         lib = [_sdpa_frames(x, h, 64) for x in base]
         record("temporal_attention", err, 2e-2,
                time_ms(lambda: ta.temporal_attention(q, k, v)),
                time_ms(lambda: ta.temporal_attention_reference(q, k, v), reps=3),
                f"B={b} T={t} S={s} C={c}",
                time_ms(lambda: F.scaled_dot_product_attention(*lib)),
-               4 * b * t * s * c * 2, 4 * b * s * c * t * t)
+               *frame_attention_work(b, t, s, c))
+    # K2 off the main paths' shapes, correctness only: every T from 1 to 32
+    # that changes the tiling (one or two query tiles, padded keys), D = 64
+    # and 128, S = 67 locations (groups of segments that do not divide them)
+    for t in (1, 2, 16, 17, 32):
+        for d in (64, 128):
+            q, k, v = (torch.randn((2, t, 67, 2 * d), generator=gen, device=dev, dtype=bf16)
+                       .view(2, t, 67, 2, d) for _ in range(3))
+            err = (ta.temporal_attention(q, k, v).float()
+                   - ta.temporal_attention_reference(q, k, v).float()).abs().max().item()
+            print(f"[kernel] temporal_attention B=2 T={t} S=67 H=2 D={d} (correctness only): "
+                  f"max_abs_err={err:.3e} (tol 2.0e-02)", flush=True)
+            if not err <= 2e-2:
+                raise AssertionError(f"temporal_attention T={t} D={d}: error {err}")
 
     # #6 at the serve path's four frame-axis sites (2 assets × CFG = 4 videos
     # of 48 frames at 512²), a ragged T = 33, T = 64 at D = 128, and past 128
@@ -302,26 +361,33 @@ def kernel_phase() -> Results:
                time_ms(lambda: F.scaled_dot_product_attention(*lib)),
                4 * b * t * s * c * 2 + b * h * s * t * 4, 4 * b * s * c * t * t, summed)
 
-    # K3: same one-pass fp32 arithmetic; outputs are O(1) bf16, so the gap is
-    # one bf16 ulp from a different summation order. Library: F.group_norm,
-    # for the cases without SiLU (with it no single call computes the same)
-    for shape, act in (((32, 320, 64, 64), None), ((32, 320, 64, 64), "silu"),
-                       ((2, 640, 16, 32, 32), "silu")):
-        x = torch.randn(shape, generator=gen, device=dev, dtype=bf16) * 3 + 1
-        w = torch.randn((shape[1],), generator=gen, device=dev)
-        bia = torch.randn((shape[1],), generator=gen, device=dev)
+    # K3: same one-pass fp32 arithmetic, so the gap is a bf16 rounding flip
+    # from a different summation order; γ = 1 + 0.1·randn and β = 0.1·randn
+    # keep |y| < 8 (x̂ within ±6 over 10⁸ values), where one flip is at most
+    # 3.1e-2, under the 6e-2 tolerance (γ = randn reached |y| ≥ 8, where a
+    # flip is 6.25e-2). A second call gives bitwise the same y. The
+    # time-stack cases hand K3 the (B, C, T, H, W) view of a (B, T, C, H, W)
+    # tensor, as the UNet does. Library: F.group_norm (on a contiguous copy
+    # for a view), for the cases without SiLU (with it no single call
+    # computes the same)
+    for shape, act, view in K3_CASES:
+        x = _k3_input(shape, view, gen)
+        w = 1 + 0.1 * torch.randn((shape[1],), generator=gen, device=dev)
+        bia = 0.1 * torch.randn((shape[1],), generator=gen, device=dev)
         out = gn.group_norm(x, w, bia, 32, 1e-5, act)
         ref = gn.group_norm_reference(x, w, bia, 32, 1e-5, act)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
+        if not torch.equal(gn.group_norm(x, w, bia, 32, 1e-5, act), out):
+            raise AssertionError(f"group_norm x{shape}: not repeatable")
         wx, bx = w.to(bf16), bia.to(bf16)
-        n = x.numel()
+        xc = x.contiguous()
         record("group_norm", err, 6e-2,
                time_ms(lambda: gn.group_norm(x, w, bia, 32, 1e-5, act)),
                time_ms(lambda: gn.group_norm_reference(x, w, bia, 32, 1e-5, act), reps=3),
-               f"x{tuple(shape)} act={act}",
-               None if act else time_ms(lambda: F.group_norm(x, 32, wx, bx, 1e-5)),
-               2 * n * 2 + 2 * shape[1] * 4, 8 * n)
+               f"x{tuple(shape)} act={act}{' (time-stack view)' if view else ''}",
+               None if act else time_ms(lambda: F.group_norm(xc, 32, wx, bx, 1e-5)),
+               *group_norm_work(shape))
 
     # the stage-2 cases draw from their own generator, so the stage-1 cases
     # above keep their inputs. K1 at stage 2's level-1 site (S = 16384, H5):
@@ -661,7 +727,7 @@ KERNELS = (
      "hi3d_tpu/ops/flash_attention.py:245"),
     ("temporal_attention", "cuda", "hi3d_tpu_torch/csrc/temporal_attention.cu",
      "hi3d_tpu/ops/temporal_attention.py:375"),
-    ("group_norm", "triton", "hi3d_tpu_torch/ops/group_norm.py",
+    ("group_norm", "cuda", "hi3d_tpu_torch/csrc/group_norm.cu",
      "hi3d_tpu/ops/group_norm.py:105"),
     ("flash_attention_backward", "cuda", "hi3d_tpu_torch/csrc/flash_attention.cu",
      "hi3d_tpu/ops/flash_attention.py:493"),
@@ -1347,15 +1413,18 @@ def _profile_report(prof, label: str, steps: int, host_ms: float) -> None:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
     idle = 1.0 - busy / (spans[-1][1] - spans[0][0])
+    # the keys name both the current kernels and the ones they replaced
+    # (K2's `temporal_attn_kernel`, K3's Triton `_gn_*`, #9's `_gn_fold_kernel`,
+    # #10's `_ln_kernel`), so that a parent tree's trace buckets the same way
     buckets = (("#7 block attention backward", ("block_attn_bwd",)),
                ("#6 block attention", ("block_attn",)),
                ("#3 flash attention backward", ("fa_bwd",)),
                ("#5 temporal attention backward", ("temporal_attn_bwd",)),
                ("K1 flash attention", ("fa_fwd",)),
-               ("K2 temporal attention", ("temporal_attn",)),
+               ("K2 temporal attention", ("k2_fwd", "temporal_attn_kernel")),
                ("#10 LayerNorm", ("_ln_kernel", "norm_rows_kernel")),
                ("#9 GroupNorm statistics", ("_gn_fold_kernel", "group_moments_kernel")),
-               ("K3 GroupNorm", ("_gn_",)),
+               ("K3 GroupNorm", ("group_norm_kernel", "_gn_")),
                ("strided elementwise", ("elementwise_kernel",)),
                ("convolutions", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
                ("GEMMs", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -1487,23 +1556,57 @@ def _device_time(fn, calls: int):
     return spans / len(kernels), len(kernels) / calls, sorted({e.name[:40] for e in kernels})
 
 
+def _time_calls(tag: str, label: str, fns: dict, nbytes: float, flops: float,
+                calls: int) -> None:
+    """One line for `fns` ({label: call}) at one shape: the CUDA-event ms of
+    one call (median of 10, as the kernel table), the µs a call over `calls`
+    back-to-back calls, the device µs a kernel and kernels a call by the
+    profiler; and the bound."""
+    b_ms, b_by = bound(nbytes, flops)
+    parts = []
+    for name, fn in fns.items():
+        one_ms = time_ms(fn)
+        call_us = time_ms(lambda: [fn() for _ in range(calls)]) / calls * 1e3
+        dev_us, per_call, names = _device_time(fn, calls)
+        parts.append(f"{name} {one_ms:.4f} ms a call, {call_us:.1f} us a call over {calls}, "
+                     f"device {dev_us:.1f} us a kernel, {per_call:.2f} kernels a call {names}")
+    print(f"[{tag}] {label}: " + "; ".join(parts) + f"; bound {b_ms:.4f} ms ({b_by}); "
+          f"card {card_line()}", flush=True)
+
+
 def time_norms(calls: int = 100) -> None:
-    """#10 (`ln.layer_norm`) and #9 (`gn.group_stats`) at NORM_CASES, beside
-    their library calls (F.layer_norm with γ, β in x's dtype; torch.var_mean
-    over the group view): the CUDA-event ms of one call (median of 10, as the
-    kernel table), the µs a call over `calls` back-to-back calls, and the
-    device µs a kernel and kernels a call by the profiler; and the bound.
-    Only the public calls run, so the same script times a parent tree:
+    """K3 through `GroupNorm32` (the UNet's module, so a time-stack view
+    costs whatever copy the tree makes of it) at K3_CASES beside
+    F.group_norm (on a contiguous x, γ and β in bf16), #10
+    (`ln.layer_norm`) and #9 (`gn.group_stats`) at NORM_CASES beside
+    F.layer_norm (γ, β in x's dtype) and torch.var_mean (over the group
+    view); each with `_time_calls`. Only the public calls run, so the same
+    script times a parent tree:
 
         python3 chip_smoke.py --time-norms"""
     import torch
     import torch.nn.functional as F
 
+    from hi3d_tpu_torch.models.layers import GroupNorm32
     from hi3d_tpu_torch.ops import group_norm as gn
     from hi3d_tpu_torch.ops import layer_norm as ln
 
-    card = card_line()
     gen = torch.Generator(device="cuda").manual_seed(3)
+    for shape, act, view in K3_CASES:
+        x = _k3_input(shape, view, gen)
+        norm = GroupNorm32(shape[1], act=act).to("cuda")
+        with torch.no_grad():
+            norm.weight.normal_(generator=gen)
+            norm.bias.normal_(generator=gen)
+        xc = x.contiguous()
+        wx, bx = norm.weight.to(torch.bfloat16), norm.bias.to(torch.bfloat16)
+        with torch.no_grad():
+            fns = {"GroupNorm32": lambda: norm(x),
+                   "F.group_norm": lambda: F.group_norm(xc, 32, wx, bx, 1e-5)}
+            _time_calls("norms", f"group_norm {tuple(shape)} bfloat16 act={act}"
+                        f"{' (time-stack view)' if view else ''}", fns, *group_norm_work(shape),
+                        calls)
+        del x, xc, fns
     for name, shape, dtype, eps in NORM_CASES:
         dt = getattr(torch, dtype)
         x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1).to(dt)
@@ -1520,18 +1623,36 @@ def time_norms(calls: int = 100) -> None:
             fns = {"kernel": lambda: gn.group_stats(x, 32, eps),
                    "torch.var_mean": lambda: torch.var_mean(xg, dim=-1, correction=0)}
             nbytes, flops = x.numel() * x.element_size() + shape[0] * 32 * 2 * 4, 3 * x.numel()
-        b_ms, b_by = bound(nbytes, flops)
-        parts = []
-        for label, fn in fns.items():
-            one_ms = time_ms(fn)
-            call_us = time_ms(lambda: [fn() for _ in range(calls)]) / calls * 1e3
-            dev_us, per_call, names = _device_time(fn, calls)
-            parts.append(f"{label} {one_ms:.4f} ms a call, {call_us:.1f} us a call over {calls}, "
-                         f"device {dev_us:.1f} us a kernel, {per_call:.2f} kernels a call "
-                         f"{names}")
-        print(f"[norms] {name} {tuple(shape)} {dtype}: " + "; ".join(parts)
-              + f"; bound {b_ms:.4f} ms ({b_by}); card {card}", flush=True)
+        _time_calls("norms", f"{name} {tuple(shape)} {dtype}", fns, nbytes, flops, calls)
         del x, fns
+
+
+def time_frame_attention(calls: int = 100) -> None:
+    """K2 (`ta.temporal_attention`) at K2_SITES beside #6
+    (`ta.segment_attention` on the (B, S, T, H, D) transposed views) and
+    SDPA on (B, S·H, T, D) views, each with `_time_calls`. Only public calls
+    run, so the same script times a parent tree:
+
+        python3 chip_smoke.py --time-frame-attention"""
+    import torch
+    import torch.nn.functional as F
+
+    from hi3d_tpu_torch.ops import temporal_attention as ta
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for b, t, s, c in K2_SITES:
+        h = c // 64
+        base = [torch.randn((b, t, s, c), generator=gen, device="cuda", dtype=torch.bfloat16)
+                for _ in range(3)]
+        q, k, v = (x.view(b, t, s, h, 64) for x in base)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = [_sdpa_frames(x, h, 64) for x in base]
+        fns = {"K2": lambda: ta.temporal_attention(q, k, v),
+               "#6": lambda: ta.segment_attention(qt, kt, vt),
+               "SDPA": lambda: F.scaled_dot_product_attention(*lib)}
+        _time_calls("frames", f"temporal_attention B={b} T={t} S={s} C={c}", fns,
+                    *frame_attention_work(b, t, s, c), calls)
+        del base, q, k, v, qt, kt, vt, lib, fns
 
 
 def profile_stage1(steps: int = 2) -> None:
@@ -1647,11 +1768,9 @@ def main() -> None:
     os.makedirs(os.path.join(ROOT, "outputs"), exist_ok=True)
 
     from hi3d_tpu_torch.ops import build
-    from hi3d_tpu_torch.ops import group_norm as gn
 
     t0 = time.perf_counter()
     build.load_library()
-    gn._compiled()  # K3's Triton kernels
     nvcc_s = build.build_seconds if build.build_seconds is not None else 0.0
     print(f"[build] {build.library_path().name}: nvcc {nvcc_s:.1f} s "
           f"(0 = reused), build+load {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1669,6 +1788,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--time-norms"]:
         time_norms()
+        return
+    if sys.argv[1:] == ["--time-frame-attention"]:
+        time_frame_attention()
         return
     if sys.argv[1:2] == ["--time-block-backward"]:
         time_block_backward(*map(int, sys.argv[2:3]))

@@ -5,8 +5,7 @@ names (config, registry, engine, conditioners, diffusion/, models/, ops/,
 pipelines/, utils/) in PyTorch idiom: `nn.Module`s with NCHW convolutions, an
 explicit `device` everywhere, explicit `torch.Generator`s, and a plain Python
 sampler loop. The kernels the JAX package wrote in Pallas are hand-written for
-Hopper (`csrc/*.cu` for CUDA C++, Triton inside `ops/group_norm.py` and
-`ops/layer_norm.py`).
+Hopper in CUDA C++ (`csrc/*.cu`, built by `ops/build.py`).
 
 Importing this package imports neither `jax` nor `hi3d_tpu`.
 """

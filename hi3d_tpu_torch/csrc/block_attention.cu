@@ -86,11 +86,11 @@
 // - Epilogue: each gradient tile, scaled and rounded to bf16, goes through
 //   the warp's own 2 KB of the spent stage and leaves as 16-byte row stores.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+
+#include "warp_mma.cuh"
 
 namespace {
 
@@ -99,83 +99,16 @@ constexpr int FWD_WARPS = 8;        // forward warps a block, at most (query til
 constexpr int FWD_GROUP_WARPS = 4;  // forward: segments are grouped up to this many warps
 constexpr int SMEM_MAX = 232448;    // dynamic shared memory a block may use
 constexpr int FWD_RING_CAP = 113 * 1024;  // two forward blocks to an SM
-constexpr float NEG_BIG = -1e30f;  // not -inf: exp2(-inf - -inf) is NaN
 constexpr float LN2 = 0.6931471805599453f;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr unsigned FULL = 0xffffffffu;
 
 struct Strides {  // element strides of a (B, S, T, H, D) view along b, s, t
   long long b, s, t;
 };
 
-__device__ __forceinline__ float2 unpack(uint32_t w) {
-  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&w);
-  return __bfloat1622float2(h);
-}
-
-__device__ __forceinline__ uint32_t pack(float a, float b) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__host__ __device__ constexpr int pad16(int t) { return (t + 15) & ~15; }
-
 // The segment's first row: element (b, s, 0, h, 0) of a strided view.
 template <typename T>
 __device__ __forceinline__ T* seg_base(T* x, const Strides& st, int b, int s, int h, int D) {
   return x + b * st.b + s * st.s + (long long)h * D;
-}
-
-// ------------------------------------------------------- PTX building blocks
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global → shared, bypassing L1; zeros when !valid (src unread).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most one group of this thread's copies is still in flight.
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// c (16x8 fp32) += a (16x16 bf16, row) · b (16x8 bf16, col)
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Element offset of 16-byte chunk c of row r in a swizzled (rows, D) tile.
-template <int D>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * D + ((c ^ (r & 7)) << 3);
 }
 
 // ------------------------------------------------------------------ forward
@@ -742,17 +675,6 @@ block_attn_bwd_kernel(BwdArgs a, int S, int T, int H, float scale, float scale_l
 }
 
 Strides strides_at(const long long* st, int i) { return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]}; }
-
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      n = 132;
-  }
-  return n;
-}
 
 template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,

@@ -35,35 +35,19 @@
 // cluster.sync() rank 0 reads the other CTAs' partial sums from their shared
 // memory (distributed shared memory) in rank order and writes (mean, inv). No
 // scratch tensor, no second launch, no atomics: the result is deterministic.
+// The fold (`cluster_fold`, norm_common.cuh) is K3's too (group_norm.cu).
 
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
-namespace cg = cooperative_groups;
+#include "norm_common.cuh"
 
 namespace {
-
-enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
 constexpr int THREADS = 256;     // threads a block: #9, and #10 with a block a row
 constexpr int ROW_THREADS = 128;  // threads a block of #10 with 4–32 lanes a row
 constexpr int WARP_MAX_C = 2048;
 constexpr int MAX_C = 8192;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half_rn(v); }
 
 // N consecutive elements at p as fp32: one vector load of N·sizeof(T) bytes
 // (8, or 16-byte pieces) when `vec` (p then aligned to min(16, N·sizeof(T))
@@ -130,12 +114,6 @@ __device__ __forceinline__ void unpack(const uint4& raw, float (&out)[16 / sizeo
   const T* t = reinterpret_cast<const T*>(&raw);
 #pragma unroll
   for (int i = 0; i < (int)(16 / sizeof(T)); ++i) out[i] = to_f(t[i]);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // γ or β (dtype w_dtype) at [e0, e0 + N) as fp32, as `load` does.
@@ -249,17 +227,6 @@ cudaError_t launch_rows_nv(const void* x, void* y, const void* w, const void* b,
       static_cast<const T*>(x), static_cast<T*>(y), w, b, w_dtype, static_cast<float*>(mean),
       static_cast<float*>(inv), M, C, stride_x, lanes, vec, eps);
   return cudaGetLastError();
-}
-
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      n = 132;
-  }
-  return n;
 }
 
 // Up to WARP_MAX_C: the fewest lanes a row (4–32) that leave at most 6
@@ -378,17 +345,13 @@ group_moments_kernel(const T* __restrict__ x, float* __restrict__ mean_out,
   if (nranks > 1) {
     cg::cluster_group cluster = cg::this_cluster();
     cluster.sync();  // every rank's partial sums are in its shared memory
-    if (rank == 0 && threadIdx.x == 0) {
-      float a = 0.f, c = 0.f;
-      for (int r = 0; r < nranks; ++r) {
-        const float* rp = cluster.map_shared_rank(part, r);
-        a += rp[0];
-        c += rp[1];
-      }
-      part[0] = a;
-      part[1] = c;
-    }
+    float2 sums;
+    if (rank == 0 && threadIdx.x == 0) sums = cluster_fold(part, nranks);
     cluster.sync();  // no CTA leaves while rank 0 may still read its shared memory
+    if (rank == 0 && threadIdx.x == 0) {
+      part[0] = sums.x;
+      part[1] = sums.y;
+    }
   }
   if (rank == 0 && threadIdx.x == 0) {
     const float mean = part[0] / (float)group_size;

@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.group_norm import group_norm, group_norm_backward, group_stats
+from ..ops.group_norm import group_norm, group_norm_backward, group_stats, reads_in_place
 
 
 def timestep_embedding(
@@ -52,8 +52,11 @@ class GroupNorm32(nn.GroupNorm):
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # K3 reads a group as one contiguous run of NCHW memory
-        return group_norm(x.contiguous(), self.weight, self.bias, self.num_groups, self.eps, self.act)
+        # K3 reads strided views such as the time stack's permuted input in
+        # place; any other layout is made contiguous first
+        if not reads_in_place(x):
+            x = x.contiguous()
+        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps, self.act)
 
 
 def _folded_affine(x, weight, bias, num_groups, eps):

@@ -56,8 +56,10 @@ class VideoResBlock(ResBlock):
         t = num_video_frames
         b = bt // t
         x5 = x.view(b, t, c, h, w)
+        # the time stack takes the (B, C, T, H, W) view as it lies: its first
+        # GroupNorm (K3) reads it in place and its skip add reads it too
         x_temporal = self.time_stack(
-            x5.permute(0, 2, 1, 3, 4).contiguous(), emb.view(b, t, emb.shape[-1])
+            x5.permute(0, 2, 1, 3, 4), emb.view(b, t, emb.shape[-1])
         )
         x5 = self.time_mixer(x5, x_temporal.permute(0, 2, 1, 3, 4), image_only_indicator)
         return x5.reshape(bt, c, h, w)

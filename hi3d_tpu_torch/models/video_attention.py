@@ -103,4 +103,8 @@ class SpatialVideoTransformer(nn.Module):
             tokens = self.time_mixer(tokens, mix, image_only_indicator)
 
         tokens = self.proj_out(tokens)
-        return tokens.reshape(bt, h, w, c).permute(0, 3, 1, 2) + x_in
+        # x_in first: the sum takes the first operand's memory order, so the
+        # block's output stays contiguous NCHW (not the tokens' channels-last
+        # order) and the ResBlock after it, its norms and its time stack's
+        # (B, C, T, H, W) view, read it without a copy
+        return x_in + tokens.reshape(bt, h, w, c).permute(0, 3, 1, 2)

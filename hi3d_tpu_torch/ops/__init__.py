@@ -5,6 +5,6 @@ launches its Hopper kernel or raises. When an input needs a gradient the
 wrapper runs as an autograd Function whose backward is again a kernel on
 CUDA tensors and the plain version on CPU tensors. `flash_attention`,
 `temporal_attention` and `temporal_block_attention` (each forward and
-backward), `group_stats` and `layer_norm` are CUDA C++ (`csrc/`, built by
-`build.py`); `group_norm` is Triton. The norms have plain fp32 backwards.
+backward), `group_norm`, `group_stats` and `layer_norm` are CUDA C++
+(`csrc/`, built by `build.py`). The norms have plain fp32 backwards.
 """

@@ -15,7 +15,7 @@ The JAX package splits frame-axis attention by a TPU VMEM budget instead
 (`temporal_attention_fused`): its natural-layout kernel while a
 (T, 8, C) tile fits 640 KB, else the location-major #6. At T = 48 in bf16
 that is the natural kernel at the sites with C ≤ 640 and #6 at those with
-C = 1280. The port's K2 stops at T = 32 (a warp per problem), so the port
+C = 1280. The port's K2 stops at T = 32 (one key block), so the port
 sends every site with T > 32 to #6. This is deliberate: both kernels compute
 the same (query, key) pairs with the same fp32 softmax.
 """

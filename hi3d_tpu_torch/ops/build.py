@@ -49,9 +49,11 @@ SIGNATURES = {
                                  _STRIDES, _F, _P),
     "hi3d_layer_norm": (_P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _F, _P),
     "hi3d_group_stats": (_P, _P, _P, _L, _L, _L, _I, _I, _F, _P),
+    "hi3d_group_norm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I, _I, _I, _I, _I, _I,
+                        _I, _F, _I, _P),
 }
 
-# the dtype codes of csrc/norm_stats.cu
+# the dtype codes of csrc/norm_common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _lib: Optional[ctypes.CDLL] = None

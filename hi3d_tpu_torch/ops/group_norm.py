@@ -6,34 +6,29 @@ Replaces hi3d_tpu/ops/group_norm.py:_fused_group_norm_nsc (Pallas
 0, as `_group_stats` does), the folded affine a = γ·σ⁻¹, b = β − μ·a, and
 y = act(x·a + b) in fp32 with the optional SiLU applied before the cast.
 
-The kernel is Triton and works on PyTorch's contiguous (N, C, *spatial)
-layout, where one group is one contiguous run of (C/G)·prod(spatial)
-elements; it serves both the 2-D ResBlock tensors (N = B·T frames) and the
-5-D time-stack tensors (N = B, spatial = T·H·W).
-
-What bounds it on the H100: two reads and one write of x, no matrix product,
-so device-memory bandwidth. The TPU kernel carried its sums across a
-sequential grid axis; blocks on Hopper run in no order, so the stats pass
-splits each group over several programs that write partial sums, and the
-apply pass folds those partials itself (no third launch, no atomics, so the
-result is deterministic). The split keeps ~1k programs in flight when N·G is
-small (the 5-D time-stack tensors have only B·32 groups).
+K3 is CUDA C++ (`csrc/group_norm.cu`, built by `build.py`), one launch a
+call, whose notes say what bounds it on the H100 (one read of x and one
+write of y: memory bandwidth) and how the design answers. It takes x as an
+(N, C, S1, S2) view, S2 the innermost run of unit stride (`_layout`), so
+the UNet's time stack hands it the (B, C, T, H, W) permuted view of a
+(B, T, C, H, W) tensor with no copy; y is contiguous. A group goes to a
+thread-block cluster of 1–8 CTAs. Where there are thousands of groups (the
+2-D norms) each CTA keeps its share in shared memory and x is read from HBM
+once; where there are few, large groups (the time stacks) the CTAs stream
+their shares twice. `plan_group_norm` makes that choice. The CTAs of a
+cluster fold their partial sums through distributed shared memory (no
+scratch tensor, no atomics: repeatable bit for bit).
 
 #9 replaces hi3d_tpu/ops/group_norm.py:_pallas_group_stats_impl (Pallas
 `_gstats_kernel`, reached through `pallas_group_stats` under HI3D_GN=pallas):
 fp32 per-group (mean, inv_std) of shape (N, G), one-pass and clamped as
-above. It is CUDA C++ (`csrc/norm_stats.cu`, built by `build.py`), one
-launch a call: a thread-block cluster of 1–8 CTAs a group streams the
-group's slices, and its rank 0 folds the partial sums from the other CTAs'
-shared memory (no scratch tensor, no atomics, deterministic). The cluster
-size comes from `plan_group_stats`. Its callers (the VAE's and the DPT's
-fp32 GroupNorms, `models.layers.FoldedGroupNorm`) apply the folded affine
-themselves. The split matters there: one 1024² VAE frame has only 32 groups
-of 4.19 M elements each.
-
-K3's `triton` is imported on the first CUDA launch only: its kernels below
-are plain functions until `_compiled()` binds `tl` and wraps them in
-`triton.jit`.
+above. It is CUDA C++ (`csrc/norm_stats.cu`), one launch a call: a
+thread-block cluster of 1–8 CTAs a group streams the group's slices, and
+its rank 0 folds the partial sums through the same distributed-shared-memory
+fold as K3. The cluster size comes from `plan_group_stats`. Its callers (the
+VAE's and the DPT's fp32 GroupNorms, `models.layers.FoldedGroupNorm`) apply
+the folded affine themselves. The split matters there: one 1024² VAE frame
+has only 32 groups of 4.19 M elements each.
 
 Training: when x, γ or β needs a gradient, `group_norm` runs as an autograd
 Function that saves x, γ and β. Its backward is `group_norm_backward`, plain
@@ -50,74 +45,6 @@ from typing import Optional, Tuple
 import torch
 
 from . import build
-
-tl = None  # bound to triton.language on the first CUDA launch
-_STATS = None
-_APPLY = None
-
-BLOCK = 2048
-_TARGET_PROGRAMS = 1024
-
-
-def _gn_stats_kernel(x_ptr, part_ptr, group_size, chunk, nsplit, BLOCK: "tl.constexpr"):
-    ng = tl.program_id(0)
-    sp = tl.program_id(1)
-    base = ng.to(tl.int64) * group_size
-    start = sp * chunk
-    end = tl.minimum(start + chunk, group_size)
-    acc = tl.zeros([BLOCK], dtype=tl.float32)
-    acc2 = tl.zeros([BLOCK], dtype=tl.float32)
-    for off in range(0, chunk, BLOCK):
-        idx = start + off + tl.arange(0, BLOCK)
-        mask = idx < end
-        xv = tl.load(x_ptr + base + idx, mask=mask, other=0.0).to(tl.float32)
-        acc += xv
-        acc2 += xv * xv
-    slot = (ng * nsplit + sp) * 2
-    tl.store(part_ptr + slot, tl.sum(acc, axis=0))
-    tl.store(part_ptr + slot + 1, tl.sum(acc2, axis=0))
-
-
-def _gn_apply_kernel(x_ptr, y_ptr, w_ptr, b_ptr, part_ptr, group_size, chunk, nsplit,
-                     spatial, cpg, groups, eps,
-                     SILU: "tl.constexpr", BLOCK: "tl.constexpr", SPLIT_P2: "tl.constexpr"):
-    ng = tl.program_id(0)
-    sp = tl.program_id(1)
-    parts = tl.arange(0, SPLIT_P2)
-    pmask = parts < nsplit
-    s1 = tl.sum(tl.load(part_ptr + (ng * nsplit + parts) * 2, mask=pmask, other=0.0), axis=0)
-    s2 = tl.sum(tl.load(part_ptr + (ng * nsplit + parts) * 2 + 1, mask=pmask, other=0.0), axis=0)
-    mean = s1 / group_size
-    var = tl.maximum(s2 / group_size - mean * mean, 0.0)
-    rstd = 1.0 / tl.sqrt(var + eps)
-    c0 = (ng % groups) * cpg
-    base = ng.to(tl.int64) * group_size
-    start = sp * chunk
-    end = tl.minimum(start + chunk, group_size)
-    for off in range(0, chunk, BLOCK):
-        idx = start + off + tl.arange(0, BLOCK)
-        mask = idx < end
-        ch = c0 + idx // spatial
-        gamma = tl.load(w_ptr + ch, mask=mask, other=0.0)
-        beta = tl.load(b_ptr + ch, mask=mask, other=0.0)
-        xv = tl.load(x_ptr + base + idx, mask=mask, other=0.0).to(tl.float32)
-        a = gamma * rstd
-        y = xv * a + (beta - mean * a)
-        if SILU:
-            y = y * tl.sigmoid(y)
-        tl.store(y_ptr + base + idx, y.to(y_ptr.dtype.element_ty), mask=mask)
-
-
-def _compiled():
-    global tl, _STATS, _APPLY
-    if _STATS is None:
-        import triton
-        import triton.language
-
-        tl = triton.language
-        _STATS = triton.jit(_gn_stats_kernel)
-        _APPLY = triton.jit(_gn_apply_kernel)
-    return _STATS, _APPLY
 
 
 def group_norm_reference(
@@ -175,8 +102,18 @@ def group_norm_backward(
     return dx.reshape(x.shape).to(x.dtype), dweight.to(weight.dtype), dbias.to(bias.dtype)
 
 
+# #9's and K3's launch geometry (csrc/norm_stats.cu, csrc/group_norm.cu):
+# clusters of at most 8 CTAs (the portable size), about two CTAs an SM of an
+# H100's SM_COUNT, and a #9 CTA (256 threads) no smaller than
+# MIN_CTA_ELEMENTS unless its whole group is
+MAX_CLUSTER = 8
+SM_COUNT = 132
+TARGET_CTAS = 2 * SM_COUNT
+MIN_CTA_ELEMENTS = 1 << 14
+
+
 def _check_groups(x: torch.Tensor, num_groups: int, name: str) -> int:
-    """Checks a CUDA (N, C, *spatial) tensor for K3 or #9; returns the
+    """Checks a contiguous CUDA (N, C, *spatial) tensor for #9; returns the
     group size (C/G)·prod(spatial)."""
     if not x.is_cuda:
         raise ValueError(f"{name}: unsupported device {x.device}")
@@ -193,44 +130,148 @@ def _check_groups(x: torch.Tensor, num_groups: int, name: str) -> int:
     return group_size
 
 
-def _partial_sums(x: torch.Tensor, num_groups: int, name: str):
-    """Checks a CUDA (N, C, *spatial) tensor and launches K3's partial-sum
-    pass: returns the (N·G, nsplit, 2) fp32 partials and the split geometry
-    (group_size, chunk, nsplit)."""
-    group_size = _check_groups(x, num_groups, name)
-    ngroups = x.shape[0] * num_groups
-    nsplit = max(1, min(-(-group_size // BLOCK), -(-_TARGET_PROGRAMS // ngroups)))
-    chunk = -(-(-(-group_size // nsplit)) // BLOCK) * BLOCK
-    nsplit = -(-group_size // chunk)
-    stats = _compiled()[0]
-    part = torch.empty((ngroups, nsplit, 2), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stats[(ngroups, nsplit)](x, part, group_size, chunk, nsplit, BLOCK=BLOCK, num_warps=8)
-    return part, group_size, chunk, nsplit
+# K3's (csrc/group_norm.cu). With at least TARGET_CTAS groups (the 2-D
+# norms: N·G in the thousands), a group goes to one CTA up to SOLO_BYTES,
+# else to the cluster that leaves each CTA at most SLICE_BYTES, and each CTA
+# keeps its share in shared memory (one read of x) up to RESIDENT_BYTES.
+# With fewer groups (the time stacks: B·G ≤ 128 groups of 0.08–5 MB), the
+# CTAs are 1024 threads, one an SM, as many as fill SM_COUNT SMs once, and
+# they stream their shares twice (the second read, in reverse, partly from
+# L2). Both regimes were the fastest of the clusters, shares and thread
+# counts timed on the H100 at the main paths' shapes.
+SOLO_BYTES = 96 * 1024
+SLICE_BYTES = 48 * 1024
+RESIDENT_BYTES = 200 * 1024
+# An SM's shared memory (1 KB of it reserved a CTA) and the threads its
+# registers hold at K3's 64 a thread: a CTA gets 1024 threads where its
+# shared memory leaves room for one CTA an SM, 512 for two, else 256.
+SM_SHARED_BYTES = 228 * 1024
+SM_THREADS = 1024
 
 
-def _split_p2(nsplit: int) -> int:
-    return max(2, 1 << (nsplit - 1).bit_length())
+@functools.lru_cache(maxsize=256)
+def plan_group_norm(groups: int, gvecs: int, vec_bytes: int,
+                    cpg: int) -> Tuple[int, int, int, int]:
+    """(cluster, chunk, res, threads) for K3 on `groups` groups of `gvecs`
+    accesses of `vec_bytes` bytes each (16-byte vectors, or single
+    elements) and `cpg` channels: the CTAs a group (a power of two up to
+    MAX_CLUSTER), the accesses a CTA owns (rank r: [min(r·chunk, gvecs),
+    min((r + 1)·chunk, gvecs))), how many of those it keeps in shared memory
+    beside its per-channel coefficients, and the threads a CTA; the two
+    regimes are described above."""
+    gbytes = gvecs * vec_bytes
+    cluster = 1
+    if groups < TARGET_CTAS:
+        while cluster < MAX_CLUSTER and groups * cluster * 2 <= SM_COUNT:
+            cluster *= 2
+        return cluster, -(-gvecs // cluster), 0, SM_THREADS
+    if gbytes > SOLO_BYTES:
+        while cluster < MAX_CLUSTER and gbytes > cluster * SLICE_BYTES:
+            cluster *= 2
+    chunk = -(-gvecs // cluster)
+    res = min(chunk, max(0, RESIDENT_BYTES - 8 * cpg) // vec_bytes)
+    smem = -(-res * vec_bytes // 16) * 16 + 8 * cpg + 1024
+    per_sm = max(1, min(SM_THREADS // 256, SM_SHARED_BYTES // smem))
+    threads = SM_THREADS // per_sm if per_sm < 3 else 256
+    return cluster, chunk, res, threads
+
+
+def _layout(x: torch.Tensor) -> Optional[Tuple[int, int, int]]:
+    """(S1, S2, S1 stride) of an (N, C, *spatial) tensor seen as the
+    (N, C, S1, S2) view K3 reads: S2 the trailing dims that form one run of
+    unit stride, S1 the leading spatial dims merged into one strided axis;
+    None when they do not merge (then K3 needs a copy)."""
+    shape, stride = x.shape[2:], x.stride()[2:]
+    i, s2 = len(shape) - 1, 1
+    while i >= 0 and (shape[i] == 1 or stride[i] == s2):
+        s2 *= shape[i]
+        i -= 1
+    s1, ss1 = 1, 0
+    for j in range(i, -1, -1):
+        if shape[j] == 1:
+            continue
+        if s1 == 1:
+            s1, ss1 = shape[j], stride[j]
+        elif stride[j] == ss1 * s1:
+            s1 *= shape[j]
+        else:
+            return None
+    return s1, s2, ss1
+
+
+def _strides(x: torch.Tensor, s1: int, ss1: int) -> Tuple[int, int, int]:
+    """x's (n, c, s1) element strides, 0 along an axis of extent 1."""
+    n, c = x.shape[:2]
+    return (x.stride(0) if n > 1 else 0, x.stride(1) if c > 1 else 0, ss1 if s1 > 1 else 0)
+
+
+def _vectorized(x: torch.Tensor, layout) -> bool:
+    """Whether K3 reads x in 16-byte vectors: an aligned base, and S2 and
+    the (n, c, s1) strides whole vectors."""
+    per = 16 // x.element_size()
+    s1, s2, ss1 = layout
+    return (x.data_ptr() % 16 == 0 and s2 % per == 0
+            and not any(st % per for st in _strides(x, s1, ss1)))
+
+
+def reads_in_place(x: torch.Tensor) -> bool:
+    """Whether K3 reads x as it lies, in 16-byte vectors; `GroupNorm32`
+    copies x to contiguous first otherwise."""
+    layout = _layout(x) if x.ndim >= 3 else None
+    return layout is not None and _vectorized(x, layout)
+
+
+def _launch(x, weight, bias, num_groups, eps, act):
+    """One K3 launch on a CUDA tensor, as `plan_group_norm` plans it."""
+    if not x.is_cuda:
+        raise ValueError(f"group_norm: unsupported device {x.device}")
+    code = build.DTYPE_CODES.get(x.dtype)
+    if code is None:
+        raise TypeError(f"group_norm: unsupported dtype {x.dtype}")
+    if act not in (None, "silu"):
+        raise ValueError(f"unknown activation {act!r}")
+    if x.ndim < 3:
+        raise ValueError(f"group_norm: needs an (N, C, *spatial) tensor, got {tuple(x.shape)}")
+    n, c = x.shape[:2]
+    if c % num_groups:
+        raise ValueError(f"group_norm: C={c} not divisible by {num_groups} groups")
+    layout = _layout(x)
+    if layout is None:
+        raise ValueError(f"group_norm: strides {x.stride()} of {tuple(x.shape)} do not form "
+                         "(N, C, S1, S2) with a unit-stride S2")
+    s1, s2, ss1 = layout
+    vec = _vectorized(x, layout)
+    per = 16 // x.element_size() if vec else 1
+    cpg = c // num_groups
+    gvecs = cpg * s1 * (s2 // per)
+    if gvecs >= 2**31:
+        raise ValueError(f"group_norm: a group of {gvecs} accesses exceeds int32 indexing")
+    w_code = build.DTYPE_CODES.get(weight.dtype)
+    if w_code is None or weight.shape != (c,) or bias.shape != (c,):
+        raise TypeError(f"group_norm: γ {weight.dtype}{tuple(weight.shape)}, β "
+                        f"{bias.dtype}{tuple(bias.shape)} for C={c}")
+    dev = x.get_device()
+    if weight.get_device() != dev or bias.get_device() != dev:
+        raise ValueError(f"group_norm: γ on {weight.device}, β on {bias.device}, x on {x.device}")
+    # the contiguous γ/β stay bound to these names until the launch has returned
+    weight = weight.detach().contiguous()
+    bias = bias.detach().to(weight.dtype).contiguous()
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    cluster, chunk, res, threads = plan_group_norm(n * num_groups, gvecs, per * x.element_size(),
+                                                   cpg)
+    err = build.launch(build.load_library().hi3d_group_norm, dev, x.data_ptr(), y.data_ptr(),
+                       weight.data_ptr(), bias.data_ptr(), n, c, num_groups, s1, s2,
+                       *_strides(x, s1, ss1), code, w_code, int(vec), cluster, chunk, res,
+                       threads, float(eps), int(act == "silu"))
+    build.check(err, "group_norm")
+    return y
 
 
 def _forward(x, weight, bias, num_groups, eps, act):
     if x.device.type == "cpu":
         with torch.autocast("cpu", enabled=False):
             return group_norm_reference(x, weight, bias, num_groups, eps, act)
-    if act not in (None, "silu"):
-        raise ValueError(f"unknown activation {act!r}")
-    part, group_size, chunk, nsplit = _partial_sums(x, num_groups, "group_norm")
-    n, c = x.shape[:2]
-    w = weight.detach().to(device=x.device, dtype=torch.float32).contiguous()
-    b = bias.detach().to(device=x.device, dtype=torch.float32).contiguous()
-    y = torch.empty_like(x)
-    apply = _compiled()[1]
-    with torch.cuda.device(x.device):
-        apply[part.shape[:2]](
-            x, y, w, b, part, group_size, chunk, nsplit, x.numel() // (n * c),
-            c // num_groups, num_groups, float(eps), SILU=act == "silu", BLOCK=BLOCK,
-            SPLIT_P2=_split_p2(nsplit), num_warps=8,
-        )
+    y = _launch(x, weight, bias, num_groups, eps, act)
     group_norm.launches += 1
     return y
 
@@ -253,7 +294,9 @@ def group_norm(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int,
     eps: float = 1e-5, act: Optional[str] = None,
 ) -> torch.Tensor:
-    """GroupNorm over (N, C, *spatial) with optional fused SiLU."""
+    """GroupNorm over (N, C, *spatial) with optional fused SiLU: K3 (one
+    launch) on CUDA tensors in any layout `_layout` takes, output
+    contiguous; `group_norm_reference` on CPU tensors."""
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad or bias.requires_grad):
         return _GroupNorm.apply(x, weight, bias, num_groups, eps, act)
     return _forward(x, weight, bias, num_groups, eps, act)
@@ -270,14 +313,6 @@ def group_stats_reference(x: torch.Tensor, num_groups: int,
     mean = xf.mean(-1)
     var = torch.clamp((xf * xf).mean(-1) - mean * mean, min=0.0)
     return mean, torch.rsqrt(var + eps)
-
-
-# #9's launch geometry (csrc/norm_stats.cu): CTAs of 256 threads, clusters of
-# at most 8 (the portable size), about two CTAs an SM of an H100's 132, and a
-# CTA no smaller than MIN_CTA_ELEMENTS unless its whole group is
-MAX_CLUSTER = 8
-TARGET_CTAS = 2 * 132
-MIN_CTA_ELEMENTS = 1 << 14
 
 
 @functools.lru_cache(maxsize=256)

@@ -12,10 +12,11 @@ that `F.layer_norm(x.float())` needed.
 
 The kernel is CUDA C++ (`csrc/norm_stats.cu`, built by `build.py`), whose
 notes say what bounds it on the H100 (one read of x, one write of y: memory
-bandwidth, and the launch at small shapes) and how the design answers: one
-warp per row up to C = 2048 with the row in registers, a block per row up
-to 8192, fixed-order shuffle sums (bitwise repeatable), γ and β read in
-their own dtype, any row stride. Each call is one kernel launched through
+bandwidth, and the launch at small shapes) and how the design answers: up
+to C = 2048 a row takes an aligned group of 4–32 lanes of a warp with the
+row in registers, past that (or with too few rows to fill the card) a block
+a row, up to 8192; fixed-order shuffle sums (bitwise repeatable), γ and β
+read in their own dtype, any row stride. Each call is one kernel launched through
 one ctypes call on PyTorch's current stream: no cast, copy or fill beside
 it.
 
@@ -107,9 +108,11 @@ def _launch(x: torch.Tensor, weight: Optional[torch.Tensor], bias: Optional[torc
         if weight.get_device() != dev or bias.get_device() != dev:
             raise ValueError(f"layer_norm: γ on {weight.device}, β on {bias.device}, x on "
                              f"{x.device}")
-        if bias.dtype != weight.dtype:
-            bias = bias.to(weight.dtype)
-        w_ptr, b_ptr = weight.contiguous().data_ptr(), bias.contiguous().data_ptr()
+        # the contiguous γ/β stay bound to these names until the launch has
+        # returned: a temporary's pointer would name freed memory
+        weight = weight.contiguous()
+        bias = bias.to(weight.dtype).contiguous()
+        w_ptr, b_ptr = weight.data_ptr(), bias.data_ptr()
         vec = vec and w_ptr % 16 == 0 and b_ptr % 16 == 0
         y = torch.empty(x.shape, dtype=x.dtype, device=dev)
         y_ptr = y.data_ptr()

@@ -5,12 +5,16 @@ K2 replaces hi3d_tpu/ops/temporal_attention.py:_nat_fwd (Pallas, reached
 through `temporal_attention_natural` ← `temporal_attention_fused`); #5
 replaces `_nat_bwd` (the Pallas call of its custom VJP). Both CUDA kernels
 live in `csrc/temporal_attention.cu`, whose notes say what bounds them on the
-H100 and how the designs answer.
+H100 and how the designs answer: K2 is #6's forward specialised to one key
+block (groups of adjacent segments, a two-stage cp.async ring, mma.sync on
+tensor cores, a persistent grid); #5 is still a warp per (b, s, h).
 
 `temporal_attention(q, k, v)` takes (B, T, S, H, D) tensors whose last two
 dims are the packed (H·D) channels of a projection output (head stride D,
 unit D stride; any batch, frame and location strides) and returns
-(B, T, S, H, D): for each (b, s, h), softmax over the T frames. When q, k or
+(B, T, S, H, D): for each (b, s, h), softmax over the T frames; K2 copies
+16 bytes at a time, so the (b, t, s) strides must be multiples of 8 elements
+on a 16-byte aligned base, which the UNet's projections are. When q, k or
 v needs a gradient it runs as an autograd Function that saves q, k, v and O,
 as the JAX custom VJP does, and whose backward is #5. CPU tensors take the
 plain versions (`temporal_attention_reference`,
@@ -42,7 +46,8 @@ import torch
 
 from . import build
 
-MAX_FRAMES = 32  # K2's limit (a warp per (b, s, h))
+MAX_FRAMES = 32  # K2's limit (one key block of at most 32 frames)
+K2_ALIGN = 8  # K2's (b, t, s) strides and base: whole 16-byte vectors
 SUPPORTED_HEAD_DIMS = (64, 128)
 
 
@@ -58,7 +63,11 @@ def temporal_attention_reference(
     return out.to(v.dtype)
 
 
-def _check_cuda_inputs(q, k, v) -> None:
+def _check_cuda_inputs(q, k, v, elems: int = 2) -> None:
+    """Raise unless q, k, v are CUDA bf16 (B, T, S, H, D) tensors of one
+    shape with packed heads, (b, t, s) strides and bases aligned to `elems`
+    elements (K2: K2_ALIGN; #5: bf16 pairs), T ≤ MAX_FRAMES and D in
+    SUPPORTED_HEAD_DIMS."""
     if q.shape != k.shape or q.shape != v.shape or q.ndim != 5:
         raise ValueError(f"temporal_attention: q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
     _, t, _, _, d = q.shape
@@ -69,8 +78,9 @@ def _check_cuda_inputs(q, k, v) -> None:
             raise TypeError(f"temporal_attention: {name} must be bfloat16, got {x.dtype}")
         if x.stride(-1) != 1 or x.stride(-2) != d:
             raise ValueError(f"temporal_attention: {name} must pack heads as (…, H·D) channels")
-        if any(s % 2 for s in x.stride()[:3]) or x.data_ptr() % 4:
-            raise ValueError(f"temporal_attention: {name} strides {x.stride()} not 4-byte aligned")
+        if not _packed(x, elems):
+            raise ValueError(f"temporal_attention: {name} strides {x.stride()} or base not "
+                             f"aligned to {2 * elems} bytes")
     if not 1 <= t <= MAX_FRAMES:
         raise ValueError(f"temporal_attention: T={t} outside 1..{MAX_FRAMES}")
     if d not in SUPPORTED_HEAD_DIMS:
@@ -100,7 +110,7 @@ def _forward(q, k, v, scale):
     if q.device.type == "cpu":
         with torch.autocast("cpu", enabled=False):
             return temporal_attention_reference(q, k, v, scale)
-    _check_cuda_inputs(q, k, v)
+    _check_cuda_inputs(q, k, v, K2_ALIGN)
     b, t, s, h, d = q.shape
     scale = d**-0.5 if scale is None else scale
     lib = build.load_library()

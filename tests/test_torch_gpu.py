@@ -1,4 +1,4 @@
-"""The port's CUDA and Triton kernels on the card, against their plain
+"""The port's CUDA kernels on the card, against their plain
 PyTorch versions on the same inputs; forward and backward, and the autograd
 wiring (every kernel output carries a grad_fn, gradients reach every input).
 
@@ -45,25 +45,81 @@ def test_flash_attention_kernel_matches_plain(cuda):
 
 
 @pytest.mark.gpu
-def test_temporal_attention_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("t", [1, 2, 5, 16, 17, 32])
+@pytest.mark.parametrize("d", [64, 128])
+def test_temporal_attention_kernel_matches_plain(cuda, t, d):
+    """K2 at every T that changes its tiling (one or two 16-row query tiles,
+    padded keys) and both head dims, on S = 67 locations (the groups of
+    adjacent segments do not divide B·S·H); a second call is bitwise the
+    same."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    for t in (16, 5, 32):
-        q, k, v = (torch.randn((2, t, 64, 320), generator=g, device=cuda,
-                               dtype=torch.bfloat16).view(2, t, 64, 5, 64) for _ in range(3))
+    q, k, v = (torch.randn((2, t, 67, 2 * d), generator=g, device=cuda,
+                           dtype=torch.bfloat16).view(2, t, 67, 2, d) for _ in range(3))
+    out = ta.temporal_attention(q, k, v)
+    ref = ta.temporal_attention_reference(q, k, v)
+    assert (out.float() - ref.float()).abs().max().item() < 2e-2
+    assert torch.equal(ta.temporal_attention(q, k, v), out)
+
+
+@pytest.mark.gpu
+def test_temporal_attention_kernel_at_the_unet_sites(cuda):
+    """K2 at the stage-1 UNet's 64² site and stage 2's 128² site (B2 T16
+    S16384 C320), and on q, k, v sliced from one packed qkv projection; a
+    base or stride off 16 bytes raises instead."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for s in (4096, 16384):
+        q, k, v = (torch.randn((2, 16, s, 320), generator=g, device=cuda,
+                               dtype=torch.bfloat16).view(2, 16, s, 5, 64) for _ in range(3))
         out = ta.temporal_attention(q, k, v)
         ref = ta.temporal_attention_reference(q, k, v)
         assert (out.float() - ref.float()).abs().max().item() < 2e-2
+    x = torch.randn((2, 16, 100, 3 * 320 + 8), generator=g, device=cuda, dtype=torch.bfloat16)
+    q, k, v = (x[..., i * 320:(i + 1) * 320].unflatten(-1, (5, 64)) for i in range(3))
+    out = ta.temporal_attention(q, k, v)
+    ref = ta.temporal_attention_reference(q, k, v)
+    assert (out.float() - ref.float()).abs().max().item() < 2e-2
+    with pytest.raises(ValueError):
+        ta.temporal_attention(*(x[..., 2 + i * 320:2 + (i + 1) * 320].unflatten(-1, (5, 64))
+                                for i in range(3)))
+
+
+def _group_norm_inputs(g, cuda):
+    """(x, act): small shapes, the UNet's 2-D norm at 64² with and without
+    SiLU, a 32² time stack, the serve time stack as the (B, C, T, H, W) view
+    of a (B, T, C, H, W) tensor (groups larger than a cluster keeps: the
+    streamed path), a stage-2 2-D norm at 128²; and layouts read by single
+    elements: 5² rows, a channels-last view, a start off 16 bytes; fp32."""
+    bf16 = torch.bfloat16
+
+    def rnd(shape, dtype=bf16):
+        return (torch.randn(shape, generator=g, device=cuda) * 3 + 1).to(dtype)
+
+    return ((rnd((4, 320, 16, 16)), "silu"), (rnd((2, 640, 4, 8, 8)), "silu"),
+            (rnd((32, 320, 64, 64)), None), (rnd((32, 320, 64, 64)), "silu"),
+            (rnd((2, 640, 16, 32, 32)), "silu"),
+            (rnd((4, 48, 320, 64, 64)).permute(0, 2, 1, 3, 4), "silu"),
+            (rnd((32, 320, 128, 128)), "silu"),
+            (rnd((4, 64, 5, 5)), "silu"), (rnd((2, 8, 8, 64)).permute(0, 3, 1, 2), None),
+            (rnd((2 * 64 * 64 + 1,))[1:].view(2, 64, 8, 8), None),
+            (rnd((4, 64, 16, 16), torch.float32), None))
 
 
 @pytest.mark.gpu
 def test_group_norm_kernel_matches_plain(cuda):
+    """K3 against its plain version at `_group_norm_inputs`: y contiguous in
+    x's dtype within 6e-2 (bf16: γ = 1 + 0.1·randn and β = 0.1·randn keep
+    |y| < 8, where a rounding flip is one ulp of at most 3.1e-2; fp32 1e-4),
+    and a second call gives bitwise the same y."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    for shape in ((4, 320, 16, 16), (2, 640, 4, 8, 8)):
-        x = torch.randn(shape, generator=g, device=cuda, dtype=torch.bfloat16)
-        w = torch.randn((shape[1],), generator=g, device=cuda)
-        out = gn.group_norm(x, w, w, 32, 1e-5, "silu")
-        ref = gn.group_norm_reference(x, w, w, 32, 1e-5, "silu")
-        assert (out.float() - ref.float()).abs().max().item() < 6e-2
+    for x, act in _group_norm_inputs(g, cuda):
+        w = 1 + 0.1 * torch.randn((x.shape[1],), generator=g, device=cuda)
+        b = 0.1 * torch.randn((x.shape[1],), generator=g, device=cuda)
+        out = gn.group_norm(x, w, b, 32, 1e-5, act)
+        ref = gn.group_norm_reference(x, w, b, 32, 1e-5, act)
+        assert out.is_contiguous() and out.dtype == x.dtype
+        tol = 1e-4 if x.dtype == torch.float32 else 6e-2
+        assert (out.float() - ref.float()).abs().max().item() < tol, tuple(x.shape)
+        assert torch.equal(gn.group_norm(x, w, b, 32, 1e-5, act), out), tuple(x.shape)
 
 
 @pytest.mark.gpu
@@ -171,10 +227,12 @@ def test_flash_attention_backward_is_deterministic(cuda):
 
 @pytest.mark.gpu
 def test_temporal_attention_backward_kernel_matches_plain(cuda):
+    """#5 fed K2's O, against autograd through the plain forward, at T up to
+    32 and D = 64 and 128."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    for t in (16, 5, 32):
-        q, k, v, dout = (torch.randn((2, t, 64, 320), generator=g, device=cuda,
-                                     dtype=torch.bfloat16).view(2, t, 64, 5, 64)
+    for t, h, d in ((16, 5, 64), (5, 5, 64), (32, 5, 64), (17, 2, 128), (2, 2, 128)):
+        q, k, v, dout = (torch.randn((2, t, 64, h * d), generator=g, device=cuda,
+                                     dtype=torch.bfloat16).view(2, t, 64, h, d)
                          for _ in range(4))
         out = ta.temporal_attention(q, k, v)
         got = ta.temporal_attention_backward(q, k, v, out, dout)
@@ -265,6 +323,27 @@ def test_layer_norm_kernel_matches_plain(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("c", [768, 320])
+def test_layer_norm_reads_strided_gamma_beta(cuda, c):
+    """#10 with γ and β as strided views (every second element): the
+    wrapper's contiguous copies stay alive until the launch has returned,
+    so the kernel reads them and not freed memory. With a gradient the
+    wrapper also allocates (mean, inv_std) after the copies, at 300 rows in
+    a block small enough to take a freed copy's place."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, grad in ((300, True), (300, False), (4 * 577, False)):
+            x = (torch.randn((rows, c), generator=g, device=cuda) * 3 + 1).to(dtype)
+            w = (1 + 0.1 * torch.randn((2 * c,), generator=g, device=cuda))[::2]
+            b = (0.1 * torch.randn((2 * c,), generator=g, device=cuda))[::2]
+            assert not w.is_contiguous()
+            out = ln.layer_norm(x.requires_grad_(grad), w, b, 1e-6)
+            ref = ln.layer_norm_reference(x.detach(), w, b, 1e-6)
+            tol = 1e-4 if dtype == torch.float32 else 6e-2
+            assert (out.float() - ref.float()).abs().max().item() < tol, (dtype, rows, grad)
+
+
+@pytest.mark.gpu
 def test_group_stats_kernel_matches_plain(cuda):
     """#9 at a 256² VAE norm (4 groups of 2 M elements a cluster), a DPT norm
     and a ragged shape, bf16 input, a group of 15 elements (not a multiple
@@ -303,9 +382,12 @@ def test_group_stats_kernel_matches_plain(cuda):
 
 @pytest.mark.gpu
 def test_norm_calls_launch_one_kernel(cuda):
-    """By the profiler, one `ln.layer_norm`, `ln.row_stats` or
-    `gn.group_stats` call runs exactly one device kernel: no cast, copy,
-    fill or fold beside it, with γ and β in bf16 too."""
+    """By the profiler, one `ln.layer_norm`, `ln.row_stats`,
+    `gn.group_stats` or `gn.group_norm` call runs exactly one device kernel:
+    no cast, copy, fill or fold beside it, with γ and β in bf16 too, and K3
+    on the time stack's permuted view through `GroupNorm32`."""
+    from hi3d_tpu_torch.models.layers import GroupNorm32
+
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device=cuda).manual_seed(8)
@@ -315,9 +397,18 @@ def test_norm_calls_launch_one_kernel(cuda):
     wb, bb = (torch.randn((320,), generator=g, device=cuda, dtype=torch.bfloat16)
               for _ in range(2))
     xg = torch.randn((1, 128, 1024, 1024), generator=g, device=cuda)
+    x3 = torch.randn((32, 320, 64, 64), generator=g, device=cuda, dtype=torch.bfloat16)
+    w3, b3 = (torch.randn((320,), generator=g, device=cuda) for _ in range(2))
+    w3b, b3b = w3.bfloat16(), b3.bfloat16()
+    x5 = torch.randn((2, 16, 320, 64, 64), generator=g, device=cuda,
+                     dtype=torch.bfloat16).permute(0, 2, 1, 3, 4)
+    norm = GroupNorm32(320, act="silu").to(cuda, torch.bfloat16)
     calls = (lambda: ln.layer_norm(x, w, b, 1e-6), lambda: ln.layer_norm(xb, wb, bb, 1e-5),
              lambda: ln.row_stats(x, 1e-6), lambda: gn.group_stats(xg, 32, 1e-6),
-             lambda: gn.group_stats(xg.view(16, 256, 128, 256), 32, 1e-6))
+             lambda: gn.group_stats(xg.view(16, 256, 128, 256), 32, 1e-6),
+             lambda: gn.group_norm(x3, w3, b3, 32, 1e-5, "silu"),
+             lambda: gn.group_norm(x3, w3b, b3b, 32, 1e-5),
+             lambda: norm(x5))
     for call in calls:
         call()
         torch.cuda.synchronize()

@@ -88,6 +88,26 @@ def test_temporal_attention_plain_matches_pallas_and_xla(t):
         np.testing.assert_allclose(out, nat, atol=ATTN_ATOL, rtol=0)
 
 
+def test_temporal_attention_stride_rule_takes_the_unet_projections():
+    """K2 copies 16 bytes at a time, so its wrapper takes (b, t, s) strides
+    of whole 8-element vectors on an aligned base: the UNet's projections
+    (`to_q(x).view(b, t, s, h, d)`, a fresh Linear output, and q, k, v cut
+    from one packed qkv at the channel widths 320/640/1280) meet that rule;
+    a view 2 elements off it does not, and the backward (#5, bf16 pairs)
+    still takes it."""
+    b, t, s = 2, 4, 3
+    for c in (320, 640, 1280):
+        x = torch.randn((b * t * s, 32))
+        proj = torch.nn.Linear(32, c, bias=False)(x).view(b, t, s, c // 64, 64)
+        assert ta._packed(proj, ta.K2_ALIGN)
+        qkv = torch.randn((b, t, s, 3 * c))
+        for i in range(3):
+            assert ta._packed(qkv[..., i * c:(i + 1) * c].unflatten(-1, (c // 64, 64)),
+                              ta.K2_ALIGN)
+        off = torch.randn((b, t, s, c + 2))[..., 2:].unflatten(-1, (c // 64, 64))
+        assert not ta._packed(off, ta.K2_ALIGN) and ta._packed(off, 2)
+
+
 def test_time_cross_attention_matches_xla():
     from hi3d_tpu.ops.attention import xla_attention_time
 
@@ -137,6 +157,138 @@ def test_group_norm_plain_matches_jax(shape, act):
                         groups, 1e-5, act).numpy()
     np.testing.assert_allclose(out, ref, atol=GN_ATOL, rtol=0)
     np.testing.assert_allclose(out, mod_ref, atol=GN_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_group_norm32_reads_the_time_stack_view(act):
+    """`GroupNorm32` hands K3 the (B, C, T, H, W) permuted view of a
+    (B, T, C, H, W) tensor as it lies (K3 reads it in place, in 16-byte
+    vectors), and its output matches JAX's `_xla_group_norm` on the same
+    numpy data, with and without SiLU (fp32 on both sides: GN_ATOL)."""
+    from hi3d_tpu.ops.group_norm import _xla_group_norm
+    from hi3d_tpu_torch.models import layers
+
+    rnd = np.random.RandomState(7)
+    b, t, c, h, w = 2, 3, 64, 4, 4
+    x = (rnd.randn(b, t, c, h, w) * 2 + 0.5).astype(np.float32)
+    gamma, beta = rnd.randn(c).astype(np.float32), rnd.randn(c).astype(np.float32)
+    view = torch.from_numpy(x).permute(0, 2, 1, 3, 4)
+    assert gn.reads_in_place(view) and gn._layout(view) == (t, h * w, c * h * w)
+    seen = []
+    real = layers.group_norm
+    norm = layers.GroupNorm32(c, act=act)
+    with torch.no_grad():
+        norm.weight.copy_(torch.from_numpy(gamma))
+        norm.bias.copy_(torch.from_numpy(beta))
+    try:
+        layers.group_norm = lambda x_, *a: seen.append(x_) or real(x_, *a)
+        out = norm(view).detach().numpy()
+    finally:
+        layers.group_norm = real
+    assert seen[0] is view
+    xl = jnp.asarray(np.moveaxis(x, 2, -1))  # (B, T, H, W, C) for JAX
+    ref = np.asarray(_xla_group_norm(xl, jnp.asarray(gamma), jnp.asarray(beta), 32, 1e-5, act))
+    np.testing.assert_allclose(out, np.moveaxis(ref, -1, 1), atol=GN_ATOL, rtol=0)
+
+
+def _k3_offsets(x: torch.Tensor, num_groups: int, plan):
+    """The x and y element offsets K3's index math (csrc/group_norm.cu
+    `locate`) visits for each group under `plan`, each access widened to
+    its elements: {group: (x offsets, y offsets)}."""
+    n, c = x.shape[:2]
+    s1, s2, ss1 = gn._layout(x)
+    vec = gn._vectorized(x, (s1, s2, ss1))
+    per = 16 // x.element_size() if vec else 1
+    sn, sc, ss1 = gn._strides(x, s1, ss1)
+    cpg = c // num_groups
+    vpr = s2 // per
+    gvecs = cpg * s1 * vpr
+    cluster, chunk, _, _ = plan
+    out = {}
+    for grp in range(n * num_groups):
+        i, g = divmod(grp, num_groups)
+        xs, ys = [], []
+        for rank in range(cluster):
+            e0 = min(rank * chunk, gvecs)
+            e = np.arange(e0, min(e0 + chunk, gvecs))
+            row, j = np.divmod(e, vpr)
+            t, cl = np.divmod(row, cpg)
+            xo = i * sn + (g * cpg + cl) * sc + t * ss1 + j * per
+            yo = ((i * c + g * cpg + cl) * s1 + t) * s2 + j * per
+            xs.append((xo[:, None] + np.arange(per)).ravel())
+            ys.append((yo[:, None] + np.arange(per)).ravel())
+        out[grp] = np.concatenate(xs), np.concatenate(ys)
+    return out
+
+
+@pytest.mark.parametrize("layout", ["nchw", "ncthw", "time_stack_view", "channels_last",
+                                    "rows_of_5"])
+def test_group_norm_index_math_covers_each_group_once(layout):
+    """K3's (N, C, S1, S2) reading of a layout, with a plan that splits each
+    group over a cluster of 4: the x elements visited for a group are
+    exactly that group's elements of the view, each once, and the y
+    offsets are the group's run of a contiguous y, each once."""
+    base = {"nchw": lambda: torch.zeros((2, 64, 4, 8)),
+            "ncthw": lambda: torch.zeros((2, 64, 3, 4, 8)),
+            "time_stack_view": lambda: torch.zeros((2, 3, 64, 4, 8)).permute(0, 2, 1, 3, 4),
+            "channels_last": lambda: torch.zeros((2, 4, 8, 64)).permute(0, 3, 1, 2),
+            "rows_of_5": lambda: torch.zeros((2, 64, 3, 5))}[layout]()
+    x = base.to(torch.bfloat16)
+    assert gn._layout(x) is not None
+    assert gn.reads_in_place(x) == (layout in ("nchw", "ncthw", "time_stack_view"))
+    storage = torch.arange(x.untyped_storage().nbytes() // 2).as_strided(x.shape, x.stride())
+    n, c = x.shape[:2]
+    s1, s2, _ = gn._layout(x)
+    per = 8 if gn.reads_in_place(x) else 1
+    gvecs = (c // 32) * s1 * s2 // per
+    chunk = -(-gvecs // 4)
+    for grp, (xo, yo) in _k3_offsets(x, 32, (4, chunk, chunk, 256)).items():
+        i, g = divmod(grp, 32)
+        want = storage[i, g * 2:(g + 1) * 2].flatten().numpy()
+        assert np.array_equal(np.sort(xo), np.sort(want))
+        gsize = want.size
+        assert np.array_equal(np.sort(yo), np.arange(grp * gsize, (grp + 1) * gsize))
+
+
+# the main paths' K3 shapes (bf16): the 2-D norms at 64², 32², 16², 8² (a
+# stage-1 UNet call, 2 × 16 frames) and at 128² (stage 2), the time stacks at
+# 16 and 48 frames (stage 1, the 48-frame training clip), the serve batch (4
+# videos × 48 frames) and stage 2's time stack
+K3_MAIN_SHAPES = [(32, 320, 64, 64), (32, 640, 32, 32), (32, 1280, 16, 16), (32, 1280, 8, 8),
+                  (32, 320, 128, 128), (32, 640, 64, 64), (192, 320, 64, 64),
+                  (2, 320, 16, 64, 64), (2, 1280, 16, 8, 8), (1, 320, 48, 64, 64),
+                  (4, 320, 48, 64, 64), (4, 1280, 48, 16, 16), (2, 320, 16, 128, 128)]
+
+
+@pytest.mark.parametrize("shape", K3_MAIN_SHAPES)
+def test_group_norm_plan_at_main_path_shapes(shape):
+    """`plan_group_norm` at every main-path shape: a cluster of 1–8 CTAs (a
+    power of two) whose 16-byte vectors cover the group exactly once. The
+    2-D norms (thousands of groups) keep each CTA's whole share in shared
+    memory (one read of x): a group a CTA up to SOLO_BYTES, else shares of
+    at most SLICE_BYTES, and the threads that let the SM hold SM_THREADS of
+    them. The time stacks (at most 128 groups) stream their shares with
+    1024-thread CTAs, at most one an SM."""
+    n, c = shape[:2]
+    cpg = c // 32
+    gvecs = cpg * int(np.prod(shape[2:])) // 8
+    cluster, chunk, res, threads = gn.plan_group_norm(n * 32, gvecs, 16, cpg)
+    assert 1 <= cluster <= gn.MAX_CLUSTER and cluster & (cluster - 1) == 0
+    assert chunk * cluster >= gvecs and (chunk - 1) * cluster < gvecs
+    covered = np.zeros(gvecs, dtype=np.int64)
+    for r in range(cluster):
+        start = min(r * chunk, gvecs)
+        covered[start:min(start + chunk, gvecs)] += 1
+    assert (covered == 1).all()
+    if len(shape) == 5:  # a time stack
+        assert (res, threads) == (0, gn.SM_THREADS)
+        assert n * 32 * cluster <= gn.SM_COUNT < n * 32 * cluster * 2 or cluster == 8
+        return
+    assert res == chunk  # resident: one read of x
+    assert chunk * 16 <= (gn.SOLO_BYTES if cluster == 1 else gn.SLICE_BYTES)
+    smem = res * 16 + 8 * cpg
+    per_sm = min(4, gn.SM_SHARED_BYTES // (smem + 1024))
+    assert threads in (256, 512, 1024) and threads * per_sm <= gn.SM_THREADS
 
 
 def test_group_norm_clamps_variance_on_near_constant_input():
