@@ -11,6 +11,8 @@
                                            # and device time) against their library calls
     python3 chip_smoke.py --time-frame-attention  # only K2's times at its five main-path
                                            # sites, against #6 and SDPA
+    python3 chip_smoke.py --time-frame-backward   # only #5's times at its four training
+                                           # sites, against #7 and SDPA's backward
     python3 chip_smoke.py --time-png       # only a 512² Average/Paeth PNG decode, C against
                                            # the plain Python unfilter, on the host's CPU
 
@@ -184,6 +186,9 @@ def plain_flash(q, k, v):
 # stage 2's level-1 site (128²)
 K2_SITES = ((2, 16, 4096, 320), (2, 16, 1024, 640), (2, 16, 256, 1280), (2, 16, 64, 1280),
             (2, 16, 16384, 320))
+# #5's sites: the training step's (2 × 16 frames, the stage-1 UNet's four
+# frame-axis sites at 64² to 8²)
+B5_SITES = K2_SITES[:4]
 
 # K3's cases (shape, act, time-stack view): the 2-D norms of a stage-1 UNet
 # call at 64² (2 × 16 frames), a 32² time stack, the stage-1 and serve (4
@@ -458,6 +463,12 @@ BLOCK_BACKWARD_CASES = ((4, 48, 4096, 320, 64, True), (4, 48, 1024, 640, 64, Tru
                         (1, 512, 256, 1280, 64, False))
 
 
+def frame_backward_work(b, t, s, c):
+    """(bytes, flops) of #5 at one site: q, k, v, O, dO read and dq, dk, dv
+    written once; 10·T²·D flops a segment."""
+    return 8 * b * t * s * c * 2, 10 * b * s * c * t * t
+
+
 def block_backward_work(b, t, s, c, d):
     """(bytes, flops) of #7 at one shape: q, k, v, O, dO read and dq, dk, dv
     written once, lse read; 10·T²·D flops a segment."""
@@ -664,7 +675,7 @@ def backward_kernel_phase() -> Results:
         if not (rel <= tol and all(torch.isfinite(a).all() for a in got)):
             raise AssertionError(f"flash_attention_backward Sq={sq} Sk={sk} D={d}: rel {rel}")
 
-    for b, t, s, c in ((2, 16, 4096, 320), (2, 16, 1024, 640), (2, 16, 256, 1280)):
+    for b, t, s, c in B5_SITES:
         h = c // 64
         base = [torch.randn((b, t, s, c), generator=gen, device=dev, dtype=bf16)
                 for _ in range(4)]
@@ -678,7 +689,34 @@ def backward_kernel_phase() -> Results:
               plain_ms, library_grad_ms(
                   lambda *a: F.scaled_dot_product_attention(*(_sdpa_frames(y, h, 64) for y in a)),
                   base[:3], _sdpa_frames(base[3], h, 64)),
-              8 * b * t * s * c * 2, 10 * b * s * c * t * t)
+              *frame_backward_work(b, t, s, c))
+
+    # #5 off the training path's T, correctness only: one frame (dq, dk are 0
+    # exactly: the one probability is 1), two 16-frame tiles (T = 17, 32),
+    # both head dims, S = 67 (the last group of segments is not full); a
+    # second call must be bitwise the same (no atomics)
+    for t in (1, 17, 32):
+        for d in (64, 128):
+            q, k, v, dout = (torch.randn((2, t, 67, 5 * d), generator=gen, device=dev,
+                                         dtype=bf16).view(2, t, 67, 5, d) for _ in range(4))
+            out = ta.temporal_attention(q, k, v)
+            got = ta.temporal_attention_backward(q, k, v, out, dout)
+            again = ta.temporal_attention_backward(q, k, v, out, dout)
+            want, _ = plain_grads(ta.temporal_attention_reference, (q, k, v), dout)
+            rel = 0.0
+            for a, w in zip(got, want):
+                top = w.float().abs().max().item()
+                if not torch.isfinite(a).all() or (top == 0 and a.any()):
+                    raise AssertionError(f"temporal_attention_backward T={t} D={d}: not finite, "
+                                         "or not 0 where the plain gradient is 0")
+                if top > 0:
+                    rel = max(rel, (a.float() - w.float()).abs().max().item() / top)
+            repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+            print(f"[bwd] temporal_attention_backward B=2 T={t} S=67 H=5 D={d} (correctness "
+                  f"only): rel={rel:.3e} (tol {tol:.0e}), bitwise repeat {repeat}", flush=True)
+            if not (rel <= tol and repeat):
+                raise AssertionError(f"temporal_attention_backward T={t} D={d}: rel {rel}, "
+                                     f"bitwise repeat {repeat}")
 
     # #7 at #6's shapes, from #6's own O and lse (past 64 frames several
     # frame blocks a segment; T = 136, 256, 512 printed, not in the JSON sums)
@@ -1414,12 +1452,13 @@ def _profile_report(prof, label: str, steps: int, host_ms: float) -> None:
         end = max(end, b)
     idle = 1.0 - busy / (spans[-1][1] - spans[0][0])
     # the keys name both the current kernels and the ones they replaced
-    # (K2's `temporal_attn_kernel`, K3's Triton `_gn_*`, #9's `_gn_fold_kernel`,
-    # #10's `_ln_kernel`), so that a parent tree's trace buckets the same way
+    # (K2's `temporal_attn_kernel`, #5's `temporal_attn_bwd_kernel`, K3's
+    # Triton `_gn_*`, #9's `_gn_fold_kernel`, #10's `_ln_kernel`), so that a
+    # parent tree's trace buckets the same way
     buckets = (("#7 block attention backward", ("block_attn_bwd",)),
                ("#6 block attention", ("block_attn",)),
                ("#3 flash attention backward", ("fa_bwd",)),
-               ("#5 temporal attention backward", ("temporal_attn_bwd",)),
+               ("#5 temporal attention backward", ("k2_bwd", "temporal_attn_bwd")),
                ("K1 flash attention", ("fa_fwd",)),
                ("K2 temporal attention", ("k2_fwd", "temporal_attn_kernel")),
                ("#10 LayerNorm", ("_ln_kernel", "norm_rows_kernel")),
@@ -1569,7 +1608,8 @@ def _time_calls(tag: str, label: str, fns: dict, nbytes: float, flops: float,
         call_us = time_ms(lambda: [fn() for _ in range(calls)]) / calls * 1e3
         dev_us, per_call, names = _device_time(fn, calls)
         parts.append(f"{name} {one_ms:.4f} ms a call, {call_us:.1f} us a call over {calls}, "
-                     f"device {dev_us:.1f} us a kernel, {per_call:.2f} kernels a call {names}")
+                     f"device {dev_us:.1f} us a kernel, {per_call:.2f} kernels a call "
+                     f"({dev_us * per_call:.1f} us a call) {names}")
     print(f"[{tag}] {label}: " + "; ".join(parts) + f"; bound {b_ms:.4f} ms ({b_by}); "
           f"card {card_line()}", flush=True)
 
@@ -1653,6 +1693,39 @@ def time_frame_attention(calls: int = 100) -> None:
         _time_calls("frames", f"temporal_attention B={b} T={t} S={s} C={c}", fns,
                     *frame_attention_work(b, t, s, c), calls)
         del base, q, k, v, qt, kt, vt, lib, fns
+
+
+def time_frame_backward(calls: int = 100) -> None:
+    """#5 (`ta.temporal_attention_backward`, fed K2's O) at B5_SITES beside
+    #7 (`ta.temporal_block_attention_backward` on the (B, S, T, H, D)
+    transposed views, fed #6's O and lse) and the autograd backward of SDPA
+    on (B, S·H, T, D) views, each with `_time_calls`. Only calls that the
+    parent tree has too run, so the same script times a parent tree:
+
+        python3 chip_smoke.py --time-frame-backward"""
+    import torch
+    import torch.nn.functional as F
+
+    from hi3d_tpu_torch.ops import temporal_attention as ta
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for b, t, s, c in B5_SITES:
+        h = c // 64
+        base = [torch.randn((b, t, s, c), generator=gen, device="cuda", dtype=torch.bfloat16)
+                for _ in range(4)]
+        q, k, v, dout = (x.view(b, t, s, h, 64) for x in base)
+        out = ta.temporal_attention(q, k, v)
+        qt, kt, vt, dt = (x.transpose(1, 2) for x in (q, k, v, dout))
+        out7, lse7 = ta._block_forward(qt, kt, vt, None)
+        leaves = [x.detach().requires_grad_() for x in base[:3]]
+        lib = F.scaled_dot_product_attention(*(_sdpa_frames(x, h, 64) for x in leaves))
+        lib_dout = _sdpa_frames(base[3], h, 64)
+        fns = {"#5": lambda: ta.temporal_attention_backward(q, k, v, out, dout),
+               "#7": lambda: ta.temporal_block_attention_backward(qt, kt, vt, out7, lse7, dt),
+               "SDPA bwd": lambda: torch.autograd.grad(lib, leaves, lib_dout, retain_graph=True)}
+        _time_calls("frames-bwd", f"temporal_attention_backward B={b} T={t} S={s} C={c}", fns,
+                    *frame_backward_work(b, t, s, c), calls)
+        del base, q, k, v, dout, out, qt, kt, vt, dt, out7, lse7, leaves, lib, lib_dout, fns
 
 
 def profile_stage1(steps: int = 2) -> None:
@@ -1791,6 +1864,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--time-frame-attention"]:
         time_frame_attention()
+        return
+    if sys.argv[1:] == ["--time-frame-backward"]:
+        time_frame_backward()
         return
     if sys.argv[1:2] == ["--time-block-backward"]:
         time_block_backward(*map(int, sys.argv[2:3]))

@@ -407,17 +407,6 @@ __device__ __forceinline__ void bwd_issue(__nv_bfloat16* stage, const BwdArgs& a
   }
 }
 
-__device__ __forceinline__ float dot8(uint4 x, uint4 y) {
-  const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 a = unpack(xs[i]), b = unpack(ys[i]);
-    acc = fmaf(a.x, b.x, fmaf(a.y, b.y, acc));
-  }
-  return acc;
-}
-
 // A warp's 16×64 fp32 accumulator (rows gr, gr + 8 of 8-column tiles) × mul,
 // as bf16 through the warp's 2 KB of shared staging, then out as 16-byte
 // row stores to rows row0.. (those below T) of a (rows, ld) bf16 array.

@@ -1,8 +1,9 @@
 // Building blocks of the frame-axis attention kernels, #6/#7
-// (block_attention.cu) and K2 (temporal_attention.cu): bf16 pair packing,
-// 16-byte cp.async copies, ldmatrix, mma.sync.m16n8k16 (bf16 in, fp32 out)
-// and the XOR swizzle of the shared-memory tiles they read; on the host the
-// SM count that sizes their persistent grids.
+// (block_attention.cu) and K2/#5 (temporal_attention.cu): bf16 pair packing
+// and 16-byte dot products, 16-byte cp.async copies, ldmatrix,
+// mma.sync.m16n8k16 (bf16 in, fp32 out) and the XOR swizzle of the
+// shared-memory tiles they read; on the host the SM count that sizes their
+// persistent grids.
 
 #pragma once
 
@@ -24,6 +25,18 @@ __device__ __forceinline__ float2 unpack(uint32_t w) {
 __device__ __forceinline__ uint32_t pack(float a, float b) {
   __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// fp32 dot product of two vectors of 8 bf16 (16 bytes each).
+__device__ __forceinline__ float dot8(uint4 x, uint4 y) {
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 a = unpack(xs[i]), b = unpack(ys[i]);
+    acc = fmaf(a.x, b.x, fmaf(a.y, b.y, acc));
+  }
+  return acc;
 }
 
 __host__ __device__ constexpr int pad16(int t) { return (t + 15) & ~15; }

@@ -7,7 +7,9 @@ replaces `_nat_bwd` (the Pallas call of its custom VJP). Both CUDA kernels
 live in `csrc/temporal_attention.cu`, whose notes say what bounds them on the
 H100 and how the designs answer: K2 is #6's forward specialised to one key
 block (groups of adjacent segments, a two-stage cp.async ring, mma.sync on
-tensor cores, a persistent grid); #5 is still a warp per (b, s, h).
+tensor cores, a persistent grid), and #5 is K2's backward built the same way
+(query-major warps form S and dP and sum dQ, then sum dK and dV of their key
+tile from the bf16 P and dS in shared memory).
 
 `temporal_attention(q, k, v)` takes (B, T, S, H, D) tensors whose last two
 dims are the packed (H·D) channels of a projection output (head stride D,
@@ -16,7 +18,9 @@ unit D stride; any batch, frame and location strides) and returns
 16 bytes at a time, so the (b, t, s) strides must be multiples of 8 elements
 on a 16-byte aligned base, which the UNet's projections are. When q, k or
 v needs a gradient it runs as an autograd Function that saves q, k, v and O,
-as the JAX custom VJP does, and whose backward is #5. CPU tensors take the
+as the JAX custom VJP does, and whose backward is #5. #5 copies 16 bytes at
+a time too; `temporal_attention_backward` copies an operand off that rule
+(`_aligned`) instead of rejecting it. CPU tensors take the
 plain versions (`temporal_attention_reference`,
 `temporal_attention_backward_reference`); CUDA tensors take the kernels,
 which need bf16, T ≤ 32 and D ∈ {64, 128}.
@@ -63,11 +67,10 @@ def temporal_attention_reference(
     return out.to(v.dtype)
 
 
-def _check_cuda_inputs(q, k, v, elems: int = 2) -> None:
+def _check_cuda_inputs(q, k, v) -> None:
     """Raise unless q, k, v are CUDA bf16 (B, T, S, H, D) tensors of one
-    shape with packed heads, (b, t, s) strides and bases aligned to `elems`
-    elements (K2: K2_ALIGN; #5: bf16 pairs), T ≤ MAX_FRAMES and D in
-    SUPPORTED_HEAD_DIMS."""
+    shape with packed heads, (b, t, s) strides and bases aligned to
+    K2_ALIGN elements, T ≤ MAX_FRAMES and D in SUPPORTED_HEAD_DIMS."""
     if q.shape != k.shape or q.shape != v.shape or q.ndim != 5:
         raise ValueError(f"temporal_attention: q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
     _, t, _, _, d = q.shape
@@ -78,9 +81,9 @@ def _check_cuda_inputs(q, k, v, elems: int = 2) -> None:
             raise TypeError(f"temporal_attention: {name} must be bfloat16, got {x.dtype}")
         if x.stride(-1) != 1 or x.stride(-2) != d:
             raise ValueError(f"temporal_attention: {name} must pack heads as (…, H·D) channels")
-        if not _packed(x, elems):
+        if not _packed(x):
             raise ValueError(f"temporal_attention: {name} strides {x.stride()} or base not "
-                             f"aligned to {2 * elems} bytes")
+                             f"aligned to {2 * K2_ALIGN} bytes")
     if not 1 <= t <= MAX_FRAMES:
         raise ValueError(f"temporal_attention: T={t} outside 1..{MAX_FRAMES}")
     if d not in SUPPORTED_HEAD_DIMS:
@@ -110,7 +113,7 @@ def _forward(q, k, v, scale):
     if q.device.type == "cpu":
         with torch.autocast("cpu", enabled=False):
             return temporal_attention_reference(q, k, v, scale)
-    _check_cuda_inputs(q, k, v, K2_ALIGN)
+    _check_cuda_inputs(q, k, v)
     b, t, s, h, d = q.shape
     scale = d**-0.5 if scale is None else scale
     lib = build.load_library()
@@ -126,13 +129,19 @@ def _forward(q, k, v, scale):
     return out
 
 
-def _packed(x: torch.Tensor, elems: int = 2) -> bool:
+def _packed(x: torch.Tensor, elems: int = K2_ALIGN) -> bool:
     """Packed heads (head stride D, unit dim stride), and the three leading
-    strides and the base aligned to `elems` bf16 elements: K2/#5 move bf16
-    pairs (2), #6/#7 16-byte vectors (8)."""
+    strides and the base aligned to `elems` bf16 elements: every kernel here
+    moves 16-byte vectors (8)."""
     d = x.shape[-1]
     return (x.stride(-1) == 1 and x.stride(-2) == d
             and not any(s % elems for s in x.stride()[:3]) and x.data_ptr() % (2 * elems) == 0)
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x itself when #5 can copy it in 16-byte vectors (`_packed`), else a
+    contiguous copy in fresh (aligned) memory."""
+    return x if _packed(x) else x.clone(memory_format=torch.contiguous_format)
 
 
 def temporal_attention_backward(
@@ -140,17 +149,20 @@ def temporal_attention_backward(
     scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of `temporal_attention` for the cotangent `dout` of O,
-    from the forward's saved O; each contiguous (B, T, S, H, D)."""
+    from the forward's saved O; each contiguous (B, T, S, H, D). An operand
+    whose strides or base are off #5's 16-byte rule is copied first; the
+    copies stay bound until the launch returns."""
     if q.device.type == "cpu":
         with torch.autocast("cpu", enabled=False):
             return temporal_attention_backward_reference(q, k, v, out, dout, scale)
-    _check_cuda_inputs(q, k, v)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError("temporal_attention_backward: O/dO shapes do not match q")
     if out.dtype != torch.bfloat16 or dout.dtype != torch.bfloat16:
         raise TypeError(f"temporal_attention_backward: O {out.dtype} and dO {dout.dtype} must be bfloat16")
-    out = out if _packed(out) else out.contiguous()
-    dout = dout if _packed(dout) else dout.contiguous()
+    q, k, v, out, dout = (_aligned(x) for x in (q, k, v, out, dout))
+    _check_cuda_inputs(q, k, v)
+    if out.device != q.device or dout.device != q.device:
+        raise ValueError(f"temporal_attention_backward: O and dO must be on {q.device}")
     b, t, s, h, d = q.shape
     scale = d**-0.5 if scale is None else scale
     lib = build.load_library()

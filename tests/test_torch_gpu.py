@@ -225,21 +225,72 @@ def test_flash_attention_backward_is_deterministic(cuda):
         assert torch.equal(a, b)
 
 
+def _frame_grads_match(got, want):
+    """#5's gradients against the plain ones, each within 2e-2 of its
+    largest entry; a gradient that is 0 exactly (dq, dk at T = 1, where the
+    one probability is 1) must be 0 exactly."""
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        if b.abs().max().item() == 0:
+            assert not a.any()
+        else:
+            assert _rel_err(a, b) < 2e-2
+
+
 @pytest.mark.gpu
-def test_temporal_attention_backward_kernel_matches_plain(cuda):
-    """#5 fed K2's O, against autograd through the plain forward, at T up to
-    32 and D = 64 and 128."""
+@pytest.mark.parametrize("t", [1, 2, 5, 16, 17, 32])
+@pytest.mark.parametrize("d", [64, 128])
+def test_temporal_attention_backward_kernel_matches_plain(cuda, t, d):
+    """#5 fed K2's O, against autograd through the plain forward, at every T
+    that changes its tiling (one or two 16-frame tiles, padded frames) and
+    both head dims, on S = 67 locations (the last group of adjacent segments
+    is not full)."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    for t, h, d in ((16, 5, 64), (5, 5, 64), (32, 5, 64), (17, 2, 128), (2, 2, 128)):
-        q, k, v, dout = (torch.randn((2, t, 64, h * d), generator=g, device=cuda,
-                                     dtype=torch.bfloat16).view(2, t, 64, h, d)
+    q, k, v, dout = (torch.randn((2, t, 67, 2 * d), generator=g, device=cuda,
+                                 dtype=torch.bfloat16).view(2, t, 67, 2, d) for _ in range(4))
+    out = ta.temporal_attention(q, k, v)
+    got = ta.temporal_attention_backward(q, k, v, out, dout)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(ta.temporal_attention_reference(*leaves), leaves, dout)
+    _frame_grads_match(got, want)
+
+
+@pytest.mark.gpu
+def test_temporal_attention_backward_is_deterministic(cuda):
+    """No atomics: two runs of #5 on the same inputs agree bit for bit, with
+    one 16-frame tile (T = 16) and two (T = 32)."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    for t in (16, 32):
+        q, k, v, dout = (torch.randn((2, t, 256, 320), generator=g, device=cuda,
+                                     dtype=torch.bfloat16).view(2, t, 256, 5, 64)
                          for _ in range(4))
         out = ta.temporal_attention(q, k, v)
-        got = ta.temporal_attention_backward(q, k, v, out, dout)
-        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-        want = torch.autograd.grad(ta.temporal_attention_reference(*leaves), leaves, dout)
-        for a, b in zip(got, want):
-            assert _rel_err(a, b) < 2e-2
+        first = ta.temporal_attention_backward(q, k, v, out, dout)
+        second = ta.temporal_attention_backward(q, k, v, out, dout)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_temporal_attention_backward_copies_operands_off_the_rule(cuda):
+    """#5's public call takes a q 2 elements off the 8-element rule and a
+    transposed dO 2 elements off it: the wrapper copies them (16-byte
+    copies need the rule) and the gradients match the plain ones."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    b, t, s, h, d = 2, 16, 67, 5, 64
+    bf16 = torch.bfloat16
+    q = torch.randn((b, t, s, h * d + 2), generator=g, device=cuda, dtype=bf16)[..., 2:]
+    dout = torch.randn((b, s, t, h * d + 2), generator=g, device=cuda,
+                       dtype=bf16)[..., 2:].transpose(1, 2)
+    q, dout = q.unflatten(-1, (h, d)), dout.unflatten(-1, (h, d))
+    k, v = (torch.randn((b, t, s, h, d), generator=g, device=cuda, dtype=bf16)
+            for _ in range(2))
+    assert not ta._packed(q) and not ta._packed(dout) and not dout.is_contiguous()
+    out = ta.temporal_attention(q.contiguous(), k, v)
+    got = ta.temporal_attention_backward(q, k, v, out, dout)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(ta.temporal_attention_reference(*leaves), leaves, dout)
+    _frame_grads_match(got, want)
 
 
 @pytest.mark.gpu

@@ -108,6 +108,33 @@ def test_temporal_attention_stride_rule_takes_the_unet_projections():
         assert not ta._packed(off, ta.K2_ALIGN) and ta._packed(off, 2)
 
 
+def test_temporal_attention_backward_copies_only_operands_off_the_rule():
+    """#5 copies 16 bytes at a time like K2; its wrapper passes an operand
+    that meets K2's rule as it is (a UNet projection, q cut from a packed
+    qkv, a transposed view whose strides are whole 8-element vectors) and
+    copies one that does not (a view 2 elements off the rule, the same view
+    transposed, a contiguous tensor on a base 2 bytes off) into contiguous
+    memory that meets it, with the same values."""
+    b, t, s, c = 2, 4, 3, 320
+    bf16 = torch.bfloat16
+
+    def heads(x):
+        return x.unflatten(-1, (c // 64, 64))
+
+    proj = heads(torch.randn((b * t * s, c), dtype=bf16).view(b, t, s, c))
+    qkv = heads(torch.randn((b, t, s, 3 * c), dtype=bf16)[..., c:2 * c])
+    swapped = heads(torch.randn((b, s, t, c), dtype=bf16).transpose(1, 2))
+    for x in (proj, qkv, swapped):
+        assert ta._aligned(x) is x
+    off = heads(torch.randn((b, t, s, c + 2), dtype=bf16)[..., 2:])
+    off_swapped = heads(torch.randn((b, s, t, c + 2), dtype=bf16)[..., 2:].transpose(1, 2))
+    shifted = torch.randn((b * t * s * c + 1,), dtype=bf16)[1:].view(b, t, s, c // 64, 64)
+    for x in (off, off_swapped, shifted):
+        assert not ta._packed(x)
+        y = ta._aligned(x)
+        assert y.is_contiguous() and ta._packed(y) and torch.equal(y, x)
+
+
 def test_time_cross_attention_matches_xla():
     from hi3d_tpu.ops.attention import xla_attention_time
 
@@ -348,15 +375,18 @@ def test_flash_attention_grad_matches_pallas_vjp(s, block):
         np.testing.assert_allclose(g, np.asarray(r), atol=GRAD_ATOL, rtol=0, err_msg=f"d{name}")
 
 
-def test_temporal_attention_grad_matches_pallas_vjp():
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("t", [5, 16, 32])
+def test_temporal_attention_grad_matches_pallas_vjp(t, d):
     """#5's plain version against jax.grad through `temporal_attention_natural`
-    (`_nat_bwd` in interpret mode)."""
+    (`_nat_bwd` in interpret mode), at one and two 16-frame tiles, a ragged
+    T and both head dims #5 takes."""
     import jax
 
     from hi3d_tpu.ops.temporal_attention import temporal_attention_natural
 
     rnd = np.random.RandomState(7)
-    shape = (2, 16, 16, 2, 64)
+    shape = (2, t, 16, 2, d)
     q, k, v, cot = (rnd.randn(*shape).astype(np.float32) for _ in range(4))
 
     def loss(q_, k_, v_):
