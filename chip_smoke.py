@@ -1,4 +1,4 @@
-"""GPU smoke run of the PyTorch port's stage-1, stage-2 and serving paths on one NVIDIA H100.
+"""GPU smoke run of the PyTorch port's inference, training and serving paths on one NVIDIA H100.
 
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --profile-serve  # only a 2-step profile of the serve batch
@@ -46,7 +46,20 @@
    images (demo/3.png and a rolled copy) at full width, 2 assets × 48 frames
    × 512² in one batch, 25 steps; checks the frames and the launch counts
    (#6 on every frame-axis site, K2 none);
-9. prints the kernel JSON line (launches per path and summed, errors, times,
+9. main path 5: `hi3d_tpu_torch.pipelines.full.main` at full width on
+   demo/3.png (configs/inference-v01.yaml → configs/inference-v02.yaml, 16 ×
+   512² → 16 × 1024², 25 steps each, random weights), background removal by
+   a full U²-Net with random weights saved under outputs/ and named by
+   HI3D_U2NET_CKPT; checks rgba.png and white.png, that stage 2 read
+   white.png, the refined frames, 16 finite scores of each kind in
+   metrics.json, the memory released between the stages and the launch
+   counts (i2v + v2v + the ViewScorer's ViT-L); prints the stage seconds,
+   the U²-Net's ms at 320² and the peak memory;
+10. main path 6: `serve.main --mode two_stage` on the two images of path 4,
+   --batch 1 (two batches handed from stage 1 to stage 2), 16 frames, 25
+   steps each stage, both engines resident: 2 × 16 × 1024² frames, the
+   launch counts, peak memory, s/asset;
+11. prints the kernel JSON line (launches per path and summed, errors, times,
    bounds), the card line, and the contract line last.
 
 Any failure raises and exits non-zero.
@@ -862,8 +875,10 @@ def expected_launches(config_path: str, steps: int, path: str, clip_size=None,
                       assets: int = 1) -> dict:
     """Launches per kernel that the model's plan predicts for one run of
     `path` ("i2v", "train", "v2v", "serve": `assets` assets of `clip_size`
-    frames in one batch, or "unet_grad": one forward and backward of the
-    UNet alone at `clip_size` frames; the config's clip length by default).
+    frames in one batch, "refine": stage 2 on `assets` videos in one batch,
+    or "unet_grad": one forward and backward of the UNet alone at
+    `clip_size` frames; the config's clip length by default). The two-stage
+    paths sum these (`full_launches`, `two_stage_launches`).
 
     UNet, per call (inference: one CFG-batched call per sampler step): K1
     and the frame-axis kernel once per transformer block of every
@@ -928,13 +943,38 @@ def expected_launches(config_path: str, steps: int, path: str, clip_size=None,
                 "group_stats": sites["encoder"] * _chunks(assets, enc_chunk)
                 + sites["decoder"] * _chunks(assets * t, engine_chunk),
                 "layer_norm": steps * sites["unet"] + sites["vit_h"] + sites["vit_l"]}
-    # v2v: the conditioner (DPT, then the VAE embedder) and the engine each
-    # encode the T frames; the engine decodes them
+    # v2v, refine: the conditioner (DPT on all the frames in one call, then
+    # the VAE embedder) and the engine each encode the assets' T frames; the
+    # engine decodes them
+    frames = assets * t
     return {**unet,
-            "group_stats": sites["dpt_gn"] + sites["encoder"] * (_chunks(t, enc_chunk)
-                                                                 + _chunks(t, engine_chunk))
-            + sites["decoder"] * _chunks(t, engine_chunk),
+            "group_stats": sites["dpt_gn"] + sites["encoder"] * (_chunks(frames, enc_chunk)
+                                                                 + _chunks(frames, engine_chunk))
+            + sites["decoder"] * _chunks(frames, engine_chunk),
             "layer_norm": steps * sites["unet"] + sites["vit_h"] + sites["dpt_ln"]}
+
+
+def _sum_launches(*plans) -> dict:
+    return {name: sum(p.get(name, 0) for p in plans) for name in plans[0]}
+
+
+def full_launches(stage1: str, stage2: str, steps: int) -> dict:
+    """`pipelines.full`: stage 1 as i2v, stage 2 as v2v, then the ViewScorer's
+    ViT-L twice (the views, then the reference image): #10 at each of its
+    LayerNorm32s a call. The U²-Net launches no kernel (convolutions, an
+    fp32 BatchNorm affine and resizes)."""
+    scorer = {"layer_norm": 2 * norm_sites(stage1)["vit_l"]}
+    return _sum_launches(expected_launches(stage1, steps, "i2v"),
+                         expected_launches(stage2, steps, "v2v"), scorer)
+
+
+def two_stage_launches(stage1: str, stage2: str, steps: int, batches: int, assets: int,
+                       clip_size: int) -> dict:
+    """serve --mode two_stage: per batch, stage 1 as serve and stage 2 as
+    refine on the batch's assets."""
+    per_batch = (expected_launches(stage1, steps, "serve", clip_size=clip_size, assets=assets),
+                 expected_launches(stage2, steps, "refine", clip_size=clip_size, assets=assets))
+    return _sum_launches(*(per_batch * batches))
 
 
 def _full_width_unet(config_path: str, b: int = 2, t: int = 4):
@@ -1429,6 +1469,165 @@ def serve_path(steps: int) -> dict:
     return launches
 
 
+def write_u2net(path: str, seed: int = 0) -> str:
+    """A full U²-Net, random weights from `seed`, saved in upstream's layout
+    as `path` (whose name must not contain "u2netp")."""
+    import torch
+
+    from hi3d_tpu_torch.models.u2net import U2Net
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        torch.save(U2Net(full=True).state_dict(), path)
+    return path
+
+
+def time_u2net(path: str) -> float:
+    """ms of one forward of the U²-Net saved at `path` on the card at 320²
+    (CUDA events, median of 10 after a warm-up)."""
+    import torch
+
+    from hi3d_tpu_torch.convert import load_u2net
+    from hi3d_tpu_torch.models.u2net import U2Net, preprocess
+
+    sd, full = load_u2net(path)
+    model = U2Net(full=full)
+    model.load_state_dict(sd, strict=True)
+    model = model.to("cuda").eval()
+    img = np.asarray(np.random.RandomState(0).randint(0, 256, (512, 512, 3)), np.uint8)
+    x = preprocess(img, device="cuda")
+    with torch.no_grad():
+        ms = time_ms(lambda: model(x))
+    del model
+    torch.cuda.empty_cache()
+    return ms
+
+
+FULL_CLIP = 16
+
+
+def full_path(steps: int) -> dict:
+    """Main path 5: `hi3d_tpu_torch.pipelines.full.main` at full width on
+    demo/3.png (configs/inference-v01.yaml → configs/inference-v02.yaml,
+    16 × 512² → 16 × 1024², `steps` sampler steps each, random weights),
+    background removal by a full U²-Net saved here with random weights and
+    named by HI3D_U2NET_CKPT (restored afterwards). Checks temp_image's
+    rgba.png (4 channels) and white.png, that stage 2 read white.png, 16 ×
+    1024² uint8 frames, 16 finite clip_similarity and aesthetic scores, that
+    stage 1's release brought the allocated memory back within 0.5 GB, and
+    launches equal to the plan. Prints the stage seconds, the U²-Net's ms at
+    320² and the peak memory. Returns the launch counts."""
+    import torch
+
+    from hi3d_tpu_torch.pipelines import full, v2v
+    from hi3d_tpu_torch.utils.png import read_png
+
+    stage1 = os.path.join(ROOT, "configs", "inference-v01.yaml")
+    stage2 = os.path.join(ROOT, "configs", "inference-v02.yaml")
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_full_", dir=os.path.join(ROOT, "outputs"))
+    ckpt = write_u2net(os.path.join(out_dir, "u2net.pth"))
+    expected = full_launches(stage1, stage2, steps)
+    read = []
+    run_v2v = v2v.run_pipeline
+
+    def spy(model, image_path, *args, **kwargs):
+        read.append(image_path)
+        return run_v2v(model, image_path, *args, **kwargs)
+
+    old_env = os.environ.get("HI3D_U2NET_CKPT")
+    os.environ["HI3D_U2NET_CKPT"] = ckpt
+    v2v.run_pipeline = spy
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        result = full.main(["--stage1_config", stage1, "--stage2_config", stage2,
+                            "--image_path", os.path.join(ROOT, "demo", "3.png"),
+                            "--output_dir", out_dir, "--clip_size", str(FULL_CLIP), "--seed", "0",
+                            "--num_steps", str(steps), "--device", "cuda"])
+    finally:
+        v2v.run_pipeline = run_v2v
+        if old_env is None:
+            del os.environ["HI3D_U2NET_CKPT"]
+        else:
+            os.environ["HI3D_U2NET_CKPT"] = old_env
+    launches = read_launches(expected)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    u2net_ms = time_u2net(ckpt)
+    mem = result["allocated_gb"]
+    metrics = result["metrics"]
+    print(f"[full] main path 5 {wall:.1f} s: stage 1 {result['stage1_sec']} s, stage 2 "
+          f"{result['stage2_sec']} s (model builds and background removal included); U²-Net "
+          f"{u2net_ms:.3f} ms a 320² forward; allocated {mem['before_stage1']:.3f} GB before "
+          f"stage 1, {mem['after_stage1_released']:.3f} GB after its release; peak allocated "
+          f"{peak:.2f} GB; clip_similarity_mean {metrics['clip_similarity_mean']}, "
+          f"aesthetic_mean {metrics['aesthetic_mean']}; launches {launches}", flush=True)
+    temp = os.path.join(out_dir, "temp_image")
+    rgba = read_png(os.path.join(temp, "rgba.png"))
+    white = os.path.join(temp, "white.png")
+    if rgba.ndim != 3 or rgba.shape[-1] != 4 or read_png(white).shape != rgba.shape[:2] + (3,):
+        raise AssertionError(f"background removal wrote rgba {rgba.shape}")
+    if read != [white]:
+        raise AssertionError(f"stage 2 read {read}, want {white}")
+    _check_frames(os.path.join(out_dir, "second_step_video", "frames"), (16, 1024, 1024, 3))
+    for key in ("clip_similarity", "aesthetic"):
+        if len(metrics[key]) != FULL_CLIP or not np.all(np.isfinite(metrics[key])):
+            raise AssertionError(f"metrics {key} {metrics[key]}")
+    if not abs(mem["after_stage1_released"] - mem["before_stage1"]) <= 0.5:
+        raise AssertionError(f"stage 1 was not released: {mem}")
+    _check_launches(launches, expected)
+    return launches
+
+
+TWO_STAGE_ASSETS = 2  # two batches of one: generate_stream hands stage 2 two batches
+
+
+def two_stage_path(steps: int) -> dict:
+    """Main path 6: the serve CLI in two_stage mode at full width on two
+    images (demo/3.png and a rolled copy), --batch 1, 16 frames, `steps`
+    sampler steps each stage, both engines resident: 2 × 16 × 1024² uint8
+    frames, launches equal to the plan, peak memory, s/asset. Returns the
+    launch counts."""
+    import torch
+
+    from hi3d_tpu_torch.pipelines import serve
+
+    stage1 = os.path.join(ROOT, "configs", "inference-v01.yaml")
+    stage2 = os.path.join(ROOT, "configs", "inference-v02.yaml")
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_two_stage_", dir=os.path.join(ROOT, "outputs"))
+    image_dir = write_serve_images(os.path.join(out_dir, "images"))
+    expected = two_stage_launches(stage1, stage2, steps, batches=TWO_STAGE_ASSETS, assets=1,
+                                  clip_size=FULL_CLIP)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 1e9
+    reset_launches()
+    t0 = time.perf_counter()
+    result = serve.main(["--image_dir", image_dir, "--output_dir", os.path.join(out_dir, "views"),
+                         "--mode", "two_stage", "--batch", "1", "--clip_size", str(FULL_CLIP),
+                         "--device", "cuda", "--seed", "0", "--stage1_config", stage1,
+                         "--stage2_config", stage2])
+    launches = read_launches(expected)
+    wall = time.perf_counter() - t0
+    phases = result["phases"]
+    serving = sum(v for k, v in phases.items() if k.startswith("stage2_"))
+    print(f"[two_stage] main path 6 {wall:.1f} s (both model builds included): "
+          f"{TWO_STAGE_ASSETS} assets × {FULL_CLIP} × 1024² in {result['batches']} batches; "
+          f"{serving / TWO_STAGE_ASSETS:.3f} s/asset from the first stage-1 launch to the last "
+          f"write; peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"({held:.2f} GB held before the path); phases "
+          f"{json.dumps({k: round(v, 3) for k, v in phases.items()})}; launches {launches}",
+          flush=True)
+    torch.cuda.empty_cache()
+    if len(result["outputs"]) != TWO_STAGE_ASSETS:
+        raise AssertionError(f"serve wrote {result['outputs']}, want {TWO_STAGE_ASSETS} assets")
+    for name in ("asset0", "asset1"):
+        _check_frames(os.path.join(out_dir, "views", name, "frames"), (FULL_CLIP, 1024, 1024, 3))
+    _check_launches(launches, expected)
+    return launches
+
+
 def _device_kernels(prof) -> list:
     """The profiler's device events that are kernels: not the user
     annotations (such as Optimizer.step) that it also puts on the device's
@@ -1899,6 +2098,14 @@ def main() -> None:
           f"{SERVE_ASSETS} assets × {SERVE_CLIP}×512², {NUM_STEPS} steps, random weights",
           flush=True)
     by_path["serve"] = serve_path(NUM_STEPS)
+    print(f"[smoke] main path 5: pipelines.full, configs/inference-v01.yaml → "
+          f"configs/inference-v02.yaml, 16×512² → 16×1024², {NUM_STEPS} steps each, random "
+          "weights, U²-Net background removal", flush=True)
+    by_path["full"] = full_path(NUM_STEPS)
+    print(f"[smoke] main path 6: serve --mode two_stage, {TWO_STAGE_ASSETS} assets × "
+          f"{FULL_CLIP}×1024² in batches of 1, {NUM_STEPS} steps each stage, random weights",
+          flush=True)
+    by_path["two_stage"] = two_stage_path(NUM_STEPS)
     print(f"[smoke] all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
 
     rows = []

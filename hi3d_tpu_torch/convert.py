@@ -9,7 +9,7 @@ without renaming; this module only selects, casts and checks.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -70,3 +70,13 @@ def load_dpt_state_dict(path: str) -> Dict[str, torch.Tensor]:
         sd = sd["model"]
     return {k: v for k, v in strip_deepspeed(sd).items()
             if not k.startswith(DPT_CLASSIFIER_PREFIXES)}
+
+
+def load_u2net(path: str) -> Tuple[Dict[str, torch.Tensor], bool]:
+    """A released `u2net.pth` / `u2netp.pth` as (state dict of
+    models.u2net.U2Net, full): the light u2netp variant when the file's name
+    contains "u2netp", the full model otherwise (as the JAX package decides).
+    The names are upstream's, so the dict loads with strict=True."""
+    import os
+
+    return load_checkpoint_file(path), "u2netp" not in os.path.basename(path)

@@ -137,17 +137,19 @@ class DiffusionEngine(nn.Module):
 
     @torch.no_grad()
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
-        """(N, h, w, 4) latents → (N, 8h, 8w, 3) fp32 frames, in chunks."""
-        if self.decode_tile_size is not None and max(z.shape[1:3]) > self.decode_tile_size:
-            raise NotImplementedError(
-                f"latents of {tuple(z.shape[1:3])} exceed decode_tile_size="
-                f"{self.decode_tile_size}: tiled VAE decoding is not ported")
-        dt = self.first_stage_model.post_quant_conv.weight.dtype
-        out = self._chunked(
-            lambda v: self.first_stage_model.decode(((1.0 / self.scale_factor) * v.float()).to(dt)).float(),
-            z.permute(0, 3, 1, 2),
-        )
-        return out.permute(0, 2, 3, 1)
+        """(N, h, w, 4) latents → (N, 8h, 8w, 3) fp32 frames, in chunks; a
+        latent wider than `decode_tile_size` decodes in tiles
+        (`AutoencoderKL.decode_tiled`, its default overlap)."""
+        vae = self.first_stage_model
+        tile = self.decode_tile_size
+        tiled = tile is not None and max(z.shape[1:3]) > tile
+        dt = vae.post_quant_conv.weight.dtype
+
+        def dec(v):
+            v = ((1.0 / self.scale_factor) * v.float()).to(dt)
+            return (vae.decode_tiled(v, tile=tile) if tiled else vae.decode(v)).float()
+
+        return self._chunked(dec, z.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
     @torch.no_grad()
     def sample(self, cond: Dict, uc: Optional[Dict] = None, shape: Optional[Sequence[int]] = None,

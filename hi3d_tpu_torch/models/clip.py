@@ -139,6 +139,7 @@ class CLIPVisionTransformer(nn.Module):
                  patch_size: int = 14, image_size: int = 224, output_dim: int = 1024,
                  quick_gelu: bool = False):
         super().__init__()
+        self.image_size, self.output_dim = image_size, output_dim
         grid = image_size // patch_size
         self.conv1 = nn.Conv2d(3, width, patch_size, stride=patch_size, bias=False)
         self.class_embedding = nn.Parameter(torch.randn(width) * width**-0.5)

@@ -5,7 +5,9 @@ NCHW, fp32 by default. Parameter names follow the reference
 `decoder.up.3.upsample.conv`, `quant_conv`, `post_quant_conv`). GroupNorms
 are eps 1e-6 fp32 `FoldedGroupNorm`s, whose statistics are #9. The
 mid-block attention is single-head matmul + softmax in plain torch
-(K1's plain version).
+(K1's plain version). `AutoencoderKL.decode_tiled` decodes a latent wider
+than one tile in feathered, overlapping blocks (the engine's
+`decode_tile_size`).
 """
 
 from __future__ import annotations
@@ -182,6 +184,27 @@ class Decoder(nn.Module):
         return self.conv_out(F.silu(self.norm_out(h)))
 
 
+def _tile_starts(n: int, tile: int, overlap: int):
+    """Block offsets along an axis of `n` latent pixels: every `tile −
+    overlap`, and one more pinned to the far edge when the stride leaves a
+    remainder."""
+    starts = list(range(0, max(n - tile, 0) + 1, tile - overlap))
+    if starts[-1] + tile < n:
+        starts.append(n - tile)
+    return starts
+
+
+def _ramp(size: int, fade: int, lo: bool, hi: bool, device) -> torch.Tensor:
+    """(size,) feather weights: 1, faded in over the first `fade` pixels
+    when `lo` and out over the last `fade` when `hi` (interior seams only)."""
+    wgt = torch.ones((size,), dtype=torch.float32, device=device)
+    if lo:
+        wgt[:fade] = torch.linspace(0.0, 1.0, fade + 2, device=device)[1:-1]
+    if hi:
+        wgt[-fade:] = torch.linspace(1.0, 0.0, fade + 2, device=device)[1:-1]
+    return wgt
+
+
 class DiagonalGaussianDistribution:
     """Posterior N(mean, diag(exp(logvar))) from (N, 2·z, h, w) moments."""
 
@@ -217,6 +240,8 @@ class AutoencoderKL(nn.Module):
         z = dd.get("z_channels", 4)
         self.quant_conv = nn.Conv2d(double * z, double * embed_dim, 1)
         self.post_quant_conv = nn.Conv2d(embed_dim, z, 1)
+        self.upsample_factor = 2 ** (len(dd.get("ch_mult", (1, 2, 4, 4))) - 1)
+        self.out_ch = dd.get("out_ch", 3)
 
     def encode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         posterior = DiagonalGaussianDistribution(self.quant_conv(self.encoder(x)))
@@ -226,6 +251,32 @@ class AutoencoderKL(nn.Module):
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.post_quant_conv(z))
+
+    def decode_tiled(self, z: torch.Tensor, tile: int = 64, overlap: int = 16) -> torch.Tensor:
+        """Decode (N, C, h, w) latents in `tile`² latent blocks that overlap by
+        `overlap` latent pixels, cross-faded linearly across interior seams
+        (the last block of a row or column is pinned to the edge); the
+        weighted sum is kept in fp32 and divided by the summed weights. Peak
+        memory is one block's decoder activations."""
+        n, _, h, w = z.shape
+        if h <= tile and w <= tile:
+            return self.decode(z)
+        if tile <= overlap:
+            raise ValueError(f"decode tile {tile} must exceed its overlap {overlap}")
+        f, fade = self.upsample_factor, overlap * self.upsample_factor
+        ys, xs = _tile_starts(h, tile, overlap), _tile_starts(w, tile, overlap)
+        out = torch.zeros((n, self.out_ch, h * f, w * f), dtype=torch.float32, device=z.device)
+        acc = torch.zeros((h * f, w * f), dtype=torch.float32, device=z.device)
+        for yi, y0 in enumerate(ys):
+            for xi, x0 in enumerate(xs):
+                patch = self.decode(z[:, :, y0:y0 + tile, x0:x0 + tile]).float()
+                ph, pw = patch.shape[2:]
+                wy = _ramp(ph, fade, yi > 0, yi < len(ys) - 1, z.device)
+                wx = _ramp(pw, fade, xi > 0, xi < len(xs) - 1, z.device)
+                wgt = wy[:, None] * wx[None, :]
+                out[:, :, y0 * f:y0 * f + ph, x0 * f:x0 * f + pw] += patch * wgt
+                acc[y0 * f:y0 * f + ph, x0 * f:x0 * f + pw] += wgt
+        return (out / acc.clamp_min(1e-8)).to(z.dtype)
 
 
 class AutoencoderKLModeOnly(AutoencoderKL):

@@ -3,7 +3,9 @@ hi3d_tpu/pipelines/i2v.py).
 
     python -m hi3d_tpu_torch.pipelines.i2v --image_path demo/3.png --skip_rembg
 
-Preprocess (resize + center crop, T copies) → add_custom_cond → conditioner
+Background removal (U²-Net on the model's device, `utils.image.remove_background`;
+`<output_dir>/temp_image/{rgba,white}.png`) unless --skip_rembg → preprocess
+(resize + center crop, T copies) → add_custom_cond → conditioner
 (c, uc) with the frame keys zeroed in uc → 25 Euler-EDM steps with per-frame
 linear CFG (bf16 UNet, fp32 σ-math) → fp32 VAE decode in chunks → uint8
 frames → `<output_dir>/first_step/frames/NNN.png` (+ first.mp4 when a video
@@ -21,7 +23,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..utils.image import load_image_rgb, resize_center_crop
+from ..utils.image import load_image_rgb, remove_background, resize_center_crop
 from ..utils.video import denorm_to_uint8, export_to_video, range_from_uint8, tensor2vid
 
 UC_ZERO_KEYS = ("cond_frames", "cond_frames_without_noise")
@@ -104,13 +106,14 @@ def run_pipeline(model, image_path: str, output_dir: str, elevation: float = 0.0
                  skip_rembg: bool = False, num_steps: Optional[int] = None) -> str:
     """Full stage-1 CLI behaviour; returns the mp4 path (or the frames
     directory when no video writer imports)."""
-    if not skip_rembg:
-        raise NotImplementedError(
-            "background removal (U²-Net) is not ported yet: pass --skip_rembg with an "
-            "image that already has a clean background"
-        )
     device = model.device
     timer = PhaseTimer(device)
+    temp_dir = os.path.join(output_dir, "temp_image")
+    os.makedirs(temp_dir, exist_ok=True)
+    if not skip_rembg:
+        image_path = remove_background(image_path, os.path.join(temp_dir, "rgba.png"),
+                                       os.path.join(temp_dir, "white.png"), device=device)
+        timer.mark("rembg")
     generator = torch.Generator(device=device)
     generator.manual_seed(0 if seed is None else seed)
     model.num_samples = clip_size

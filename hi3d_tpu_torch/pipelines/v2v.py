@@ -69,7 +69,7 @@ def blend_refine(model, frames: np.ndarray, masks: Optional[np.ndarray] = None,
 @torch.no_grad()
 def blend_refine_batch(
     model,
-    videos: np.ndarray,  # (B, T, H, W, 3) uint8 or [-1, 1] float
+    videos,  # (B, T, H, W, 3) uint8 or [-1, 1] float, numpy or a tensor
     masks: Optional[np.ndarray] = None,  # (B, T, H, W); inference never reads them
     elevations: Optional[Sequence[float]] = None,
     generator: Optional[torch.Generator] = None,
@@ -93,7 +93,7 @@ def blend_refine_batch(
     num_steps = int(num_steps) if num_steps else sampler.num_steps
     sigmas = sampler.discretization(num_steps, device=device)
 
-    x = torch.as_tensor(np.asarray(videos)).to(device)
+    x = (videos if isinstance(videos, torch.Tensor) else torch.as_tensor(np.asarray(videos))).to(device)
     video = range_from_uint8(x) if x.dtype == torch.uint8 else x.to(torch.float32)
     video = video.permute(0, 1, 4, 2, 3)  # (B, T, 3, H, W)
     batch: Dict = {"video": video,

@@ -1,6 +1,10 @@
 """Host-side image preprocessing for the CLIs (counterpart of
 hi3d_tpu/utils/image.py), on numpy and the stdlib PNG codec only.
 
+`remove_background` is the stage-1 CLI's background removal: the port's
+U²-Net (`models/u2net.py`) on the caller's device when a checkpoint is
+found, else the `rembg` package when it imports, else the input unchanged.
+
 `resize_bilinear_u8` follows cv2.resize's INTER_LINEAR sampling (half-pixel
 centres, edge clamp) in floating point; cv2 itself rounds through 11-bit
 fixed-point weights, so the two agree to within one grey level, and exactly
@@ -10,11 +14,12 @@ when the size does not change.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import numpy as np
 
-from .png import read_png
+from .png import read_png, write_png
 
 
 def center_crop(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
@@ -102,3 +107,61 @@ def foreground_mask_from_white(img: np.ndarray, threshold: int = 220) -> np.ndar
     (near-white background), 1 elsewhere."""
     bg = np.all(img.astype(np.int32) > threshold, axis=-1)
     return (~bg).astype(np.float32)
+
+
+def _u2net_checkpoint() -> Optional[str]:
+    """A U²-Net checkpoint: $HI3D_U2NET_CKPT, else ckpts/u2net.pth, else
+    ckpts/u2netp.pth; None when none exists."""
+    cand = [os.environ.get("HI3D_U2NET_CKPT", "")]
+    cand += [os.path.join("ckpts", n) for n in ("u2net.pth", "u2netp.pth")]
+    for c in cand:
+        if c and os.path.exists(c):
+            return c
+    return None
+
+
+def _write_rgba_outputs(rgb: np.ndarray, alpha: np.ndarray, out_rgba: str,
+                        out_white: str) -> str:
+    """Write the RGBA cut-out and its white composite as PNGs; returns the
+    white one's path."""
+    a = np.clip(alpha * 255.0, 0, 255).round().astype(np.uint8)
+    rgba = np.concatenate([rgb, a[..., None]], axis=-1)
+    write_png(out_rgba, rgba)
+    write_png(out_white, composite_white(rgba))
+    return out_white
+
+
+def remove_background(path: str, out_rgba: str, out_white: str, device="cuda") -> str:
+    """Background removal (reference pipeline_i2v_eval_v01.py:153-168).
+
+    With a U²-Net checkpoint (`_u2net_checkpoint`) the port's U²-Net runs on
+    `device`; without one the `rembg` package runs if it imports; otherwise
+    the input is taken to have a clean background already. Returns the path
+    of the white-background image the pipeline reads."""
+    ckpt = _u2net_checkpoint()
+    if ckpt is not None:
+        import torch
+
+        from ..convert import load_u2net
+        from ..models.u2net import U2Net, segment
+
+        sd, full = load_u2net(ckpt)
+        with torch.device("meta"):
+            model = U2Net(full=full)
+        model = model.to_empty(device=device)
+        model.load_state_dict(sd, strict=True)
+        img = load_image_rgb(path)
+        mask = segment(model.eval(), img).cpu().numpy()
+        return _write_rgba_outputs(img, mask, out_rgba, out_white)
+
+    try:
+        import rembg
+        from PIL import Image
+    except ImportError:
+        return path
+    image = rembg.remove(Image.open(path), session=rembg.new_session())
+    image.save(out_rgba)
+    white = Image.new("RGB", image.size, "WHITE")
+    white.paste(image, mask=image.split()[3])
+    white.save(out_white)
+    return out_white

@@ -9,7 +9,7 @@ mp4 when one of those readers imports.
 from __future__ import annotations
 
 import os
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -93,12 +93,17 @@ def export_to_video(frames: List[np.ndarray], output_path: str, fps: int = 8) ->
     return output_path if mp4 else frame_dir
 
 
-def _read_mp4(path: str) -> List[np.ndarray]:
+def _read_mp4(path: str, max_frames: Optional[int] = None) -> List[np.ndarray]:
     try:
         import imageio
 
         with imageio.get_reader(path) as r:
-            return [np.asarray(f)[..., :3] for f in r]
+            frames = []
+            for f in r:
+                if max_frames is not None and len(frames) >= max_frames:
+                    break
+                frames.append(np.asarray(f)[..., :3])
+            return frames
     except (ImportError, ValueError):  # ValueError: imageio without an mp4 backend
         pass
     try:
@@ -110,7 +115,7 @@ def _read_mp4(path: str) -> List[np.ndarray]:
     cap = cv2.VideoCapture(path)
     frames = []
     try:
-        while True:
+        while max_frames is None or len(frames) < max_frames:
             ok, f = cap.read()
             if not ok:
                 break
@@ -122,15 +127,16 @@ def _read_mp4(path: str) -> List[np.ndarray]:
     return frames
 
 
-def import_video(path: str) -> np.ndarray:
-    """(T, H, W, 3) uint8 RGB frames: a directory of frame PNGs (read in
-    name order with the stdlib codec, as `export_to_video` writes them) or
-    an mp4 file (imageio or cv2; raises when neither imports)."""
+def import_video(path: str, max_frames: Optional[int] = None) -> np.ndarray:
+    """(T, H, W, 3) uint8 RGB frames, the first `max_frames` only when given:
+    a directory of frame PNGs (read in name order with the stdlib codec, as
+    `export_to_video` writes them) or an mp4 file (imageio or cv2; raises
+    when neither imports)."""
     if os.path.isdir(path):
         names = sorted(n for n in os.listdir(path) if n.lower().endswith(".png"))
         if not names:
             raise FileNotFoundError(f"no .png frames in {path!r}")
-        return np.stack([load_image_rgb(os.path.join(path, n)) for n in names])
+        return np.stack([load_image_rgb(os.path.join(path, n)) for n in names[:max_frames]])
     if not os.path.exists(path):
         raise FileNotFoundError(path)
-    return np.stack(_read_mp4(path))
+    return np.stack(_read_mp4(path, max_frames))

@@ -631,3 +631,62 @@ def test_time_self_attention_routes_long_clips_to_block_kernel(cuda):
         assert out.shape == q.shape
         ref = ta.temporal_attention_reference(q, k, v)
         assert (out.float() - ref.float()).abs().max().item() < 2e-2
+
+
+@pytest.mark.gpu
+def test_u2net_mask_on_the_card_matches_the_cpu(cuda):
+    """The full U²-Net (random weights from a seed, random BatchNorm
+    statistics) segments one 200 × 240 image on the card and on the CPU, in
+    fp32 without TF32: the masks agree within 1e-3 (cuDNN's convolutions sum
+    in other orders; the min-max normalisation scales those differences by
+    1 / the range of d0)."""
+    import copy
+
+    from hi3d_tpu_torch.models.u2net import FrozenBatchNorm, U2Net, segment
+    from hi3d_tpu_torch.pipelines.common import configure_precision
+
+    configure_precision()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = U2Net(full=True).eval()
+        for m in model.modules():
+            if isinstance(m, FrozenBatchNorm):
+                m.running_mean.normal_(0.0, 0.3)
+                m.running_var.uniform_(0.5, 1.5)
+        img = (torch.rand((200, 240, 3)) * 255).to(torch.uint8).numpy()
+    ref = segment(model, img)
+    out = segment(copy.deepcopy(model).to(cuda), img)
+    assert out.device.type == "cuda" and out.shape == ref.shape == (200, 240)
+    assert ref.std().item() > 0.05
+    assert (out.cpu() - ref).abs().max().item() < 1e-3
+
+
+@pytest.mark.gpu
+def test_decode_tiled_on_the_card_matches_the_cpu(cuda):
+    """A tiny fp32 VAE decodes a 20 × 28 latent in 8² tiles overlapping by 2
+    on the card (its GroupNorm statistics on #9) and on the CPU (plain
+    versions): within 1e-4 (outputs up to ~3), and #9 ran once per norm of
+    each of the 3 × 5 tiles (rows at 0, 6, 12; columns at 0, 6, 12, 18 and
+    20, the last pinned to the edge)."""
+    import copy
+
+    from hi3d_tpu_torch.models.layers import FoldedGroupNorm
+    from hi3d_tpu_torch.models.vae import AutoencoderKL
+    from hi3d_tpu_torch.pipelines.common import configure_precision
+
+    configure_precision()
+    dd = {"double_z": True, "z_channels": 4, "in_channels": 3, "out_ch": 3, "ch": 8,
+          "ch_mult": [1, 1, 2, 2], "num_res_blocks": 1, "attn_resolutions": [],
+          "resolution": 64}
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        vae = AutoencoderKL(dd).eval()
+        z = torch.randn((2, 4, 20, 28))
+    with torch.no_grad():
+        ref = vae.decode_tiled(z, tile=8, overlap=2)
+        before = gn.group_stats.launches
+        out = copy.deepcopy(vae).to(cuda).decode_tiled(z.to(cuda), tile=8, overlap=2)
+    norms = sum(isinstance(m, FoldedGroupNorm) for m in vae.decoder.modules())
+    assert gn.group_stats.launches - before == 15 * norms
+    assert out.shape == ref.shape == (2, 3, 160, 224)
+    assert (out.cpu() - ref).abs().max().item() < 1e-4

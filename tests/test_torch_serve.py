@@ -97,12 +97,56 @@ def test_unique_names_match_jax():
     assert len(set(_unique_names(paths))) == len(paths)
 
 
-def test_serve_two_stage_mode_raises(tmp_path):
+def test_serve_two_stage_mode_raises(tmp_path, monkeypatch):
+    """--mode two_stage runs on the card by default: without CUDA it raises
+    before loading anything, unless --device cpu is passed."""
     from hi3d_tpu_torch.pipelines import serve
+    from hi3d_tpu_torch.utils.png import write_png
 
-    with pytest.raises(NotImplementedError, match="two_stage"):
+    write_png(str(tmp_path / "a.png"), np.zeros((8, 8, 3), np.uint8))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--image_dir", str(tmp_path), "--output_dir", str(tmp_path / "o"),
-                    "--mode", "two_stage", "--device", "cpu"])
+                    "--mode", "two_stage"])
+
+
+def test_serve_cli_two_stage_mode_pads_and_drops(tmp_path):
+    """3 PNGs with --batch 2 in two_stage mode on the tiny stage-1 and
+    stage-2 configs: two batches handed from stage 1 to stage 2, the second
+    padded, only the 3 real assets written, each as refined frames at
+    --stage2_resolution."""
+    from hi3d_tpu_torch.pipelines import serve
+    from hi3d_tpu_torch.utils.png import read_png, write_png
+    from test_torch_stage2 import tiny_stage2_config
+
+    image_dir = tmp_path / "images"
+    image_dir.mkdir()
+    rnd = np.random.RandomState(11)
+    for name in ("b", "a", "c"):
+        write_png(str(image_dir / f"{name}.png"), rnd.randint(0, 256, (40, 48, 3), np.uint8))
+    embedder = "test_torch_slice.TinyImageEmbedderTorch"
+    cfg1, cfg2 = tmp_path / "tiny1.yaml", tmp_path / "tiny2.yaml"
+    cfg1.write_text(yaml.safe_dump({"model": tiny_config(embedder, num_steps=2)}))
+    cfg2.write_text(yaml.safe_dump({"model": tiny_stage2_config(embedder, num_steps=2)}))
+    out_dir = tmp_path / "out"
+    t = 4
+    result = serve.main(["--image_dir", str(image_dir), "--output_dir", str(out_dir),
+                         "--mode", "two_stage", "--batch", "2", "--stage1_config", str(cfg1),
+                         "--stage2_config", str(cfg2), "--clip_size", str(t),
+                         "--resolution", "32", "32", "--stage2_resolution", "64", "48",
+                         "--seed", "3", "--device", "cpu"])
+    assert result["batches"] == 2
+    assert len(result["outputs"]) == 3
+    assert sorted(os.listdir(out_dir)) == ["a", "b", "c"]
+    for name in ("a", "b", "c"):
+        frame_dir = out_dir / name / "frames"
+        names = sorted(os.listdir(frame_dir))
+        assert names == [f"{i:03d}.png" for i in range(8)]  # padded to 1 s at --fps 8
+        frames = np.stack([read_png(str(frame_dir / f)) for f in names])
+        assert frames.shape == (8, 64, 48, 3) and frames.dtype == np.uint8
+        assert (frames[t:] == frames[t - 1]).all()
+    assert {"stage1_conditioner", "stage1_sampler", "stage2_dpt", "stage2_sampler",
+            "stage2_io"} <= set(result["phases"])
 
 
 def test_non_png_input_without_cv2_raises(tmp_path, monkeypatch):

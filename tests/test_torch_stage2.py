@@ -312,12 +312,20 @@ def test_blend_alpha_matches_jax_schedule():
 
 
 def test_stage2_training_branch_and_wide_decode_raise(models):
+    """Stage-2 training is not ported; a latent wider than decode_tile_size
+    decodes in tiles (tests/test_torch_full.py), which must exceed the
+    default overlap of 16."""
     _, tm = models
     video = torch.zeros((1, T, 3, RES, RES))
     with pytest.raises(NotImplementedError, match="stage-2 training"):
         tm.add_custom_cond({"video": video, "elevation": torch.zeros(1)}, infer=False)
-    with pytest.raises(NotImplementedError, match="tiled VAE decoding"):
-        tm.decode_first_stage(torch.zeros((1, 97, 8, 4)))
+    old = tm.decode_tile_size
+    tm.decode_tile_size = 16
+    try:
+        with pytest.raises(ValueError, match="must exceed its overlap"):
+            tm.decode_first_stage(torch.zeros((1, 97, 8, 4)))
+    finally:
+        tm.decode_tile_size = old
 
 
 def test_mp4_input_without_reader_raises(tmp_path, monkeypatch):
