@@ -21,7 +21,8 @@
 3. runs each forward kernel (K1, K2, #6 segment attention, K3, #9 GroupNorm
    statistics, #10 LayerNorm) and each backward kernel (#3, #5, #7, and the
    K3 and #10 autograd Functions) against its plain PyTorch version at the
-   main paths' shapes (error against a stated tolerance, CUDA-event times),
+   main paths' shapes, K2 and K3 also at the half batch of --cfg_interval's
+   single passes (error against a stated tolerance, CUDA-event times),
    beside the one PyTorch call that computes the same function, where there
    is one (`library_ms`), and the least time the card could take (`bound_ms`);
 4. runs the full-width stage-1 UNet once at a small input on the card and
@@ -59,7 +60,17 @@
    --batch 1 (two batches handed from stage 1 to stage 2), 16 frames, 25
    steps each stage, both engines resident: 2 × 16 × 1024² frames, the
    launch counts, peak memory, s/asset;
-11. prints the kernel JSON line (launches per path and summed, errors, times,
+11. main path 7: `i2v.main --cfg_interval 0.3 6` as path 1 (CFG on steps
+   15–19, one conditioned pass of 16 frames on the other 20); main path 8:
+   `v2v.main --encoder_reuse 3` on path 1's frames (9 whole UNet calls, 16
+   from the encoder cache); main path 9: `generate_orbit` on one stage-1
+   engine with each other sampler (Heun, Euler ancestral, DPM++(2S) at η =
+   1, LMS at order 4, DPM++(2M)), 4 steps each, then Heun with
+   encoder_reuse=2. Each checks its frames, its UNet calls (`UNetProbe`: by
+   kind and batch, with the median CUDA-event ms of a call) and launches
+   against the plan (`unet_calls`), and prints its sampler seconds beside
+   path 1's or 3's (path 8 also its peak memory);
+12. prints the kernel JSON line (launches per path and summed, errors, times,
    bounds), the card line, and the contract line last.
 
 Any failure raises and exits non-zero.
@@ -202,6 +213,9 @@ K2_SITES = ((2, 16, 4096, 320), (2, 16, 1024, 640), (2, 16, 256, 1280), (2, 16, 
 # #5's sites: the training step's (2 × 16 frames, the stage-1 UNet's four
 # frame-axis sites at 64² to 8²)
 B5_SITES = K2_SITES[:4]
+# K2 at the single-pass steps of --cfg_interval (one video, not CFG-doubled)
+# at stage 1's 64² site: printed, not in the JSON sums
+K2_HALF_SITES = ((1, 16, 4096, 320),)
 
 # K3's cases (shape, act, time-stack view): the 2-D norms of a stage-1 UNet
 # call at 64² (2 × 16 frames), a 32² time stack, the stage-1 and serve (4
@@ -209,6 +223,9 @@ B5_SITES = K2_SITES[:4]
 K3_CASES = (((32, 320, 64, 64), None, False), ((32, 320, 64, 64), "silu", False),
             ((2, 640, 16, 32, 32), "silu", False), ((2, 320, 16, 64, 64), "silu", True),
             ((4, 320, 48, 64, 64), "silu", True), ((32, 320, 128, 128), "silu", False))
+# K3 at the single-pass steps of --cfg_interval (16 frames of one video): a
+# 2-D norm at 64² and the time-stack view; printed, not in the JSON sums
+K3_HALF_CASES = (((16, 320, 64, 64), "silu", False), ((1, 320, 16, 64, 64), "silu", True))
 
 
 def frame_attention_work(b, t, s, c):
@@ -314,7 +331,8 @@ def kernel_phase() -> Results:
     # kernel (as the Pallas kernel), so the gap is a few bf16 ulps of O; a
     # second call gives bitwise the same O. At the stage-1 UNet's four
     # frame-axis sites (T = 16, 64² to 8²) and stage 2's level-1 site (128²)
-    for b, t, s, c in K2_SITES:
+    for (b, t, s, c), summed in [(site, True) for site in K2_SITES] + [
+            (site, False) for site in K2_HALF_SITES]:
         h = c // 64
         base = [torch.randn((b, t, s, c), generator=gen, device=dev, dtype=bf16)
                 for _ in range(3)]
@@ -331,7 +349,7 @@ def kernel_phase() -> Results:
                time_ms(lambda: ta.temporal_attention_reference(q, k, v), reps=3),
                f"B={b} T={t} S={s} C={c}",
                time_ms(lambda: F.scaled_dot_product_attention(*lib)),
-               *frame_attention_work(b, t, s, c))
+               *frame_attention_work(b, t, s, c), summed)
     # K2 off the main paths' shapes, correctness only: every T from 1 to 32
     # that changes the tiling (one or two query tiles, padded keys), D = 64
     # and 128, S = 67 locations (groups of segments that do not divide them)
@@ -388,7 +406,8 @@ def kernel_phase() -> Results:
     # tensor, as the UNet does. Library: F.group_norm (on a contiguous copy
     # for a view), for the cases without SiLU (with it no single call
     # computes the same)
-    for shape, act, view in K3_CASES:
+    for (shape, act, view), summed in [(case, True) for case in K3_CASES] + [
+            (case, False) for case in K3_HALF_CASES]:
         x = _k3_input(shape, view, gen)
         w = 1 + 0.1 * torch.randn((shape[1],), generator=gen, device=dev)
         bia = 0.1 * torch.randn((shape[1],), generator=gen, device=dev)
@@ -405,7 +424,7 @@ def kernel_phase() -> Results:
                time_ms(lambda: gn.group_norm_reference(x, w, bia, 32, 1e-5, act), reps=3),
                f"x{tuple(shape)} act={act}{' (time-stack view)' if view else ''}",
                None if act else time_ms(lambda: F.group_norm(xc, 32, wx, bx, 1e-5)),
-               *group_norm_work(shape))
+               *group_norm_work(shape), summed)
 
     # the stage-2 cases draw from their own generator, so the stage-1 cases
     # above keep their inputs. K1 at stage 2's level-1 site (S = 16384, H5):
@@ -836,11 +855,16 @@ def norm_sites(config_path: str) -> dict:
     p = load_config(config_path)["model"]["params"]
     dd = p["first_stage_config"]["params"]["ddconfig"]
 
-    def count(build, cls) -> int:
+    def count(build, cls, prefix: str = "") -> int:
         with torch.device("meta"):
-            return sum(isinstance(m, cls) for m in build().modules())
+            return sum(isinstance(m, cls) for name, m in build().named_modules()
+                       if name.startswith(prefix))
 
-    return {"unet": count(lambda: instantiate_from_config(p["network_config"]), LayerNorm32),
+    def unet():
+        return instantiate_from_config(p["network_config"])
+
+    return {"unet": count(unet, LayerNorm32),
+            "unet_dec": count(unet, LayerNorm32, "output_blocks."),
             "vit_h": count(vit_h_14, LayerNorm32), "vit_l": count(vit_l_14, LayerNorm32),
             "dpt_ln": count(DPTDepthModel, LayerNorm32), "dpt_gn": count(DPTDepthModel, FoldedGroupNorm),
             "encoder": count(lambda: Encoder(**dd), FoldedGroupNorm),
@@ -871,14 +895,34 @@ def _frame_kernels(t: int, fwd: int, bwd: int) -> dict:
     return counts
 
 
+TWO_CALL_SAMPLERS = ("HeunEDMSampler", "DPMPP2SAncestralSampler")
+
+
+def unet_calls(sampler: str, steps: int, encoder_reuse: int = 0):
+    """(whole, decoder-only) UNet calls of `steps` steps of sampler class
+    `sampler`: Heun and DPM++(2S) call the UNet twice a step but once on
+    the last (σ_next = 0: the correction / the midpoint is skipped), the
+    others once; with `encoder_reuse` k, every call of a step that
+    `reuse_flags` marks decodes from the cache. A CFG-doubled and a
+    single-pass call launch the same kernels."""
+    from hi3d_tpu_torch.diffusion.encoder_reuse import reuse_flags
+
+    reuse = reuse_flags(steps, encoder_reuse) if encoder_reuse else [False] * steps
+    calls = [2 if sampler in TWO_CALL_SAMPLERS and i < steps - 1 else 1 for i in range(steps)]
+    return (sum(c for c, r in zip(calls, reuse) if not r),
+            sum(c for c, r in zip(calls, reuse) if r))
+
+
 def expected_launches(config_path: str, steps: int, path: str, clip_size=None,
-                      assets: int = 1) -> dict:
+                      assets: int = 1, sampler=None, encoder_reuse: int = 0) -> dict:
     """Launches per kernel that the model's plan predicts for one run of
     `path` ("i2v", "train", "v2v", "serve": `assets` assets of `clip_size`
     frames in one batch, "refine": stage 2 on `assets` videos in one batch,
     or "unet_grad": one forward and backward of the UNet alone at
-    `clip_size` frames; the config's clip length by default). The two-stage
-    paths sum these (`full_launches`, `two_stage_launches`).
+    `clip_size` frames; the config's clip length by default), inference
+    with `sampler` (a class name; the config's by default) and
+    `encoder_reuse` (`unet_calls`). The two-stage paths sum these
+    (`full_launches`, `two_stage_launches`).
 
     UNet, per call (inference: one CFG-batched call per sampler step): K1
     and the frame-axis kernel once per transformer block of every
@@ -886,7 +930,8 @@ def expected_launches(config_path: str, steps: int, path: str, clip_size=None,
     `ops.attention.frame_attention_kernel` decides; K3 four times per
     VideoResBlock (spatial and time-stack in/out norms), once per
     transformer `norm`, once for the UNet's `out.0`; #10 once per
-    LayerNorm32 of the UNet. Training (`accumulate_grad_batches` UNet calls
+    LayerNorm32 of the UNet. A decoder-only call (encoder reuse) runs the
+    output blocks and `out` alone: their share of each count. Training (`accumulate_grad_batches` UNet calls
     per step): with `use_checkpoint` every VideoResBlock and
     SpatialVideoTransformer runs its forward twice (forward, then recompute
     in the backward), so K1, the frame kernel, #10 and the blocks' K3
@@ -909,10 +954,15 @@ def expected_launches(config_path: str, steps: int, path: str, clip_size=None,
     depth = [depth] * len(p["channel_mult"]) if isinstance(depth, int) else depth
     inp, mid, out = _build_plan(p["model_channels"], p["channel_mult"], p["num_res_blocks"],
                                 p["attention_resolutions"], depth)
-    specs = [s for block in inp + [mid] + out for s in block]
-    blocks = sum(s[2] for s in specs if s[0] == "attn")
-    n_attn = sum(1 for s in specs if s[0] == "attn")
-    n_res = sum(1 for s in specs if s[0] == "res")
+
+    def part(plan):
+        """(transformer blocks, SpatialVideoTransformers, VideoResBlocks)"""
+        specs = [s for block in plan for s in block]
+        return (sum(s[2] for s in specs if s[0] == "attn"),
+                sum(1 for s in specs if s[0] == "attn"), sum(1 for s in specs if s[0] == "res"))
+
+    blocks, n_attn, n_res = part(inp + [mid] + out)
+    dec_blocks, dec_attn, dec_res = part(out)
     sites = norm_sites(config_path)
     t = clip_size or mp["num_samples"]
     engine_chunk = mp.get("en_and_decode_n_samples_a_time")
@@ -934,15 +984,19 @@ def expected_launches(config_path: str, steps: int, path: str, clip_size=None,
                 "group_stats": calls * sites["encoder"] * (_chunks(batch * t, engine_chunk)
                                                            + _chunks(batch, enc_chunk)),
                 "layer_norm": calls * (fwd * sites["unet"] + sites["vit_h"] + sites["vit_l"])}
-    unet = {"flash_attention": steps * blocks, "flash_attention_backward": 0,
-            **_frame_kernels(t, steps * blocks, 0),
-            "group_norm": steps * (4 * n_res + n_attn + 1)}
+    sampler = sampler or mp["sampler_config"]["target"].rsplit(".", 1)[1]
+    whole, dec = unet_calls(sampler, steps, encoder_reuse)
+    attn = whole * blocks + dec * dec_blocks
+    unet = {"flash_attention": attn, "flash_attention_backward": 0,
+            **_frame_kernels(t, attn, 0),
+            "group_norm": whole * (4 * n_res + n_attn + 1) + dec * (4 * dec_res + dec_attn + 1)}
+    unet_ln = whole * sites["unet"] + dec * sites["unet_dec"]
     if path in ("i2v", "serve"):  # the conditioner encodes each asset's frame 0; the
         # engine decodes the assets' T frames
         return {**unet,
                 "group_stats": sites["encoder"] * _chunks(assets, enc_chunk)
                 + sites["decoder"] * _chunks(assets * t, engine_chunk),
-                "layer_norm": steps * sites["unet"] + sites["vit_h"] + sites["vit_l"]}
+                "layer_norm": unet_ln + sites["vit_h"] + sites["vit_l"]}
     # v2v, refine: the conditioner (DPT on all the frames in one call, then
     # the VAE embedder) and the engine each encode the assets' T frames; the
     # engine decodes them
@@ -951,7 +1005,7 @@ def expected_launches(config_path: str, steps: int, path: str, clip_size=None,
             "group_stats": sites["dpt_gn"] + sites["encoder"] * (_chunks(frames, enc_chunk)
                                                                  + _chunks(frames, engine_chunk))
             + sites["decoder"] * _chunks(frames, engine_chunk),
-            "layer_norm": steps * sites["unet"] + sites["vit_h"] + sites["dpt_ln"]}
+            "layer_norm": unet_ln + sites["vit_h"] + sites["dpt_ln"]}
 
 
 def _sum_launches(*plans) -> dict:
@@ -1137,9 +1191,91 @@ def _check_launches(launches: dict, expected: dict) -> None:
         raise AssertionError(f"kernel launches {launches} != the model's plan {expected}")
 
 
-def main_path(steps: int):
-    """Stage-1 CLI at full width; returns the launch count of each kernel and
-    the output directory (its frames feed main path 3)."""
+class UNetProbe:
+    """While active, records every forward of the UNet: its kind ("whole",
+    or "decoder" when it decodes from an encoder cache), its batch of frames
+    and its CUDA-event time."""
+
+    def __enter__(self):
+        import torch
+
+        from hi3d_tpu_torch.models.unet import VideoUNet
+
+        forward = self._forward = VideoUNet.forward
+        self.calls = []
+
+        def probed(net, x, *args, encoder_cache=None, **kw):
+            events = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            events[0].record()
+            out = forward(net, x, *args, encoder_cache=encoder_cache, **kw)
+            events[1].record()
+            self.calls.append((f"{'decoder' if encoder_cache is not None else 'whole'} "
+                               f"B{x.shape[0]}", events))
+            return out
+
+        VideoUNet.forward = probed
+        return self
+
+    def __exit__(self, *exc):
+        from hi3d_tpu_torch.models.unet import VideoUNet
+
+        VideoUNet.forward = self._forward
+
+    def counts(self) -> dict:
+        """{"whole B32": calls, ...}"""
+        out = {}
+        for key, _ in self.calls:
+            out[key] = out.get(key, 0) + 1
+        return out
+
+    def median_ms(self) -> dict:
+        """Median CUDA-event ms of one forward, by kind and batch."""
+        import torch
+
+        torch.cuda.synchronize()
+        times = {}
+        for key, (a, b) in self.calls:
+            times.setdefault(key, []).append(a.elapsed_time(b))
+        return {key: round(float(np.median(v)), 3) for key, v in times.items()}
+
+
+def _check_calls(label: str, calls: dict, want: dict) -> None:
+    if calls != want:
+        raise AssertionError(f"main path {label}: UNet calls {calls}, want {want}")
+
+
+def _run_printing_phases(tag: str, fn, argv) -> dict:
+    """fn(argv) with its standard output echoed; returns the phase seconds it
+    printed on its `[tag] phases {...}` line."""
+    import contextlib
+    import io
+
+    class Tee(io.TextIOBase):
+        def __init__(self, out):
+            self.out, self.text = out, []
+
+        def write(self, text):
+            self.out.write(text)
+            self.text.append(text)
+            return len(text)
+
+        def flush(self):
+            self.out.flush()
+
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        fn(argv)
+    head = f"[{tag}] phases "
+    lines = [ln for ln in "".join(tee.text).splitlines() if ln.startswith(head)]
+    return json.loads(lines[-1][len(head):])
+
+
+def main_path(steps: int, flags=(), label: str = "1", want_calls=None):
+    """Stage-1 CLI at full width (with `flags`, path 7's --cfg_interval);
+    checks the frames, the UNet's calls (`want_calls`: by kind and batch;
+    25 CFG-doubled calls of 32 frames by default) and the launches; returns
+    the launch count of each kernel, the output directory (its frames feed
+    main paths 3 and 8) and the phase seconds."""
     import torch
 
     from hi3d_tpu_torch.pipelines import i2v
@@ -1149,40 +1285,59 @@ def main_path(steps: int):
     expected = expected_launches(config, steps, "i2v")
     reset_launches()
     t0 = time.perf_counter()
-    i2v.main(["--denoise_config", config, "--image_path", os.path.join(ROOT, "demo", "3.png"),
-              "--output_dir", out_dir, "--skip_rembg", "--device", "cuda", "--seed", "0",
-              "--num_steps", str(steps)])
+    with UNetProbe() as probe:
+        phases = _run_printing_phases("i2v", i2v.main, [
+            "--denoise_config", config, "--image_path", os.path.join(ROOT, "demo", "3.png"),
+            "--output_dir", out_dir, "--skip_rembg", "--device", "cuda", "--seed", "0",
+            "--num_steps", str(steps), *flags])
     launches = read_launches(expected)
-    print(f"[smoke] main path 1 {time.perf_counter() - t0:.1f} s, launches {launches}", flush=True)
+    calls = probe.counts()
+    print(f"[smoke] main path {label} {time.perf_counter() - t0:.1f} s, sampler "
+          f"{phases['sampler']} s, UNet calls {calls}, median ms a UNet call "
+          f"{probe.median_ms()}, launches {launches}", flush=True)
     torch.cuda.empty_cache()
     _check_frames(os.path.join(out_dir, "first_step", "frames"), (16, 512, 512, 3))
+    _check_calls(label, calls, want_calls or {"whole B32": steps})
     _check_launches(launches, expected)
-    return launches, out_dir
+    return launches, out_dir, phases
 
 
-def stage2_path(steps: int, stage1_dir: str) -> dict:
+def stage2_path(steps: int, stage1_dir: str, flags=(), label: str = "3", encoder_reuse: int = 0,
+                want_calls=None):
     """Stage-2 CLI at full width on main path 1's frames (16×512² → 16×1024²,
-    random weights, the DPT's included); returns the launch count of each
-    kernel."""
+    random weights, the DPT's included; with `flags`, path 8's
+    --encoder_reuse, written to a directory of its own); checks the refined
+    frames, the UNet's calls (by kind and batch; 25 CFG-doubled whole calls
+    by default) and the launches; returns the launch count of each kernel,
+    the phase seconds and the peak allocated GB."""
     import torch
 
     from hi3d_tpu_torch.pipelines import v2v
 
     config = os.path.join(ROOT, "configs", "inference-v02.yaml")
-    expected = expected_launches(config, steps, "v2v")
+    out_dir = stage1_dir if not flags else tempfile.mkdtemp(
+        prefix="chip_smoke_v2v_", dir=os.path.join(ROOT, "outputs"))
+    expected = expected_launches(config, steps, "v2v", encoder_reuse=encoder_reuse)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    v2v.main(["--denoise_config", config, "--image_path", os.path.join(ROOT, "demo", "3.png"),
-              "--output_dir", stage1_dir, "--device", "cuda", "--seed", "0",
-              "--num_steps", str(steps)])
+    with UNetProbe() as probe:
+        phases = _run_printing_phases("v2v", v2v.main, [
+            "--denoise_config", config, "--image_path", os.path.join(ROOT, "demo", "3.png"),
+            "--video_path", os.path.join(stage1_dir, "first_step", "frames"),
+            "--output_dir", out_dir, "--device", "cuda", "--seed", "0",
+            "--num_steps", str(steps), *flags])
     launches = read_launches(expected)
-    print(f"[smoke] main path 3 {time.perf_counter() - t0:.1f} s, peak allocated "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches {launches}", flush=True)
+    calls = probe.counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[smoke] main path {label} {time.perf_counter() - t0:.1f} s, sampler "
+          f"{phases['sampler']} s, peak allocated {peak:.2f} GB, UNet calls {calls}, median ms "
+          f"a UNet call {probe.median_ms()}, launches {launches}", flush=True)
     torch.cuda.empty_cache()
-    _check_frames(os.path.join(stage1_dir, "second_step_video", "frames"), (16, 1024, 1024, 3))
+    _check_frames(os.path.join(out_dir, "second_step_video", "frames"), (16, 1024, 1024, 3))
+    _check_calls(label, calls, want_calls or {"whole B32": steps})
     _check_launches(launches, expected)
-    return launches
+    return launches, phases, peak
 
 
 def _demo_rgba() -> np.ndarray:
@@ -1626,6 +1781,63 @@ def two_stage_path(steps: int) -> dict:
         _check_frames(os.path.join(out_dir, "views", name, "frames"), (FULL_CLIP, 1024, 1024, 3))
     _check_launches(launches, expected)
     return launches
+
+
+OTHER_SAMPLERS = ("HeunEDMSampler", "EulerAncestralSampler", "DPMPP2SAncestralSampler",
+                  "LinearMultistepSampler", "DPMPP2MSampler")
+SAMPLER_STEPS = 4
+
+
+def samplers_path(steps: int = SAMPLER_STEPS) -> dict:
+    """Main path 9: one full-width stage-1 engine (configs/inference-v01.yaml,
+    random weights), `i2v.generate_orbit` on demo/3.png (16 × 512²) once
+    with each other sampler, built from the config's sampler_config with
+    only `target` changed (DPM++(2S) at η = 1, LMS at order 4), `steps`
+    steps each, then Heun with encoder_reuse=2. Checks finite frames of the
+    expected shape, the UNet's calls and the launches against the plan for
+    each run; prints each sampler's seconds. Returns the launches summed
+    over the runs."""
+    import torch
+
+    from hi3d_tpu_torch.config import instantiate_from_config, load_config
+    from hi3d_tpu_torch.pipelines import i2v
+    from hi3d_tpu_torch.pipelines.common import load_inference_model
+
+    config = os.path.join(ROOT, "configs", "inference-v01.yaml")
+    sampler_config = load_config(config)["model"]["params"]["sampler_config"]
+    t0 = time.perf_counter()
+    model = load_inference_model(config, None, "cuda", tag="samplers", seed=0)
+    frames = i2v.prepare_frames(os.path.join(ROOT, "demo", "3.png"), model.num_samples,
+                                (512, 512))
+    total = {}
+    for name, reuse in [(n, 0) for n in OTHER_SAMPLERS] + [("HeunEDMSampler", 2)]:
+        model.sampler = instantiate_from_config(
+            {**sampler_config, "target": f"sgm.modules.diffusionmodules.sampling.{name}"})
+        expected = expected_launches(config, steps, "i2v", sampler=name, encoder_reuse=reuse)
+        whole, dec = unet_calls(name, steps, reuse)
+        timer = i2v.PhaseTimer(model.device)
+        reset_launches()
+        with UNetProbe() as probe:
+            out = i2v.generate_orbit(model, frames, generator=torch.Generator("cuda").manual_seed(0),
+                                     num_steps=steps, encoder_reuse=reuse, output_dtype="uint8",
+                                     timer=timer)
+        launches = read_launches(expected)
+        calls = probe.counts()
+        label = f"{name}{f' encoder_reuse={reuse}' if reuse else ''}"
+        print(f"[samplers] {label}, {steps} steps: sampler {timer.rows['sampler']:.3f} s, UNet "
+              f"calls {calls}, median ms a UNet call {probe.median_ms()}, frames mean "
+              f"{out.mean():.2f} std {out.std():.2f}, launches {launches}", flush=True)
+        if out.shape != frames.shape or out.dtype != np.uint8:
+            raise AssertionError(f"{label}: frames {out.shape} {out.dtype}")
+        _check_calls(f"9 ({label})", calls,
+                     {k: v for k, v in (("whole B32", whole), ("decoder B32", dec)) if v})
+        _check_launches(launches, expected)
+        total = _sum_launches(launches, total) if total else launches
+    print(f"[samplers] main path 9 {time.perf_counter() - t0:.1f} s (model build included)",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return total
 
 
 def _device_kernels(prof) -> list:
@@ -2084,7 +2296,7 @@ def main() -> None:
     by_path = {"unet_grad_t40": unet_gradient_phase(inference, b=1, t=40)}
     print(f"[smoke] main path 1: configs/inference-v01.yaml, 16×512², {NUM_STEPS} steps, "
           "random weights", flush=True)
-    by_path["i2v"], stage1_dir = main_path(NUM_STEPS)
+    by_path["i2v"], stage1_dir, phases1 = main_path(NUM_STEPS)
     print(f"[smoke] main path 2: configs/train-v01.yaml, {TRAIN_STEPS} steps, random weights",
           flush=True)
     by_path["train"] = training_path(TRAIN_STEPS)
@@ -2093,7 +2305,7 @@ def main() -> None:
     by_path["train48"] = long_clip_training_path()
     print(f"[smoke] main path 3: configs/inference-v02.yaml, 16×1024², {STAGE2_STEPS} steps, "
           "random weights, on main path 1's frames", flush=True)
-    by_path["v2v"] = stage2_path(STAGE2_STEPS, stage1_dir)
+    by_path["v2v"], phases3, peak3 = stage2_path(STAGE2_STEPS, stage1_dir)
     print(f"[smoke] main path 4: serve --mode orbit, configs/inference-v01.yaml, "
           f"{SERVE_ASSETS} assets × {SERVE_CLIP}×512², {NUM_STEPS} steps, random weights",
           flush=True)
@@ -2106,6 +2318,25 @@ def main() -> None:
           f"{FULL_CLIP}×1024² in batches of 1, {NUM_STEPS} steps each stage, random weights",
           flush=True)
     by_path["two_stage"] = two_stage_path(NUM_STEPS)
+    print(f"[smoke] main path 7: i2v --cfg_interval 0.3 6, configs/inference-v01.yaml, 16×512², "
+          f"{NUM_STEPS} steps (CFG on steps 15–19, single passes elsewhere), random weights",
+          flush=True)
+    by_path["i2v_cfg_interval"], _, phases7 = main_path(
+        NUM_STEPS, ["--cfg_interval", "0.3", "6"], "7", {"whole B32": 5, "whole B16": 20})
+    print(f"[smoke] sampler seconds, stage 1: path 7 {phases7['sampler']} s, path 1 "
+          f"{phases1['sampler']} s", flush=True)
+    print(f"[smoke] main path 8: v2v --encoder_reuse 3, configs/inference-v02.yaml, 16×1024², "
+          f"{STAGE2_STEPS} steps (9 whole, 16 decoder-only), random weights, on main path 1's "
+          "frames", flush=True)
+    by_path["v2v_encoder_reuse"], phases8, peak8 = stage2_path(
+        STAGE2_STEPS, stage1_dir, ["--encoder_reuse", "3"], "8", 3,
+        {"whole B32": 9, "decoder B32": 16})
+    print(f"[smoke] stage 2: sampler path 8 {phases8['sampler']} s, path 3 {phases3['sampler']} "
+          f"s; peak allocated path 8 {peak8:.2f} GB, path 3 {peak3:.2f} GB", flush=True)
+    print(f"[smoke] main path 9: generate_orbit with {', '.join(OTHER_SAMPLERS)}, then Heun with "
+          f"encoder_reuse=2; configs/inference-v01.yaml, 16×512², {SAMPLER_STEPS} steps each, "
+          "random weights", flush=True)
+    by_path["samplers"] = samplers_path()
     print(f"[smoke] all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
 
     rows = []

@@ -14,6 +14,34 @@ from ..utils.misc import append_dims
 _BATCHED_COND_KEYS = ("vector", "crossattn", "concat")
 
 
+def _merge_cond(c: Dict, uc: Dict, extra_keys=()) -> Dict:
+    """cat([uc, c]) of the batched keys; the other keys pass through from c."""
+    return {k: torch.cat([uc[k], c[k]], dim=0) if k in _BATCHED_COND_KEYS or k in extra_keys
+            else c[k] for k in c}
+
+
+class IdentityGuider:
+    def __call__(self, x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def prepare_inputs(self, x, s, c: Dict, uc: Dict):
+        return x, s, dict(c)
+
+
+class VanillaCFG:
+    """Single-scale CFG: pred = uc + scale · (c − uc)."""
+
+    def __init__(self, scale: float):
+        self.scale = float(scale)
+
+    def __call__(self, x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+        x_u, x_c = x.chunk(2, dim=0)
+        return x_u + self.scale * (x_c - x_u)
+
+    def prepare_inputs(self, x, s, c: Dict, uc: Dict):
+        return torch.cat([x, x], dim=0), torch.cat([s, s], dim=0), _merge_cond(c, uc)
+
+
 class LinearPredictionGuider:
     """Per-frame CFG scale rising linearly from min_scale to max_scale over T."""
 
@@ -38,10 +66,5 @@ class LinearPredictionGuider:
         return out.reshape((b * t,) + out.shape[2:])
 
     def prepare_inputs(self, x, s, c: Dict, uc: Dict):
-        cond = {}
-        for k in c:
-            if k in _BATCHED_COND_KEYS or k in self.additional_cond_keys:
-                cond[k] = torch.cat([uc[k], c[k]], dim=0)
-            else:
-                cond[k] = c[k]
-        return torch.cat([x, x], dim=0), torch.cat([s, s], dim=0), cond
+        return (torch.cat([x, x], dim=0), torch.cat([s, s], dim=0),
+                _merge_cond(c, uc, self.additional_cond_keys))

@@ -18,7 +18,9 @@ drives them.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import functools
+import inspect
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -34,6 +36,13 @@ def _fit_indicator(indicator: torch.Tensor, x: torch.Tensor, num_video_frames: i
     """A CFG-doubled (2b, t) indicator for an un-doubled x takes its c half."""
     b = x.shape[0] // num_video_frames
     return indicator[b:] if indicator.shape[0] == 2 * b else indicator
+
+
+@functools.lru_cache(maxsize=32)
+def _sampler_call_params(cls) -> frozenset:
+    """The parameter names of a sampler class's `__call__`: the modes a
+    sampler takes are the ones its signature names."""
+    return frozenset(inspect.signature(cls.__call__).parameters)
 
 
 class DiffusionEngine(nn.Module):
@@ -151,14 +160,53 @@ class DiffusionEngine(nn.Module):
 
         return self._chunked(dec, z.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
+    def make_denoiser_fn(self, num_video_frames: int, image_only_indicator: torch.Tensor,
+                     cached: bool = False):
+        """denoiser(x, sigma, cond) over the UNet with the bound frame count and
+        indicator (its conditioned half on an un-doubled x); `cached`:
+        denoiser(x, sigma, cond, cache) → (denoised, cache), where cache None
+        runs the whole UNet and returns its fresh (skips, middle h) and a
+        given cache decodes from it and is passed through (encoder reuse)."""
+        t = num_video_frames
+
+        def bound(xx, **kw):
+            return dict(num_video_frames=t,
+                        image_only_indicator=_fit_indicator(image_only_indicator, xx, t), **kw)
+
+        if not cached:
+            return lambda xx, sigma, c: self.denoiser(self.model, xx, sigma, c, **bound(xx))
+
+        def dfn(xx, sigma, c, cache=None):
+            if cache is not None:
+                return self.denoiser(self.model, xx, sigma, c,
+                                     **bound(xx, encoder_cache=cache)), cache
+            cell = {}
+
+            def network(x_in, c_noise, cc, **extra):
+                out, cell["cache"] = self.model(x_in, c_noise, cc, return_encoder_cache=True,
+                                                **extra)
+                return out
+
+            return self.denoiser(network, xx, sigma, c, **bound(xx)), cell["cache"]
+
+        return dfn
+
     @torch.no_grad()
     def sample(self, cond: Dict, uc: Optional[Dict] = None, shape: Optional[Sequence[int]] = None,
                num_video_frames: Optional[int] = None,
                image_only_indicator: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None, randn=None,
-               num_steps: Optional[int] = None) -> torch.Tensor:
-        """Run the CFG sampling loop. `shape` and `randn` (optional initial
-        unit noise) are channels-last (T, h, w, 4); so is the result."""
+               num_steps: Optional[int] = None, encoder_reuse: int = 0,
+               cfg_interval: Optional[Tuple[float, float]] = None) -> torch.Tensor:
+        """Run the sampling loop. `shape` and `randn` (optional initial unit
+        noise) are channels-last (T, h, w, 4); so is the result. `generator`
+        draws the initial noise and the sampler's own (churn, ancestral).
+
+        `encoder_reuse=k`: the UNet encoder runs only every k-th step
+        (approximate for k ≥ 2); `cfg_interval=(lo, hi)`: CFG only where
+        σ ∈ [lo, hi] (exact when it covers the schedule). Both are opt-in,
+        mutually exclusive and taken only by samplers whose `__call__` has
+        the parameter (the EDM Euler/Heun family)."""
         device = self.device
         if randn is None:
             randn = torch.randn(tuple(shape), generator=generator, device=device)
@@ -168,14 +216,21 @@ class DiffusionEngine(nn.Module):
         if image_only_indicator is None:
             image_only_indicator = torch.zeros((2 * (randn.shape[0] // t), t), device=device)
         x = randn.permute(0, 3, 1, 2).to(self.compute_dtype).contiguous()
-
-        def denoiser(xx, sigma, c):
-            return self.denoiser(
-                self.model, xx, sigma, c, num_video_frames=t,
-                image_only_indicator=_fit_indicator(image_only_indicator, xx, t),
-            )
-
-        out = self.sampler(denoiser, x, cond, uc=uc, num_steps=num_steps)
+        params = _sampler_call_params(type(self.sampler))
+        if encoder_reuse and cfg_interval is not None:
+            raise ValueError("cfg_interval and encoder_reuse are mutually exclusive")
+        kw = {}
+        if encoder_reuse:
+            kw["encoder_reuse"] = int(encoder_reuse)
+        if cfg_interval is not None:
+            kw["cfg_interval"] = tuple(cfg_interval)
+        for name in kw:
+            if name not in params:
+                raise ValueError(f"sampler {type(self.sampler).__name__} does not support "
+                                 f"{name} (EDM Euler/Heun family only)")
+        denoiser = self.make_denoiser_fn(t, image_only_indicator, cached=bool(encoder_reuse))
+        out = self.sampler(denoiser, x, cond, uc=uc, num_steps=num_steps, generator=generator,
+                           **kw)
         return out.permute(0, 2, 3, 1)
 
 

@@ -220,14 +220,22 @@ class VideoUNet(nn.Module):
         return h
 
     def forward(self, x, timesteps, context=None, y=None,
-                num_video_frames: Optional[int] = None, image_only_indicator=None):
+                num_video_frames: Optional[int] = None, image_only_indicator=None,
+                encoder_cache: Optional[Tuple[Tuple[torch.Tensor, ...], torch.Tensor]] = None,
+                return_encoder_cache: bool = False):
+        """`encoder_cache` / `return_encoder_cache` serve encoder propagation
+        (diffusion/encoder_reuse.py): a forward can return its (skip
+        activations, middle h), and a forward given them skips the input and
+        middle blocks and decodes from them. Exact when the cache comes from
+        the same (x, timesteps)."""
         weight_dtype = self.time_embed[0].weight.dtype
         dtype = self.dtype or weight_dtype
         with torch.autocast(x.device.type, dtype=dtype, enabled=dtype != weight_dtype):
             return self._forward(x, timesteps, context, y, num_video_frames,
-                                 image_only_indicator, dtype)
+                                 image_only_indicator, dtype, encoder_cache, return_encoder_cache)
 
-    def _forward(self, x, timesteps, context, y, num_video_frames, image_only_indicator, dtype):
+    def _forward(self, x, timesteps, context, y, num_video_frames, image_only_indicator, dtype,
+                 encoder_cache=None, return_encoder_cache=False):
         bt = x.shape[0]
         t = num_video_frames
         emb = self.time_embed(timestep_embedding(timesteps, self.model_channels).to(dtype))
@@ -240,13 +248,19 @@ class VideoUNet(nn.Module):
             context = context.to(dtype)
         if self.num_classes is not None:
             emb = emb + self.label_emb(y.to(dtype))
-        h = x.to(dtype)
-        skips = []
-        for block in self.input_blocks:
-            h = self._run(block, h, emb, context, t, image_only_indicator)
-            skips.append(h)
-        h = self._run(self.middle_block, h, emb, context, t, image_only_indicator)
+        if encoder_cache is None:
+            h = x.to(dtype)
+            skips = []
+            for block in self.input_blocks:
+                h = self._run(block, h, emb, context, t, image_only_indicator)
+                skips.append(h)
+            h = self._run(self.middle_block, h, emb, context, t, image_only_indicator)
+        else:
+            skips, h = encoder_cache
+        cache = (tuple(skips), h)
+        skips = list(skips)  # the decoder pops from a copy: `cache` stays whole
         for block in self.output_blocks:
             h = torch.cat([h, skips.pop()], dim=1)
             h = self._run(block, h, emb, context, t, image_only_indicator)
-        return self.out(h)
+        out = self.out(h)
+        return (out, cache) if return_encoder_cache else out

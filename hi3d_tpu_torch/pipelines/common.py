@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import argparse
 import os
 from typing import Iterable, Optional, Union
 
@@ -53,3 +54,16 @@ def load_inference_model(config_path: str, ckpt_path: Optional[str], device="cud
     if clip_size is not None:
         model.num_samples = int(clip_size)
     return model
+
+
+def add_turbo_arguments(p: argparse.ArgumentParser) -> None:
+    """--encoder_reuse and --cfg_interval, the opt-in approximations of every
+    inference CLI (off by default: the exact reference semantics)."""
+    p.add_argument("--encoder_reuse", type=int, default=0,
+                   help="turbo: run the UNet encoder only every k-th sampler step, decode the "
+                        "rest from cached features (Faster Diffusion; APPROXIMATE for k >= 2; "
+                        "0 = exact reference semantics)")
+    p.add_argument("--cfg_interval", type=float, nargs=2, default=None, metavar=("LO", "HI"),
+                   help="turbo: apply CFG only on steps with sigma in [LO, HI], a single "
+                        "conditioned UNet pass elsewhere (guidance interval, arXiv 2404.07724; "
+                        "APPROXIMATE unless the interval covers the whole sigma schedule)")

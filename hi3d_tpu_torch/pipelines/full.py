@@ -14,8 +14,8 @@ paths, the stage seconds and the scores. A stage given as a factory is
 built when its turn comes and released after it, so the two engines are
 never resident together.
 
-`--encoder_reuse` and `--cfg_interval` (opt-in approximations of the JAX
-CLI) are not ported.
+`--encoder_reuse` and `--cfg_interval` (opt-in approximations, off by
+default) apply to both stages.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from ..models.clip import AestheticMLP, clip_normalize, resize_bilinear, vit_l_1
 from ..utils.image import load_image_rgb
 from ..utils.video import import_video
 from . import i2v, v2v
+from .common import add_turbo_arguments
 
 
 class ViewScorer:
@@ -120,6 +121,8 @@ def run_two_stage(
     scorer: Optional[ViewScorer] = None,
     score_views: bool = True,
     num_steps: Optional[int] = None,  # sampler step override, both stages
+    encoder_reuse: int = 0,  # turbo for both stages (approximate; 0 = exact)
+    cfg_interval=None,  # (lo, hi): CFG only where σ ∈ [lo, hi], both stages
 ) -> Dict:
     """Stage 1 → stage 2 → scoring; returns the paths, the stage seconds and
     the metrics, also written to `<output_dir>/metrics.json`.
@@ -135,7 +138,8 @@ def run_two_stage(
     m1 = stage1_model() if owns1 else stage1_model
     first_mp4 = i2v.run_pipeline(m1, image_path, output_dir, elevation=elevation,
                                  clip_size=clip_size, resolution=stage1_resolution, seed=seed,
-                                 fps=fps, skip_rembg=skip_rembg, num_steps=num_steps)
+                                 fps=fps, skip_rembg=skip_rembg, num_steps=num_steps,
+                                 encoder_reuse=encoder_reuse, cfg_interval=cfg_interval)
     del m1
     if owns1:
         _release()
@@ -149,7 +153,8 @@ def run_two_stage(
     device = m2.device
     second_mp4 = v2v.run_pipeline(m2, white, first_mp4, output_dir, elevation=elevation,
                                   clip_size=clip_size, resolution=stage2_resolution, seed=seed,
-                                  fps=fps, num_steps=num_steps)
+                                  fps=fps, num_steps=num_steps, encoder_reuse=encoder_reuse,
+                                  cfg_interval=cfg_interval)
     del m2
     if owns2:
         _release()
@@ -196,6 +201,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     p.add_argument("--vae_bf16", action="store_true", help="cast the VAEs to bf16 too")
     p.add_argument("--num_steps", type=int, default=None,
                    help="override both stages' sampler step count (configs: 25)")
+    add_turbo_arguments(p)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     device = torch.device(args.device)
@@ -217,7 +223,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             clip_size=args.clip_size, stage1_resolution=args.stage1_resolution,
             stage2_resolution=args.stage2_resolution, seed=args.seed, fps=args.fps,
             skip_rembg=args.skip_rembg, score_views=not args.no_metrics,
-            num_steps=args.num_steps)
+            num_steps=args.num_steps, encoder_reuse=args.encoder_reuse,
+            cfg_interval=args.cfg_interval)
 
     if args.profile_dir:
         from torch.profiler import ProfilerActivity, profile

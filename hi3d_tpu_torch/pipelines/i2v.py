@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..utils.image import load_image_rgb, remove_background, resize_center_crop
+from .common import add_turbo_arguments
 from ..utils.video import denorm_to_uint8, export_to_video, range_from_uint8, tensor2vid
 
 UC_ZERO_KEYS = ("cond_frames", "cond_frames_without_noise")
@@ -61,6 +62,8 @@ def generate_orbit(
     num_steps: Optional[int] = None,
     randn=None,  # (T, h/8, w/8, 4) unit noise
     batch_overrides: Optional[Dict] = None,  # applied after add_custom_cond
+    encoder_reuse: int = 0,  # turbo: the UNet encoder every k-th step (approximate)
+    cfg_interval=None,  # (lo, hi): CFG only where σ ∈ [lo, hi] (turbo)
     output_dtype: str = "float32",
     timer: Optional[PhaseTimer] = None,
 ) -> np.ndarray:
@@ -86,7 +89,8 @@ def generate_orbit(
     )
     timer.mark("conditioner")
     samples = model.sample(cond=c, uc=uc, shape=(t, h // 8, w // 8, 4), num_video_frames=t,
-                           generator=generator, randn=randn, num_steps=num_steps)
+                           generator=generator, randn=randn, num_steps=num_steps,
+                           encoder_reuse=encoder_reuse, cfg_interval=cfg_interval)
     timer.mark("sampler")
     decoded = model.decode_first_stage(samples)
     if not bool(torch.isfinite(decoded).all()):
@@ -103,7 +107,8 @@ def generate_orbit(
 def run_pipeline(model, image_path: str, output_dir: str, elevation: float = 0.0,
                  clip_size: int = 16, resolution: Sequence[int] = (512, 512),
                  num_iter: int = 1, seed: Optional[int] = None, fps: int = 8,
-                 skip_rembg: bool = False, num_steps: Optional[int] = None) -> str:
+                 skip_rembg: bool = False, num_steps: Optional[int] = None,
+                 encoder_reuse: int = 0, cfg_interval=None) -> str:
     """Full stage-1 CLI behaviour; returns the mp4 path (or the frames
     directory when no video writer imports)."""
     device = model.device
@@ -122,7 +127,8 @@ def run_pipeline(model, image_path: str, output_dir: str, elevation: float = 0.0
     out_frames: List[np.ndarray] = []
     for _ in range(num_iter):
         video = generate_orbit(model, frames, elevation=elevation, generator=generator,
-                               num_steps=num_steps, output_dtype="uint8", timer=timer)
+                               num_steps=num_steps, encoder_reuse=encoder_reuse,
+                               cfg_interval=cfg_interval, output_dtype="uint8", timer=timer)
         new = tensor2vid(video)
         # consecutive orbits share the boundary frame (reference :108-112)
         out_frames.extend(new if not out_frames else new[1:])
@@ -151,6 +157,7 @@ def main(argv: Optional[List[str]] = None) -> str:
     p.add_argument("--skip_rembg", action="store_true")
     p.add_argument("--num_steps", type=int, default=None,
                    help="override the config's sampler step count")
+    add_turbo_arguments(p)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
@@ -164,7 +171,8 @@ def main(argv: Optional[List[str]] = None) -> str:
     t0 = time.perf_counter()
     kw = dict(elevation=args.elevation, clip_size=args.clip_size, resolution=args.resolution,
               num_iter=args.num_iter, seed=args.seed, skip_rembg=args.skip_rembg,
-              num_steps=args.num_steps)
+              num_steps=args.num_steps, encoder_reuse=args.encoder_reuse,
+              cfg_interval=args.cfg_interval)
     if args.profile_dir:
         from torch.profiler import ProfilerActivity, profile
 

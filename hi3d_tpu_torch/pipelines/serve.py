@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from ..utils.image import load_image_rgb, resize_center_crop
 from ..utils.video import denorm_to_uint8, export_to_video, tensor2vid
+from .common import add_turbo_arguments
 from .i2v import UC_ZERO_KEYS, PhaseTimer
 
 
@@ -74,6 +75,8 @@ class OrbitServer:
         generator: Optional[torch.Generator] = None,
         randn=None,  # (B·T, H/8, W/8, 4) unit noise
         batch_overrides: Optional[Dict] = None,  # applied after add_custom_cond
+        encoder_reuse: int = 0,  # turbo (approximate; 0 = exact)
+        cfg_interval=None,  # (lo, hi): CFG only where σ ∈ [lo, hi] (turbo)
         output_dtype: str = "float32",
         timer: Optional[PhaseTimer] = None,
     ) -> np.ndarray:
@@ -85,7 +88,8 @@ class OrbitServer:
         c, uc = self.condition(images, elevations, generator, batch_overrides)
         timer.mark("conditioner")
         samples = model.sample(cond=c, uc=uc, shape=(b * t, h // 8, w // 8, 4),
-                               num_video_frames=t, generator=generator, randn=randn)
+                               num_video_frames=t, generator=generator, randn=randn,
+                               encoder_reuse=encoder_reuse, cfg_interval=cfg_interval)
         timer.mark("sampler")
         decoded = model.decode_first_stage(samples)
         if not bool(torch.isfinite(decoded).all()):
@@ -115,7 +119,8 @@ class RefineServer:
     def refine(self, videos, elevations: Optional[Sequence[float]] = None,
                masks: Optional[np.ndarray] = None,
                generator: Optional[torch.Generator] = None, init_noise=None,
-               batch_overrides: Optional[Dict] = None, output_dtype: str = "float32",
+               batch_overrides: Optional[Dict] = None, encoder_reuse: int = 0,
+               cfg_interval=None, output_dtype: str = "float32",
                timer: Optional[PhaseTimer] = None) -> np.ndarray:
         """videos (B, T, H, W, 3), uint8 or [-1, 1] float, numpy or a tensor →
         (B, T, H, W, 3), float32 in [-1, 1] or uint8 (`output_dtype`)."""
@@ -123,8 +128,9 @@ class RefineServer:
 
         return blend_refine_batch(self.model, videos, masks=masks, elevations=elevations,
                                   generator=generator, init_noise=init_noise,
-                                  batch_overrides=batch_overrides, output_dtype=output_dtype,
-                                  timer=timer)
+                                  batch_overrides=batch_overrides,
+                                  encoder_reuse=encoder_reuse, cfg_interval=cfg_interval,
+                                  output_dtype=output_dtype, timer=timer)
 
 
 class TwoStageServer:
@@ -157,24 +163,28 @@ class TwoStageServer:
                           mode="bilinear", align_corners=False, antialias=False)
         return y.permute(0, 2, 3, 1).reshape(b, t, *stage2_hw, c)
 
-    def _stage2(self, videos, elevations, generator, stage2_hw, output_dtype, timer):
+    def _stage2(self, videos, elevations, generator, stage2_hw, turbo, output_dtype, timer):
         videos = self._to_stage2_res(videos, stage2_hw, self.refine.model.device)
         return self.refine.refine(videos, elevations=elevations, generator=generator,
-                                  output_dtype=output_dtype, timer=timer)
+                                  output_dtype=output_dtype, timer=timer, **turbo)
 
     def generate(self, images: np.ndarray, elevations: Optional[Sequence[float]] = None,
                  generators=None, stage2_hw: Optional[Sequence[int]] = None,
-                 output_dtype: str = "float32", timers=(None, None)) -> np.ndarray:
+                 encoder_reuse: int = 0, cfg_interval=None, output_dtype: str = "float32",
+                 timers=(None, None)) -> np.ndarray:
         """images (B, H1, W1, 3) in [-1, 1] → refined (B, T, H2, W2, 3);
         `generators` is a (stage 1, stage 2) pair, batch 0 of seed 0 by
-        default."""
+        default; the turbo modes apply to both stages."""
+        turbo = dict(encoder_reuse=encoder_reuse, cfg_interval=cfg_interval)
         g1, g2 = generators or self.stage_generators(0, 0)
-        videos = self.orbit.generate(images, elevations=elevations, generator=g1, timer=timers[0])
-        return self._stage2(videos, elevations, g2, stage2_hw, output_dtype, timers[1])
+        videos = self.orbit.generate(images, elevations=elevations, generator=g1, timer=timers[0],
+                                     **turbo)
+        return self._stage2(videos, elevations, g2, stage2_hw, turbo, output_dtype, timers[1])
 
     def generate_stream(self, batches, elevations=None, seed: int = 0,
-                        stage2_hw: Optional[Sequence[int]] = None,
-                        output_dtype: str = "float32", timers=(None, None)):
+                        stage2_hw: Optional[Sequence[int]] = None, encoder_reuse: int = 0,
+                        cfg_interval=None, output_dtype: str = "float32",
+                        timers=(None, None)):
         """Yield the refined videos of each batch of `batches`, in order,
         stage 1 of the next batch running in a producer thread meanwhile (a
         handoff queue of one). `elevations` is a scalar for every asset
@@ -185,6 +195,7 @@ class TwoStageServer:
         import queue
         import threading
 
+        turbo = dict(encoder_reuse=encoder_reuse, cfg_interval=cfg_interval)
         if np.isscalar(elevations):
             scalar_elev, elevations = float(elevations), None
         else:
@@ -227,7 +238,7 @@ class TwoStageServer:
                     if timers[0] is not None:
                         timers[0].mark("wait")
                     videos = self.orbit.generate(images, elevations=elev, generator=g1,
-                                                 timer=timers[0])
+                                                 timer=timers[0], **turbo)
                     if not _put((videos, elev, g2)):
                         return
             except Exception as e:  # raised by the consumer
@@ -245,7 +256,7 @@ class TwoStageServer:
                 videos, elev, g2 = item
                 if timers[1] is not None:
                     timers[1].mark("wait")
-                yield self._stage2(videos, elev, g2, stage2_hw, output_dtype, timers[1])
+                yield self._stage2(videos, elev, g2, stage2_hw, turbo, output_dtype, timers[1])
         finally:
             stop.set()
             t.join(timeout=30)
@@ -309,8 +320,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--fps", type=int, default=8)
     p.add_argument("--vae_bf16", action="store_true", help="cast the VAEs to bf16 too")
+    add_turbo_arguments(p)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
+    turbo = dict(encoder_reuse=args.encoder_reuse, cfg_interval=args.cfg_interval)
 
     paths = sorted(q for pat in ("*.png", "*.jpg", "*.jpeg", "*.webp")
                    for q in glob.glob(os.path.join(args.image_dir, pat)))
@@ -357,14 +370,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         generator.manual_seed(args.seed)
         for i, chunk in enumerate(batches):
             export(server.generate(chunk, elevations=[args.elevation] * len(chunk),
-                                   generator=generator, output_dtype="uint8", timer=timer), i * bsz)
+                                   generator=generator, output_dtype="uint8", timer=timer,
+                                   **turbo), i * bsz)
             timer.mark("io")
         phases = dict(timer.rows)
     else:
         timer2 = PhaseTimer(model2.device)
         stream = TwoStageServer(model, model2).generate_stream(
             batches, elevations=args.elevation, seed=args.seed,
-            stage2_hw=tuple(args.stage2_resolution), output_dtype="uint8", timers=(timer, timer2))
+            stage2_hw=tuple(args.stage2_resolution), output_dtype="uint8", timers=(timer, timer2),
+            **turbo)
         for i, videos in enumerate(stream):
             export(videos, i * bsz)
             timer2.mark("io")

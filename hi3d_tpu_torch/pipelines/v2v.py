@@ -13,13 +13,16 @@ video (counterpart of hi3d_tpu/pipelines/v2v.py).
 3. fp32 VAE encode of the video one frame at a time → z;
 4. the latent-blending loop: at step i, α = (0.5·(1 + cos(i/num_steps)))^40,
    lat ← lat·(1 − α) + (init_noise·σ_i + z)·α, then one Euler step with
-   per-frame linear CFG (bf16 UNet, fp32 σ-math);
+   per-frame linear CFG (bf16 UNet, fp32 σ-math), through the sampler's
+   `step_call` (so a Heun config's correction reaches the loop);
 5. fp32 VAE decode one frame at a time → uint8 frames →
    `<output_dir>/second_step_video/frames/NNN.png` (+ second.mp4 when a
    video writer imports).
 
-`--encoder_reuse` and `--cfg_interval` (opt-in approximations of the JAX
-CLI) are not ported.
+`--encoder_reuse k` refreshes the UNet's encoder cache on the steps where
+`reuse_flags` is False and decodes from it elsewhere; `--cfg_interval LO HI`
+runs CFG only on steps whose float32 σ lies in [LO, HI]. Both are opt-in
+approximations, off by default, and exclusive.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ import numpy as np
 import torch
 
 from ..conditioners import DepthEmbedder
-from ..engine import _fit_indicator
+from ..diffusion.encoder_reuse import reuse_flags, step_denoiser
+from ..diffusion.samplers import _flag_segments, cfg_flags
 from ..utils.image import foreground_mask_from_white, load_image_rgb, resize_bilinear_u8
 from ..utils.video import (
     denorm_to_uint8,
@@ -43,6 +47,7 @@ from ..utils.video import (
     range_from_uint8,
     tensor2vid,
 )
+from .common import add_turbo_arguments
 from .i2v import UC_ZERO_KEYS, PhaseTimer
 
 ALPHA_POW = 40.0
@@ -76,6 +81,8 @@ def blend_refine_batch(
     init_noise=None,  # (B·T, H/8, W/8, 4) unit noise, channels-last
     batch_overrides: Optional[Dict] = None,  # applied after add_custom_cond
     num_steps: Optional[int] = None,
+    encoder_reuse: int = 0,  # turbo: the UNet encoder every k-th step (approximate)
+    cfg_interval=None,  # (lo, hi): CFG only where σ ∈ [lo, hi] (turbo)
     output_dtype: str = "float32",
     timer: Optional[PhaseTimer] = None,
 ) -> np.ndarray:
@@ -91,7 +98,9 @@ def blend_refine_batch(
     timer = timer or PhaseTimer(device)
     sampler = model.sampler
     num_steps = int(num_steps) if num_steps else sampler.num_steps
-    sigmas = sampler.discretization(num_steps, device=device)
+    sig = sampler.schedule(num_steps)  # float32 on the host, σ = 0 appended
+    cfg_on = cfg_flags(sig, cfg_interval, encoder_reuse)
+    sigmas = torch.as_tensor(sig, device=device)
 
     x = (videos if isinstance(videos, torch.Tensor) else torch.as_tensor(np.asarray(videos))).to(device)
     video = range_from_uint8(x) if x.dtype == torch.uint8 else x.to(torch.float32)
@@ -129,19 +138,22 @@ def blend_refine_batch(
         noise = torch.as_tensor(np.asarray(init_noise), dtype=torch.float32,
                                 device=device).permute(0, 3, 1, 2)
     lat = noise * torch.sqrt(1.0 + sigmas[0] ** 2.0)
-    indicator = torch.zeros((2 * b, t), device=device)
-    s_in = torch.ones((b * t,), dtype=torch.float32, device=device)
     dtype = model.compute_dtype
-
-    def denoiser(xx, sigma, cond):
-        return model.denoiser(model.model, xx, sigma, cond, num_video_frames=t,
-                              image_only_indicator=_fit_indicator(indicator, xx, t))
-
-    for i in range(num_steps):
-        alpha = blend_alpha(i, num_steps)
-        lat = lat * (1.0 - alpha) + (noise * sigmas[i] + z) * alpha
-        lat = sampler.sampler_step(s_in * sigmas[i], s_in * sigmas[i + 1], denoiser,
-                                   lat.to(dtype), c, uc).float()
+    denoiser = model.make_denoiser_fn(t, torch.zeros((2 * b, t), device=device),
+                                  cached=bool(encoder_reuse))
+    reuse = reuse_flags(num_steps, encoder_reuse) if encoder_reuse else None
+    cache = None
+    for s0, s1, use_cfg in _flag_segments(cfg_on):
+        for i in range(s0, s1):
+            alpha = blend_alpha(i, num_steps)
+            lat = lat * (1.0 - alpha) + (noise * sigmas[i] + z) * alpha
+            den = denoiser
+            if reuse is not None:
+                den, cell = step_denoiser(denoiser, cache if reuse[i] else None)
+            lat = sampler.step_call(den, lat.to(dtype), i, sig, c, uc, use_cfg=use_cfg).float()
+            if reuse is not None:
+                cache = cell["cache"]
+    cache = cell = den = None  # free the encoder cache (every skip activation) before the decode
     timer.mark("sampler")
 
     decoded = model.decode_first_stage(lat.to(dtype).permute(0, 2, 3, 1))
@@ -175,7 +187,8 @@ def run_pipeline(model, image_path: str, video_path: str, output_dir: str,
                  elevation: float = 0.0, clip_size: int = 16,
                  resolution: Sequence[int] = (1024, 1024), num_iter: int = 1,
                  seed: Optional[int] = None, fps: int = 8,
-                 num_steps: Optional[int] = None) -> str:
+                 num_steps: Optional[int] = None, encoder_reuse: int = 0,
+                 cfg_interval=None) -> str:
     """Full stage-2 CLI behaviour; returns the mp4 path (or the frames
     directory when no video writer imports)."""
     device = model.device
@@ -188,7 +201,8 @@ def run_pipeline(model, image_path: str, video_path: str, output_dir: str,
     out_frames: List[np.ndarray] = []
     for _ in range(num_iter):
         video = blend_refine(model, frames, masks, elevation=elevation, generator=generator,
-                             num_steps=num_steps, output_dtype="uint8", timer=timer)
+                             num_steps=num_steps, encoder_reuse=encoder_reuse,
+                             cfg_interval=cfg_interval, output_dtype="uint8", timer=timer)
         new = tensor2vid(video)
         out_frames.extend(new if not out_frames else new[1:])
         frames = frames.copy()
@@ -219,6 +233,7 @@ def main(argv: Optional[List[str]] = None) -> str:
     p.add_argument("--vae_bf16", action="store_true", help="cast the VAEs to bf16 too")
     p.add_argument("--num_steps", type=int, default=None,
                    help="override the config's sampler step count")
+    add_turbo_arguments(p)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
@@ -232,7 +247,8 @@ def main(argv: Optional[List[str]] = None) -> str:
     print(f"[v2v] model ready in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     kw = dict(elevation=args.elevation, clip_size=args.clip_size, resolution=args.resolution,
-              num_iter=args.num_iter, seed=args.seed, num_steps=args.num_steps)
+              num_iter=args.num_iter, seed=args.seed, num_steps=args.num_steps,
+              encoder_reuse=args.encoder_reuse, cfg_interval=args.cfg_interval)
     if args.profile_dir:
         from torch.profiler import ProfilerActivity, profile
 

@@ -1,7 +1,8 @@
 """Target-name registry: the reference's config `target` strings → the
 PyTorch classes of this package, for the targets the stage-1 configs
 (`configs/inference-v01.yaml`, `configs/train-v01.yaml`) and the stage-2
-inference config (`configs/inference-v02.yaml`) name. Entries are
+inference config (`configs/inference-v02.yaml`) name, and every sampler,
+guider, discretization, denoiser and scaling a config can name. Entries are
 lazy "module:attr" strings. Targets that name a JAX-package class
 (`hi3d_tpu.training.schedules.*`) map to the port's counterpart, so a
 config never imports the JAX package.
@@ -16,11 +17,17 @@ _P = "hi3d_tpu_torch"
 
 _ALIASES: Dict[str, str] = {
     # diffusion math
-    "sgm.modules.diffusionmodules.denoiser.Denoiser": f"{_P}.diffusion.denoiser:Denoiser",
-    "sgm.modules.diffusionmodules.denoiser_scaling.VScalingWithEDMcNoise": f"{_P}.diffusion.scaling:VScalingWithEDMcNoise",
-    "sgm.modules.diffusionmodules.discretizer.EDMDiscretization": f"{_P}.diffusion.discretization:EDMDiscretization",
-    "sgm.modules.diffusionmodules.guiders.LinearPredictionGuider": f"{_P}.diffusion.guiders:LinearPredictionGuider",
-    "sgm.modules.diffusionmodules.sampling.EulerEDMSampler": f"{_P}.diffusion.samplers:EulerEDMSampler",
+    **{f"sgm.modules.diffusionmodules.{mod}.{name}": f"{_P}.diffusion.{port}:{name}"
+       for mod, port, names in (
+           ("denoiser", "denoiser", ("Denoiser", "DiscreteDenoiser")),
+           ("denoiser_scaling", "scaling",
+            ("EDMScaling", "EpsScaling", "VScaling", "VScalingWithEDMcNoise")),
+           ("discretizer", "discretization", ("EDMDiscretization", "LegacyDDPMDiscretization")),
+           ("guiders", "guiders", ("VanillaCFG", "IdentityGuider", "LinearPredictionGuider")),
+           ("sampling", "samplers",
+            ("EulerEDMSampler", "HeunEDMSampler", "EulerAncestralSampler", "DPMPP2MSampler",
+             "DPMPP2SAncestralSampler", "LinearMultistepSampler")))
+       for name in names},
     # training objective
     "sgm.modules.diffusionmodules.loss.StandardDiffusionLoss": f"{_P}.diffusion.loss:StandardDiffusionLoss",
     "sgm.modules.diffusionmodules.sigma_sampling.EDMSampling": f"{_P}.diffusion.sigma_sampling:EDMSampling",

@@ -123,6 +123,32 @@ def test_group_norm_kernel_matches_plain(cuda):
 
 
 @pytest.mark.gpu
+def test_kernels_at_the_single_pass_half_batch(cuda):
+    """The single-pass steps of --cfg_interval hand the stage-1 UNet one
+    video instead of a CFG-doubled pair: K2 at B1 T16 at its four sites (64²
+    to 8²), K3 at (16, 320, 64, 64) and at the time-stack view (1, 320, 16,
+    64, 64), +SiLU; the tolerances above, a second call bitwise the same."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for s, c in ((4096, 320), (1024, 640), (256, 1280), (64, 1280)):
+        q, k, v = (torch.randn((1, 16, s, c), generator=g, device=cuda,
+                               dtype=torch.bfloat16).view(1, 16, s, c // 64, 64) for _ in range(3))
+        out = ta.temporal_attention(q, k, v)
+        ref = ta.temporal_attention_reference(q, k, v)
+        assert (out.float() - ref.float()).abs().max().item() < 2e-2, (s, c)
+        assert torch.equal(ta.temporal_attention(q, k, v), out)
+    for x in (torch.randn((16, 320, 64, 64), generator=g, device=cuda),
+              torch.randn((1, 16, 320, 64, 64), generator=g, device=cuda).permute(0, 2, 1, 3, 4)):
+        x = (x * 3 + 1).to(torch.bfloat16)
+        w = 1 + 0.1 * torch.randn((320,), generator=g, device=cuda)
+        b = 0.1 * torch.randn((320,), generator=g, device=cuda)
+        out = gn.group_norm(x, w, b, 32, 1e-5, "silu")
+        ref = gn.group_norm_reference(x, w, b, 32, 1e-5, "silu")
+        assert out.is_contiguous() and out.dtype == x.dtype
+        assert (out.float() - ref.float()).abs().max().item() < 6e-2, tuple(x.shape)
+        assert torch.equal(gn.group_norm(x, w, b, 32, 1e-5, "silu"), out)
+
+
+@pytest.mark.gpu
 def test_kernel_outputs_carry_grad_fn(cuda):
     """On the card each kernel's output is part of the autograd graph when its
     inputs need gradients, and gradients reach every input (γ and β too)."""
