@@ -1,4 +1,4 @@
-"""GPU smoke run of the PyTorch port's inference, training and serving paths on one NVIDIA H100.
+"""GPU smoke run of the PyTorch port's inference, training (stage 1 and 2) and serving paths on one NVIDIA H100.
 
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --profile-serve  # only a 2-step profile of the serve batch
@@ -6,6 +6,8 @@
     python3 chip_smoke.py --profile-stage1 # only profiles of main path 1's conditioner and
                                            # of 2 of its sampler steps
     python3 chip_smoke.py --profile-train  # only 2-step profiles of training (2×16, 1×48)
+    python3 chip_smoke.py --profile-train2 # only stage-2 training's step in parts, and its
+                                           # 2-step profile (1 × 16 × 1024²)
     python3 chip_smoke.py --time-block-backward [MAX_T]  # only #7's times, to compare trees
     python3 chip_smoke.py --time-norms     # only K3's, #10's and #9's times (CUDA events
                                            # and device time) against their library calls
@@ -15,6 +17,8 @@
                                            # sites, against #7 and SDPA's backward
     python3 chip_smoke.py --time-png       # only a 512² Average/Paeth PNG decode, C against
                                            # the plain Python unfilter, on the host's CPU
+    python3 chip_smoke.py --replay-degradation [PLANS]  # only the stage-2 degradation on
+                                           # the card against its CPU replay at 1024²
 
 1. prints the card (nvidia-smi name and power limit) and fails without CUDA;
 2. builds the kernels from this checkout (`hi3d_tpu_torch/csrc`);
@@ -22,14 +26,17 @@
    statistics, #10 LayerNorm) and each backward kernel (#3, #5, #7, and the
    K3 and #10 autograd Functions) against its plain PyTorch version at the
    main paths' shapes, K2 and K3 also at the half batch of --cfg_interval's
-   single passes (error against a stated tolerance, CUDA-event times),
+   single passes, #3 and #5 also at stage-2 training's level-0 site (B16
+   S16384 H5, B1 T16 S16384 C320) (error against a stated tolerance,
+   CUDA-event times),
    beside the one PyTorch call that computes the same function, where there
    is one (`library_ms`), and the least time the card could take (`bound_ms`);
 4. runs the full-width stage-1 UNet once at a small input on the card and
    holds its output, then its parameter gradient, against the same weights
-   on the CPU (plain versions, fp32 and bf16); the same for the output of the
-   full-width stage-2 UNet (17 input channels), and for the stage-1 UNet's
-   output and gradient at a 40-frame clip (every frame-axis site on #6/#7);
+   on the CPU (plain versions, fp32 and bf16); the same for the output and
+   the gradient of the full-width stage-2 UNet (17 input channels), and for
+   the stage-1 UNet's output and gradient at a 40-frame clip (every
+   frame-axis site on #6/#7);
 5. main path 1: `hi3d_tpu_torch.pipelines.i2v.main` on `demo/3.png` at full
    width (configs/inference-v01.yaml, 16×512², random weights); checks the
    frames and every kernel's launch count against the model's plan;
@@ -70,7 +77,17 @@
    kind and batch, with the median CUDA-event ms of a call) and launches
    against the plan (`unet_calls`), and prints its sampler seconds beside
    path 1's or 3's (path 8 also its peak memory);
-12. prints the kernel JSON line (launches per path and summed, errors, times,
+12. main path 10: `hi3d_tpu_torch.train.main` on configs/train-v02.yaml at
+   full width (1 video × 16 × 1024² a step, all parameters trained, random
+   weights) for 3 steps on 96 RGBA 1024² renders made from demo/3.png; the
+   conditioning video is degraded on the card (data/degradation.py). Checks
+   finite losses and gradient norms, that out.2 moved, step 1's degraded
+   video (finite, in [-1, 1], frame 0 clean, background white, the other
+   frames changed; each of its operations against the CPU on the card's
+   input), a reloadable checkpoint (written and deleted: weights and AdamW
+   moments, ~24 GB) and the launch counts; prints s/step, `cond_s`, peak
+   memory and the degradation's seconds a step;
+13. prints the kernel JSON line (launches per path and summed, errors, times,
    bounds), the card line, and the contract line last.
 
 Any failure raises and exits non-zero.
@@ -78,6 +95,7 @@ Any failure raises and exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -614,6 +632,7 @@ def backward_kernel_phase() -> Results:
     backward of F.scaled_dot_product_attention on the same views."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from hi3d_tpu_torch.ops import flash_attention as fa
     from hi3d_tpu_torch.ops import group_norm as gn
@@ -653,10 +672,14 @@ def backward_kernel_phase() -> Results:
         ms = time_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True), reps=3)
         return grads, ms
 
-    def library_grad_ms(fn, ins, dout):
+    def library_grad_ms(fn, ins, dout, backend=None):
+        """`backend`: the SDPA backend to hold the call to (its default
+        choice otherwise)."""
         leaves = [t.detach().requires_grad_() for t in ins]
-        out = fn(*leaves)
-        return time_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True), reps=3)
+        with contextlib.nullcontext() if backend is None else sdpa_kernel(backend):
+            out = fn(*leaves)
+            return time_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True),
+                           reps=3)
 
     def sdpa_bshd(q, k, v):
         return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -677,9 +700,12 @@ def backward_kernel_phase() -> Results:
             total += ms
         return grads, total
 
-    # #3 at the training path's four sites and stage 2's level-1 site
-    # (B2 S16384 H5, as in `kernel_phase`: printed, not in the JSON sums)
-    for b, s, h in ((4, 4096, 5), (4, 1024, 10), (4, 256, 20), (4, 64, 20), (2, 16384, 5)):
+    # #3 at the training path's four sites, stage 2's level-1 site (B2
+    # S16384 H5, as in `kernel_phase`) and stage-2 training's level-0 site
+    # (B16 S16384 H5, main path 10); the S16384 cases printed, not in the
+    # JSON sums
+    for b, s, h in ((4, 4096, 5), (4, 1024, 10), (4, 256, 20), (4, 64, 20), (2, 16384, 5),
+                    (16, 16384, 5)):
         d = 64
         q, k, v = flash_inputs(b, s, s, h, d, gen)
         dout = torch.randn((b, s, h, d), generator=gen, device=dev, dtype=bf16)
@@ -707,7 +733,12 @@ def backward_kernel_phase() -> Results:
         if not (rel <= tol and all(torch.isfinite(a).all() for a in got)):
             raise AssertionError(f"flash_attention_backward Sq={sq} Sk={sk} D={d}: rel {rel}")
 
-    for b, t, s, c in B5_SITES:
+    # #5 at the training path's four sites, and at stage-2 training's
+    # level-0 site (B1 T16 S16384 C320, main path 10; printed, not in the
+    # JSON sums). There SDPA's (1, 81920, 16, 64) view is past what its
+    # default (cuDNN) backend launches, so the library call is SDPA's math
+    # backend
+    for b, t, s, c, summed in [(*site, True) for site in B5_SITES] + [(1, 16, 16384, 320, False)]:
         h = c // 64
         base = [torch.randn((b, t, s, c), generator=gen, device=dev, dtype=bf16)
                 for _ in range(4)]
@@ -720,8 +751,9 @@ def backward_kernel_phase() -> Results:
         check("temporal_attention_backward", f"B={b} T={t} S={s} C={c}", got, want, ms,
               plain_ms, library_grad_ms(
                   lambda *a: F.scaled_dot_product_attention(*(_sdpa_frames(y, h, 64) for y in a)),
-                  base[:3], _sdpa_frames(base[3], h, 64)),
-              *frame_backward_work(b, t, s, c))
+                  base[:3], _sdpa_frames(base[3], h, 64),
+                  None if summed else SDPBackend.MATH),
+              *frame_backward_work(b, t, s, c), summed=summed)
 
     # #5 off the training path's T, correctness only: one frame (dq, dk are 0
     # exactly: the one probability is 1), two 16-frame tiles (T = 17, 32),
@@ -881,6 +913,11 @@ def _embedder(cfg: dict, target_suffix: str) -> dict:
     return emb.get("params") or {}
 
 
+def _has_embedder(cfg: dict, target_suffix: str) -> bool:
+    return any(e["target"].endswith(target_suffix)
+               for e in cfg["model"]["params"]["conditioner_config"]["params"]["emb_models"])
+
+
 def _frame_kernels(t: int, fwd: int, bwd: int) -> dict:
     """Launches of the frame-axis kernels at `t` frames: the route that
     `ops.attention.frame_attention_kernel` picks carries `fwd` forward and
@@ -943,7 +980,9 @@ def expected_launches(config_path: str, steps: int, path: str, clip_size=None,
     per LayerNorm32 of the CLIP towers (ViT-H; ViT-L at stage 1) and of the
     DPT (stage 2); #9 once per FoldedGroupNorm of each VAE encode or decode
     call (frames in chunks of `en_and_decode_n_samples_a_time`) and of the
-    DPT (one call on all 16 frames)."""
+    DPT (one call on all 16 frames). Stage-2 training encodes every frame
+    twice (the engine's latents, the conditioner's cond-video latents), in
+    chunks of 1 each."""
     from hi3d_tpu_torch.config import load_config
     from hi3d_tpu_torch.models.unet import _build_plan
 
@@ -979,11 +1018,22 @@ def expected_launches(config_path: str, steps: int, path: str, clip_size=None,
         if path == "unet_grad":  # one UNet forward and backward, nothing else
             return {**grad, "group_stats": 0, "layer_norm": fwd * sites["unet"]}
         batch = cfg["data"]["params"]["batch_size"]
-        # the VAE encodes the batch's frames, the conditioner each video's frame 0
+        frames = batch * t
+        if _has_embedder(cfg, "DepthEmbedder"):
+            # stage 2: ViT-H on frame 0, the DPT on all the frames in one
+            # call, the VAE embedder on every frame
+            cond_gs = sites["dpt_gn"] + sites["encoder"] * _chunks(frames, enc_chunk)
+            cond_ln = sites["vit_h"] + sites["dpt_ln"]
+        else:
+            # stage 1: ViT-H on frame 0, the aesthetic ViT-L, the VAE
+            # embedder on each video's frame 0
+            cond_gs = sites["encoder"] * _chunks(batch, enc_chunk)
+            cond_ln = sites["vit_h"] + sites["vit_l"]
+        # and the engine's VAE encodes the batch's frames
         return {**grad,
-                "group_stats": calls * sites["encoder"] * (_chunks(batch * t, engine_chunk)
-                                                           + _chunks(batch, enc_chunk)),
-                "layer_norm": calls * (fwd * sites["unet"] + sites["vit_h"] + sites["vit_l"])}
+                "group_stats": calls * (sites["encoder"] * _chunks(frames, engine_chunk)
+                                        + cond_gs),
+                "layer_norm": calls * (fwd * sites["unet"] + cond_ln)}
     sampler = sampler or mp["sampler_config"]["target"].rsplit(".", 1)[1]
     whole, dec = unet_calls(sampler, steps, encoder_reuse)
     attn = whole * blocks + dec * dec_blocks
@@ -1247,7 +1297,6 @@ def _check_calls(label: str, calls: dict, want: dict) -> None:
 def _run_printing_phases(tag: str, fn, argv) -> dict:
     """fn(argv) with its standard output echoed; returns the phase seconds it
     printed on its `[tag] phases {...}` line."""
-    import contextlib
     import io
 
     class Tee(io.TextIOBase):
@@ -1561,6 +1610,344 @@ def long_clip_training_path(steps: int = LONG_CLIP_STEPS, frames: int = LONG_CLI
     _check_launches(launches, expected)
     del trainer
     shutil.rmtree(out_dir)  # tens of GB of checkpoint
+    torch.cuda.empty_cache()
+    return launches
+
+
+STAGE2_TRAIN_STEPS = 3  # optimizer steps of configs/train-v02.yaml (main path 10)
+
+
+def write_renders_1024(root: str, frames: int = 96) -> str:
+    """One folder of `frames` RGBA 1024² PNGs: demo/3.png (`_demo_rgba`)
+    doubled in each axis and rolled as `write_renders` rolls it."""
+    from hi3d_tpu_torch.utils.png import write_png
+
+    rgba = np.repeat(np.repeat(_demo_rgba(), 2, axis=0), 2, axis=1)
+    d = os.path.join(root, "obj00")
+    os.makedirs(d, exist_ok=True)
+    for i in range(frames):
+        band, az = divmod(i, 16)
+        write_png(os.path.join(d, f"{i:03d}.png"),
+                  np.roll(rgba, (16 * band - 40, 64 * az), axis=(0, 1)))
+    return root
+
+
+# what the card's degradation ops may differ from the CPU's by on the same
+# input: filter2d sums 441 fp32 products in another order (≤ 441 · 2⁻²⁴ ·
+# Σ|k| · max|x| ≈ 5e-5 for Σ|k| ≤ 1.4 and |x| ≤ 1.45), resize rounds float64
+# sums once to float32 (one float32 ulp below 4), the noise is elementwise;
+# JPEG is integer arithmetic, so its decoded levels (× 255) must be equal
+# (their division by 255 may round differently in the last bit)
+DEGRADATION_OP_TOL = {"filter2d": 5e-5, "resize": 2.4e-7, "noise": 1e-6, "jpeg": 0.0}
+
+
+@contextlib.contextmanager
+def _wrapped_degradation_ops(deg, wrap):
+    """Within: data/degradation.py's filter2d, resize and jpeg, and `deg`'s
+    noise round, each replaced by wrap(name, original)."""
+    from hi3d_tpu_torch.data import degradation as mod
+
+    saved = {n: getattr(mod, n) for n in ("filter2d", "resize", "jpeg")}
+    try:
+        for n, fn in saved.items():
+            setattr(mod, n, wrap(n, fn))
+        deg._noise_round = wrap("noise", deg._noise_round)
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(mod, n, fn)
+        del deg._noise_round
+
+
+class DegradationProbe:
+    """While active, records every call of `DegradedImages` (the training
+    branch of `VideoLDMStage2.add_custom_cond`): its host seconds, the card
+    synchronised before and after, and for the first call what its replay
+    on the CPU needs (`_replay_degradation`), copied to the host: the clean
+    video, masks, kernels, the plan's RandomState as it entered, the noise
+    fields drawn on the card, each operation's output in call order (so the
+    first call's seconds include those copies) and the degraded video."""
+
+    def __enter__(self):
+        import torch
+
+        from hi3d_tpu_torch.data.degradation import DegradedImages
+
+        self.cls, self.orig = DegradedImages, DegradedImages.__call__
+        self.seconds, self.first = [], None
+        probe = self
+
+        def call(deg, video, masks=None, **kw):
+            if probe.first is not None:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = probe.orig(deg, video, masks, **kw)
+                torch.cuda.synchronize()
+                probe.seconds.append(time.perf_counter() - t0)
+                return out
+            state, draws, ops = kw["rng"].get_state(), [], []
+            deg._noise = lambda *a: draws.append(DegradedImages._noise(*a)) or draws[-1]
+
+            def record(name, fn):
+                def op(*args):
+                    out = fn(*args)
+                    ops.append((name, out.cpu()))
+                    return out
+                return op
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _wrapped_degradation_ops(deg, record):
+                out = probe.orig(deg, video, masks, **kw)
+            torch.cuda.synchronize()
+            probe.seconds.append(time.perf_counter() - t0)
+            del deg._noise
+            probe.first = {
+                "video": video.detach().cpu(), "masks": masks.cpu(), "out": out.cpu(),
+                "kernels": [kw[k].cpu() for k in ("kernel1s", "kernel2s", "sinc_kernels")],
+                "state": state, "draws": [d.cpu() for d in draws], "ops": ops}
+            return out
+
+        DegradedImages.__call__ = call
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__call__ = self.orig
+
+
+def _check_degraded(video, masks, degraded) -> str:
+    """The degraded conditioning video of a training step: finite and in
+    [-1, 1], frame 0 the clean frame, the background (mask 0) white on the
+    other frames, and those frames changed. The range holds for path 10's
+    plan, not for every plan: where the last resize is INTER_CUBIC its
+    overshoot can leave [-1, 1], in the JAX package as in the port."""
+    import torch
+
+    if degraded.shape != video.shape or not torch.isfinite(degraded).all():
+        raise AssertionError(f"degraded video {tuple(degraded.shape)} not finite or misshapen")
+    if degraded.min() < -1 or degraded.max() > 1:
+        raise AssertionError(f"degraded video outside [-1, 1]: "
+                             f"[{degraded.min().item()}, {degraded.max().item()}]")
+    if not torch.equal(degraded[:, 0], video[:, 0].float()):
+        raise AssertionError("frame 0 of the degraded video is not the clean frame")
+    background = (masks[:, 1:] == 0)[:, :, None].expand(-1, -1, 3, -1, -1)
+    if not background.any() or not torch.all(degraded[:, 1:][background] == 1.0):
+        raise AssertionError("the background of the degraded frames is not white")
+    change = (degraded[:, 1:] - video[:, 1:]).abs().mean().item()
+    if not change > 1e-3:
+        raise AssertionError(f"the degraded frames equal the clean ones (mean |Δ| {change})")
+    return (f"finite, in [{degraded.min().item():.3f}, {degraded.max().item():.3f}], frame 0 "
+            f"clean, background white on {background.float().mean().item():.3f} of the other "
+            f"frames' values, mean |degraded − clean| {change:.4f}")
+
+
+def _replay_degradation(first: dict) -> str:
+    """A training step's degradation on the card (`DegradationProbe.first`)
+    replayed on the CPU with the plan's RandomState restored and the card's
+    noise fields handed back, twice.
+
+    Held: each operation at the sizes the plan gives it (up to 1536²), fed
+    the card's input of that operation (the CPU run takes on the card's
+    output after each), against the card's output within
+    `DEGRADATION_OP_TOL` (JPEG's in grey levels); the operations come in
+    the card's order and the CPU run ends on the card's video exactly.
+
+    Printed only: the CPU run left to itself. There the ops' last-bit
+    differences now and then flip a uint8 truncation before a JPEG, and so
+    a quantised coefficient of an 8×8 block, which the later rounds carry
+    on: a few blocks of the clip off by up to 10 grey levels (path 10's plan
+    in a chip run), so no bound on that run's values can be tight."""
+    import torch
+
+    from hi3d_tpu_torch.data.degradation import DegradedImages
+
+    def run(wrap):
+        draws = list(first["draws"])
+        cpu = DegradedImages()
+        cpu._noise = lambda *a: draws.pop(0)
+        rng = np.random.RandomState()
+        rng.set_state(first["state"])
+        with (contextlib.nullcontext() if wrap is None
+              else _wrapped_degradation_ops(cpu, wrap)):
+            out = cpu(first["video"], first["masks"], *first["kernels"], rng=rng)
+        if draws:
+            raise AssertionError(f"the CPU replay left {len(draws)} of the card's noise fields")
+        return out
+
+    ops, worst = list(first["ops"]), {}
+
+    def check(name, fn):
+        def op(*args):
+            if not ops or ops[0][0] != name:
+                raise AssertionError(f"the CPU replay calls {name} where the card called "
+                                     f"{ops[0][0] if ops else 'nothing'}")
+            want = ops.pop(0)[1]
+            got = fn(*args)
+            if got.shape != want.shape:
+                raise AssertionError(f"{name}: {tuple(got.shape)} on the CPU, "
+                                     f"{tuple(want.shape)} on the card")
+            a, b = ((got, want) if name != "jpeg"
+                    else (torch.round(got * 255), torch.round(want * 255)))
+            err = (a.double() - b.double()).abs().max().item()
+            worst[name] = max(worst.get(name, 0.0), err)
+            return want
+        return op
+
+    t0 = time.perf_counter()
+    n_ops = len(ops)
+    forced = run(check)
+    if ops:
+        raise AssertionError(f"the CPU replay left {len(ops)} of the card's {n_ops} operations")
+    if not torch.equal(forced, first["out"]):
+        raise AssertionError("the CPU replay fed the card's operations does not end on its video")
+    free = run(None)
+    seconds = time.perf_counter() - t0
+    d = (first["out"] - free).abs() * 127.5
+    line = (f"replayed on the CPU ({seconds:.1f} s): {n_ops} operations fed the card's inputs, "
+            f"max |Δ| {', '.join(f'{n} {e:.3g}' for n, e in sorted(worst.items()))}; left to "
+            f"itself max {d.max().item():.4f} grey levels, mean {d.mean().item():.3g}, "
+            f"{(d > 0.5).float().mean().item():.3g} of the values beyond half a level, "
+            f"{(d > 1.0).float().mean().item():.3g} beyond one")
+    bad = {n: e for n, e in worst.items() if e > DEGRADATION_OP_TOL[n]}
+    if bad:
+        raise AssertionError(f"the card's degradation ops disagree with the CPU's {bad} "
+                             f"(tolerances {DEGRADATION_OP_TOL}): {line}")
+    return line
+
+
+def replay_degradations(plans: int = 8) -> None:
+    """The card's degradation against its CPU replay (`_replay_degradation`)
+    for `plans` plans at main path 10's size: samples 0.. of the stage-2
+    dataset over path 10's 1024² renders, the plan's RandomState seeded
+    100 + i, the fields drawn on the card from a generator seeded i, with
+    the precision `train.main` sets. Prints each plan's range and errors;
+    fails if a plan breaks the replay's bounds.
+
+        python3 chip_smoke.py --replay-degradation [PLANS]"""
+    import shutil
+
+    import torch
+
+    from hi3d_tpu_torch.data.degradation import DegradedImages
+    from hi3d_tpu_torch.data.video_dataset import VideoTrainDatasetStage2
+    from hi3d_tpu_torch.pipelines.common import configure_precision
+
+    configure_precision()
+    out_dir = tempfile.mkdtemp(prefix="chip_replay_", dir=os.path.join(ROOT, "outputs"))
+    data = VideoTrainDatasetStage2(write_renders_1024(out_dir), 1024, 1024, 16)
+    failed = []
+    for i in range(plans):
+        sample = data.sample(np.random.RandomState(i))
+        batch = {k: torch.from_numpy(np.asarray(sample[k]))[None].cuda()
+                 for k in ("video", "masks", "kernel1s", "kernel2s", "sinc_kernels")}
+        with DegradationProbe() as probe:
+            DegradedImages()(batch.pop("video"), batch.pop("masks"), **batch,
+                             rng=np.random.RandomState(100 + i),
+                             generator=torch.Generator("cuda").manual_seed(i))
+        out = probe.first["out"]
+        try:
+            line = _replay_degradation(probe.first)
+        except AssertionError as e:
+            failed.append(i)
+            line = str(e)
+        print(f"[replay] plan {i}: card {probe.seconds[0]:.4f} s, range "
+              f"[{out.min().item():.4f}, {out.max().item():.4f}]; {line}", flush=True)
+    shutil.rmtree(out_dir)
+    if failed:
+        raise AssertionError(f"plans {failed} of {plans} break the replay's bounds")
+
+
+def stage2_training_path(steps: int = STAGE2_TRAIN_STEPS) -> dict:
+    """Main path 10: `hi3d_tpu_torch.train.main` on configs/train-v02.yaml at
+    full width (1 video × 16 frames × 1024² a step, the 17-channel UNet with
+    every parameter trained, random weights, seed 0) for `steps` steps, on
+    one folder of 96 RGBA 1024² renders. Checks finite losses and gradient
+    norms, that out.2 moved, the degraded conditioning video of step 1
+    (`_check_degraded`, and against its CPU replay: `_replay_degradation`),
+    a checkpoint that reloads to the trained state and launch counts equal
+    to the stage-2 training plan; prints s/step (the train step alone,
+    median of steps 2 on), the seconds of the batch's move and
+    `add_custom_cond` a step, the peak allocated memory, the degradation's
+    seconds a step and the launches. Returns the launch count of each
+    kernel."""
+    import shutil
+    import statistics
+
+    import torch
+
+    from hi3d_tpu_torch import train
+    from hi3d_tpu_torch.config import instantiate_from_config, load_config
+
+    config = os.path.join(ROOT, "configs", "train-v02.yaml")
+    cfg = load_config(config)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train2_", dir=os.path.join(ROOT, "outputs"))
+    t0 = time.perf_counter()
+    renders = write_renders_1024(os.path.join(out_dir, "renders"))
+    print(f"[train2] wrote 96 RGBA 1024² renders in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the seeded initial UNet, as train.main builds it (the UNet is the
+    # engine's first random draw), kept on the host
+    seed = 0
+    with torch.random.fork_rng(devices=[0]), torch.device("cuda"):
+        torch.manual_seed(seed)
+        unet0 = instantiate_from_config(cfg["model"]["params"]["network_config"])
+    init = {n: p.detach().cpu() for n, p in unet0.named_parameters()}
+    del unet0
+    torch.cuda.empty_cache()
+
+    expected = expected_launches(config, steps, "train")
+    reset_launches()
+    t0 = time.perf_counter()
+    with DegradationProbe() as probe:
+        trainer = train.main(["--base", config, "--max_steps", str(steps), "--no_test", "True",
+                              "--device", "cuda", "--seed", str(seed), "--logdir", out_dir,
+                              f"data.params.base_folder={renders}", "data.params.num_workers=4"])
+    launches = read_launches(expected)
+    wall = time.perf_counter() - t0
+    rows = [json.loads(line) for line in open(os.path.join(trainer.logdir, "metrics.jsonl"))]
+    s_per_step = statistics.median(r["sec_per_step"] for r in rows[1:])
+    peak = max(r["peak_mem_gb"] for r in rows)
+    print(f"[train2] {steps} steps in {wall:.1f} s (build, data and checkpoint included); "
+          f"batch 1 video × 16 frames × 1024²; s/step (median of steps 2-{steps}) "
+          f"{s_per_step:.3f}; batch move and add_custom_cond s a step "
+          f"{[round(r['cond_s'], 4) for r in rows]}; peak allocated {peak:.2f} GiB; "
+          f"degradation s a step "
+          f"{[round(x, 4) for x in probe.seconds]}; losses {[round(r['loss'], 5) for r in rows]}; "
+          f"grad norms {[round(r['grad_norm'], 5) for r in rows]}; launches {launches}",
+          flush=True)
+    if [r["step"] for r in rows] != list(range(1, steps + 1)):
+        raise AssertionError(f"metrics rows {[r['step'] for r in rows]}")
+    if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows):
+        raise AssertionError("a training loss or gradient norm is not finite")
+    if len(probe.seconds) != steps:
+        raise AssertionError(f"{len(probe.seconds)} degradations in {steps} steps")
+    first = probe.first
+    print(f"[train2] step 1's degraded conditioning video: "
+          f"{_check_degraded(first['video'], first['masks'], first['out'])}; "
+          f"{_replay_degradation(first)}", flush=True)
+
+    unet = trainer.engine.model.diffusion_model
+    trained = set(trainer.param_names)
+    if len(trained) != len(init):
+        raise AssertionError(f"{len(trained)} trainable tensors, the UNet has {len(init)}")
+    moved = {n for n, p in unet.named_parameters() if not torch.equal(p.detach().cpu(), init[n])}
+    if not {"out.2.weight", "out.2.bias"} <= moved:
+        raise AssertionError(f"out.2 did not move ({len(moved)} of {len(trained)} tensors moved)")
+    t0 = time.perf_counter()
+    state = trainer.checkpointer.load()
+    if state["step"] != steps:
+        raise AssertionError(f"checkpoint at step {state['step']}, expected {steps}")
+    for n, p in unet.state_dict().items():
+        if not torch.equal(state["model"][n], p.cpu()):
+            raise AssertionError(f"checkpoint tensor {n} differs from the trained model")
+    if len(state["optimizer"]["state"]) != len(trained):
+        raise AssertionError("checkpoint optimizer state does not cover the trainable parameters")
+    print(f"[train2] {len(moved)} of {len(trained)} trainable tensors moved, out.2 among them; "
+          f"checkpoint {os.path.realpath(trainer.checkpointer.last)} reloads to the trained state "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    _check_launches(launches, expected)
+    del state, trainer, unet
+    shutil.rmtree(out_dir)  # weights + AdamW moments: tens of GB
     torch.cuda.empty_cache()
     return launches
 
@@ -1980,6 +2367,89 @@ def profile_train(steps: int = 2) -> None:
         torch.cuda.reset_peak_memory_stats()
 
 
+def profile_train2(steps: int = 2) -> None:
+    """Main path 10's step taken apart, at configs/train-v02.yaml as written
+    (1 video × 16 frames × 1024², random weights): a random video in [-1, 1]
+    made on the card, masks with a quarter of background, the dataset's
+    kernels (the loader is not in the window). After one step that is not
+    timed, `steps` steps each timed in parts, the card synchronised around
+    each — `add_custom_cond` (the degradation and the noise augmentation),
+    the engine's VAE encode of the 16 frames, the conditioner (ViT-H on
+    frame 0, the DPT and the VAE embedder on the 16 frames), and the whole
+    train step, whose rest is the UNet's forward, recompute and backward and
+    AdamW — then `steps` steps under torch.profiler, reported as
+    `profile_serve`'s are.
+
+        python3 chip_smoke.py --profile-train2"""
+    import shutil
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hi3d_tpu_torch.config import instantiate_from_config, load_config
+    from hi3d_tpu_torch.data.kernels import DEFAULT_DEGRADATION_OPT, sample_frame_kernels
+    from hi3d_tpu_torch.pipelines.common import configure_precision
+    from hi3d_tpu_torch.training.trainer import Trainer
+
+    configure_precision()  # as train.main: fp32 convolutions and matmuls without TF32
+    out_dir = tempfile.mkdtemp(prefix="chip_profile_train2_", dir=os.path.join(ROOT, "outputs"))
+    cfg = load_config(os.path.join(ROOT, "configs", "train-v02.yaml"))
+    params = dict(cfg["model"]["params"])
+    params.pop("ckpt_path", None)
+    params.setdefault("base_learning_rate", cfg["model"].get("base_learning_rate"))
+    with torch.random.fork_rng(devices=[0]), torch.device("cuda"):
+        torch.manual_seed(0)
+        engine = instantiate_from_config({"target": cfg["model"]["target"], "params": params})
+    t, hw = params["num_samples"], cfg["data"]["params"]["height"]
+    trainer = Trainer(engine, logdir=os.path.join(out_dir, "run"), batch_size=1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k1, k2, ks = (torch.from_numpy(k)[None].cuda()
+                  for k in sample_frame_kernels(DEFAULT_DEGRADATION_OPT, t, np.random.RandomState(0)))
+    batch = {"video": torch.rand((1, t, 3, hw, hw), generator=gen, device="cuda") * 2 - 1,
+             "elevation": torch.full((1,), 10.0, device="cuda"),
+             "masks": (torch.rand((1, t, hw, hw), generator=gen, device="cuda") > 0.25).float(),
+             "kernel1s": k1, "kernel2s": k2, "sinc_kernels": ks}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    parts = {"add_custom_cond": [], "vae_encode": [], "conditioner": [], "train_step": []}
+    for i in range(1 + steps):
+        cond, dt = timed(lambda: engine.add_custom_cond(batch, infer=False, generator=gen))
+        frames = cond["video"].reshape(t, 3, hw, hw).permute(0, 2, 3, 1)
+        _, de = timed(lambda: engine.encode_first_stage(frames))
+        _, dc = timed(lambda: engine.conditioner(cond, generator=gen))
+        _, ds = timed(lambda: trainer.train_step(cond, gen))
+        if i:
+            for k, v in zip(parts, (dt, de, dc, ds)):
+                parts[k].append(v)
+    med = {k: statistics.median(v) for k, v in parts.items()}
+    rest = med["train_step"] - med["vae_encode"] - med["conditioner"]
+    print(f"[profile] train-v02 step parts, median of {steps} (s): add_custom_cond "
+          f"{med['add_custom_cond']:.4f} {parts['add_custom_cond']}; train step "
+          f"{med['train_step']:.4f} {parts['train_step']}, of which the engine's VAE encode "
+          f"{med['vae_encode']:.4f}, the conditioner {med['conditioner']:.4f} and the rest "
+          f"(UNet forward, recompute, backward; AdamW) {rest:.4f}; card {card_line()}",
+          flush=True)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    prof.start()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        trainer.train_step(engine.add_custom_cond(batch, infer=False, generator=gen), gen)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    prof.stop()
+    _profile_report(prof, f"stage-2 training, 1 × {t} frames at {hw}², peak allocated "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", steps, host_ms)
+    shutil.rmtree(out_dir)
+
+
 # #10's and #9's shapes in the kernel table (PERF.md §6): (kernel, shape, dtype, eps)
 NORM_CASES = (("layer_norm", (16 * 577, 768), "float32", 1e-6),
               ("layer_norm", (32 * 16384, 320), "bfloat16", 1e-5),
@@ -2249,6 +2719,10 @@ def main() -> None:
     if sys.argv[1:] == ["--time-png"]:
         time_png_decode()
         return
+    if sys.argv[1:2] == ["--replay-degradation"]:
+        os.makedirs(os.path.join(ROOT, "outputs"), exist_ok=True)
+        replay_degradations(*map(int, sys.argv[2:3]))
+        return
     os.makedirs(os.path.join(ROOT, "outputs"), exist_ok=True)
 
     from hi3d_tpu_torch.ops import build
@@ -2270,6 +2744,9 @@ def main() -> None:
     if sys.argv[1:] == ["--profile-train"]:
         profile_train()
         return
+    if sys.argv[1:] == ["--profile-train2"]:
+        profile_train2()
+        return
     if sys.argv[1:] == ["--time-norms"]:
         time_norms()
         return
@@ -2290,10 +2767,12 @@ def main() -> None:
     inference = os.path.join(ROOT, "configs", "inference-v01.yaml")
     unet_reference_phase(inference)
     unet_gradient_phase(inference)
-    unet_reference_phase(os.path.join(ROOT, "configs", "inference-v02.yaml"))
+    stage2 = os.path.join(ROOT, "configs", "inference-v02.yaml")
+    unet_reference_phase(stage2)
+    by_path = {"unet_grad_stage2": unet_gradient_phase(stage2)}
     # a long clip: every frame-axis site on #6 forward and #7 backward
     unet_reference_phase(inference, b=1, t=40)
-    by_path = {"unet_grad_t40": unet_gradient_phase(inference, b=1, t=40)}
+    by_path["unet_grad_t40"] = unet_gradient_phase(inference, b=1, t=40)
     print(f"[smoke] main path 1: configs/inference-v01.yaml, 16×512², {NUM_STEPS} steps, "
           "random weights", flush=True)
     by_path["i2v"], stage1_dir, phases1 = main_path(NUM_STEPS)
@@ -2337,6 +2816,9 @@ def main() -> None:
           f"encoder_reuse=2; configs/inference-v01.yaml, 16×512², {SAMPLER_STEPS} steps each, "
           "random weights", flush=True)
     by_path["samplers"] = samplers_path()
+    print(f"[smoke] main path 10: configs/train-v02.yaml, {STAGE2_TRAIN_STEPS} steps, 1 × 16 × "
+          "1024², random weights, the conditioning video degraded on the card", flush=True)
+    by_path["train_stage2"] = stage2_training_path()
     print(f"[smoke] all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
 
     rows = []

@@ -5,10 +5,18 @@ DeepSpeed checkpoint (after its `module.` prefix is stripped) and a state
 dict exported from the JAX package
 (hi3d_tpu/convert/jax_to_torch.py:export_engine_state_dict) both load
 without renaming; this module only selects, casts and checks.
+
+`.safetensors` files are read and written here (`read_safetensors`,
+`save_safetensors`) without the `safetensors` package: the format is an
+8-byte little-endian header length, a JSON header of `{name: {dtype, shape,
+data_offsets}}` (plus an optional `__metadata__` of strings) and the raw
+little-endian tensor bytes, offsets counted from the end of the header.
 """
 
 from __future__ import annotations
 
+import json
+import struct
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
@@ -23,9 +31,79 @@ def strip_deepspeed(sd: Mapping[str, object]) -> Dict[str, object]:
     return {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
 
 
+SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8,
+    "U8": torch.uint8, "BOOL": torch.bool,
+}
+_SAFETENSORS_NAMES = {v: k for k, v in SAFETENSORS_DTYPES.items()}
+_MAX_HEADER = 100 * 2**20  # the format's own limit on the JSON header
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A `.safetensors` file as {name: CPU tensor}, one read per tensor."""
+    out: Dict[str, torch.Tensor] = {}
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        if n > _MAX_HEADER:
+            raise ValueError(f"{path}: safetensors header of {n} bytes")
+        header = json.loads(f.read(n))
+        base = 8 + n
+        for name, info in header.items():
+            if name == "__metadata__":
+                continue
+            dtype = SAFETENSORS_DTYPES.get(info["dtype"])
+            if dtype is None:
+                raise ValueError(f"{path}: tensor {name!r} has unsupported dtype {info['dtype']}")
+            shape = [int(d) for d in info["shape"]]
+            start, end = (int(o) for o in info["data_offsets"])
+            numel = 1
+            for d in shape:
+                numel *= d
+            if end - start != numel * dtype.itemsize:
+                raise ValueError(f"{path}: tensor {name!r} spans {end - start} bytes, its "
+                                 f"shape {shape} and dtype {info['dtype']} need "
+                                 f"{numel * dtype.itemsize}")
+            buf = bytearray(end - start)
+            f.seek(base + start)
+            if f.readinto(buf) != len(buf):
+                raise ValueError(f"{path}: tensor {name!r} runs past the end of the file")
+            t = torch.frombuffer(buf, dtype=dtype) if buf else torch.empty(0, dtype=dtype)
+            out[name] = t.reshape(shape)
+    return out
+
+
+def save_safetensors(sd: Mapping[str, torch.Tensor], path: str) -> None:
+    """Write {name: tensor} as a `.safetensors` file that the `safetensors`
+    package reads; tensors are laid out in name order."""
+    header: Dict[str, object] = {}
+    blobs = []
+    offset = 0
+    for name in sorted(sd):
+        t = sd[name].detach().to("cpu").contiguous()
+        if t.dtype not in _SAFETENSORS_NAMES:
+            raise ValueError(f"tensor {name!r}: dtype {t.dtype} has no safetensors name")
+        data = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": _SAFETENSORS_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        blobs.append(data)
+        offset += len(data)
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)  # the data section starts 8-byte aligned
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for data in blobs:
+            f.write(data)
+
+
 def load_checkpoint_file(path: str) -> Dict[str, torch.Tensor]:
-    """A .pt/.ckpt file as a flat state dict (DeepSpeed `{'module': ...}` and
-    Lightning `{'state_dict': ...}` wrappers unwrapped)."""
+    """A .pt/.ckpt/.safetensors file as a flat state dict (DeepSpeed
+    `{'module': ...}` and Lightning `{'state_dict': ...}` wrappers
+    unwrapped). `.safetensors` goes through `read_safetensors`, never
+    `torch.load`."""
+    if str(path).endswith(".safetensors"):
+        return strip_deepspeed(read_safetensors(path))
     sd = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]

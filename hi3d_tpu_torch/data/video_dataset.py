@@ -1,5 +1,5 @@
-"""Stage-1 orbit-render dataset and prefetching loader (counterpart of the
-stage-1 parts of hi3d_tpu/data/video_dataset.py).
+"""Orbit-render datasets and prefetching loader (counterpart of the folder
+datasets of hi3d_tpu/data/video_dataset.py).
 
 A render folder holds 96 PNG frames: 6 elevation bands
 (-10, 0, 10, 20, 30, 40) × 16 azimuths. A sample picks a random folder and a
@@ -10,9 +10,14 @@ are resized to the configured size when they differ (cv2 INTER_LINEAR
 sampling, utils/image.py) and scaled to [-1, 1]. Decoding uses the port's
 stdlib PNG reader: no cv2, no native loader.
 
+Stage 2 (`VideoTrainDatasetStage2`, `VideoDatasetStage2`) adds each frame's
+foreground mask — alpha / 255 resized with cv2's float INTER_LINEAR, then
+> 0.5, as the JAX loader's cv2 path — and per-frame Real-ESRGAN blur kernels
+drawn on the host (data/kernels.py); the degradation itself runs on the
+device (data/degradation.py).
+
 Layout: the port's NCHW — a sample's video is (T, 3, H, W) float32, a batch's
-(B, T, 3, H, W). The stage-2 dataset, tar shards and degradation come with
-the stage-2 slice.
+(B, T, 3, H, W); masks are (T, H, W). Tar-shard datasets are not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import numpy as np
 
 from ..utils.image import resize_bilinear_u8
 from ..utils.png import read_png
+from .degradation import linear_taps
+from .kernels import DEFAULT_DEGRADATION_OPT, sample_frame_kernels
 
 ELEVATION_BANDS = (-10, 0, 10, 20, 30, 40)
 BAND = 16
@@ -42,6 +49,25 @@ def rgba_white(img: np.ndarray) -> np.ndarray:
         rgb = rgba[..., :3] * mask + 1.0 - mask
         return (rgb * 255.0).astype(np.uint8)
     return img
+
+
+def alpha_mask(img: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
+    """(H, W) float32 foreground mask of a decoded uint8 image, as the JAX
+    loader's cv2 path makes it: alpha / 255 in float32, resized to `size_wh`
+    (cv2 argument order) with cv2's float INTER_LINEAR (two taps per output
+    pixel on each axis, rows then columns), then > 0.5; all ones for an image
+    without alpha."""
+    w, h = size_wh
+    if img.shape[-1] not in (2, 4):
+        return np.ones((h, w), np.float32)
+    a = img[..., -1].astype(np.float32) / 255.0
+    if a.shape != (h, w):
+        y0, y1, wy0, wy1 = linear_taps(a.shape[0], h)
+        x0, x1, wx0, wx1 = linear_taps(a.shape[1], w)
+        a = a.astype(np.float64)
+        rows = a[y0] * wy0[:, None] + a[y1] * wy1[:, None]
+        a = (rows[:, x0] * wx0 + rows[:, x1] * wx1).astype(np.float32)
+    return (a > 0.5).astype(np.float32)
 
 
 def select_window(frames: List, rng: np.random.RandomState, sample_frames: int) -> Tuple[List, int]:
@@ -70,19 +96,28 @@ class VideoTrainDataset:
     def __len__(self) -> int:
         return len(self.folders)
 
-    def _load_frame(self, path: str) -> np.ndarray:
-        rgb = rgba_white(read_png(path))
-        rgb = resize_bilinear_u8(rgb, (self.width, self.height))
+    def _frame(self, img: np.ndarray) -> np.ndarray:
+        """A decoded PNG as (3, H, W) in [-1, 1] on white."""
+        rgb = resize_bilinear_u8(rgba_white(img), (self.width, self.height))
         return (rgb.astype(np.float32) / 127.5 - 1.0).transpose(2, 0, 1)
 
-    def sample(self, rng: np.random.RandomState) -> Dict:
-        folder = self.folders[int(rng.randint(len(self.folders)))]
+    def _load_frame(self, path: str) -> np.ndarray:
+        return self._frame(read_png(path))
+
+    def _window(self, folder: str, rng: np.random.RandomState) -> Tuple[List[str], int]:
+        """The paths of a random window of `folder`'s frames, and its elevation."""
         folder_path = os.path.join(self.base_folder, folder)
         frames = sorted(os.listdir(folder_path))
         if len(frames) < self.sample_frames:
             raise ValueError(f"folder {folder!r} has {len(frames)} < {self.sample_frames} frames")
         selected, elevation = select_window(frames, rng, self.sample_frames)
-        video = np.stack([self._load_frame(os.path.join(folder_path, n)) for n in selected])
+        return [os.path.join(folder_path, n) for n in selected], elevation
+
+    def sample(self, rng: np.random.RandomState) -> Dict:
+        folder = self.folders[int(rng.randint(len(self.folders)))]
+        paths, elevation = self._window(folder, rng)
+        video = np.stack([self._load_frame(p) for p in paths])
+        selected = [os.path.basename(p) for p in paths]
         return {
             "video": video,  # (T, 3, H, W) in [-1, 1]
             "elevation": np.float32(elevation),
@@ -93,6 +128,36 @@ class VideoTrainDataset:
 
     def __getitem__(self, idx: int) -> Dict:
         return self.sample(np.random.RandomState(idx))
+
+
+class VideoTrainDatasetStage2(VideoTrainDataset):
+    """Stage-2 training samples: the stage-1 window plus each frame's mask
+    and its degradation kernels (`sample_frame_kernels`, drawn from the same
+    RandomState after the window, as the JAX package draws them).
+    `depth_folder` is accepted for the reference config's sake and unused:
+    the DepthEmbedder computes depth at train time."""
+
+    def __init__(self, *args, degradation_opt: Optional[dict] = None,
+                 depth_folder: Optional[str] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.opt = dict(DEFAULT_DEGRADATION_OPT, **(degradation_opt or {}))
+
+    def sample(self, rng: np.random.RandomState) -> Dict:
+        folder = self.folders[int(rng.randint(len(self.folders)))]
+        paths, elevation = self._window(folder, rng)
+        imgs = [read_png(p) for p in paths]
+        frames = [self._frame(img) for img in imgs]
+        masks = [alpha_mask(img, (self.width, self.height)) for img in imgs]
+        k1, k2, ks = sample_frame_kernels(self.opt, self.sample_frames, rng)
+        return {
+            "video": np.stack(frames),  # (T, 3, H, W) in [-1, 1]
+            "masks": np.stack(masks),  # (T, H, W), 0 on the background
+            "elevation": np.float32(elevation),
+            "caption": folder,
+            "kernel1s": k1,  # (T, 21, 21) each
+            "kernel2s": k2,
+            "sinc_kernels": ks,
+        }
 
 
 def _collate(samples: List[Dict]) -> Dict:
@@ -171,3 +236,20 @@ class VideoDataset:
             self.setup()
         return iter(PrefetchLoader(self.train_dataset, self.batch_size, seed=self.seed,
                                    num_workers=self.num_workers))
+
+
+class VideoDatasetStage2(VideoDataset):
+    """The `data:` section of train-v02.yaml: VideoDataset over
+    `VideoTrainDatasetStage2`; `degradation_opt` overrides the kernels'
+    Real-ESRGAN settings, `depth_folder` is accepted and unused."""
+
+    def __init__(self, *args, degradation_opt: Optional[dict] = None,
+                 depth_folder: Optional[str] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.degradation_opt = degradation_opt
+
+    def setup(self) -> "VideoDatasetStage2":
+        self.train_dataset = VideoTrainDatasetStage2(
+            self.base_folder, self.width, self.height, self.sample_frames,
+            degradation_opt=self.degradation_opt)
+        return self

@@ -22,6 +22,7 @@ import functools
 import inspect
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -321,31 +322,53 @@ class VideoLDM(DiffusionEngine):
 
 class VideoLDMStage2(VideoLDM):
     """Stage-2 video-to-video refiner (JAX engine.VideoLDMStage2): the
-    conditioning video is the input video itself at inference; the depth
-    channels come from the conditioner's DepthEmbedder."""
+    conditioning video is the input video itself at inference and its
+    Real-ESRGAN degradation in training (data/degradation.py, on the
+    video's device); the depth channels come from the conditioner's
+    DepthEmbedder."""
+
+    def __init__(self, *args, **kwargs):
+        from .data.degradation import DegradedImages
+
+        super().__init__(*args, **kwargs)
+        self.degradation = DegradedImages()
 
     def add_custom_cond(self, batch: Dict, infer: bool = False,
                         generator: Optional[torch.Generator] = None) -> Dict:
         """cond_frames_without_noise = video[:, 0]; cond_frames = every frame
-        of the video (B·T, 3, H, W) plus cond_aug (0.02) Gaussian noise —
-        the noise augmentation applies at inference too; image_only_indicator
-        zeros."""
-        if not infer:
-            raise NotImplementedError(
-                "stage-2 training (degradation of the conditioning video, data/degradation.py) "
-                "is not ported yet: it is the stage-2 training slice (ROADMAP)")
+        of the conditioning video (B·T, 3, H, W) plus cond_aug-scaled
+        Gaussian noise (the augmentation applies at inference too);
+        image_only_indicator zeros.
+
+        Inference: the conditioning video is batch['video'], cond_aug 0.02.
+        Training: it is the video degraded with the batch's masks and
+        kernels (whatever `masks`, `kernel1s`, `kernel2s`, `sinc_kernels`
+        the batch holds), cond_aug = exp(-3 + 0.5·N(0, 1)) per video. The
+        degradation's RandomState is seeded from `generator`, which also
+        draws its noise fields, so one seed gives one degraded video."""
         batch = dict(batch)
         batch["num_video_frames"] = self.num_samples
         video = batch["video"]  # (B, T, 3, H, W)
         n = video.shape[0]
+        dev = video.device
         batch["cond_frames_without_noise"] = video[:, 0]
-        cond_aug = torch.full((n,), 0.02, device=video.device)
-        frames = video.reshape(-1, *video.shape[2:])
+        if infer:
+            cond_video = video
+            cond_aug = torch.full((n,), 0.02, device=dev)
+        else:
+            gen_dev = generator.device if generator is not None else dev
+            seed = int(torch.randint(2**31 - 1, (1,), generator=generator, device=gen_dev))
+            cond_video = self.degradation(
+                video, batch.get("masks"), kernel1s=batch.get("kernel1s"),
+                kernel2s=batch.get("kernel2s"), sinc_kernels=batch.get("sinc_kernels"),
+                rng=np.random.RandomState(seed), generator=generator).to(video.dtype)
+            cond_aug = torch.exp(-3.0 + 0.5 * torch.randn((n,), generator=generator, device=dev))
+        frames = cond_video.reshape(-1, *cond_video.shape[2:])
         aug = cond_aug.repeat_interleave(self.num_samples)
         noise = torch.randn(frames.shape, generator=generator, device=frames.device,
                             dtype=frames.dtype)
         batch["cond_frames"] = frames + append_dims(aug, frames.ndim).to(frames.dtype) * noise
         batch["cond_aug"] = cond_aug
         if "image_only_indicator" not in batch:
-            batch["image_only_indicator"] = torch.zeros((n, self.num_samples), device=video.device)
+            batch["image_only_indicator"] = torch.zeros((n, self.num_samples), device=dev)
         return batch

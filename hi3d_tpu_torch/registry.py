@@ -1,7 +1,7 @@
 """Target-name registry: the reference's config `target` strings → the
 PyTorch classes of this package, for the targets the stage-1 configs
 (`configs/inference-v01.yaml`, `configs/train-v01.yaml`) and the stage-2
-inference config (`configs/inference-v02.yaml`) name, and every sampler,
+configs (`configs/inference-v02.yaml`, `configs/train-v02.yaml`) name, and every sampler,
 guider, discretization, denoiser and scaling a config can name. Entries are
 lazy "module:attr" strings. Targets that name a JAX-package class
 (`hi3d_tpu.training.schedules.*`) map to the port's counterpart, so a
@@ -56,6 +56,8 @@ _ALIASES: Dict[str, str] = {
     "vtdm.vtdm_gen_stage2_degradeImage.VideoLDM": f"{_P}.engine:VideoLDMStage2",
     # data and LR schedules
     "sgm.data.video_dataset.VideoDataset": f"{_P}.data.video_dataset:VideoDataset",
+    "sgm.data.video_dataset_stage2_degradeImages.VideoDataset":
+        f"{_P}.data.video_dataset:VideoDatasetStage2",
     **{f"{pkg}.{name}": f"{_P}.training.schedules:{name}"
        for pkg in ("sgm.lr_scheduler", "hi3d_tpu.training.schedules")
        for name in ("LambdaLinearScheduler", "LambdaWarmUpCosineScheduler",

@@ -1,7 +1,13 @@
-"""Stage-1 training on one GPU (counterpart of train.py, same flags).
+"""Stage-1 and stage-2 training on one GPU (counterpart of train.py, same flags).
 
     python -m hi3d_tpu_torch.train --base configs/train-v01.yaml --no_test True \
         [--device cuda] [--max_steps N] [--resume logs/<run>] [key.sub=value ...]
+    python -m hi3d_tpu_torch.train --base configs/train-v02.yaml --no_test True ...
+
+The config picks the stage: train-v01.yaml fine-tunes the image-to-orbit
+model on 16×512² clips, train-v02.yaml the 1024² video-to-video refiner,
+whose conditioning video is degraded on the device each step
+(VideoLDMStage2.add_custom_cond, data/degradation.py).
 
 Builds the config's model directly on `--device` (fp32 master weights; the
 UNet computes in the config's compute_dtype), loads `model.params.ckpt_path`
@@ -31,7 +37,7 @@ def str2bool(v: str) -> bool:
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="Hi3D stage-1 trainer (PyTorch port)")
+    p = argparse.ArgumentParser(description="Hi3D stage-1 / stage-2 trainer (PyTorch port)")
     p.add_argument("-b", "--base", nargs="*", default=["configs/train-v01.yaml"],
                    help="config yaml(s), merged left-to-right")
     p.add_argument("-t", "--train", type=str2bool, default=True)

@@ -201,7 +201,8 @@ class Trainer:
 
     # ----------------------------------------------------------------- fit
     def _device_batch(self, batch: Dict) -> Dict:
-        """numpy batch → tensors on the device; strings stay on the host."""
+        """numpy batch → tensors on the device (video, elevation, and at
+        stage 2 masks and kernels); captions (strings) are dropped."""
         return {k: torch.from_numpy(np.asarray(v)).to(self.device)
                 for k, v in batch.items() if not isinstance(v, (str, list))}
 
@@ -254,14 +255,18 @@ class Trainer:
                 if self.profile_steps and step == self.profile_steps[0]:
                     prof = self._start_profile()
                 self.generator.manual_seed(self.seed * 100003 + step)
+                t_cond = time.perf_counter()
                 batch = self.engine.add_custom_cond(self._device_batch(batch), infer=False,
                                                     generator=self.generator)
-                lr = self.optimizer.param_groups[0]["lr"]
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
                 t0 = time.perf_counter()
+                lr = self.optimizer.param_groups[0]["lr"]
                 metrics = self.train_step(batch, self.generator)
                 metrics["lr"] = lr
                 metrics = {k: float(v) for k, v in metrics.items()}  # waits for the step
-                metrics["sec_per_step"] = time.perf_counter() - t0
+                metrics["sec_per_step"] = time.perf_counter() - t0  # the step alone, as JAX's
+                metrics["cond_s"] = t0 - t_cond  # the batch's move and add_custom_cond
                 step = self.train_step.step
                 self.last_metrics = metrics
                 self.metrics(step, metrics)

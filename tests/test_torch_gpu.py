@@ -716,3 +716,45 @@ def test_decode_tiled_on_the_card_matches_the_cpu(cuda):
     assert gn.group_stats.launches - before == 15 * norms
     assert out.shape == ref.shape == (2, 3, 160, 224)
     assert (out.cpu() - ref).abs().max().item() < 1e-4
+
+
+@pytest.mark.gpu
+def test_degradation_on_the_card_matches_the_cpu(cuda):
+    """The stage-2 degradation (DegradedImages) on the card against the same
+    call on the CPU: one RandomState seed for the plan, the noise fields
+    drawn once on the CPU and handed to the card's run. The card's resizes
+    and blurs round differently in the last bits, which can flip a uint8
+    truncation before a JPEG: at most 1 grey level, mean ≤ 2e-3 levels,
+    ≤ 2e-3 of the pixels off by more than half a level (the bounds the CPU
+    suite holds the port's plan to against the JAX package)."""
+    import numpy as np
+
+    from hi3d_tpu_torch.data.degradation import DegradedImages
+    from hi3d_tpu_torch.data.kernels import DEFAULT_DEGRADATION_OPT, sample_frame_kernels
+
+    rnd = np.random.RandomState(0)
+    b, t, hw = 3, 4, 128
+    video = torch.from_numpy((rnd.rand(b, t, 3, hw, hw) * 2 - 1).astype(np.float32))
+    masks = torch.from_numpy((rnd.rand(b, t, hw, hw) > 0.3).astype(np.float32))
+    kernels = [sample_frame_kernels(DEFAULT_DEGRADATION_OPT, t, rnd) for _ in range(b)]
+    k1, k2, ks = (torch.from_numpy(np.stack([k[i] for k in kernels])) for i in range(3))
+    gen = torch.Generator().manual_seed(1)
+    draws = []
+
+    def record(kind, arg, device, rng, generator):
+        out = DegradedImages._noise(kind, arg, device, rng, gen)
+        draws.append(out)
+        return out
+
+    cpu, card = DegradedImages(), DegradedImages()
+    cpu._noise = record
+    card._noise = lambda *args: draws.pop(0).to(cuda)
+    for seed in range(3):
+        ref = cpu(video, masks, k1, k2, ks, rng=np.random.RandomState(seed))
+        out = card(video.to(cuda), masks.to(cuda), k1.to(cuda), k2.to(cuda), ks.to(cuda),
+                   rng=np.random.RandomState(seed))
+        assert not draws and out.device.type == cuda.type
+        d = (out.cpu() - ref).abs() * 127.5
+        assert d.max().item() <= 1.0 + 1e-4, d.max().item()
+        assert d.mean().item() <= 2e-3 and (d > 0.5).float().mean().item() <= 2e-3
+        assert torch.equal(out[:, 0].cpu(), video[:, 0])

@@ -312,13 +312,11 @@ def test_blend_alpha_matches_jax_schedule():
 
 
 def test_stage2_training_branch_and_wide_decode_raise(models):
-    """Stage-2 training is not ported; a latent wider than decode_tile_size
-    decodes in tiles (tests/test_torch_full.py), which must exceed the
-    default overlap of 16."""
+    """A latent wider than decode_tile_size decodes in tiles
+    (tests/test_torch_full.py), which must exceed the default overlap of 16.
+    (The training branch of add_custom_cond is held against JAX in
+    tests/test_torch_stage2_training.py.)"""
     _, tm = models
-    video = torch.zeros((1, T, 3, RES, RES))
-    with pytest.raises(NotImplementedError, match="stage-2 training"):
-        tm.add_custom_cond({"video": video, "elevation": torch.zeros(1)}, infer=False)
     old = tm.decode_tile_size
     tm.decode_tile_size = 16
     try:
