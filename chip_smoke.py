@@ -42,10 +42,16 @@
    frames and every kernel's launch count against the model's plan;
 6. main path 2: `hi3d_tpu_torch.train.main` on configs/train-v01.yaml at
    full width (2 videos × 16 × 512² per step, random weights, renders made
-   from demo/3.png) for 4 steps; checks finite losses, moved parameters, a
-   reloadable checkpoint and the launch counts; then 3 steps on one video of
-   48 frames a step (a dense ring of renders, `long_clip_config`): finite
-   losses and launch counts with #6/#7 on every frame-axis site;
+   from demo/3.png) for 4 steps with the JAX CLI's defaults: the image
+   logger dumps at the last step (`batch_frequency` set to the step count),
+   the post-train test pass runs on an eval folder holding demo/3.png, and
+   `--outckpt` exports the weights; checks finite losses, moved parameters,
+   a reloadable checkpoint, every media file of the dump (`_check_dump`),
+   that the test pass ended as JAX's does, the export's keys and a sample of
+   its values (`_check_export`) and the launch counts (training plus one
+   `log_images`); then 3 steps on one video of 48 frames a step (a dense
+   ring of renders, `long_clip_config`, `--no_test True`): finite losses and
+   launch counts with #6/#7 on every frame-axis site;
 7. main path 3: `hi3d_tpu_torch.pipelines.v2v.main` at full width
    (configs/inference-v02.yaml, 16×1024², 25 steps, random weights, the DPT's
    included) on the frames main path 1 wrote; checks the refined frames and
@@ -84,11 +90,16 @@
    finite losses and gradient norms, that out.2 moved, step 1's degraded
    video (finite, in [-1, 1], frame 0 clean, background white, the other
    frames changed; each of its operations against the CPU on the card's
-   input), a reloadable checkpoint (written and deleted: weights and AdamW
-   moments, ~24 GB) and the launch counts; prints s/step, `cond_s`, peak
-   memory and the degradation's seconds a step;
+   input; two more runs of its plan on the card bit-equal), a reloadable
+   checkpoint (written and deleted: weights and AdamW moments, ~24 GB), the
+   dump, the test pass and the export as path 2 does, and the launch counts;
+   prints s/step, `cond_s`, peak memory and the degradation's seconds a
+   step;
 13. prints the kernel JSON line (launches per path and summed, errors, times,
    bounds), the card line, and the contract line last.
+
+The training paths log metrics every step (`metrics_every_step`; the CLI
+logs every 10th, as JAX's) so that every step's sec_per_step is read.
 
 Any failure raises and exits non-zero.
 """
@@ -98,6 +109,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -955,8 +967,9 @@ def expected_launches(config_path: str, steps: int, path: str, clip_size=None,
     """Launches per kernel that the model's plan predicts for one run of
     `path` ("i2v", "train", "v2v", "serve": `assets` assets of `clip_size`
     frames in one batch, "refine": stage 2 on `assets` videos in one batch,
-    or "unet_grad": one forward and backward of the UNet alone at
-    `clip_size` frames; the config's clip length by default), inference
+    "unet_grad": one forward and backward of the UNet alone at `clip_size`
+    frames, or "log_images": the engine's `log_images` on one video with
+    `steps` sampler steps; the config's clip length by default), inference
     with `sampler` (a class name; the config's by default) and
     `encoder_reuse` (`unet_calls`). The two-stage paths sum these
     (`full_launches`, `two_stage_launches`).
@@ -1007,6 +1020,20 @@ def expected_launches(config_path: str, steps: int, path: str, clip_size=None,
     engine_chunk = mp.get("en_and_decode_n_samples_a_time")
     enc_chunk = _embedder(cfg, "VideoPredictionEmbedderWithEncoder").get(
         "en_and_decode_n_samples_a_time")
+    if path == "log_images":
+        # one video: i2v's plan (stage 2: refine's), the engine's encode of
+        # the frames at stage 1 (refine has it), the reconstructions' decode;
+        # stage 2 then conditions again with ucg off and decodes the
+        # conditioning latents
+        depth = _has_embedder(cfg, "DepthEmbedder")
+        base = expected_launches(config_path, steps, "refine" if depth else "i2v", clip_size=t)
+        decode = {"group_stats": sites["decoder"] * _chunks(t, engine_chunk)}
+        if not depth:
+            encode = {"group_stats": sites["encoder"] * _chunks(t, engine_chunk)}
+            return _sum_launches(base, encode, decode)
+        again = {"group_stats": sites["dpt_gn"] + sites["encoder"] * _chunks(t, enc_chunk),
+                 "layer_norm": sites["vit_h"] + sites["dpt_ln"]}
+        return _sum_launches(base, decode, again, decode)
     if path in ("train", "unet_grad"):
         calls = 1 if path == "unet_grad" else steps * cfg.get("lightning", {}).get(
             "trainer", {}).get("accumulate_grad_batches", 1)
@@ -1294,9 +1321,10 @@ def _check_calls(label: str, calls: dict, want: dict) -> None:
         raise AssertionError(f"main path {label}: UNet calls {calls}, want {want}")
 
 
-def _run_printing_phases(tag: str, fn, argv) -> dict:
-    """fn(argv) with its standard output echoed; returns the phase seconds it
-    printed on its `[tag] phases {...}` line."""
+@contextlib.contextmanager
+def _tee_stdout():
+    """Within: standard output is echoed and kept; yields the list of the
+    written pieces."""
     import io
 
     class Tee(io.TextIOBase):
@@ -1313,9 +1341,16 @@ def _run_printing_phases(tag: str, fn, argv) -> dict:
 
     tee = Tee(sys.stdout)
     with contextlib.redirect_stdout(tee):
+        yield tee.text
+
+
+def _run_printing_phases(tag: str, fn, argv) -> dict:
+    """fn(argv) with its standard output echoed; returns the phase seconds it
+    printed on its `[tag] phases {...}` line."""
+    with _tee_stdout() as text:
         fn(argv)
     head = f"[{tag}] phases "
-    lines = [ln for ln in "".join(tee.text).splitlines() if ln.startswith(head)]
+    lines = [ln for ln in "".join(text).splitlines() if ln.startswith(head)]
     return json.loads(lines[-1][len(head):])
 
 
@@ -1415,12 +1450,207 @@ def write_renders(root: str, folders: int = 2, frames: int = 96) -> str:
     return root
 
 
+@contextlib.contextmanager
+def metrics_every_step():
+    """Within: the Trainer that `train.main` builds logs metrics every step
+    (the CLI logs every 10th, as JAX's), so each step's sec_per_step is
+    read."""
+    from hi3d_tpu_torch.training import trainer as mod
+
+    cls = mod.Trainer
+
+    class EveryStep(cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, log_every=1, **kwargs)
+
+    mod.Trainer = EveryStep
+    try:
+        yield
+    finally:
+        mod.Trainer = cls
+
+
+class DumpProbe:
+    """While active, records each media dump of an `ImageLogger` (a step it
+    logs at): its directory, step, seconds (the card synchronised before and
+    after) and, per media key, the shape, whether every value is finite, and
+    the range. `export` records the seconds of `--outckpt`'s state dict and
+    write."""
+
+    def __enter__(self):
+        import torch
+
+        from hi3d_tpu_torch import convert
+        from hi3d_tpu_torch.training.trainer import ImageLogger
+
+        self.cls, self.orig = ImageLogger, ImageLogger.maybe_log
+        self.convert, self.saved = convert, (convert.export_engine_state_dict,
+                                             convert.save_safetensors)
+        self.dumps, self.export = [], 0.0
+        probe = self
+
+        def maybe_log(logger, engine, batch, step):
+            if step % logger.every:
+                return probe.orig(logger, engine, batch, step)
+            stats, log_images = {}, engine.log_images
+
+            def recorded(*args, **kwargs):
+                media = log_images(*args, **kwargs)
+                stats.update({k: (v.shape, bool(np.isfinite(v).all()), float(v.min()),
+                                  float(v.max())) for k, v in media.items()})
+                return media
+
+            engine.log_images = recorded
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                probe.orig(logger, engine, batch, step)
+            finally:
+                del engine.log_images
+            torch.cuda.synchronize()
+            probe.dumps.append({"dir": logger.dir, "step": step, "media": stats,
+                                "seconds": time.perf_counter() - t0})
+
+        def timed(fn):
+            def run(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                probe.export += time.perf_counter() - t0
+                return out
+            return run
+
+        ImageLogger.maybe_log = maybe_log
+        convert.export_engine_state_dict = timed(self.saved[0])
+        convert.save_safetensors = timed(self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.maybe_log = self.orig
+        self.convert.export_engine_state_dict, self.convert.save_safetensors = self.saved
+
+
+IN_RANGE = ("inputs", "conditioning", "depth-video")  # media that lie in [-1, 1] by make
+
+
+def _check_dump(probe: DumpProbe, trainer, steps: int, keys, frames: int, out: str) -> str:
+    """The dump at the last training step and the post-train test pass,
+    against what the JAX CLI does: `keys` media of the first video, finite,
+    those of `IN_RANGE` in [-1, 1] (the VAE's outputs are printed with their
+    largest overshoot past it), each written under image_log/ (a video as
+    `frames` PNG frames in its own directory, the caption as one PNG); the
+    test pass ran the logger on the eval set's first item, which
+    `log_images` refused with KeyError('video'), printed as JAX prints it,
+    and wrote nothing."""
+    from hi3d_tpu_torch.utils.png import read_png
+
+    train_dumps = [d for d in probe.dumps if d["dir"] == os.path.join(trainer.logdir, "image_log")]
+    test_dumps = [d for d in probe.dumps if d["dir"] == os.path.join(trainer.logdir, "test",
+                                                                     "image_log")]
+    if [d["step"] for d in train_dumps] != [steps] or len(test_dumps) != 1:
+        raise AssertionError(f"dumps {[(d['dir'], d['step']) for d in probe.dumps]}: want one at "
+                             f"step {steps} and the test pass")
+    dump = train_dumps[0]
+    if set(dump["media"]) != set(keys):
+        raise AssertionError(f"media keys {sorted(dump['media'])}, want {sorted(keys)}")
+    overshoot = {}
+    for key, (shape, finite, lo, hi) in dump["media"].items():
+        if not finite:
+            raise AssertionError(f"media {key!r} {shape} is not finite")
+        past = max(-1.0 - lo, hi - 1.0, 0.0)
+        if key in IN_RANGE and past > 0:
+            raise AssertionError(f"media {key!r} in [{lo}, {hi}], outside [-1, 1]")
+        if past > 0:
+            overshoot[key] = round(past, 4)
+        name = f"step{steps:08d}_{key}_0"
+        if len(shape) == 4:  # an image: (1, H, W, 3)
+            img = read_png(os.path.join(dump["dir"], f"{name}.png"))
+            if img.shape != tuple(shape[1:]) or img.dtype != np.uint8:
+                raise AssertionError(f"{name}.png: {img.shape} {img.dtype}, want {shape[1:]}")
+            continue
+        frame_dir = os.path.join(dump["dir"], name, "frames")
+        names = sorted(os.listdir(frame_dir))
+        img = read_png(os.path.join(frame_dir, names[-1]))
+        if len(names) != frames or img.shape != tuple(shape[2:]):
+            raise AssertionError(f"{frame_dir}: {len(names)} frames of {img.shape}, want "
+                                 f"{frames} of {shape[2:]}")
+    if "[image_log] skipped at step 0: 'video'" not in out:
+        raise AssertionError("the test pass did not end as JAX's: no \"[image_log] skipped at "
+                             "step 0: 'video'\" line")
+    if os.path.exists(os.path.join(trainer.logdir, "test")):
+        raise AssertionError("the test pass wrote media, which JAX's does not")
+    return (f"dump at step {steps}: {dump['seconds']:.2f} s, media "
+            f"{ {k: list(v[0]) for k, v in sorted(dump['media'].items())} }, all finite, "
+            f"overshoot past [-1, 1] {overshoot}; test pass "
+            f"{test_dumps[0]['seconds']:.3f} s, skipped at step 0: 'video' as JAX's")
+
+
+def _safetensors_header(path: str):
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        return json.loads(f.read(n)), 8 + n
+
+
+def _check_export(path: str, engine, seconds: float) -> str:
+    """`--outckpt`'s file: its names are exactly those a strict
+    `load_reference_state_dict` of the UNet and of the VAE takes, fp32, and
+    the tensors of every 50th UNet name (and every 50th VAE name) equal the
+    trained engine's."""
+    import torch
+
+    from hi3d_tpu_torch.convert import SAFETENSORS_DTYPES
+
+    header, base = _safetensors_header(path)
+    header.pop("__metadata__", None)
+    parts = (("model.diffusion_model.", engine.model.diffusion_model),
+             ("first_stage_model.", engine.first_stage_model))
+    want = {prefix + k: v for prefix, m in parts for k, v in m.state_dict().items()}
+    if set(header) != set(want):
+        raise AssertionError(f"export names: {len(set(header) - set(want))} extra, "
+                             f"{len(set(want) - set(header))} missing")
+    if {info["dtype"] for info in header.values()} != {"F32"}:
+        raise AssertionError("the export is not all fp32")
+    sampled = [n for prefix, m in parts for n in sorted(prefix + k for k in m.state_dict())[::50]]
+    with open(path, "rb") as f:
+        for name in sampled:
+            start, end = header[name]["data_offsets"]
+            f.seek(base + start)
+            t = torch.frombuffer(bytearray(f.read(end - start)), dtype=SAFETENSORS_DTYPES["F32"])
+            if not torch.equal(t.reshape(header[name]["shape"]), want[name].float().cpu()):
+                raise AssertionError(f"export tensor {name} differs from the trained engine's")
+    return (f"export {os.path.getsize(path) / 2**30:.2f} GiB in {seconds:.1f} s, {len(header)} "
+            f"tensors, the names a strict load of the UNet and the VAE takes, "
+            f"{len(sampled)} sampled tensors equal to the trained engine's")
+
+
+def write_eval_folder(root: str) -> str:
+    """An eval folder holding a copy of demo/3.png."""
+    import shutil
+
+    os.makedirs(root, exist_ok=True)
+    shutil.copy(os.path.join(ROOT, "demo", "3.png"), os.path.join(root, "3.png"))
+    return root
+
+
+def _cli_defaults(config: str, steps: int, out_dir: str) -> list:
+    """The JAX CLI's defaults for a smoke run: no --no_test, the image
+    logger at the last step, an eval folder and --outckpt."""
+    return [f"lightning.callbacks.image_logger.params.batch_frequency={steps}",
+            f"data.params.eval_folder={write_eval_folder(os.path.join(out_dir, 'eval'))}",
+            "--outckpt", os.path.join(out_dir, "export.safetensors")]
+
+
+STAGE1_MEDIA = ("inputs", "conditioning", "reconstructions", "samples")
+STAGE2_MEDIA = STAGE1_MEDIA + ("depth-video", "cond-video")
+
+
 def training_path(steps: int) -> dict:
     """`hi3d_tpu_torch.train.main` on configs/train-v01.yaml at full width
-    (16×512², the config's batch, random weights) for `steps` steps: finite
-    losses, parameters moved, a checkpoint that reloads to the trained
-    state, launch counts equal to the UNet plan with checkpointing. Returns
-    the launch count of each kernel."""
+    (16×512², the config's batch, random weights) for `steps` steps with the
+    JAX CLI's defaults (`_cli_defaults`): finite losses, parameters moved, a
+    checkpoint that reloads to the trained state, the dump and the test pass
+    (`_check_dump`), the export (`_check_export`), launch counts equal to
+    the UNet plan with checkpointing plus one `log_images`. Returns the
+    launch count of each kernel."""
     import shutil
     import statistics
 
@@ -1447,22 +1677,32 @@ def training_path(steps: int) -> dict:
     del init_model
     torch.cuda.empty_cache()
 
-    expected = expected_launches(config, steps, "train")
+    sampler_steps = cfg["model"]["params"]["sampler_config"]["params"]["num_steps"]
+    expected = _sum_launches(expected_launches(config, steps, "train"),
+                             expected_launches(config, sampler_steps, "log_images"))
     reset_launches()
     t0 = time.perf_counter()
-    trainer = train.main(["--base", config, "--max_steps", str(steps), "--no_test", "True",
-                          "--device", "cuda", "--seed", str(seed), "--logdir", out_dir,
-                          f"data.params.base_folder={renders}", "data.params.num_workers=4"])
+    with metrics_every_step(), DumpProbe() as dumps, _tee_stdout() as text:
+        trainer = train.main(["--base", config, "--max_steps", str(steps), "--device", "cuda",
+                              "--seed", str(seed), "--logdir", out_dir,
+                              *_cli_defaults(config, steps, out_dir),
+                              f"data.params.base_folder={renders}", "data.params.num_workers=4"])
     launches = read_launches(expected)
     wall = time.perf_counter() - t0
+    run_peak = torch.cuda.max_memory_allocated() / 2**30
     rows = [json.loads(line) for line in open(os.path.join(trainer.logdir, "metrics.jsonl"))]
     batch = cfg["data"]["params"]["batch_size"]
     s_per_step = statistics.median(r["sec_per_step"] for r in rows[1:])
     peak = max(r["peak_mem_gb"] for r in rows)
-    print(f"[train] {steps} steps in {wall:.1f} s (build, data and checkpoint included); "
-          f"batch {batch} videos × 16 frames × 512²; s/step (median of steps 2-{steps}) "
-          f"{s_per_step:.3f}; peak allocated {peak:.2f} GB; losses "
-          f"{[round(r['loss'], 5) for r in rows]}; launches {launches}", flush=True)
+    print(f"[train] {steps} steps in {wall:.1f} s (build, data, checkpoint, dump, test pass and "
+          f"export included); batch {batch} videos × 16 frames × 512²; s/step (median of steps "
+          f"2-{steps}) {s_per_step:.3f}; peak allocated {peak:.2f} GiB in training, "
+          f"{run_peak:.2f} GiB over the run; losses {[round(r['loss'], 5) for r in rows]}; "
+          f"launches {launches}", flush=True)
+    dump = _check_dump(dumps, trainer, steps, STAGE1_MEDIA, 16, "".join(text))
+    export = _check_export(os.path.join(out_dir, "export.safetensors"), trainer.engine,
+                           dumps.export)
+    print(f"[train] {dump}; {export}", flush=True)
     if [r["step"] for r in rows] != list(range(1, steps + 1)):
         raise AssertionError(f"metrics rows {[r['step'] for r in rows]}")
     if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows):
@@ -1591,9 +1831,10 @@ def long_clip_training_path(steps: int = LONG_CLIP_STEPS, frames: int = LONG_CLI
     expected = expected_launches(config, steps, "train")
     reset_launches()
     t0 = time.perf_counter()
-    trainer = train.main(["--base", config, "--max_steps", str(steps), "--no_test", "True",
-                          "--device", "cuda", "--seed", "0", "--logdir", out_dir,
-                          "data.params.num_workers=4"])
+    with metrics_every_step():
+        trainer = train.main(["--base", config, "--max_steps", str(steps), "--no_test", "True",
+                              "--device", "cuda", "--seed", "0", "--logdir", out_dir,
+                              "data.params.num_workers=4"])
     launches = read_launches(expected)
     wall = time.perf_counter() - t0
     rows = [json.loads(line) for line in open(os.path.join(trainer.logdir, "metrics.jsonl"))]
@@ -1815,9 +2056,50 @@ def _replay_degradation(first: dict) -> str:
     return line
 
 
+def _degradation_twice(first: dict) -> str:
+    """A training step's degradation (`DegradationProbe.first`: its video,
+    masks, kernels and plan) run twice more on the card, each from the
+    plan's RandomState and a generator seeded 0: the two videos must be
+    equal bit for bit. Where they are not, each operation's outputs are
+    compared in turn and the first that differs is named."""
+    import torch
+
+    from hi3d_tpu_torch.data.degradation import DegradedImages
+
+    def run():
+        ops = []
+
+        def record(name, fn):
+            def op(*args):
+                out = fn(*args)
+                ops.append((name, out.clone()))
+                return out
+            return op
+
+        deg = DegradedImages()
+        rng = np.random.RandomState()
+        rng.set_state(first["state"])
+        with _wrapped_degradation_ops(deg, record):
+            out = deg(first["video"].cuda(), first["masks"].cuda(),
+                      *(k.cuda() for k in first["kernels"]), rng=rng,
+                      generator=torch.Generator("cuda").manual_seed(0))
+        return out, ops
+
+    (a, ops_a), (b, ops_b) = run(), run()
+    diff = (a.double() - b.double()).abs().max().item() * 127.5
+    line = f"two runs on the card: max |Δ| {diff:.6g} grey levels over {len(ops_a)} operations"
+    if not torch.equal(a, b):
+        bad = next(f"{na} (operation {i})" for i, ((na, x), (_, y)) in enumerate(zip(ops_a, ops_b))
+                   if not torch.equal(x, y))
+        raise AssertionError(f"the card's degradation is not deterministic: {line}; the first "
+                             f"operation that differs: {bad}")
+    return line
+
+
 def replay_degradations(plans: int = 8) -> None:
-    """The card's degradation against its CPU replay (`_replay_degradation`)
-    for `plans` plans at main path 10's size: samples 0.. of the stage-2
+    """The card's degradation against its CPU replay (`_replay_degradation`),
+    and against itself run twice more (`_degradation_twice`), for `plans`
+    plans at main path 10's size: samples 0.. of the stage-2
     dataset over path 10's 1024² renders, the plan's RandomState seeded
     100 + i, the fields drawn on the card from a generator seeded i, with
     the precision `train.main` sets. Prints each plan's range and errors;
@@ -1846,7 +2128,7 @@ def replay_degradations(plans: int = 8) -> None:
                              generator=torch.Generator("cuda").manual_seed(i))
         out = probe.first["out"]
         try:
-            line = _replay_degradation(probe.first)
+            line = f"{_replay_degradation(probe.first)}; {_degradation_twice(probe.first)}"
         except AssertionError as e:
             failed.append(i)
             line = str(e)
@@ -1861,15 +2143,17 @@ def stage2_training_path(steps: int = STAGE2_TRAIN_STEPS) -> dict:
     """Main path 10: `hi3d_tpu_torch.train.main` on configs/train-v02.yaml at
     full width (1 video × 16 frames × 1024² a step, the 17-channel UNet with
     every parameter trained, random weights, seed 0) for `steps` steps, on
-    one folder of 96 RGBA 1024² renders. Checks finite losses and gradient
-    norms, that out.2 moved, the degraded conditioning video of step 1
-    (`_check_degraded`, and against its CPU replay: `_replay_degradation`),
-    a checkpoint that reloads to the trained state and launch counts equal
-    to the stage-2 training plan; prints s/step (the train step alone,
-    median of steps 2 on), the seconds of the batch's move and
-    `add_custom_cond` a step, the peak allocated memory, the degradation's
-    seconds a step and the launches. Returns the launch count of each
-    kernel."""
+    one folder of 96 RGBA 1024² renders, with the JAX CLI's defaults
+    (`_cli_defaults`). Checks finite losses and gradient norms, that out.2
+    moved, the degraded conditioning video of step 1 (`_check_degraded`,
+    against its CPU replay: `_replay_degradation`, and against two more runs
+    on the card: `_degradation_twice`), a checkpoint that reloads to the
+    trained state, the dump and the test pass (`_check_dump`), the export
+    (`_check_export`) and launch counts equal to the stage-2 training plan
+    plus one `log_images`; prints s/step (the train step alone, median of
+    steps 2 on), the seconds of the batch's move and `add_custom_cond` a
+    step, the peak allocated memory, the degradation's seconds a step and
+    the launches. Returns the launch count of each kernel."""
     import shutil
     import statistics
 
@@ -1895,26 +2179,35 @@ def stage2_training_path(steps: int = STAGE2_TRAIN_STEPS) -> dict:
     del unet0
     torch.cuda.empty_cache()
 
-    expected = expected_launches(config, steps, "train")
+    sampler_steps = cfg["model"]["params"]["sampler_config"]["params"]["num_steps"]
+    expected = _sum_launches(expected_launches(config, steps, "train"),
+                             expected_launches(config, sampler_steps, "log_images"))
     reset_launches()
     t0 = time.perf_counter()
-    with DegradationProbe() as probe:
-        trainer = train.main(["--base", config, "--max_steps", str(steps), "--no_test", "True",
-                              "--device", "cuda", "--seed", str(seed), "--logdir", out_dir,
+    with (metrics_every_step(), DegradationProbe() as probe, DumpProbe() as dumps,
+          _tee_stdout() as text):
+        trainer = train.main(["--base", config, "--max_steps", str(steps), "--device", "cuda",
+                              "--seed", str(seed), "--logdir", out_dir,
+                              *_cli_defaults(config, steps, out_dir),
                               f"data.params.base_folder={renders}", "data.params.num_workers=4"])
     launches = read_launches(expected)
     wall = time.perf_counter() - t0
+    run_peak = torch.cuda.max_memory_allocated() / 2**30
     rows = [json.loads(line) for line in open(os.path.join(trainer.logdir, "metrics.jsonl"))]
     s_per_step = statistics.median(r["sec_per_step"] for r in rows[1:])
     peak = max(r["peak_mem_gb"] for r in rows)
-    print(f"[train2] {steps} steps in {wall:.1f} s (build, data and checkpoint included); "
-          f"batch 1 video × 16 frames × 1024²; s/step (median of steps 2-{steps}) "
-          f"{s_per_step:.3f}; batch move and add_custom_cond s a step "
-          f"{[round(r['cond_s'], 4) for r in rows]}; peak allocated {peak:.2f} GiB; "
-          f"degradation s a step "
+    print(f"[train2] {steps} steps in {wall:.1f} s (build, data, checkpoint, dump, test pass and "
+          f"export included); batch 1 video × 16 frames × 1024²; s/step (median of steps "
+          f"2-{steps}) {s_per_step:.3f}; batch move and add_custom_cond s a step "
+          f"{[round(r['cond_s'], 4) for r in rows]}; peak allocated {peak:.2f} GiB in "
+          f"training, {run_peak:.2f} GiB over the run; degradation s a step "
           f"{[round(x, 4) for x in probe.seconds]}; losses {[round(r['loss'], 5) for r in rows]}; "
           f"grad norms {[round(r['grad_norm'], 5) for r in rows]}; launches {launches}",
           flush=True)
+    dump = _check_dump(dumps, trainer, steps, STAGE2_MEDIA, 16, "".join(text))
+    export = _check_export(os.path.join(out_dir, "export.safetensors"), trainer.engine,
+                           dumps.export)
+    print(f"[train2] {dump}; {export}", flush=True)
     if [r["step"] for r in rows] != list(range(1, steps + 1)):
         raise AssertionError(f"metrics rows {[r['step'] for r in rows]}")
     if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows):
@@ -1924,7 +2217,7 @@ def stage2_training_path(steps: int = STAGE2_TRAIN_STEPS) -> dict:
     first = probe.first
     print(f"[train2] step 1's degraded conditioning video: "
           f"{_check_degraded(first['video'], first['masks'], first['out'])}; "
-          f"{_replay_degradation(first)}", flush=True)
+          f"{_replay_degradation(first)}; {_degradation_twice(first)}", flush=True)
 
     unet = trainer.engine.model.diffusion_model
     trained = set(trainer.param_names)
@@ -2333,8 +2626,10 @@ def profile_train(steps: int = 2) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from hi3d_tpu_torch.config import instantiate_from_config, load_config
+    from hi3d_tpu_torch.pipelines.common import configure_precision
     from hi3d_tpu_torch.training.trainer import Trainer
 
+    configure_precision()  # as train.main: fp32 convolutions and matmuls without TF32
     out_dir = tempfile.mkdtemp(prefix="chip_profile_train_", dir=os.path.join(ROOT, "outputs"))
     long_cfg = long_clip_config(os.path.join(out_dir, "train-long.yaml"))
     for config in (os.path.join(ROOT, "configs", "train-v01.yaml"), long_cfg):
@@ -2346,7 +2641,8 @@ def profile_train(steps: int = 2) -> None:
             torch.manual_seed(0)
             engine = instantiate_from_config({"target": cfg["model"]["target"], "params": params})
         b, t = cfg["data"]["params"]["batch_size"], params["num_samples"]
-        trainer = Trainer(engine, logdir=os.path.join(out_dir, f"run{t}"), batch_size=b)
+        trainer = Trainer(engine, logdir=os.path.join(out_dir, f"run{t}"), batch_size=b,
+                          logger_backend="jsonl")
         gen = torch.Generator(device="cuda").manual_seed(0)
         batch = {"video": torch.rand((b, t, 3, 512, 512), generator=gen, device="cuda") * 2 - 1,
                  "elevation": torch.full((b,), 10.0, device="cuda")}
@@ -2402,7 +2698,8 @@ def profile_train2(steps: int = 2) -> None:
         torch.manual_seed(0)
         engine = instantiate_from_config({"target": cfg["model"]["target"], "params": params})
     t, hw = params["num_samples"], cfg["data"]["params"]["height"]
-    trainer = Trainer(engine, logdir=os.path.join(out_dir, "run"), batch_size=1)
+    trainer = Trainer(engine, logdir=os.path.join(out_dir, "run"), batch_size=1,
+                      logger_backend="jsonl")
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1, k2, ks = (torch.from_numpy(k)[None].cuda()
                   for k in sample_frame_kernels(DEFAULT_DEGRADATION_OPT, t, np.random.RandomState(0)))

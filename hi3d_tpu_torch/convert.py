@@ -75,26 +75,39 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
 
 def save_safetensors(sd: Mapping[str, torch.Tensor], path: str) -> None:
     """Write {name: tensor} as a `.safetensors` file that the `safetensors`
-    package reads; tensors are laid out in name order."""
+    package reads; tensors are laid out in name order and written one at a
+    time."""
     header: Dict[str, object] = {}
-    blobs = []
     offset = 0
     for name in sorted(sd):
-        t = sd[name].detach().to("cpu").contiguous()
+        t = sd[name]
         if t.dtype not in _SAFETENSORS_NAMES:
             raise ValueError(f"tensor {name!r}: dtype {t.dtype} has no safetensors name")
-        data = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        size = t.numel() * t.element_size()
         header[name] = {"dtype": _SAFETENSORS_NAMES[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [offset, offset + len(data)]}
-        blobs.append(data)
-        offset += len(data)
+                        "data_offsets": [offset, offset + size]}
+        offset += size
     raw = json.dumps(header, separators=(",", ":")).encode()
     raw += b" " * (-len(raw) % 8)  # the data section starts 8-byte aligned
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(raw)))
         f.write(raw)
-        for data in blobs:
-            f.write(data)
+        for name in sorted(sd):
+            t = sd[name].detach().to("cpu").contiguous()
+            f.write(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+
+
+def export_engine_state_dict(engine: nn.Module) -> Dict[str, torch.Tensor]:
+    """The engine's UNet under `model.diffusion_model.` and its VAE under
+    `first_stage_model.`, fp32 on the CPU: the reference layout that
+    `--outckpt` writes and `init_from_ckpt` loads (the JAX package's
+    `export_engine_state_dict`)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for prefix, module in (("model.diffusion_model.", engine.model.diffusion_model),
+                           ("first_stage_model.", engine.first_stage_model)):
+        sd.update({prefix + k: v.detach().to("cpu", torch.float32)
+                   for k, v in module.state_dict().items()})
+    return sd
 
 
 def load_checkpoint_file(path: str) -> Dict[str, torch.Tensor]:

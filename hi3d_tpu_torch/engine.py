@@ -13,11 +13,13 @@ as in the JAX package.
 Training surface: `make_loss_fn` / `shared_step` (VAE encode, conditioner
 with ucg dropout, StandardDiffusionLoss), `trained_param_keys`,
 `scheduler_config`, `use_ema`, `base_learning_rate`; hi3d_tpu_torch.training
-drives them.
+drives them. `log_images` and `log_conditionings` make the image logger's
+media: numpy in the JAX package's layout, (n, T, H, W, 3) in [-1, 1].
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import inspect
 from typing import Dict, Optional, Sequence, Tuple
@@ -66,6 +68,7 @@ class DiffusionEngine(nn.Module):
         base_learning_rate: Optional[float] = None,
         input_key: str = "jpg",
         log_keys: Optional[Sequence[str]] = None,
+        no_cond_log: bool = False,
         disable_first_stage_autocast: bool = True,  # the VAE runs in fp32 regardless
     ):
         super().__init__()
@@ -77,6 +80,8 @@ class DiffusionEngine(nn.Module):
         # configs reaches it: 64² at stage 1, 128² ≤ 128 at stage 2)
         self.decode_tile_size = decode_tile_size
         self.input_key = input_key
+        self.log_keys = log_keys  # a list or, as the configs give it, a string (JAX: `in`)
+        self.no_cond_log = bool(no_cond_log)
         self.scheduler_config = scheduler_config
         self.use_ema = bool(use_ema)
         self.ema_decay_rate = float(ema_decay_rate)
@@ -234,6 +239,59 @@ class DiffusionEngine(nn.Module):
                            **kw)
         return out.permute(0, 2, 3, 1)
 
+    def log_conditionings(self, batch: Dict, n: int) -> Dict[str, np.ndarray]:
+        """Loggable conditioning inputs as caption images (the JAX engine's
+        `log_conditionings`): for each embedder whose key is in the batch
+        (and in `log_keys` when set), strings are drawn at H/20 px, one value
+        a sample at H/4 and rows of values "x"-joined at H/20, H and W the
+        batch's frames'. Empty with `no_cond_log`."""
+        from .utils.image import log_txt_as_img
+
+        if self.no_cond_log:
+            return {}
+        image_h, image_w = batch[self.input_key].shape[-2:]
+        log: Dict[str, np.ndarray] = {}
+        for emb in self.conditioner.embedders:
+            key = emb.input_key
+            if key is None or key not in batch:
+                continue
+            if self.log_keys is not None and key not in self.log_keys:
+                continue
+            x = batch[key]
+            if isinstance(x, (list, tuple)) and x and isinstance(x[0], str):
+                log[key] = log_txt_as_img((image_w, image_h), list(x[:n]), size=image_h // 20)
+                continue
+            x = np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)[:n]
+            if x.ndim == 1:
+                log[key] = log_txt_as_img((image_w, image_h), [str(v) for v in x.tolist()],
+                                          size=image_h // 4)
+            elif x.ndim == 2:
+                log[key] = log_txt_as_img((image_w, image_h),
+                                          ["x".join(str(v) for v in row) for row in x.tolist()],
+                                          size=image_h // 20)
+        return log
+
+
+def _first(batch: Dict, n: int) -> Dict:
+    """The batch's first `n` videos: tensors and arrays with a leading axis
+    and lists are cut, everything else is kept."""
+    return {k: v[:n] if isinstance(v, list) or getattr(v, "ndim", 0) >= 1 else v
+            for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def _eval_mode(module: nn.Module):
+    """Within: every submodule in eval mode, under `torch.no_grad`; each
+    module's own training flag comes back after."""
+    modes = [(m, m.training) for m in module.modules()]
+    module.eval()
+    try:
+        with torch.no_grad():
+            yield
+    finally:
+        for m, mode in modes:
+            m.training = mode
+
 
 class VideoLDM(DiffusionEngine):
     """Stage-1 image-to-orbit-video model."""
@@ -288,6 +346,46 @@ class VideoLDM(DiffusionEngine):
         if "image_only_indicator" not in batch:
             batch["image_only_indicator"] = torch.zeros((n, self.num_samples), device=video.device)
         return batch
+
+    def log_images(self, batch: Dict, n: int = 1, sample: bool = True,
+                   generator: Optional[torch.Generator] = None) -> Dict[str, np.ndarray]:
+        """The image logger's media for the batch's first `n` videos (the JAX
+        engine's `log_images`), each (n, T, H, W, 3) float32 in [-1, 1]:
+        `inputs`; `conditioning`, the caption drawn at 512² and size 16,
+        when the batch has a caption and `no_cond_log` is off; the fp32 VAE's
+        `reconstructions`; and with `sample`, `samples`: one run of the
+        config's sampler on the conditioner's (c, uc) with cond_frames and
+        cond_frames_without_noise zeroed in uc, decoded. Runs in eval mode
+        without gradients; every draw comes from `generator` (a fresh one
+        seeded 0 when None). The JAX engine conditions on the whole batch,
+        which fails for more videos than `n`; here the batch is cut first."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        with _eval_mode(self):
+            batch = self.add_custom_cond(_first(batch, n), infer=True, generator=generator)
+            video = batch[self.input_key]
+            b, t = video.shape[:2]
+            frames = video.reshape(b * t, *video.shape[2:]).permute(0, 2, 3, 1)
+
+            def clip(x: torch.Tensor) -> np.ndarray:
+                return x.float().reshape(b, t, *x.shape[1:]).cpu().numpy()
+
+            log: Dict[str, np.ndarray] = {"inputs": clip(frames)}
+            if "caption" in batch and not self.no_cond_log:
+                from .utils.image import log_txt_as_img
+
+                caps = batch["caption"]
+                log["conditioning"] = log_txt_as_img(
+                    (512, 512), [caps] if isinstance(caps, str) else caps[:n], size=16)
+            z = self.encode_first_stage(frames)
+            log["reconstructions"] = clip(self.decode_first_stage(z))
+            if sample and self.sampler is not None and self.conditioner is not None:
+                c, uc = self.conditioner.get_unconditional_conditioning(
+                    batch, force_uc_zero_embeddings=["cond_frames", "cond_frames_without_noise"])
+                samples = self.sample(cond=c, uc=uc, shape=(b * t, *z.shape[1:]),
+                                      num_video_frames=t, generator=generator)
+                log["samples"] = clip(self.decode_first_stage(samples))
+        return log
 
     def shared_step(self, batch: Dict, generator: Optional[torch.Generator] = None):
         """Training objective on one batch; returns (loss, {"loss": loss})."""
@@ -372,3 +470,34 @@ class VideoLDMStage2(VideoLDM):
         if "image_only_indicator" not in batch:
             batch["image_only_indicator"] = torch.zeros((n, self.num_samples), device=dev)
         return batch
+
+    def log_images(self, batch: Dict, n: int = 1, sample: bool = True,
+                   generator: Optional[torch.Generator] = None) -> Dict[str, np.ndarray]:
+        """The stage-1 media, then a second conditioner pass on the clean
+        video with ucg off: `depth-video`, the DepthEmbedder's s² concat
+        channels folded back by its own pixel-unshuffle's inverse to
+        (n, T, s·h, s·w) grey → RGB in [-1, 1], and `cond-video`, the last
+        concat channels decoded as raw latents (z_cond · scale_factor), as
+        the JAX engine does."""
+        from .conditioners import DepthEmbedder
+
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        log = super().log_images(batch, n=n, sample=sample, generator=generator)
+        if self.conditioner is None:
+            return log
+        (depth_emb,) = [e for e in self.conditioner.embedders if isinstance(e, DepthEmbedder)]
+        s = depth_emb.shuffle_size
+        with _eval_mode(self):
+            cbatch = self.add_custom_cond(_first(batch, n), infer=True, generator=generator)
+            c = self.conditioner(cbatch, ucg_enabled=False)
+            b, t = cbatch["video"].shape[:2]
+            concat = c["concat"].float()
+            depth = torch.nn.functional.pixel_shuffle(concat[:, : s * s], s)
+            depth = depth.expand(-1, 3, -1, -1) * 2.0 - 1.0
+            log["depth-video"] = depth.permute(0, 2, 3, 1).reshape(
+                b, t, *depth.shape[2:], 3).cpu().numpy()
+            z_cond = concat[:, s * s:] * self.scale_factor
+            dec = self.decode_first_stage(z_cond.permute(0, 2, 3, 1))
+            log["cond-video"] = dec.reshape(b, t, *dec.shape[1:]).cpu().numpy()
+        return log

@@ -1,8 +1,10 @@
 """Stage-1 and stage-2 training on one GPU (counterpart of train.py, same flags).
 
-    python -m hi3d_tpu_torch.train --base configs/train-v01.yaml --no_test True \
-        [--device cuda] [--max_steps N] [--resume logs/<run>] [key.sub=value ...]
-    python -m hi3d_tpu_torch.train --base configs/train-v02.yaml --no_test True ...
+    python -m hi3d_tpu_torch.train --base configs/train-v01.yaml \
+        [--device cuda] [--max_steps N] [--resume logs/<run>] [--no_test True] \
+        [--logger tensorboard|testtube|wandb|jsonl] [--outckpt out.safetensors] \
+        [key.sub=value ...]
+    python -m hi3d_tpu_torch.train --base configs/train-v02.yaml ...
 
 The config picks the stage: train-v01.yaml fine-tunes the image-to-orbit
 model on 16×512² clips, train-v02.yaml the 1024² video-to-video refiner,
@@ -13,11 +15,20 @@ Builds the config's model directly on `--device` (fp32 master weights; the
 UNet computes in the config's compute_dtype), loads `model.params.ckpt_path`
 when the file exists and otherwise trains from the seeded random
 initialisation with a printed notice, builds the `data:` module with a
-per-device batch, and runs the Trainer. Checkpoints, metrics.jsonl and a
-config snapshot go under `<logdir>/<time>_<name>`.
+per-device batch, and runs the Trainer. Checkpoints, metrics.jsonl (every
+10th step; TensorBoard events under tb/ or a wandb run when `--logger`, else
+`lightning.logger`, else tensorboard, names a backend whose package
+imports), the image logger's media (`image_log/`, every
+`lightning.callbacks.image_logger.params.batch_frequency` steps) and a config
+snapshot go under `<logdir>/<time>_<name>`.
 
-Not ported yet: the post-train media dump (so `--no_test True` is required),
-`--outckpt`, and the TensorBoard / wandb loggers.
+After training, unless `--no_test True`: the JAX CLI's test pass, the image
+logger on the first item of the eval set (`data.params.eval_folder`) into
+`<logdir>/test/`. That item is one eval image, not a video batch, so
+`log_images` raises KeyError('video') and the logger prints it and writes
+nothing, in the JAX package as here. `--outckpt` then writes the trained UNet
+and the VAE in the reference layout (`model.diffusion_model.`,
+`first_stage_model.`, fp32 .safetensors).
 """
 
 from __future__ import annotations
@@ -42,7 +53,7 @@ def parse_args(argv=None):
                    help="config yaml(s), merged left-to-right")
     p.add_argument("-t", "--train", type=str2bool, default=True)
     p.add_argument("--no-test", "--no_test", dest="no_test", type=str2bool, default=False,
-                   help="skip the post-train eval-set media dump (required: not ported yet)")
+                   help="skip the post-train eval-set media dump")
     p.add_argument("-r", "--resume", type=str, default="",
                    help="logdir or checkpoint dir to resume from")
     p.add_argument("-l", "--logdir", type=str, default="logs")
@@ -57,9 +68,10 @@ def parse_args(argv=None):
                    default="hi3d_tpu")
     p.add_argument("--logger", type=str, default="",
                    choices=["", "tensorboard", "testtube", "wandb", "jsonl"],
-                   help="metrics backend; this port writes metrics.jsonl only")
+                   help="metrics backend (default: config `lightning.logger` or tensorboard; "
+                        "jsonl = no event files)")
     p.add_argument("-o", "--outckpt", type=str, default="",
-                   help="export the final weights (not ported yet)")
+                   help="export the final weights as a reference-layout safetensors")
     p.add_argument("--device", default="cuda")
     return p.parse_known_args(argv)
 
@@ -81,14 +93,6 @@ def main(argv: Optional[List[str]] = None):
     from .training.trainer import Trainer
 
     args, unknown = parse_args(argv)
-    if not args.no_test:
-        raise NotImplementedError(
-            "the post-train media dump needs log_images and sampling, which the port does "
-            "not have yet: pass --no_test True")
-    if args.outckpt:
-        raise NotImplementedError("--outckpt (reference-layout export) is not ported yet")
-    if args.logger not in ("", "jsonl"):
-        raise NotImplementedError(f"--logger {args.logger}: this port writes metrics.jsonl only")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"[train] --device {device} requested but CUDA is not available")
@@ -144,18 +148,39 @@ def main(argv: Optional[List[str]] = None):
     lightning_cfg = cfg.get("lightning", {})
     trainer_cfg = lightning_cfg.get("trainer", {})
     ckpt_cfg = lightning_cfg.get("modelcheckpoint", {}).get("params", {})
+    img_cb = lightning_cfg.get("callbacks", {}).get("image_logger", {}).get("params", {})
     trainer = Trainer(
         model, logdir=logdir, scale_lr=args.scale_lr,
         accumulate_grad_batches=trainer_cfg.get("accumulate_grad_batches", 1),
         batch_size=per_device_bs,
         ckpt_every_n_steps=ckpt_cfg.get("every_n_train_steps", 3000),
+        log_images_every=img_cb.get("batch_frequency", 200),
         max_to_keep=ckpt_cfg.get("save_top_k", 10),
         monitor=ckpt_cfg.get("monitor"), monitor_mode=ckpt_cfg.get("mode", "min"),
         seed=args.seed,
+        logger_backend=args.logger or lightning_cfg.get("logger", "tensorboard"),
     )
     max_steps = args.max_steps or trainer_cfg.get("max_steps", 100000)
     if args.train:
         trainer.fit(data.train_dataloader(), max_steps=max_steps, resume=bool(args.resume))
+
+    if not args.no_test:
+        from .training.trainer import ImageLogger
+
+        try:
+            val = data.val_dataloader()
+            batch = next(iter(val)) if val is not None else None
+        except Exception as e:
+            print(f"[train] no eval set for the test pass ({e})")
+            batch = None
+        if batch is not None:
+            ImageLogger(os.path.join(logdir, "test"), every_n_steps=1).maybe_log(model, batch,
+                                                                                step=0)
+    if args.outckpt:
+        from .convert import export_engine_state_dict, save_safetensors
+
+        save_safetensors(export_engine_state_dict(model), args.outckpt)
+        print(f"[train] exported {args.outckpt}")
     return trainer
 
 

@@ -1,23 +1,24 @@
 """The training loop (counterpart of hi3d_tpu/training/trainer.py, one GPU).
 
 LR scaling and its printed line, `fit` over a loader, a MetricsLogger that
-writes metrics.jsonl and prints each logged step, and a Checkpointer on
-`torch.save`/`torch.load` that saves every N steps and at the end, keeps
-`save_top_k` files, resumes from `checkpoints/last.pt`, and saves when the
-process gets SIGUSR1. Peak device memory comes from
-`torch.cuda.max_memory_allocated`.
+writes metrics.jsonl and prints every `log_every`-th step (10, as the JAX
+trainer) and forwards the scalars to TensorBoard or wandb when that package
+imports, an ImageLogger that dumps `engine.log_images` media every
+`log_images_every` steps, and a Checkpointer on `torch.save`/`torch.load`
+that saves every N steps and at the end, keeps `save_top_k` files, resumes
+from `checkpoints/last.pt`, and saves when the process gets SIGUSR1. Peak
+device memory comes from `torch.cuda.max_memory_allocated`.
 
 `profile_steps=(start, stop)` records a `torch.profiler` trace of the steps
 in [start, stop) to `<logdir>/profile/` and prints the kernels by device
 time, as the JAX trainer's `jax.profiler` window does.
 
-Not ported yet: the ImageLogger and the post-train media dump (they need
-`log_images` and sampling), TensorBoard and wandb backends, and multi-GPU
-data parallelism.
+Not ported yet: multi-GPU data parallelism.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import signal
@@ -40,13 +41,37 @@ def device_memory_stats(device: torch.device) -> Dict[str, float]:
 
 
 class MetricsLogger:
-    """Scalar metrics → `<logdir>/metrics.jsonl` and the console."""
+    """Scalar metrics of every `log_every`-th step → `<logdir>/metrics.jsonl`,
+    the console, and the backend: "tensorboard" or "testtube" write event
+    files under `<logdir>/tb` (torch.utils.tensorboard), "wandb" logs to a
+    wandb run; when the backend's package does not import, or for "jsonl",
+    None or another name, metrics.jsonl and the console alone, as in the
+    JAX trainer."""
 
-    def __init__(self, logdir: str, device: torch.device, log_every: int = 1):
+    def __init__(self, logdir: str, device: torch.device, log_every: int = 10,
+                 backend: Optional[str] = "tensorboard"):
         self.path = os.path.join(logdir, "metrics.jsonl")
         self.device = device
         self.log_every = int(log_every)
         self._t0 = time.time()
+        self._tb = self._wandb = None
+        if backend in ("tensorboard", "testtube"):
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(log_dir=os.path.join(logdir, "tb"))
+            except Exception as e:
+                print(f"[trainer] tensorboard backend unavailable ({e!r}); "
+                      "falling back to metrics.jsonl only")
+        elif backend == "wandb":
+            try:
+                import wandb
+
+                self._wandb = wandb.init(project=os.environ.get("WANDB_PROJECT", "hi3d_tpu"),
+                                         dir=logdir, resume="allow")
+            except Exception as e:
+                print(f"[trainer] wandb backend unavailable ({e!r}); "
+                      "falling back to metrics.jsonl only")
 
     def __call__(self, step: int, metrics: Dict) -> None:
         if step % self.log_every:
@@ -56,9 +81,64 @@ class MetricsLogger:
         rec.update({k: float(v) for k, v in metrics.items()})
         with open(self.path, "a") as f:
             f.write(json.dumps(rec) + "\n")
+        scalars = {k: v for k, v in rec.items() if k != "step"}
+        if self._tb is not None:
+            for k, v in scalars.items():
+                self._tb.add_scalar(k, v, global_step=step)
+            self._tb.flush()
+        if self._wandb is not None:
+            self._wandb.log(scalars, step=step)
         pretty = " ".join(f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
                           for k, v in rec.items() if k != "wall_s")
         print(f"[train] {pretty}", flush=True)
+
+    def close(self) -> None:
+        if self._tb is not None:
+            self._tb.close()
+        if self._wandb is not None:
+            self._wandb.finish()
+
+
+class ImageLogger:
+    """Every `every_n_steps` steps, `engine.log_images` of the batch's first
+    `max_videos` videos (noise from a generator seeded with the step) under
+    `<logdir>/image_log/`: a video entry `key` of video i as PNG frames in
+    `step<step:08d>_<key>_<i>/frames/`, with an mp4 beside them when a
+    writer imports (utils/video.export_to_video), an image entry as
+    `step<step:08d>_<key>_<i>.png`. As in the JAX trainer, a failure is
+    printed and never stops training."""
+
+    def __init__(self, logdir: str, every_n_steps: int = 200, max_videos: int = 1, fps: int = 8):
+        self.dir = os.path.join(logdir, "image_log")
+        self.every = int(every_n_steps)
+        self.max_videos = max_videos
+        self.fps = fps
+
+    def maybe_log(self, engine, batch: Dict, step: int) -> None:
+        if step % self.every:
+            return
+        from ..utils.png import write_png
+        from ..utils.video import export_to_video, tensor2vid
+
+        try:
+            generator = torch.Generator(device=engine.device).manual_seed(step)
+            media = engine.log_images(batch, n=self.max_videos, generator=generator)
+        except Exception as e:  # logging must never kill training
+            print(f"[image_log] skipped at step {step}: {e}")
+            return
+        try:
+            os.makedirs(self.dir, exist_ok=True)
+            for key, vid in media.items():
+                for i in range(min(len(vid), self.max_videos)):
+                    name = f"step{step:08d}_{key}_{i}"
+                    if np.ndim(vid[i]) == 3:  # an image entry ('conditioning')
+                        img = ((np.asarray(vid[i]) + 1.0) * 127.5).clip(0, 255)
+                        write_png(os.path.join(self.dir, f"{name}.png"), img.astype(np.uint8))
+                        continue
+                    export_to_video(tensor2vid(vid[i]), os.path.join(self.dir, name, f"{name}.mp4"),
+                                    fps=self.fps)
+        except Exception as e:  # logging must never kill training
+            print(f"[image_log] export failed at step {step}: {e}")
 
 
 class Checkpointer:
@@ -128,10 +208,11 @@ class Trainer:
 
     def __init__(self, engine, logdir: str = "logs/run", base_lr: Optional[float] = None,
                  scale_lr: bool = True, accumulate_grad_batches: int = 1, batch_size: int = 1,
-                 ckpt_every_n_steps: int = 3000, log_every: int = 1, max_to_keep: int = 10,
-                 monitor: Optional[str] = None, monitor_mode: str = "min", seed: int = 0,
-                 grad_clip: Optional[float] = None,
-                 profile_steps: Optional[Tuple[int, int]] = None):
+                 ckpt_every_n_steps: int = 3000, log_images_every: int = 200,
+                 log_every: int = 10, max_to_keep: int = 10, monitor: Optional[str] = None,
+                 monitor_mode: str = "min", seed: int = 0, grad_clip: Optional[float] = None,
+                 profile_steps: Optional[Tuple[int, int]] = None,
+                 logger_backend: Optional[str] = "tensorboard"):
         self.engine = engine
         self.device = engine.device
         self.logdir = logdir
@@ -159,7 +240,9 @@ class Trainer:
             engine.make_loss_fn(), params, self.optimizer, self.lr_scheduler,
             accum_steps=self.accum, grad_clip=grad_clip,
             ema_decay=engine.ema_decay_rate if engine.use_ema else None)
-        self.metrics = MetricsLogger(logdir, self.device, log_every=log_every)
+        self.metrics = MetricsLogger(logdir, self.device, log_every=log_every,
+                                     backend=logger_backend)
+        self.image_logger = ImageLogger(logdir, every_n_steps=log_images_every)
         self.checkpointer = Checkpointer(logdir, every_n_steps=ckpt_every_n_steps,
                                          max_to_keep=max_to_keep, monitor=monitor,
                                          mode=monitor_mode)
@@ -198,6 +281,25 @@ class Trainer:
         self.load_state_dict(self.checkpointer.load(path, self.device))
         print(f"[trainer] resumed from step {self.train_step.step} ({os.path.realpath(path)})")
         return self.train_step.step
+
+    @contextlib.contextmanager
+    def _ema_weights(self):
+        """Within: the trained parameters hold their EMA (when the run keeps
+        one), as the JAX trainer hands `log_images` its EMA params; the
+        trained values come back bit for bit after."""
+        ema = self.train_step.ema_params
+        if ema is None:
+            yield
+            return
+        params = self.train_step.params
+        with torch.no_grad():
+            kept = [p.detach().clone() for p in params]
+            torch._foreach_copy_(params, ema)
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                torch._foreach_copy_(params, kept)
 
     # ----------------------------------------------------------------- fit
     def _device_batch(self, batch: Dict) -> Dict:
@@ -249,14 +351,14 @@ class Trainer:
         prof = None
         previous_handler = self._install_signal_handler()
         try:
-            for batch in data:
+            for host_batch in data:
                 if step >= max_steps or self._interrupted:
                     break
                 if self.profile_steps and step == self.profile_steps[0]:
                     prof = self._start_profile()
                 self.generator.manual_seed(self.seed * 100003 + step)
                 t_cond = time.perf_counter()
-                batch = self.engine.add_custom_cond(self._device_batch(batch), infer=False,
+                batch = self.engine.add_custom_cond(self._device_batch(host_batch), infer=False,
                                                     generator=self.generator)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
@@ -273,6 +375,9 @@ class Trainer:
                 if prof is not None and step == self.profile_steps[1]:
                     self._stop_profile(prof)
                     prof = None
+                if step % self.image_logger.every == 0:
+                    with self._ema_weights():  # the captions too, which the device batch drops
+                        self.image_logger.maybe_log(self.engine, {**host_batch, **batch}, step)
                 self.checkpointer.maybe_save(step, self.state_dict, metrics)
         finally:
             if prof is not None:
@@ -281,6 +386,7 @@ class Trainer:
             if close is not None:
                 close()  # a generator loader stops its workers
             self.checkpointer.save(step, self.state_dict(), self.last_metrics)
+            self.metrics.close()
             if previous_handler is not None:
                 signal.signal(signal.SIGUSR1, previous_handler)
         return step

@@ -9,6 +9,11 @@ found, else the `rembg` package when it imports, else the input unchanged.
 centres, edge clamp) in floating point; cv2 itself rounds through 11-bit
 fixed-point weights, so the two agree to within one grey level, and exactly
 when the size does not change.
+
+`resize_bicubic_u8` is PIL's antialiased BICUBIC `Image.resize` in integer
+arithmetic, bit for bit: the eval set's preprocessing
+(data/video_dataset.prepare_eval_input). `log_txt_as_img` renders the image
+logger's caption images with the bitmap font of utils/font.py.
 """
 
 from __future__ import annotations
@@ -92,6 +97,100 @@ def resize_bilinear_u8(img: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
     rows = src[y0] * (1.0 - fy)[:, None, None] + src[y1] * fy[:, None, None]
     out = rows[:, x0] * (1.0 - fx)[None, :, None] + rows[:, x1] * fx[None, :, None]
     return np.clip(np.floor(out + 0.5), 0, 255).astype(np.uint8)
+
+
+_PRECISION_BITS = 32 - 8 - 2  # PIL's fixed-point resampling coefficients
+
+
+def _bicubic_weights(x: np.ndarray) -> np.ndarray:
+    """PIL's bicubic kernel, a = -0.5."""
+    x = np.abs(x)
+    a = -0.5
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+def _bicubic_taps(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
+    """PIL's `precompute_coeffs` and `normalize_coeffs_8bpc` for BICUBIC along
+    one axis: (source index, fixed-point weight), each (n_out, taps). The
+    support widens by the reduction factor (antialiasing); weights past a
+    pixel's window are 0."""
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    taps = int(math.ceil(support)) * 2 + 1
+    center = (np.arange(n_out) + 0.5) * scale
+    xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)
+    count = np.minimum((center + support + 0.5).astype(np.int64), n_in) - xmin
+    x = np.arange(taps)
+    w = _bicubic_weights((x[None, :] + xmin[:, None] - center[:, None] + 0.5) / filterscale)
+    w = np.where(x[None, :] < count[:, None], w, 0.0)
+    total = w.sum(axis=1, keepdims=True)
+    w = np.where(total != 0.0, w / np.where(total != 0.0, total, 1.0), w)
+    fixed = np.trunc(w * (1 << _PRECISION_BITS) + np.where(w < 0, -0.5, 0.5)).astype(np.int64)
+    return np.minimum(xmin[:, None] + x[None, :], n_in - 1), fixed
+
+
+def _bicubic_pass(img: np.ndarray, axis: int, n_out: int) -> np.ndarray:
+    """One 8-bit resampling pass of PIL's: integer sums from a half-unit
+    start, shifted and clipped to uint8."""
+    idx, k = _bicubic_taps(img.shape[axis], n_out)
+    src = np.moveaxis(img.astype(np.int64), axis, 0)
+    acc = np.full((n_out,) + src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
+    tail = (1,) * (src.ndim - 1)
+    for j in range(k.shape[1]):
+        acc += src[idx[:, j]] * k[:, j].reshape((-1,) + tail)
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_bicubic_u8(img: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
+    """uint8 (H, W, 3|4) → (size_wh[1], size_wh[0], C), bit-equal to PIL's
+    `Image.resize(size_wh, Image.BICUBIC)` on an RGB or RGBA image: RGBA is
+    resized premultiplied (PIL's RGBA → RGBa → resize → RGBA, with its
+    rounding both ways), the horizontal pass runs first and only an axis
+    whose size changes is resampled."""
+    w, h = size_wh
+    if img.shape[:2] == (h, w):
+        return img.copy()
+    rgba = img.shape[-1] == 4
+    if rgba:
+        t = img[..., :3].astype(np.uint32) * img[..., 3:].astype(np.uint32) + 128
+        img = np.concatenate([(((t >> 8) + t) >> 8).astype(np.uint8), img[..., 3:]], -1)
+    if img.shape[1] != w:
+        img = _bicubic_pass(img, 1, w)
+    if img.shape[0] != h:
+        img = _bicubic_pass(img, 0, h)
+    if rgba:
+        a = img[..., 3:].astype(np.int64)
+        rgb = img[..., :3].astype(np.int64)
+        straight = np.clip(255 * rgb // np.maximum(a, 1), 0, 255)
+        rgb = np.where((a == 0) | (a == 255), rgb, straight).astype(np.uint8)
+        img = np.concatenate([rgb, img[..., 3:]], -1)
+    return img
+
+
+def log_txt_as_img(wh: Tuple[int, int], captions, size: int = 10) -> np.ndarray:
+    """Captions as white images with black text (the JAX package's
+    `log_txt_as_img`): (B, H, W, 3) float32 in [-1, 1], text from (0, 0),
+    wrapped every max(int(40·W/256), 1) characters, a list caption taking
+    its first element. The glyphs are utils/font.py's bitmap font at
+    `size` px, laid out on DejaVu Sans's line metrics; they are not PIL's
+    glyphs, but each line's text falls on the same rows."""
+    from .font import render_lines
+
+    w, h = wh
+    nc = max(int(40 * (w / 256)), 1)
+    out = []
+    for cap in captions:
+        if isinstance(cap, (list, tuple)):
+            cap = cap[0]
+        cap = str(cap)
+        ink = np.zeros((h, w), bool)
+        render_lines(ink, [cap[i:i + nc] for i in range(0, len(cap), nc)], size)
+        img = np.where(ink, -1.0, 1.0).astype(np.float32)
+        out.append(np.repeat(img[..., None], 3, axis=-1))
+    return np.stack(out)
 
 
 def resize_center_crop(img: np.ndarray, resolution: Tuple[int, int]) -> np.ndarray:

@@ -5,7 +5,8 @@ The GPU host has no cv2/PIL/imageio guarantee, so the port reads its input
 image and writes its frames with this module. Reader scope: non-interlaced,
 all five scanline filter types; 8-bit grayscale, gray+alpha, RGB and RGBA,
 and palette images at 1, 2, 4 and 8 bits, expanded to RGB (RGBA when a tRNS
-chunk is present), as cv2's `IMREAD_UNCHANGED` decodes them.
+chunk is present), as cv2's `IMREAD_UNCHANGED` decodes them. `decode_png`
+reads one held in memory (a tar member).
 """
 
 from __future__ import annotations
@@ -149,13 +150,24 @@ def _expand_palette(rows: np.ndarray, w: int, depth: int, plte: bytes,
     return table[idx, :3]
 
 
+_JPEG_SIGNATURE = b"\xff\xd8\xff"
+
+
 def read_png(path: str) -> np.ndarray:
     """uint8 (H, W, C): C = 1, 2, 3 or 4 samples as stored, or a palette
     expanded to 3 (RGB) or, with a tRNS chunk, 4 (RGBA)."""
     with open(path, "rb") as f:
-        blob = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(blob: bytes, name: str = "<bytes>") -> np.ndarray:
+    """`read_png` on an encoded PNG held in memory (a tar member, say);
+    `name` labels the errors. A JPEG raises: the port decodes PNG only."""
+    if blob.startswith(_JPEG_SIGNATURE):
+        raise ValueError(f"{name}: a JPEG; the port decodes PNG images only (no JPEG decoder "
+                         "without cv2), so re-encode it as PNG")
     if not blob.startswith(_SIGNATURE):
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError(f"{name}: not a PNG file")
     pos = len(_SIGNATURE)
     idat = []
     header = None
@@ -176,12 +188,12 @@ def read_png(path: str) -> np.ndarray:
         elif kind == b"IEND":
             break
     if header is None:
-        raise ValueError(f"{path}: PNG without IHDR")
+        raise ValueError(f"{name}: PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = header
     palette = ctype == _PALETTE and depth in (1, 2, 4, 8) and plte
     if not (palette or (depth == 8 and ctype in _CHANNELS)) or interlace != 0:
         raise ValueError(
-            f"{path}: unsupported PNG (bit depth {depth}, colour type {ctype}, "
+            f"{name}: unsupported PNG (bit depth {depth}, colour type {ctype}, "
             f"interlace {interlace}); need non-interlaced 8-bit gray/RGB(A) or a "
             "1/2/4/8-bit palette"
         )
@@ -191,6 +203,14 @@ def read_png(path: str) -> np.ndarray:
         return _expand_palette(rows, w, depth, plte, trns)
     ch = _CHANNELS[ctype]
     return _unfilter(raw, h, w * ch, ch).reshape(h, w, ch)
+
+
+def png_colour_type(blob: bytes, name: str = "<bytes>") -> int:
+    """The colour type in an encoded PNG's IHDR (0 gray, 2 RGB, 3 palette,
+    4 gray + alpha, 6 RGBA)."""
+    if not blob.startswith(_SIGNATURE) or blob[12:16] != b"IHDR":
+        raise ValueError(f"{name}: not a PNG file")
+    return blob[25]
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

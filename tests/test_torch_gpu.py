@@ -758,3 +758,171 @@ def test_degradation_on_the_card_matches_the_cpu(cuda):
         assert d.max().item() <= 1.0 + 1e-4, d.max().item()
         assert d.mean().item() <= 2e-3 and (d > 0.5).float().mean().item() <= 2e-3
         assert torch.equal(out[:, 0].cpu(), video[:, 0])
+
+
+@pytest.mark.gpu
+def test_degradation_is_deterministic_on_the_card(cuda):
+    """One plan (the RandomState's seed) and one generator seed give the
+    same degraded video bit for bit, run after run, on the card."""
+    import numpy as np
+
+    from hi3d_tpu_torch.data.degradation import DegradedImages
+    from hi3d_tpu_torch.data.kernels import DEFAULT_DEGRADATION_OPT, sample_frame_kernels
+    from hi3d_tpu_torch.pipelines.common import configure_precision
+
+    configure_precision()
+    rnd = np.random.RandomState(0)
+    b, t, hw = 1, 4, 128
+    video = torch.from_numpy((rnd.rand(b, t, 3, hw, hw) * 2 - 1).astype(np.float32)).to(cuda)
+    masks = torch.from_numpy((rnd.rand(b, t, hw, hw) > 0.3).astype(np.float32)).to(cuda)
+    k1, k2, ks = (torch.from_numpy(k)[None].to(cuda)
+                  for k in sample_frame_kernels(DEFAULT_DEGRADATION_OPT, t, rnd))
+    for seed in range(4):
+        runs = [DegradedImages()(video, masks, k1, k2, ks, rng=np.random.RandomState(seed),
+                                 generator=torch.Generator(cuda).manual_seed(seed))
+                for _ in range(3)]
+        assert all(torch.equal(runs[0], r) for r in runs[1:]), seed
+        assert not torch.equal(runs[0], video)
+
+
+CTX, TINY_T, TINY_RES = 32, 4, 64
+
+
+class TinyImageEmbedder:
+    """Set in `_tiny_engine` (the port's AbstractEmbedder subclass, made
+    there so that importing this file needs no model code)."""
+
+
+def _tiny_config(stage2: bool) -> dict:
+    """A tiny stage-1 (or stage-2: 17 input channels, the DepthEmbedder and
+    the per-frame VAE embedder) engine config, 2 sampler steps; head dim
+    64, one the kernels take."""
+    vae = {"double_z": True, "z_channels": 4, "in_channels": 3, "out_ch": 3, "ch": 8,
+           "ch_mult": [1, 1, 2, 2], "num_res_blocks": 1, "attn_resolutions": [],
+           "resolution": TINY_RES}
+    encoder = {"target": "sgm.models.autoencoder.AutoencoderKLModeOnly",
+               "params": {"embed_dim": 4, "ddconfig": vae}}
+    image = {"target": "test_torch_gpu.TinyImageEmbedder",
+             "input_key": "cond_frames_without_noise"}
+    elevation = {"target": "sgm.modules.encoders.modules.ConcatTimestepEmbedderND",
+                 "input_key": "elevation", "params": {"outdim": 16}}
+    aug = {"target": "sgm.modules.encoders.modules.ConcatTimestepEmbedderND",
+           "input_key": "cond_aug", "params": {"outdim": 16}}
+    frames = {"target": "sgm.modules.encoders.modules.VideoPredictionEmbedderWithEncoder",
+              "input_key": "cond_frames",
+              "params": {"n_cond_frames": 1, "n_copies": 1 if stage2 else TINY_T,
+                         "encoder_config": encoder}}
+    depth = {"target": "vtdm.encoders.DepthEmbedder", "input_key": "cond_frames",
+             "params": {"shuffle_size": 3, "scale_factor": 1.0,
+                        "model_kwargs": {"features": 16, "vit_width": 32, "vit_layers": 2,
+                                         "vit_heads": 2, "hooks": [0, 1], "pos_grid": 4}}}
+    return {
+        "target": ("vtdm.vtdm_gen_stage2_degradeImage.VideoLDM" if stage2
+                   else "vtdm.vtdm_gen_v01.VideoLDM"),
+        "params": {
+            "input_key": "video", "num_samples": TINY_T, "scale_factor": 0.18215,
+            "en_and_decode_n_samples_a_time": 2, "compute_dtype": "bfloat16",
+            "network_config": {
+                "target": "sgm.modules.diffusionmodules.video_model.VideoUNet",
+                "params": {"in_channels": 17 if stage2 else 8, "out_channels": 4,
+                           "model_channels": 64, "num_res_blocks": 1, "channel_mult": [1, 2],
+                           "attention_resolutions": [1, 2], "num_head_channels": 64,
+                           "transformer_depth": 1, "context_dim": CTX,
+                           "num_classes": "sequential", "adm_in_channels": 32,
+                           "use_linear_in_transformer": True, "extra_ff_mix_layer": True,
+                           "use_spatial_context": True, "merge_strategy": "learned_with_images",
+                           "video_kernel_size": [3, 1, 1]}},
+            "denoiser_config": {
+                "target": "sgm.modules.diffusionmodules.denoiser.Denoiser",
+                "params": {"scaling_config": {"target": "sgm.modules.diffusionmodules."
+                                                        "denoiser_scaling.VScalingWithEDMcNoise"}}},
+            "sampler_config": {
+                "target": "sgm.modules.diffusionmodules.sampling.EulerEDMSampler",
+                "params": {"num_steps": 2,
+                           "discretization_config": {
+                               "target": "sgm.modules.diffusionmodules.discretizer."
+                                         "EDMDiscretization", "params": {"sigma_max": 700.0}},
+                           "guider_config": {
+                               "target": "sgm.modules.diffusionmodules.guiders."
+                                         "LinearPredictionGuider",
+                               "params": {"num_frames": TINY_T, "max_scale": 2.5}}}},
+            "conditioner_config": {
+                "target": "sgm.modules.GeneralConditioner",
+                "params": {"emb_models": ([image, elevation, depth, frames, aug] if stage2
+                                          else [image, elevation, frames, aug])}},
+            "first_stage_config": {"target": "sgm.models.autoencoder.AutoencoderKL",
+                                   "params": {"embed_dim": 4, "ddconfig": vae}},
+        },
+    }
+
+
+def _tiny_engine(stage2: bool, device):
+    global TinyImageEmbedder
+    from hi3d_tpu_torch.conditioners import AbstractEmbedder
+    from hi3d_tpu_torch.config import instantiate_from_config
+
+    class TinyImageEmbedder(AbstractEmbedder):  # noqa: F811 — channel means, tiled
+        def forward(self, image):
+            feats = image.float().mean(dim=(2, 3))
+            return feats.repeat(1, CTX // 3 + 1)[:, :CTX][:, None, :]
+
+    with torch.random.fork_rng(devices=[]), device:
+        torch.manual_seed(0)
+        return instantiate_from_config(_tiny_config(stage2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage2", [False, True])
+def test_log_images_media_on_the_card(cuda, stage2):
+    """The dump's media on the card at a tiny size: the JAX keys (stage 2
+    adds depth-video and cond-video), (1, T, H, W, 3) float32, finite, the
+    inputs and the caption image equal to the CPU run's, depth-video in
+    [-1, 1]; the K3 kernel ran."""
+    import copy
+
+    import numpy as np
+
+    engine = _tiny_engine(stage2, torch.device("cpu"))
+    rnd = np.random.RandomState(1)
+    video = torch.from_numpy((rnd.rand(2, TINY_T, 3, TINY_RES, TINY_RES) * 2 - 1)
+                             .astype(np.float32))
+    batch = {"video": video, "elevation": torch.tensor([10.0, -10.0]), "caption": ["a", "b"]}
+    ref = engine.log_images(batch, n=1)
+    card = copy.deepcopy(engine).to(cuda)
+    before = gn.group_norm.launches
+    got = card.log_images({**batch, "video": video.to(cuda),
+                           "elevation": batch["elevation"].to(cuda)}, n=1)
+    keys = {"inputs", "conditioning", "reconstructions", "samples"}
+    keys |= {"depth-video", "cond-video"} if stage2 else set()
+    assert set(got) == set(ref) == keys
+    assert gn.group_norm.launches > before
+    for k, v in got.items():
+        assert v.dtype == np.float32 and v.shape == ref[k].shape and np.isfinite(v).all(), k
+    assert got["samples"].shape == (1, TINY_T, TINY_RES, TINY_RES, 3)
+    np.testing.assert_array_equal(got["inputs"], ref["inputs"])
+    np.testing.assert_array_equal(got["conditioning"], ref["conditioning"])
+    if stage2:
+        assert -1.0 <= got["depth-video"].min() and got["depth-video"].max() <= 1.0
+
+
+@pytest.mark.gpu
+def test_export_reloads_strictly_on_the_card(cuda, tmp_path):
+    """`--outckpt`'s export of an engine on the card: fp32, the UNet and the
+    VAE under the reference prefixes, and a fresh engine's strict
+    `init_from_ckpt` of the file gives back every tensor."""
+    from hi3d_tpu_torch.convert import export_engine_state_dict, save_safetensors
+
+    engine = _tiny_engine(False, cuda)
+    with torch.no_grad():
+        for p in engine.model.parameters():
+            p.add_(0.01)  # not the seeded initial values
+    sd = export_engine_state_dict(engine)
+    assert all(v.dtype == torch.float32 and v.device.type == "cpu" for v in sd.values())
+    assert {k.split(".")[0] for k in sd} == {"model", "first_stage_model"}
+    path = str(tmp_path / "export.safetensors")
+    save_safetensors(sd, path)
+    fresh = _tiny_engine(False, cuda)
+    fresh.init_from_ckpt(path)
+    for a, b in ((fresh.model, engine.model), (fresh.first_stage_model, engine.first_stage_model)):
+        for (n, p), q in zip(a.state_dict().items(), b.state_dict().values()):
+            assert torch.equal(p, q), n

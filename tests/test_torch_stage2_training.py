@@ -50,7 +50,7 @@ import yaml
 
 from test_torch_slice import RES, T, _randomize_zeros
 from test_torch_stage2 import DPT_KW, _to_jax_dpt, tiny_stage2_config
-from test_torch_training import LOSS_CFG, _write_renders
+from test_torch_training import LOSS_CFG, _write_renders, metrics_every_step
 
 B = 2
 UCG_EMBEDDERS = (0, 3)  # the image embedder (crossattn), the cond-video VAE (concat)
@@ -606,7 +606,8 @@ def _tiny_train_v02(tmp_path, renders):
         "data": {"target": "sgm.data.video_dataset_stage2_degradeImages.VideoDataset",
                  "params": {"base_folder": renders, "width": RES, "height": RES,
                             "sample_frames": T, "batch_size": 1, "num_workers": 1}},
-        "lightning": {"modelcheckpoint": {"params": {"every_n_train_steps": 1}}},
+        "lightning": {"modelcheckpoint": {"params": {"every_n_train_steps": 1}},
+                      "logger": "jsonl"},
     }
     path = tmp_path / "tiny-train-v02.yaml"
     path.write_text(yaml.safe_dump(cfg))
@@ -615,11 +616,13 @@ def _tiny_train_v02(tmp_path, renders):
 
 def test_train_cli_stage2_two_steps_then_resume(tmp_path, capsys, monkeypatch):
     """The train CLI on the tiny train-v02-shaped config: 2 steps (each
-    degrading its batch's conditioning video), metrics and checkpoints, then
-    a resume that runs step 3 from the saved state."""
+    degrading its batch's conditioning video), metrics (logged every step
+    here) and checkpoints, then a resume that runs step 3 from the saved
+    state."""
     from hi3d_tpu_torch.data import degradation
     from hi3d_tpu_torch.train import main
 
+    metrics_every_step(monkeypatch)
     renders = _write_renders(tmp_path / "renders", 1, RES, seed=4)
     path = _tiny_train_v02(tmp_path, renders)
     seen = []

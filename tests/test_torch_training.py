@@ -462,7 +462,7 @@ def test_trainer_profile_window(tmp_path, capsys):
              for k, v in _torch_batch(inp).items() if k != "num_video_frames"}
     del batch["cond_frames"], batch["cond_frames_without_noise"], batch["cond_aug"]
     trainer = Trainer(engine, logdir=str(tmp_path / "run"), base_lr=1e-3, scale_lr=False,
-                      profile_steps=(1, 2))
+                      profile_steps=(1, 2), logger_backend="jsonl")
     assert trainer.fit(iter([batch] * 3), max_steps=3, resume=False) == 3
     assert os.path.getsize(tmp_path / "run" / "profile" / "trace.json") > 0
     assert "Self CPU" in capsys.readouterr().out
@@ -470,6 +470,18 @@ def test_trainer_profile_window(tmp_path, capsys):
     assert len(ema) == len(params) == 4  # out.0 (GroupNorm) and out.2, weight and bias
     for e, p in zip(ema, params):
         assert not torch.equal(e, p)  # the shadow lags the parameters
+
+
+def metrics_every_step(monkeypatch):
+    """The train CLI logs metrics every 10th step, as JAX's does: within the
+    test, its Trainer logs every step, so a short run has a row a step."""
+    from hi3d_tpu_torch.training import trainer as trainer_mod
+
+    class EveryStep(trainer_mod.Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, log_every=1, **kwargs)
+
+    monkeypatch.setattr(trainer_mod, "Trainer", EveryStep)
 
 
 def _write_renders(root, n_folders, size, seed):
@@ -506,13 +518,14 @@ def test_video_dataset_sample_matches_jax(tmp_path, monkeypatch, size, target):
         assert diff <= (0.0 if size == target else 1.0 / 127.5 + 1e-6), diff
 
 
-def test_train_cli_two_steps_then_resume(tmp_path, capsys):
+def test_train_cli_two_steps_then_resume(tmp_path, capsys, monkeypatch):
     """The port's train CLI on the CPU with a tiny config: 2 steps with
-    gradient accumulation over 2 micro-batches, metrics and checkpoints
-    written, frozen parameters untouched; then a resume from `last` runs
-    step 3 from the saved state."""
+    gradient accumulation over 2 micro-batches, metrics (logged every step
+    here) and checkpoints written, frozen parameters untouched; then a
+    resume from `last` runs step 3 from the saved state."""
     from hi3d_tpu_torch.train import main
 
+    metrics_every_step(monkeypatch)
     renders = _write_renders(tmp_path / "renders", 1, RES, seed=1)
     model = train_config("test_torch_slice.TinyImageEmbedderTorch")
     # out.2 is zero-initialised, so at step 1 only it has a gradient
@@ -530,7 +543,8 @@ def test_train_cli_two_steps_then_resume(tmp_path, capsys):
                  "params": {"base_folder": renders, "width": RES, "height": RES,
                             "sample_frames": T, "batch_size": B, "num_workers": 1}},
         "lightning": {"trainer": {"accumulate_grad_batches": 2},
-                      "modelcheckpoint": {"params": {"every_n_train_steps": 1, "save_top_k": 2}}},
+                      "modelcheckpoint": {"params": {"every_n_train_steps": 1, "save_top_k": 2}},
+                      "logger": "jsonl"},
     }
     path = tmp_path / "tiny-train.yaml"
     path.write_text(yaml.safe_dump(cfg))
@@ -581,13 +595,22 @@ def test_train_cli_two_steps_then_resume(tmp_path, capsys):
 
 
 def test_train_cli_refuses_what_is_not_ported(tmp_path):
-    from hi3d_tpu_torch.train import main
+    """The CLI takes every flag of JAX's with JAX's defaults (the post-train
+    test pass, --outckpt and --logger are ported); what it still refuses is
+    a CUDA device where there is none."""
+    import train as jax_train
+    from hi3d_tpu_torch.train import main, parse_args
 
-    with pytest.raises(NotImplementedError, match="--no_test True"):
-        main(["--base", "configs/train-v01.yaml", "--device", "cpu"])
+    ours, _ = parse_args([])
+    ref, _ = jax_train.parse_args([])
+    assert {k: v for k, v in vars(ours).items() if k != "device"} == vars(ref)
+    assert ours.no_test is False and ours.outckpt == "" and ours.logger == ""
+    flags = ["--no_test", "False", "--logger", "wandb", "--outckpt", "x.safetensors"]
+    assert vars(parse_args(flags)[0]) == {**vars(ours), "logger": "wandb",
+                                          "outckpt": "x.safetensors"}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            main(["--base", "configs/train-v01.yaml", "--no_test", "True", "--device", "cuda"])
+            main(["--base", "configs/train-v01.yaml", "--device", "cuda"])
 
 
 def test_trainer_is_freed_after_fit(tmp_path):
@@ -606,7 +629,8 @@ def test_trainer_is_freed_after_fit(tmp_path):
     cfg = {"model": model,
            "data": {"target": "sgm.data.video_dataset.VideoDataset",
                     "params": {"base_folder": renders, "width": RES, "height": RES,
-                               "sample_frames": T, "batch_size": B, "num_workers": 1}}}
+                               "sample_frames": T, "batch_size": B, "num_workers": 1}},
+           "lightning": {"logger": "jsonl"}}
     path = tmp_path / "tiny-train.yaml"
     path.write_text(yaml.safe_dump(cfg))
     before = signal.getsignal(signal.SIGUSR1)
