@@ -1,4 +1,5 @@
-"""GPU smoke run of the PyTorch port's inference, training (stage 1 and 2) and serving paths on one NVIDIA H100.
+"""GPU smoke run of the PyTorch port's inference, training (stage 1 and 2; one process,
+and in a process group) and serving paths on one NVIDIA H100.
 
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --profile-serve  # only a 2-step profile of the serve batch
@@ -95,7 +96,19 @@
    dump, the test pass and the export as path 2 does, and the launch counts;
    prints s/step, `cond_s`, peak memory and the degradation's seconds a
    step;
-13. prints the kernel JSON line (launches per path and summed, errors, times,
+13. main path 11: `hi3d_tpu_torch.train.main` on configs/train-v01.yaml
+   under a world-1 NCCL process group, as `torchrun --nproc_per_node 1`
+   starts it (the environment set for the call and put back after), 2
+   steps at full width with `--no_test True`, trained data parallel with
+   the ZeRO-2 AdamW (`parallel/zero.py`): finite losses, launches equal to
+   the training plan, the consolidated checkpoint with path 2's keys and
+   shapes and AdamW's state over every trained tensor, resumed by a plain
+   Trainer (no group); from that state, one plain step and one ZeRO step
+   of one batch with one generator seed (cuDNN deterministic for both):
+   the loss and every parameter bit-equal, the gradient norm within 1e-6;
+   prints s/step, peak memory and the reduce-scatter and all-gather ms
+   beside path 2's;
+14. prints the kernel JSON line (launches per path and summed, errors, times,
    bounds), the card line, and the contract line last.
 
 The training paths log metrics every step (`metrics_every_step`; the CLI
@@ -1643,14 +1656,15 @@ STAGE1_MEDIA = ("inputs", "conditioning", "reconstructions", "samples")
 STAGE2_MEDIA = STAGE1_MEDIA + ("depth-video", "cond-video")
 
 
-def training_path(steps: int) -> dict:
+def training_path(steps: int):
     """`hi3d_tpu_torch.train.main` on configs/train-v01.yaml at full width
     (16×512², the config's batch, random weights) for `steps` steps with the
     JAX CLI's defaults (`_cli_defaults`): finite losses, parameters moved, a
     checkpoint that reloads to the trained state, the dump and the test pass
     (`_check_dump`), the export (`_check_export`), launch counts equal to
     the UNet plan with checkpointing plus one `log_images`. Returns the
-    launch count of each kernel."""
+    launch count of each kernel, and the median s/step and the training
+    peak in GiB."""
     import shutil
     import statistics
 
@@ -1734,7 +1748,7 @@ def training_path(steps: int) -> dict:
     del state, trainer, unet
     shutil.rmtree(out_dir)  # tens of GB of checkpoint
     torch.cuda.empty_cache()
-    return launches
+    return launches, {"s_per_step": s_per_step, "peak": peak}
 
 
 LONG_CLIP = 48  # frames a clip of the long-clip training run: a 48-view ring
@@ -2241,6 +2255,283 @@ def stage2_training_path(steps: int = STAGE2_TRAIN_STEPS) -> dict:
     _check_launches(launches, expected)
     del state, trainer, unet
     shutil.rmtree(out_dir)  # weights + AdamW moments: tens of GB
+    torch.cuda.empty_cache()
+    return launches
+
+
+DIST_TRAIN_STEPS = 2  # optimizer steps of main path 11
+
+
+@contextlib.contextmanager
+def torchrun_env(world_size: int = 1):
+    """Within: this process is rank 0 of a `world_size`-process group as
+    torchrun names one (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, a free
+    MASTER_PORT); the variables are put back after."""
+    import socket
+
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    saved = {k: os.environ.get(k) for k in keys}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    os.environ.update(RANK="0", WORLD_SIZE=str(world_size), LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class _timed:
+    """Within: the seconds spent in `cls.name` (summed over calls) are
+    counted; the `with` target reads as that float after the block."""
+
+    def __init__(self, cls, name: str):
+        self.cls, self.name, self.seconds = cls, name, 0.0
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.cls, self.name)
+        timer = self
+
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                timer.seconds += time.perf_counter() - t0
+
+        setattr(self.cls, self.name, run)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.orig)
+
+    def __format__(self, spec: str) -> str:
+        return format(self.seconds, spec)
+
+
+class CollectiveProbe:
+    """While active, the CUDA-event ms of every reduce-scatter and
+    all-gather into a tensor (the ZeRO step's two collectives), with their
+    bytes."""
+
+    NAMES = ("reduce_scatter_tensor", "all_gather_into_tensor")
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+
+        self.dist, self.orig, self.calls = dist, {n: getattr(dist, n) for n in self.NAMES}, []
+        probe = self
+
+        def timed(name):
+            fn = self.orig[name]
+
+            def run(output, input, *args, **kwargs):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = fn(output, input, *args, **kwargs)
+                b.record()
+                big = max(t.numel() * t.element_size() for t in (output, input))
+                probe.calls.append((name, a, b, big))
+                return out
+            return run
+
+        for n in self.NAMES:
+            setattr(dist, n, timed(n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.dist, n, fn)
+
+    def ms(self) -> dict:
+        """{name: [ms of each call]} (the card synchronised first)."""
+        import torch
+
+        torch.cuda.synchronize()
+        out = {n: [] for n in self.NAMES}
+        for name, a, b, _ in self.calls:
+            out[name].append(a.elapsed_time(b))
+        return out
+
+
+def _dist_step_check(engine, batch, host_params, host_opt, lr, want) -> str:
+    """The distributed ZeRO step of one batch from the plain step's starting
+    state (`host_params`, `host_opt`: weights and AdamW moments on the host),
+    under a world-1 NCCL group, against the plain step's loss and updated
+    parameters (`want`): the loss and every parameter bit-equal, the
+    gradient norm within a stated bound."""
+    import torch
+
+    from hi3d_tpu_torch.parallel import dist as pdist
+    from hi3d_tpu_torch.parallel.zero import ZeroAdamW
+    from hi3d_tpu_torch.training.state import build_optimizer, freeze_frozen
+    from hi3d_tpu_torch.training.step import TrainStep
+
+    params = [p for _, p in freeze_frozen(engine, engine.trained_param_keys)]
+    with torch.no_grad():
+        for p, h in zip(params, host_params):
+            p.grad = None
+            p.copy_(h)
+    with torchrun_env():
+        _, own = pdist.init("cuda")
+        if not own:
+            raise AssertionError("main path 11's step check found a process group already open")
+        try:
+            opt = build_optimizer(params, lr)
+            if not isinstance(opt, ZeroAdamW):
+                raise AssertionError(f"the optimizer in a process group is {type(opt).__name__}")
+            opt.load_state_dict(host_opt)
+            step = TrainStep(engine.make_loss_fn(), params, opt)
+            with CollectiveProbe() as coll:
+                got = step(batch, torch.Generator(device=batch["video"].device).manual_seed(7))
+            ms = coll.ms()
+        finally:
+            torch.distributed.destroy_process_group()
+    if float(got["loss"]) != want["loss"]:
+        raise AssertionError(f"distributed step loss {float(got['loss'])!r} != plain "
+                             f"{want['loss']!r}")
+    differ = [i for i, (p, w) in enumerate(zip(params, want["params"]))
+              if not torch.equal(p.detach().cpu(), w)]
+    if differ:
+        worst = max((params[i].detach().cpu() - want["params"][i]).abs().max().item()
+                    for i in differ)
+        raise AssertionError(f"{len(differ)} of {len(params)} parameters differ from the plain "
+                             f"step's (max |Δ| {worst:.3e})")
+    norm_err = abs(float(got["grad_norm"]) - want["grad_norm"]) / want["grad_norm"]
+    if norm_err > 1e-6:  # sqrt(x²) against x, the norms of the same per-parameter norms
+        raise AssertionError(f"grad_norm {float(got['grad_norm'])!r} against the plain step's "
+                             f"{want['grad_norm']!r}")
+    del opt, step
+    return (f"step check: loss {want['loss']!r} bit-equal, {len(params)} of {len(params)} "
+            f"parameters bit-equal after the update, grad_norm relative difference "
+            f"{norm_err:.2e} (bound 1e-6); its collectives reduce-scatter "
+            f"{ms['reduce_scatter_tensor']} ms, all-gather {ms['all_gather_into_tensor']} ms")
+
+
+def distributed_training_path(path2: dict, steps: int = DIST_TRAIN_STEPS) -> dict:
+    """Main path 11: `hi3d_tpu_torch.train.main` on configs/train-v01.yaml at
+    full width (2 × 16 × 512², all parameters) under a world-1 NCCL process
+    group, as `torchrun --nproc_per_node 1` starts it, for `steps` steps
+    with `--no_test True` and no dump: finite losses, launches equal to the
+    training plan, the consolidated checkpoint with path 2's keys and shapes
+    and AdamW's state over every trained parameter, resumed by a plain
+    (no-group) Trainer; from that state one plain step and one distributed
+    ZeRO step of one batch with one generator seed (`_dist_step_check`).
+    Prints s/step, peak memory and the collectives' ms beside path 2's
+    (`path2`: its s/step and peak). Returns the launch count of each
+    kernel."""
+    import shutil
+    import statistics
+
+    import torch
+
+    from hi3d_tpu_torch import train
+    from hi3d_tpu_torch.config import instantiate_from_config, load_config
+    from hi3d_tpu_torch.train import resolve_data_batch
+    from hi3d_tpu_torch.training.trainer import Checkpointer, Trainer
+
+    config = os.path.join(ROOT, "configs", "train-v01.yaml")
+    cfg = load_config(config)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_", dir=os.path.join(ROOT, "outputs"))
+    renders = write_renders(os.path.join(out_dir, "renders"))
+    eval_dir = write_eval_folder(os.path.join(out_dir, "eval"))  # the data module's setup reads it
+    expected = expected_launches(config, steps, "train")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with torchrun_env(), metrics_every_step(), CollectiveProbe() as coll, \
+            _timed(Trainer, "state_dict") as consolidate, _timed(Checkpointer, "save") as save:
+        trainer = train.main(["--base", config, "--max_steps", str(steps), "--device", "cuda",
+                              "--seed", "0", "--logdir", out_dir, "--no_test", "True",
+                              f"data.params.base_folder={renders}", "data.params.num_workers=4",
+                              f"data.params.eval_folder={eval_dir}"])
+    launches = read_launches(expected)
+    wall = time.perf_counter() - t0
+    run_peak = torch.cuda.max_memory_allocated() / 2**30
+    if torch.distributed.is_initialized():
+        raise AssertionError("train.main left its process group open")
+    rows = [json.loads(line) for line in open(os.path.join(trainer.logdir, "metrics.jsonl"))]
+    if [r["step"] for r in rows] != list(range(1, steps + 1)):
+        raise AssertionError(f"metrics rows {[r['step'] for r in rows]}")
+    if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows):
+        raise AssertionError("a training loss or gradient norm is not finite")
+    ms = coll.ms()
+    s_per_step = statistics.median(r["sec_per_step"] for r in rows[1:])
+    peak = max(r["peak_mem_gb"] for r in rows)
+    step_coll = [a + b for a, b in zip(ms["reduce_scatter_tensor"], ms["all_gather_into_tensor"])]
+    print(f"[dist] main path 11: {steps} steps under a world-1 NCCL group in {wall:.1f} s (build, "
+          f"data and the consolidated checkpoint included); s/step {s_per_step:.3f} (path 2 "
+          f"{path2['s_per_step']:.3f}); peak allocated {peak:.2f} GiB in training (path 2 "
+          f"{path2['peak']:.2f}), {run_peak:.2f} GiB over the run; reduce-scatter ms "
+          f"{[round(x, 3) for x in ms['reduce_scatter_tensor']]}, all-gather ms "
+          f"{[round(x, 3) for x in ms['all_gather_into_tensor']]} "
+          f"({coll.calls[0][3] / 2**30:.2f} GiB each); collectives "
+          f"{100 * step_coll[-1] / 1e3 / rows[-1]['sec_per_step']:.3f}% of the last step; the "
+          f"final checkpoint: state dict (the moments gathered) {consolidate:.1f} s, written in "
+          f"{save:.1f} s; losses {[round(r['loss'], 5) for r in rows]}; launches {launches}",
+          flush=True)
+    _check_launches(launches, expected)
+
+    # the consolidated checkpoint: path 2's layout, resumed by a plain Trainer
+    engine, logdir, lr = trainer.engine, trainer.logdir, trainer.learning_rate
+    del trainer
+    trainable = [p for p in engine.model.diffusion_model.parameters() if p.requires_grad]
+    for p in trainable:
+        p.grad = None
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with _tee_stdout():
+        plain = Trainer(engine, logdir=logdir, batch_size=2, seed=0, logger_backend="jsonl")
+        # a strict load of the UNet: the checkpoint has path 2's keys and shapes
+        if plain.resume_if_possible() != steps:
+            raise AssertionError("the plain Trainer did not resume at the checkpoint's step")
+    opt_state = plain.optimizer.state_dict()["state"]
+    if sorted(opt_state) != list(range(len(plain.param_names))) or any(
+            opt_state[i][k].shape != p.shape for i, p in enumerate(plain.train_step.params)
+            for k in ("exp_avg", "exp_avg_sq")):
+        raise AssertionError("the consolidated optimizer state does not cover the trained "
+                             "parameters at their shapes")
+    resumed_s = time.perf_counter() - t0
+
+    # one batch, one generator seed: the plain step, then the distributed one
+    data_cfg, _ = resolve_data_batch(cfg["data"], 1)
+    data_cfg["params"] = {**data_cfg["params"], "base_folder": renders, "num_workers": 1,
+                          "eval_folder": None}
+    loader = instantiate_from_config(data_cfg).setup().train_dataloader()
+    host_batch = next(loader)
+    loader.close()
+    batch = engine.add_custom_cond(plain._device_batch(host_batch), infer=False,
+                                   generator=torch.Generator(device="cuda").manual_seed(5))
+    params = plain.train_step.params
+    host_params = [p.detach().cpu() for p in params]
+    host_opt = plain.optimizer.state_dict()
+    host_opt = {"param_groups": host_opt["param_groups"],
+                "state": {i: {k: v.cpu() for k, v in s.items()}
+                          for i, s in host_opt["state"].items()}}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # one convolution algorithm a shape, bit for bit
+    try:
+        got = plain.train_step(batch, torch.Generator(device="cuda").manual_seed(7))
+        want = {"loss": float(got["loss"]), "grad_norm": float(got["grad_norm"]),
+                "params": [p.detach().cpu() for p in params]}
+        del plain, got
+        torch.cuda.empty_cache()
+        check = _dist_step_check(engine, batch, host_params, host_opt, lr, want)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"[dist] checkpoint {os.path.realpath(os.path.join(logdir, 'checkpoints', 'last.pt'))}: "
+          f"the UNet's keys and shapes, AdamW's per-parameter state over all "
+          f"{len(host_params)} trained tensors; a plain Trainer resumed it at step {steps} "
+          f"({resumed_s:.1f} s); {check}", flush=True)
+    del engine, batch, host_params, host_opt, want
+    shutil.rmtree(out_dir)  # tens of GB of checkpoint
     torch.cuda.empty_cache()
     return launches
 
@@ -3075,7 +3366,7 @@ def main() -> None:
     by_path["i2v"], stage1_dir, phases1 = main_path(NUM_STEPS)
     print(f"[smoke] main path 2: configs/train-v01.yaml, {TRAIN_STEPS} steps, random weights",
           flush=True)
-    by_path["train"] = training_path(TRAIN_STEPS)
+    by_path["train"], path2 = training_path(TRAIN_STEPS)
     print(f"[smoke] main path 2b: configs/train-v01.yaml at 1 × {LONG_CLIP} frames, "
           f"{LONG_CLIP_STEPS} steps, random weights (#7 on every frame-axis site)", flush=True)
     by_path["train48"] = long_clip_training_path()
@@ -3116,6 +3407,10 @@ def main() -> None:
     print(f"[smoke] main path 10: configs/train-v02.yaml, {STAGE2_TRAIN_STEPS} steps, 1 × 16 × "
           "1024², random weights, the conditioning video degraded on the card", flush=True)
     by_path["train_stage2"] = stage2_training_path()
+    print(f"[smoke] main path 11: configs/train-v01.yaml under a world-1 NCCL process group "
+          f"(torchrun's environment), {DIST_TRAIN_STEPS} steps, 2 × 16 × 512², random weights, "
+          "ZeRO-2 AdamW", flush=True)
+    by_path["train_dist"] = distributed_training_path(path2)
     print(f"[smoke] all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
 
     rows = []

@@ -21,8 +21,9 @@ Tar shards (`TarShardVideoDataset`, its stage-2 subclass,
 `<object>/<frame>.png`, each object's frames contiguous, read in stream
 mode; each process takes `order[process_index::process_count]` of the
 shards (all of them when that is empty), reshuffled every epoch with
-`seed + epoch`. Members decode with the port's PNG reader; a JPEG member
-raises (the JAX package decodes it with cv2).
+`seed + epoch`; by default the process's rank and the world size of its
+process group (0 and 1 outside one). Members decode with the port's PNG
+reader; a JPEG member raises (the JAX package decodes it with cv2).
 
 The eval set (`SyncDreamerEvalData`, `prepare_eval_input`) crops RGBA
 images to their alpha, resizes them with PIL's antialiased BICUBIC
@@ -46,6 +47,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from ..parallel import dist as pdist
 from ..utils.image import resize_bicubic_u8, resize_bilinear_u8
 from ..utils.png import decode_png, png_colour_type, read_png
 from .degradation import linear_taps
@@ -187,13 +189,15 @@ class TarShardVideoDataset:
     and keys as `VideoTrainDataset`, with the caption `<object>_<frame>`.
     Objects come in shard order, one after another, across threads (`sample`
     takes a lock); `process_index`/`process_count` pick this process's share
-    of the shards, 0 and 1 (all of them) on one GPU."""
+    of the shards: by default its rank and the group's size (`parallel.dist`),
+    0 and 1 (all of them) on one GPU; values given win."""
 
     stage2 = False
 
     def __init__(self, shards, width: int = 512, height: int = 512, sample_frames: int = 16,
-                 seed: int = 0, shuffle_shards: bool = True, process_index: int = 0,
-                 process_count: int = 1, degradation_opt: Optional[dict] = None):
+                 seed: int = 0, shuffle_shards: bool = True,
+                 process_index: Optional[int] = None, process_count: Optional[int] = None,
+                 degradation_opt: Optional[dict] = None):
         self.shards = sorted(glob.glob(shards)) if isinstance(shards, str) else sorted(shards)
         if not self.shards:
             raise ValueError(f"no tar shards match {shards!r}")
@@ -201,7 +205,8 @@ class TarShardVideoDataset:
         self.sample_frames = int(sample_frames)
         self.seed = seed
         self.shuffle_shards = shuffle_shards
-        self.process_index, self.process_count = int(process_index), int(process_count)
+        self.process_index = int(pdist.rank() if process_index is None else process_index)
+        self.process_count = int(pdist.world() if process_count is None else process_count)
         self._lock = threading.Lock()
         self._it = self._objects()
         if self.stage2:
@@ -445,10 +450,12 @@ class VideoDataset:
         return self
 
     def train_dataloader(self) -> Iterator[Dict]:
+        """The training batches of this process: its loader is seeded
+        `seed + rank`, as JAX's `seed + process_index`."""
         if self.train_dataset is None:
             self.setup()
-        return iter(PrefetchLoader(self.train_dataset, self.batch_size, seed=self.seed,
-                                   num_workers=self.num_workers))
+        return iter(PrefetchLoader(self.train_dataset, self.batch_size,
+                                   seed=self.seed + pdist.rank(), num_workers=self.num_workers))
 
     def val_dataloader(self) -> Optional[SyncDreamerEvalData]:
         if self.val_dataset is None:

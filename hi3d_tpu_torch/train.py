@@ -1,10 +1,20 @@
-"""Stage-1 and stage-2 training on one GPU (counterpart of train.py, same flags).
+"""Stage-1 and stage-2 training on one GPU or N (counterpart of train.py, same flags).
 
     python -m hi3d_tpu_torch.train --base configs/train-v01.yaml \
         [--device cuda] [--max_steps N] [--resume logs/<run>] [--no_test True] \
         [--logger tensorboard|testtube|wandb|jsonl] [--outckpt out.safetensors] \
         [key.sub=value ...]
     python -m hi3d_tpu_torch.train --base configs/train-v02.yaml ...
+    torchrun --nproc_per_node N -m hi3d_tpu_torch.train --base configs/train-v01.yaml ...
+
+Under torchrun each process joins the group (`parallel.dist`: NCCL, device
+`cuda:LOCAL_RANK`; gloo with `--device cpu`) and trains data parallel with a
+ZeRO-2-sharded AdamW: `data.params.batch_size` videos per GPU, the LR scaled
+by world × accumulation × batch, the loader seeded `seed + rank`. Every rank
+builds the model from the same seed and loads the checkpoint, then takes rank
+0's weights. Rank 0 alone writes the config snapshot, metrics, media and
+checkpoints, runs the test pass and writes `--outckpt`; a checkpoint holds
+the one-process layout, so `--resume` works at any world size.
 
 The config picks the stage: train-v01.yaml fine-tunes the image-to-orbit
 model on 16×512² clips, train-v02.yaml the 1024² video-to-video refiner,
@@ -87,15 +97,29 @@ def resolve_data_batch(data_cfg: dict, local_device_count: int):
 
 
 def main(argv: Optional[List[str]] = None):
-    """Run the CLI; returns the Trainer."""
+    """Run the CLI; returns the Trainer. Under torchrun it joins the process
+    group first and leaves it at the end."""
+    from .parallel import dist as pdist
+
+    args, unknown = parse_args(argv)
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"[train] --device {args.device} requested but CUDA is not available")
+    device, own_group = pdist.init(args.device)
+    trainer = _run(args, unknown, device)
+    # Left only on success: after an exception another rank may still wait in
+    # a collective, so the process exits with the exception and torchrun
+    # stops the others.
+    if own_group:
+        torch.distributed.destroy_process_group()
+    return trainer
+
+
+def _run(args, unknown, device: torch.device):
     from .config import apply_dotlist, instantiate_from_config, load_config
+    from .parallel import dist as pdist
     from .pipelines.common import configure_precision
     from .training.trainer import Trainer
 
-    args, unknown = parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"[train] --device {device} requested but CUDA is not available")
     if args.debug:
         def _post_mortem(tp, value, tb):
             import pdb
@@ -118,14 +142,16 @@ def main(argv: Optional[List[str]] = None):
     else:
         now = datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
         name = args.name or os.path.splitext(os.path.basename(args.base[0]))[0]
-        logdir = os.path.join(args.logdir, f"{now}_{name}{args.postfix}")
-    os.makedirs(logdir, exist_ok=True)
-    import yaml
+        logdir = pdist.broadcast_object(os.path.join(args.logdir, f"{now}_{name}{args.postfix}"))
+    main_rank = pdist.is_main()
+    if main_rank:
+        import yaml
 
-    with open(os.path.join(logdir, "config.yaml"), "w") as f:
-        yaml.safe_dump(cfg, f, sort_keys=False)
+        os.makedirs(logdir, exist_ok=True)
+        with open(os.path.join(logdir, "config.yaml"), "w") as f:
+            yaml.safe_dump(cfg, f, sort_keys=False)
 
-    np.random.seed(args.seed)
+    np.random.seed(args.seed + pdist.rank())
     configure_precision()
     model_cfg = {"target": cfg["model"]["target"], "params": dict(cfg["model"].get("params", {}))}
     ckpt_path = model_cfg["params"].pop("ckpt_path", None)
@@ -137,6 +163,7 @@ def main(argv: Optional[List[str]] = None):
         model.init_from_ckpt(ckpt_path)
     else:
         print(f"[train] checkpoint {ckpt_path!r} not found — random weights (smoke mode)")
+    pdist.broadcast_module(model)  # the ranks cannot start apart
 
     data_cfg = cfg.get("data")
     if data_cfg is None:
@@ -163,6 +190,9 @@ def main(argv: Optional[List[str]] = None):
     max_steps = args.max_steps or trainer_cfg.get("max_steps", 100000)
     if args.train:
         trainer.fit(data.train_dataloader(), max_steps=max_steps, resume=bool(args.resume))
+    pdist.barrier()
+    if not main_rank:
+        return trainer
 
     if not args.no_test:
         from .training.trainer import ImageLogger

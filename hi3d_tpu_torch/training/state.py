@@ -17,6 +17,9 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from ..parallel import dist as pdist
+from ..parallel.zero import ZeroAdamW
+
 
 def trainable_mask(model: nn.Module, trained_param_keys: Sequence[str]) -> Dict[str, bool]:
     """{parameter name of `model`: trains?}."""
@@ -41,6 +44,9 @@ def freeze_frozen(engine: nn.Module,
 def build_optimizer(params, learning_rate: float, weight_decay: float = 1e-2,
                     b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> torch.optim.AdamW:
     """AdamW with PyTorch's default hyper-parameters (reference
-    sgm/models/diffusion.py:44-47), over the trainable parameters only."""
-    return torch.optim.AdamW(list(params), lr=learning_rate, betas=(b1, b2), eps=eps,
-                             weight_decay=weight_decay)
+    sgm/models/diffusion.py:44-47), over the trainable parameters only.
+    Inside a process group its state is sharded over the ranks
+    (`parallel.zero.ZeroAdamW`, the same AdamW on each rank's slice)."""
+    opt = ZeroAdamW if pdist.initialized() else torch.optim.AdamW
+    return opt(list(params), lr=learning_rate, betas=(b1, b2), eps=eps,
+               weight_decay=weight_decay)

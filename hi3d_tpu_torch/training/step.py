@@ -1,4 +1,4 @@
-"""One optimizer step (counterpart of hi3d_tpu/training/step.py, single GPU).
+"""One optimizer step (counterpart of hi3d_tpu/training/step.py).
 
 Loss and backward over `accum_steps` micro-batches — the batch's leading
 axis cut into equal parts, the losses and gradients averaged, as the JAX step
@@ -6,8 +6,16 @@ does — then optional clipping by global norm, the AdamW update, the LR
 schedule, and EMA. Metrics: `loss` (mean over micro-batches) and `grad_norm`
 (global L2 norm of the averaged gradients, before clipping).
 
-Mesh sharding, DDP, ZeRO and FSDP are not ported: they wait for the
-multi-GPU slice.
+Data parallelism (the JAX step's "data" mesh axis): with a
+`parallel.zero.ZeroAdamW` as the optimizer, each rank steps on its own part
+of the global batch, accumulates its micro-batches locally, and reduces once
+after the last (as JAX reduces once after its `lax.scan`): the gradients are
+reduce-scattered and averaged into the rank's optimizer slice, the norm is
+global, the update is all-gathered; `loss` is the mean over the ranks. EMA
+stays replicated on every rank, as in JAX's replicated mode.
+
+Not ported: JAX's `param_sharding="fsdp"` (parameters and EMA sharded too),
+which only `make_train_step` reaches.
 """
 
 from __future__ import annotations
@@ -16,6 +24,8 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from ..parallel.dist import mean_over_ranks
+from ..parallel.zero import ZeroAdamW
 from .ema import ema_update
 
 
@@ -40,7 +50,8 @@ def split_batch(batch: Dict, parts: int) -> List[Dict]:
 
 class TrainStep:
     """step(batch, generator) → metrics; the optimizer, schedule and EMA
-    state live on the object."""
+    state live on the object. A `ZeroAdamW` optimizer makes the step data
+    parallel over the process group's ranks."""
 
     def __init__(self, loss_fn: Callable, params: List[torch.nn.Parameter],
                  optimizer: torch.optim.Optimizer,
@@ -65,16 +76,25 @@ class TrainStep:
             loss = self.loss_fn(micro, generator)
             (loss / self.accum_steps).backward()
             total = total + loss.detach()
-        for p in self.params:
-            if p.grad is None:  # not reached by the graph: its gradient is 0, and AdamW
-                p.grad = torch.zeros_like(p)  # still applies weight decay, as optax does
-        grad_norm = torch.nn.utils.get_total_norm([p.grad for p in self.params])
-        if self.grad_clip is not None:
-            torch.nn.utils.clip_grads_with_norm_(self.params, self.grad_clip, grad_norm)
+        loss = total / self.accum_steps
+        if isinstance(self.optimizer, ZeroAdamW):
+            # a parameter the graph does not reach keeps its zeroed view of
+            # the flat gradient, so every rank reduces the same buffer
+            grad_norm = self.optimizer.reduce_gradients()
+            if self.grad_clip is not None:
+                self.optimizer.clip_grads_with_norm_(self.grad_clip, grad_norm)
+            loss = mean_over_ranks(loss)
+        else:
+            for p in self.params:
+                if p.grad is None:  # not reached by the graph: its gradient is 0, and AdamW
+                    p.grad = torch.zeros_like(p)  # still applies weight decay, as optax does
+            grad_norm = torch.nn.utils.get_total_norm([p.grad for p in self.params])
+            if self.grad_clip is not None:
+                torch.nn.utils.clip_grads_with_norm_(self.params, self.grad_clip, grad_norm)
         self.optimizer.step()
         if self.lr_scheduler is not None:
             self.lr_scheduler.step()
         self.step += 1
         if self.ema_params is not None:
             ema_update(self.ema_params, self.params, self.step, self.ema_decay)
-        return {"loss": total / self.accum_steps, "grad_norm": grad_norm}
+        return {"loss": loss, "grad_norm": grad_norm}

@@ -1,4 +1,4 @@
-"""The training loop (counterpart of hi3d_tpu/training/trainer.py, one GPU).
+"""The training loop (counterpart of hi3d_tpu/training/trainer.py).
 
 LR scaling and its printed line, `fit` over a loader, a MetricsLogger that
 writes metrics.jsonl and prints every `log_every`-th step (10, as the JAX
@@ -9,11 +9,17 @@ that saves every N steps and at the end, keeps `save_top_k` files, resumes
 from `checkpoints/last.pt`, and saves when the process gets SIGUSR1. Peak
 device memory comes from `torch.cuda.max_memory_allocated`.
 
+In a process group (`parallel.dist`, one process per GPU under torchrun) the
+Trainer is data parallel: world = the group's size scales the LR, the
+optimizer is `parallel.zero.ZeroAdamW`, each rank draws its step's noise from
+its own generator, SIGUSR1 on any rank stops every rank at the same step,
+and rank 0 alone writes metrics, media and checkpoints (a checkpoint is
+consolidated from every rank's optimizer slice into the one-process layout,
+so a run resumes at any world size).
+
 `profile_steps=(start, stop)` records a `torch.profiler` trace of the steps
 in [start, stop) to `<logdir>/profile/` and prints the kernels by device
 time, as the JAX trainer's `jax.profiler` window does.
-
-Not ported yet: multi-GPU data parallelism.
 """
 
 from __future__ import annotations
@@ -28,8 +34,17 @@ from typing import Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel import dist as pdist
+from ..parallel.zero import ZeroAdamW
 from .state import build_optimizer, freeze_frozen
 from .step import TrainStep
+
+
+def step_seed(seed: int, step: int, rank: int = 0) -> int:
+    """The seed of a step's generator: `seed · 100003 + step` on rank 0 (one
+    process), offset by 2⁴⁰ a rank so that no two ranks draw the same σ,
+    noise or degradation."""
+    return seed * 100003 + step + (rank << 40)
 
 
 def device_memory_stats(device: torch.device) -> Dict[str, float]:
@@ -149,14 +164,18 @@ class Checkpointer:
     def __init__(self, logdir: str, every_n_steps: int = 3000, max_to_keep: int = 10,
                  monitor: Optional[str] = None, mode: str = "min"):
         self.dir = os.path.join(os.path.abspath(logdir), "checkpoints")
-        os.makedirs(self.dir, exist_ok=True)
+        if pdist.is_main():
+            os.makedirs(self.dir, exist_ok=True)
         self.every = int(every_n_steps)
         self.max_to_keep = int(max_to_keep)
         self.monitor = monitor
         self.mode = mode
         self.last = os.path.join(self.dir, "last.pt")
 
-    def save(self, step: int, state: Dict, metrics: Optional[Dict] = None) -> str:
+    def save(self, step: int, state: Dict, metrics: Optional[Dict] = None) -> Optional[str]:
+        """Write `state` (rank 0 only: on the other ranks it is None)."""
+        if not pdist.is_main():
+            return None
         name = f"step-{step:08d}.pt"
         path = os.path.join(self.dir, name)
         torch.save(state, path + ".tmp")
@@ -170,6 +189,8 @@ class Checkpointer:
         return path
 
     def maybe_save(self, step: int, state_fn, metrics: Optional[Dict] = None) -> None:
+        """Every `every`-th step, `state_fn()` (a collective in a process
+        group, so every rank calls it) saved by rank 0."""
         if step and step % self.every == 0:
             self.save(step, state_fn(), metrics)
 
@@ -204,7 +225,8 @@ class Checkpointer:
 
 
 class Trainer:
-    """fit() over a loader with one TrainStep per batch, on one device."""
+    """fit() over a loader with one TrainStep per batch, on this process's
+    device: in a process group every rank runs one, on its own data."""
 
     def __init__(self, engine, logdir: str = "logs/run", base_lr: Optional[float] = None,
                  scale_lr: bool = True, accumulate_grad_batches: int = 1, batch_size: int = 1,
@@ -219,9 +241,10 @@ class Trainer:
         os.makedirs(logdir, exist_ok=True)
         self.accum = int(accumulate_grad_batches)
         self.seed = int(seed)
+        self.rank, self.main = pdist.rank(), pdist.is_main()
 
         base_lr = base_lr if base_lr is not None else (engine.base_learning_rate or 1e-5)
-        world = 1  # one device; data parallelism is not ported
+        world = pdist.world()
         self.learning_rate = base_lr * world * self.accum * batch_size if scale_lr else base_lr
         print(f"[trainer] lr = {self.learning_rate:.3g} (base {base_lr:.3g} × world {world} × "
               f"accum {self.accum} × bs {batch_size}, scale_lr={scale_lr})")
@@ -240,8 +263,8 @@ class Trainer:
             engine.make_loss_fn(), params, self.optimizer, self.lr_scheduler,
             accum_steps=self.accum, grad_clip=grad_clip,
             ema_decay=engine.ema_decay_rate if engine.use_ema else None)
-        self.metrics = MetricsLogger(logdir, self.device, log_every=log_every,
-                                     backend=logger_backend)
+        self.metrics = (MetricsLogger(logdir, self.device, log_every=log_every,
+                                      backend=logger_backend) if self.main else None)
         self.image_logger = ImageLogger(logdir, every_n_steps=log_images_every)
         self.checkpointer = Checkpointer(logdir, every_n_steps=ckpt_every_n_steps,
                                          max_to_keep=max_to_keep, monitor=monitor,
@@ -252,14 +275,20 @@ class Trainer:
         self._interrupted = False
 
     # --------------------------------------------------------------- state
-    def state_dict(self) -> Dict:
+    def state_dict(self) -> Optional[Dict]:
+        """The checkpoint: step, the UNet, the optimizer (one process's
+        per-parameter AdamW layout), the LR schedule, EMA. In a process
+        group a collective, and None on ranks other than 0."""
+        optimizer = self.optimizer.state_dict()
+        if not self.main:
+            return None
         sched = self.lr_scheduler.state_dict() if self.lr_scheduler is not None else None
         if sched is not None:
             sched = {k: v for k, v in sched.items() if k != "lr_lambdas"}  # a config object
         return {
             "step": self.train_step.step,
             "model": self.engine.model.diffusion_model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "optimizer": optimizer,
             "lr_scheduler": sched,
             "ema": self.train_step.ema_params,
         }
@@ -275,10 +304,13 @@ class Trainer:
         self.train_step.step = int(state["step"])
 
     def resume_if_possible(self) -> int:
+        """Load `checkpoints/last.pt` when it exists (every rank reads it;
+        in a process group through the CPU, each rank keeping its slice)."""
         path = self.checkpointer.latest()
         if path is None:
             return 0
-        self.load_state_dict(self.checkpointer.load(path, self.device))
+        where = "cpu" if isinstance(self.optimizer, ZeroAdamW) else self.device
+        self.load_state_dict(self.checkpointer.load(path, where))
         print(f"[trainer] resumed from step {self.train_step.step} ({os.path.realpath(path)})")
         return self.train_step.step
 
@@ -314,7 +346,7 @@ class Trainer:
         trainer, and with it the weights and optimizer state on the device.
         None off the main thread, where no handler can be installed."""
         def melk(*_):
-            print("[trainer] SIGUSR1 — saving a checkpoint and stopping")
+            print(f"[trainer] SIGUSR1 on rank {self.rank} — saving a checkpoint and stopping")
             self._interrupted = True
 
         try:
@@ -344,19 +376,24 @@ class Trainer:
 
     def fit(self, data: Iterable[Dict], max_steps: int, resume: bool = True) -> int:
         """Train until `max_steps` (or SIGUSR1); returns the step reached.
-        The final state is saved in every case."""
+        The final state is saved in every case but one: in a process group,
+        a rank that raises saves nothing and re-raises at once. The save is
+        a collective that the other ranks, waiting in another one, would
+        never join; the raising process exits and torchrun stops the rest."""
         step = self.resume_if_possible() if resume else self.train_step.step
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
         prof = None
         previous_handler = self._install_signal_handler()
+        ended = False
         try:
             for host_batch in data:
-                if step >= max_steps or self._interrupted:
+                # every rank stops at the same step, whichever got the signal
+                if step >= max_steps or pdist.any_over_ranks(self._interrupted, self.device):
                     break
                 if self.profile_steps and step == self.profile_steps[0]:
                     prof = self._start_profile()
-                self.generator.manual_seed(self.seed * 100003 + step)
+                self.generator.manual_seed(step_seed(self.seed, step, self.rank))
                 t_cond = time.perf_counter()
                 batch = self.engine.add_custom_cond(self._device_batch(host_batch), infer=False,
                                                     generator=self.generator)
@@ -371,22 +408,26 @@ class Trainer:
                 metrics["cond_s"] = t0 - t_cond  # the batch's move and add_custom_cond
                 step = self.train_step.step
                 self.last_metrics = metrics
-                self.metrics(step, metrics)
+                if self.metrics is not None:
+                    self.metrics(step, metrics)
                 if prof is not None and step == self.profile_steps[1]:
                     self._stop_profile(prof)
                     prof = None
-                if step % self.image_logger.every == 0:
+                if self.main and step % self.image_logger.every == 0:
                     with self._ema_weights():  # the captions too, which the device batch drops
                         self.image_logger.maybe_log(self.engine, {**host_batch, **batch}, step)
                 self.checkpointer.maybe_save(step, self.state_dict, metrics)
+            ended = True
         finally:
             if prof is not None:
                 self._stop_profile(prof)
             close = getattr(data, "close", None)
             if close is not None:
                 close()  # a generator loader stops its workers
-            self.checkpointer.save(step, self.state_dict(), self.last_metrics)
-            self.metrics.close()
+            if ended or not pdist.initialized():
+                self.checkpointer.save(step, self.state_dict(), self.last_metrics)
+            if self.metrics is not None:
+                self.metrics.close()
             if previous_handler is not None:
                 signal.signal(signal.SIGUSR1, previous_handler)
         return step

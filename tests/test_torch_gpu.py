@@ -926,3 +926,27 @@ def test_export_reloads_strictly_on_the_card(cuda, tmp_path):
     for a, b in ((fresh.model, engine.model), (fresh.first_stage_model, engine.first_stage_model)):
         for (n, p), q in zip(a.state_dict().items(), b.state_dict().values()):
             assert torch.equal(p, q), n
+
+
+@pytest.mark.gpu
+def test_verify_weights_smoke_on_the_card(cuda, tmp_path):
+    """`hi3d_tpu_torch.tools.verify_weights --smoke` on the card: a seeded
+    `first_stage.pt` of the tiny stage-1 engine in DeepSpeed's layout
+    covers the engine (PASS), and 2 sampler steps at 8 × 256² with it give
+    finite frames."""
+    import yaml
+
+    from hi3d_tpu_torch.tools.verify_weights import verify
+
+    engine = _tiny_engine(False, cuda)
+    (tmp_path / "ckpts").mkdir()
+    torch.save({"module": {f"module.{k}": v.cpu() for k, v in engine.state_dict().items()}},
+               tmp_path / "ckpts" / "first_stage.pt")
+    del engine
+    config = tmp_path / "tiny-v01.yaml"
+    config.write_text(yaml.safe_dump({"model": _tiny_config(False)}))
+    results = {name: (status, detail) for name, status, detail in
+               verify(str(tmp_path / "ckpts"), stage1_cfg=str(config), smoke=True, device="cuda")}
+    assert results["stage1 engine (first_stage.pt)"][0] == "PASS", results
+    status, detail = results["stage1 2-step sampling smoke"]
+    assert status == "PASS" and "(8, 256, 256, 3)" in detail and "cuda" in detail, detail
