@@ -108,7 +108,23 @@ and in a process group) and serving paths on one NVIDIA H100.
    the loss and every parameter bit-equal, the gradient norm within 1e-6;
    prints s/step, peak memory and the reduce-scatter and all-gather ms
    beside path 2's;
-14. prints the kernel JSON line (launches per path and summed, errors, times,
+14. main path 12: `training.ae_step.AutoencoderTrainer` on an
+   `AutoencodingEngine` with configs/inference-v01.yaml's VAE (Encoder,
+   2-D Decoder, a sampling Gaussian regularizer), a 3-layer PatchGAN and a
+   VGG16 LPIPS, 4 steps (generator, discriminator, twice) on 2 × 512²
+   render frames with TF32 off: finite losses and d_weight, the encoder and
+   decoder moving on generator steps and the discriminator on the others,
+   #9 launches equal to the plan, and one 1 × 128² generator pass on the
+   card against the CPU (`ae_pass_errors`); prints s/step by pass and the
+   peak;
+15. main path 13: SVD's first stage (`models.autoencoding.
+   SVD_FIRST_STAGE_CONFIG`: Encoder, conv-only temporal VideoDecoder)
+   encodes main path 1's 16 frames and decodes them as one video, and a
+   time_mode "all" VideoDecoder decodes the same latents: finite outputs,
+   #9 and #10 launches equal to the plan (no K2 or #6: the frame attention
+   of head dim 512 in fp32 is plain), skip_video equal to the 2-D decoder;
+   prints seconds and the peak;
+16. prints the kernel JSON line (launches per path and summed, errors, times,
    bounds), the card line, and the contract line last.
 
 The training paths log metrics every step (`metrics_every_step`; the CLI
@@ -489,7 +505,9 @@ def kernel_phase() -> Results:
     # |y| < 8, so one bf16 ulp is ≤ 3.1e-2; fp32: summation order, 1e-4), and
     # its (mean, inv_std) through `row_stats` (1e-4 relative). Library:
     # F.layer_norm with γ, β in x's dtype
-    for m, c, dtype, eps in ((32 * 16384, 320, bf16, 1e-5), (16 * 577, 768, torch.float32, 1e-6)):
+    # (and main path 13's fp32 time_mix_block rows, 16 frames × 4096 tokens × 512)
+    for m, c, dtype, eps in ((32 * 16384, 320, bf16, 1e-5), (16 * 577, 768, torch.float32, 1e-6),
+                             (16 * 4096, 512, torch.float32, 1e-5)):
         x = torch.randn((m, c), generator=gen, device=dev, dtype=dtype) * 3 + 1
         w = 1 + 0.1 * torch.randn((c,), generator=gen, device=dev)
         bia = 0.1 * torch.randn((c,), generator=gen, device=dev)
@@ -510,8 +528,10 @@ def kernel_phase() -> Results:
 
     # #9: fp32 (mean, inv_std) against the plain version, within 1e-4 of
     # their largest magnitude (4.19 M-element sums folded in another order).
-    # Library: torch.var_mean over the group view
-    for shape, eps in (((1, 128, 1024, 1024), 1e-6), ((16, 256, 96, 96), 1e-5)):
+    # Library: torch.var_mean over the group view. The third case is main path
+    # 13's time stack: (B, C, T, H, W) of SVD's decoder at the 64² latent
+    for shape, eps in (((1, 128, 1024, 1024), 1e-6), ((16, 256, 96, 96), 1e-5),
+                       ((1, 512, 16, 64, 64), 1e-6)):
         x = torch.randn(shape, generator=gen, device=dev) * 3 + 1
         got = gn.group_stats(x, 32, eps)
         want = gn.group_stats_reference(x, 32, eps)
@@ -943,18 +963,26 @@ def _has_embedder(cfg: dict, target_suffix: str) -> bool:
                for e in cfg["model"]["params"]["conditioner_config"]["params"]["emb_models"])
 
 
-def _frame_kernels(t: int, fwd: int, bwd: int) -> dict:
-    """Launches of the frame-axis kernels at `t` frames: the route that
-    `ops.attention.frame_attention_kernel` picks carries `fwd` forward and
-    `bwd` backward launches, the other route none."""
-    from hi3d_tpu_torch.ops.attention import frame_attention_kernel
-
-    frame = frame_attention_kernel(t)
+def _frame_kernels(route: str, fwd: int, bwd: int) -> dict:
+    """Launches of the frame-axis kernels on `route`, the answer of
+    `ops.attention.frame_attention_kernel`: its kernel carries `fwd`
+    forward and `bwd` backward launches, the other kernel none; "plain"
+    launches neither."""
     counts = {}
     for name in ("temporal_attention", "temporal_block_attention"):
-        counts[name] = fwd if name == frame else 0
-        counts[f"{name}_backward"] = bwd if name == frame else 0
+        counts[name] = fwd if name == route else 0
+        counts[f"{name}_backward"] = bwd if name == route else 0
     return counts
+
+
+def unet_frame_route(config_path: str, t: int) -> str:
+    """`ops.attention.frame_attention_kernel` at the config's UNet sites:
+    `t` frames of its head dim."""
+    from hi3d_tpu_torch.config import load_config
+    from hi3d_tpu_torch.ops.attention import frame_attention_kernel
+
+    mp = load_config(config_path)["model"]["params"]
+    return frame_attention_kernel(t, mp["network_config"]["params"]["num_head_channels"])
 
 
 TWO_CALL_SAMPLERS = ("HeunEDMSampler", "DPMPP2SAncestralSampler")
@@ -1030,6 +1058,7 @@ def expected_launches(config_path: str, steps: int, path: str, clip_size=None,
     dec_blocks, dec_attn, dec_res = part(out)
     sites = norm_sites(config_path)
     t = clip_size or mp["num_samples"]
+    route = unet_frame_route(config_path, t)
     engine_chunk = mp.get("en_and_decode_n_samples_a_time")
     enc_chunk = _embedder(cfg, "VideoPredictionEmbedderWithEncoder").get(
         "en_and_decode_n_samples_a_time")
@@ -1052,7 +1081,7 @@ def expected_launches(config_path: str, steps: int, path: str, clip_size=None,
             "trainer", {}).get("accumulate_grad_batches", 1)
         fwd = 2 if p.get("use_checkpoint") else 1
         grad = {"flash_attention": calls * fwd * blocks,
-                **_frame_kernels(t, calls * fwd * blocks, calls * blocks),
+                **_frame_kernels(route, calls * fwd * blocks, calls * blocks),
                 "group_norm": calls * (fwd * (4 * n_res + n_attn) + 1),
                 "flash_attention_backward": calls * blocks}
         if path == "unet_grad":  # one UNet forward and backward, nothing else
@@ -1078,7 +1107,7 @@ def expected_launches(config_path: str, steps: int, path: str, clip_size=None,
     whole, dec = unet_calls(sampler, steps, encoder_reuse)
     attn = whole * blocks + dec * dec_blocks
     unet = {"flash_attention": attn, "flash_attention_backward": 0,
-            **_frame_kernels(t, attn, 0),
+            **_frame_kernels(route, attn, 0),
             "group_norm": whole * (4 * n_res + n_attn + 1) + dec * (4 * dec_res + dec_attn + 1)}
     unet_ln = whole * sites["unet"] + dec * sites["unet_dec"]
     if path in ("i2v", "serve"):  # the conditioner encodes each asset's frame 0; the
@@ -1155,11 +1184,11 @@ def _run_unet(net, inputs, t, dev):
     return net(**{k: v.to(dev) for k, v in inputs.items()}, num_video_frames=t)
 
 
-def _check_frame_route(t: int, backward: bool) -> None:
+def _check_frame_route(config_path: str, t: int, backward: bool) -> None:
     """The frame-axis kernels that ran since the last `reset_launches` are
-    the route's for `t` frames (and its backward when `backward`), and the
-    other route's did not run."""
-    want = _frame_kernels(t, 1, 1 if backward else 0)
+    the route's for the config's UNet at `t` frames (and its backward when
+    `backward`), and the other route's did not run."""
+    want = _frame_kernels(unet_frame_route(config_path, t), 1, 1 if backward else 0)
     got = read_launches(want)
     if {n: min(c, 1) for n, c in got.items()} != want:
         raise AssertionError(f"frame-axis kernels at T={t}: launches {got}, route {want}")
@@ -1186,7 +1215,7 @@ def unet_reference_phase(config_path: str, b: int = 2, t: int = 4) -> float:
     reset_launches()
     with torch.no_grad():
         out = _run_unet(unet, inputs, t, "cuda").float().cpu()
-        _check_frame_route(t, backward=False)
+        _check_frame_route(config_path, t, backward=False)
         ref, plain = (_run_unet(net, inputs, t, "cpu").float() for net in (cpu_fp32, cpu_bf16))
     if not torch.isfinite(out).all():
         raise AssertionError("UNet output on the card is not finite")
@@ -2536,6 +2565,436 @@ def distributed_training_path(path2: dict, steps: int = DIST_TRAIN_STEPS) -> dic
     return launches
 
 
+AE_TRAIN_STEPS = 4  # main path 12: generator, discriminator, generator, discriminator
+AE_BATCH = 2  # frames a batch of main path 12
+AE_CHECK_SIZE = 128  # the side of the frame in main path 12's card-against-CPU pass
+SVD_FRAMES = 16  # main path 13 decodes main path 1's 16 frames as one video
+
+
+def ae_ddconfig() -> dict:
+    """configs/inference-v01.yaml's VAE ddconfig (ch 128, mult (1, 2, 4, 4), 2
+    res blocks, z 4, double_z)."""
+    from hi3d_tpu_torch.config import load_config
+
+    config = os.path.join(ROOT, "configs", "inference-v01.yaml")
+    return dict(load_config(config)["model"]["params"]["first_stage_config"]["params"]["ddconfig"])
+
+
+def ae_norm_sites(dd: dict) -> dict:
+    """#9 launches per call of the encoder, the 2-D decoder and the video
+    decoders ("conv-only", "all") on ddconfig `dd` (their FoldedGroupNorms,
+    the time stacks' included), and #10 launches per call of the "all"
+    decoder (the LayerNorm32s of its time_mix_block) and its VideoAttnBlocks;
+    counted on the meta device, each module running once a call."""
+    import torch
+
+    from hi3d_tpu_torch.models.attention import LayerNorm32
+    from hi3d_tpu_torch.models.layers import FoldedGroupNorm
+    from hi3d_tpu_torch.models.temporal_ae import VideoAttnBlock, VideoDecoder
+    from hi3d_tpu_torch.models.vae import Decoder, Encoder
+
+    def count(build, cls) -> int:
+        with torch.device("meta"):
+            return sum(isinstance(m, cls) for m in build().modules())
+
+    return {"encoder": count(lambda: Encoder(**dd), FoldedGroupNorm),
+            "decoder": count(lambda: Decoder(**dd), FoldedGroupNorm),
+            "video_conv": count(lambda: VideoDecoder(time_mode="conv-only", **dd), FoldedGroupNorm),
+            "video_all": count(lambda: VideoDecoder(time_mode="all", **dd), FoldedGroupNorm),
+            "video_all_ln": count(lambda: VideoDecoder(time_mode="all", **dd), LayerNorm32),
+            "video_all_attn": count(lambda: VideoDecoder(time_mode="all", **dd), VideoAttnBlock)}
+
+
+def ae_launches(dd: dict, path: str, steps: int = AE_TRAIN_STEPS) -> dict:
+    """Launches of every kernel on main path 12 ("ae_train": `steps`
+    trainer steps, each one encoder and one decoder call, forward only: the
+    FoldedGroupNorm backward is K3's plain version) or 13 ("svd_vae": one
+    encode, one conv-only decode, one "all" decode). Every norm is #9, the
+    "all" decoder's LayerNorms #10; its VideoAttnBlocks attend twice over
+    the frames (attn1, attn2) at head dim ch·mult[-1] in fp32, on the route
+    `frame_attention_kernel` picks (plain at SVD's 512); the VAE's spatial
+    attention is plain, so no other kernel runs."""
+    from hi3d_tpu_torch.ops.attention import frame_attention_kernel
+
+    sites = ae_norm_sites(dd)
+    counts = {name: 0 for name, *_ in KERNELS}
+    if path == "ae_train":
+        counts["group_stats"] = steps * (sites["encoder"] + sites["decoder"])
+        return counts
+    counts["group_stats"] = sites["encoder"] + sites["video_conv"] + sites["video_all"]
+    counts["layer_norm"] = sites["video_all_ln"]
+    route = frame_attention_kernel(SVD_FRAMES, dd["ch"] * dd["ch_mult"][-1])
+    counts.update(_frame_kernels(route, 2 * sites["video_all_attn"], 0))
+    return counts
+
+
+def _ae_frames(root: str, n: int):
+    """(n, 3, 512, 512) fp32 frames in [-1, 1]: the smoke's render
+    stand-ins (`write_renders`), read back and composited on white."""
+    import torch
+
+    from hi3d_tpu_torch.utils.image import composite_white
+    from hi3d_tpu_torch.utils.png import read_png
+
+    folder = os.path.join(write_renders(root, folders=1, frames=n), "obj00")
+    rgb = np.stack([composite_white(read_png(os.path.join(folder, f"{i:03d}.png")))
+                    for i in range(n)])
+    return torch.from_numpy(rgb).permute(0, 3, 1, 2).float() / 127.5 - 1.0
+
+
+def ae_trainer(device: str = "cuda"):
+    """Main path 12's AutoencoderTrainer from seed 0: an AutoencodingEngine
+    with `ae_ddconfig()` for the Encoder and the 2-D Decoder and a sampling
+    DiagonalGaussianRegularizer; GeneralLPIPSWithDiscriminator with
+    disc_start 0, perceptual weight 1 (a full VGG16 LPIPS, its heads made
+    non-negative as trained ones are), a 3-layer discriminator whose logit
+    conv is scaled ×1000 and the hinge loss; Adam at lr 4.5e-6. At
+    `weights_init`'s scale the seed-0 logits are so small that the adaptive
+    weight sits on its 1e4 clip; scaled, it is inside it, as a trained
+    discriminator's is (the GAN term it weighs, d_weight · g, does not
+    change with that scale)."""
+    import torch
+
+    from hi3d_tpu_torch.models.autoencoding import AutoencodingEngine
+    from hi3d_tpu_torch.models.discriminator import GeneralLPIPSWithDiscriminator
+    from hi3d_tpu_torch.training.ae_step import AutoencoderTrainer
+
+    dd = ae_ddconfig()
+    torch.manual_seed(0)
+    engine = AutoencodingEngine(
+        encoder_config={"target": "sgm.modules.diffusionmodules.model.Encoder", "params": dd},
+        decoder_config={"target": "sgm.modules.diffusionmodules.model.Decoder", "params": dd},
+        regularizer_config={
+            "target": "sgm.modules.autoencoding.regularizers.DiagonalGaussianRegularizer",
+            "params": {"sample": True}})
+    loss = GeneralLPIPSWithDiscriminator(disc_start=0, perceptual_weight=1.0, disc_num_layers=3,
+                                         disc_loss="hinge")
+    with torch.no_grad():
+        for i in range(5):
+            getattr(loss.perceptual_loss, f"lin{i}").model[1].weight.abs_()
+        for p in loss.discriminator.main[-1].parameters():
+            p.mul_(1000.0)
+    return AutoencoderTrainer(engine, loss, device=device)
+
+
+# main path 12's card-against-CPU generator pass, relative errors (L2 for
+# tensors). The reconstruction ("rec": the card's forward, #9 at every norm,
+# cuDNN's convolutions) differs in summation order only: δ_rec ≤ 1e-4. The
+# loss, d_weight (a ratio of two gradient norms), the conv_out weight
+# gradients of the NLL, of the GAN term on the discriminator's running
+# statistics and of the loss ("total", whose GAN term runs the discriminator
+# on the batch's statistics) are built on it and amplify δ_rec by their
+# conditioning: each is held at AE_PASS_AMPLIFICATION × δ_rec, at least
+# 1e-4. That holds with the CPU side on the card's LeakyReLU slopes
+# (`leaky_signs`): an input within rounding of 0 may take the other slope
+# on the other side, and one such flip in the last layer moves "total" by
+# ~6e-4 (one image's batch statistics) where δ_rec moves it ~1×
+# (`ae_pass_conditioning`, PERF.md §6). The share of flipped
+# inputs ("slopes") is held at the same bound.
+AE_PASS_DERIVED = ("loss", "d_weight", "nll", "g_eval", "total", "slopes")
+AE_PASS_AMPLIFICATION = 100.0
+
+
+def ae_pass_errors(got: dict, want: dict):
+    """(relative errors, their bounds) of two `ae_generator_pass` results,
+    `want` run on `got`'s LeakyReLU slopes (`ae_pass_on_both`)."""
+    errs = {k: (abs(got[k] - want[k]) / abs(want[k]) if k in ("loss", "d_weight")
+                else ((got[k] - want[k]).norm() / want[k].norm()).item())
+            for k in ("rec", "loss", "d_weight", "nll", "g_eval", "total")}
+    errs["slopes"] = (sum(int((a.cpu() != b.cpu()).sum()) for a, b in zip(got["signs"], want["signs"]))
+                      / sum(a.numel() for a in got["signs"]))
+    derived = max(1e-4, AE_PASS_AMPLIFICATION * errs["rec"])
+    return errs, {"rec": 1e-4, **{k: derived for k in AE_PASS_DERIVED}}
+
+
+@contextlib.contextmanager
+def leaky_signs(module, replay=None):
+    """For the block, every LeakyReLU of `module` appends its input's signs
+    (> 0) to the list it yields, call by call; with `replay`, such a list
+    from another run, each call's output takes the replayed signs' slopes
+    instead of its own."""
+    import torch
+
+    signs = []
+
+    def hook(mod, args, out):
+        x = args[0]
+        signs.append(x > 0)
+        if replay is not None:
+            return torch.where(replay[len(signs) - 1].to(x.device), x, x * mod.negative_slope)
+        return None
+
+    handles = [m.register_forward_hook(hook) for m in module.modules()
+               if isinstance(m, torch.nn.LeakyReLU)]
+    try:
+        yield signs
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def ae_generator_pass(trainer, x, replay=None) -> dict:
+    """One generator pass of `trainer` on x (the posterior's mean), no step:
+    the reconstruction, the loss, d_weight, ∂/∂ conv_out.weight (on the
+    CPU) of the NLL ("nll"), of the GAN term on the discriminator's running
+    statistics ("g_eval") and of the loss ("total"), and the signs of every
+    LeakyReLU input of the discriminator ("signs"; `leaky_signs`, with
+    `replay`)."""
+    import torch
+
+    x = x.to(trainer.device)
+    loss_fn = trainer.loss
+    with leaky_signs(loss_fn.discriminator, replay) as signs:
+        rec, reg_log = trainer._reconstruct(x, None)
+        nll, _ = loss_fn.get_nll_loss(loss_fn._rec_loss(x, rec))
+        g_eval = -loss_fn.discriminator(rec, "eval").mean()
+        total, log = loss_fn.generator_loss(x, rec, regularization_log=reg_log,
+                                            global_step=trainer.global_step, train=True,
+                                            last_layer=trainer.last_layer())
+    w = trainer.engine.decoder.conv_out.weight
+    out = {name: torch.autograd.grad(v, [w], retain_graph=True)[0].cpu()
+           for name, v in (("nll", nll), ("g_eval", g_eval), ("total", total))}
+    out.update(rec=rec.detach().cpu(), loss=total.item(),
+               d_weight=log["train/scalars/d_weight"].item(), signs=signs)
+    return out
+
+
+def ae_pass_on_both(trainer, x):
+    """`ae_generator_pass` of `trainer` and of a copy on the other device
+    (the card or the CPU) on x, both fp32 with TF32 off: (the card's, the
+    CPU's); the CPU's discriminator runs on the card's LeakyReLU slopes and
+    reports its own signs."""
+    import copy
+
+    from hi3d_tpu_torch.training.ae_step import AutoencoderTrainer
+
+    other = "cpu" if trainer.device.type == "cuda" else "cuda"
+    twin = AutoencoderTrainer(copy.deepcopy(trainer.engine), copy.deepcopy(trainer.loss),
+                              device=other)
+    twin.global_step = trainer.global_step
+    card, cpu = (trainer, twin) if other == "cpu" else (twin, trainer)
+    got = ae_generator_pass(card, x)
+    want = ae_generator_pass(cpu, x, replay=got["signs"])
+    return got, want
+
+
+def ae_pass_conditioning(batches=(1, 2)) -> None:
+    """On the CPU: how far fp32 itself pins main path 12's generator pass.
+    `ae_trainer("cpu")` (seed 0, no step) runs `ae_generator_pass` in fp32
+    and a float64 copy runs it twice, on its own LeakyReLU slopes and on the
+    fp32 run's, on the 128² centres of the first `batches` render frames;
+    prints `ae_pass_errors` of fp32 against each float64 run and the flipped
+    slopes of each LeakyReLU call. Run from the repository root:
+
+        python3 -c "import chip_smoke; chip_smoke.ae_pass_conditioning()"
+    """
+    import copy
+    import shutil
+
+    from hi3d_tpu_torch.training.ae_step import AutoencoderTrainer
+
+    out_dir = tempfile.mkdtemp(prefix="ae_conditioning_")
+    frames = _ae_frames(out_dir, max(batches))
+    shutil.rmtree(out_dir)
+    lo = (frames.shape[-1] - AE_CHECK_SIZE) // 2
+    trainer = ae_trainer("cpu")
+    wide = AutoencoderTrainer(copy.deepcopy(trainer.engine).double(),
+                              copy.deepcopy(trainer.loss).double(), device="cpu")
+    for b in batches:
+        x = frames[:b, :, lo:lo + AE_CHECK_SIZE, lo:lo + AE_CHECK_SIZE].contiguous()
+        f32 = ae_generator_pass(trainer, x)
+        for slopes, replay in (("own", None), ("fp32's", f32["signs"])):
+            f64 = ae_generator_pass(wide, x.double(), replay=replay)
+            errs, _ = ae_pass_errors(f32, f64)
+            flips = [int((a != c).sum()) for a, c in zip(f32["signs"], f64["signs"])]
+            print(f"[ae conditioning] {b} × {AE_CHECK_SIZE}², fp32 against float64 on {slopes} "
+                  f"slopes: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                  + f"; flipped slopes by LeakyReLU call {flips} of "
+                  f"{[a.numel() for a in f32['signs']]}", flush=True)
+
+
+def _ae_pass_check(trainer, frame) -> str:
+    """One generator pass on the card against the plain versions on the CPU
+    (a copy of the same weights) on the 1 × 128² centre of `frame`, within
+    `ae_pass_errors`' bounds, d_weight inside its clip."""
+    lo = (frame.shape[-1] - AE_CHECK_SIZE) // 2  # the centre, where the object is
+    x = frame[None, :, lo:lo + AE_CHECK_SIZE, lo:lo + AE_CHECK_SIZE].contiguous()
+    got, want = ae_pass_on_both(trainer, x)
+    errs, bounds = ae_pass_errors(got, want)
+    text = (f"1 × {AE_CHECK_SIZE}² generator pass, card against CPU: loss {got['loss']!r} / "
+            f"{want['loss']!r}, d_weight {got['d_weight']!r} / {want['d_weight']!r}; relative "
+            "errors (conv_out weight gradients in L2; slopes: the share of the discriminator's "
+            "LeakyReLU inputs of other sign) " + ", ".join(
+                f"{k} {errs[k]:.2e} (bound {b:.2e})" for k, b in bounds.items()))
+    if not (all(errs[k] <= b for k, b in bounds.items()) and 0 <= want["d_weight"] < 1e4):
+        raise AssertionError(text)
+    return text
+
+
+def ae_training_path(steps: int = AE_TRAIN_STEPS) -> dict:
+    """Main path 12: `ae_trainer()` on the card with TF32 off takes `steps`
+    alternating steps on batches of 2 × 512² frames from the render
+    stand-ins: finite losses, d_weight in [0, 1e4) (finite, inside its
+    clip) on generator steps, the
+    encoder and decoder moving on generator steps and the discriminator on
+    discriminator steps (each bit-still on the other's), launches equal to
+    `ae_launches`; then one generator pass against the CPU
+    (`_ae_pass_check`). Prints s/step of each pass and the peak. Returns
+    the launch count of each kernel."""
+    import shutil
+
+    import torch
+
+    from hi3d_tpu_torch.pipelines.common import configure_precision
+
+    configure_precision()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_ae_", dir=os.path.join(ROOT, "outputs"))
+    frames = _ae_frames(out_dir, steps * AE_BATCH)
+    t0 = time.perf_counter()
+    trainer = ae_trainer()
+    build_s = time.perf_counter() - t0
+    groups = {"encoder": list(trainer.engine.encoder.parameters()),
+              "decoder": list(trainer.engine.decoder.parameters()),
+              "discriminator": trainer.disc_params}
+    expected = ae_launches(ae_ddconfig(), "ae_train", steps)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    seconds = {"generator": [], "discriminator": []}
+    losses = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    for i in range(steps):
+        before = {k: [p.detach().clone() for p in ps] for k, ps in groups.items()}
+        kind = "generator" if i % 2 == 0 else "discriminator"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, log = trainer.train_step(frames[AE_BATCH * i:AE_BATCH * (i + 1)], i, gen)
+        torch.cuda.synchronize()
+        seconds[kind].append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        if not np.isfinite(losses[-1]):
+            raise AssertionError(f"step {i} ({kind}): loss {losses[-1]}")
+        if kind == "generator":
+            d_weight = log["train/scalars/d_weight"].item()
+            if not 0 <= d_weight < 1e4:  # finite, inside the clip
+                raise AssertionError(f"step {i}: d_weight {d_weight}")
+        moved = {k: any(not torch.equal(a, p) for a, p in zip(before[k], ps))
+                 for k, ps in groups.items()}
+        want = {"encoder": kind == "generator", "decoder": kind == "generator",
+                "discriminator": kind == "discriminator"}
+        if moved != want:
+            raise AssertionError(f"step {i} ({kind}): moved {moved}, want {want}")
+        del before
+    launches = read_launches(expected)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[ae] main path 12: {steps} AutoencoderTrainer steps, {AE_BATCH} × 512², built in "
+          f"{build_s:.1f} s; s/step generator {[round(s, 3) for s in seconds['generator']]}, "
+          f"discriminator {[round(s, 3) for s in seconds['discriminator']]}; peak allocated "
+          f"{peak:.2f} GiB; losses {[round(v, 5) for v in losses]}; last d_weight "
+          f"{d_weight!r}; launches {launches}", flush=True)
+    _check_launches(launches, expected)
+    t0 = time.perf_counter()
+    check = _ae_pass_check(trainer, frames[0])
+    print(f"[ae] {check} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    shutil.rmtree(out_dir)
+    del trainer, groups
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _unzero_time_stacks(decoder) -> None:
+    """Give the time stacks' zero-initialised out convs torch's default
+    init, so that random weights exercise the temporal branch (a trained
+    checkpoint's are not zero)."""
+    from hi3d_tpu_torch.models.temporal_ae import TimeStack3D
+
+    for m in decoder.modules():
+        if isinstance(m, TimeStack3D):
+            m.out_layers[3].reset_parameters()
+
+
+def svd_vae_path(stage1_dir: str) -> dict:
+    """Main path 13: SVD's first stage (`models.autoencoding.
+    SVD_FIRST_STAGE_CONFIG`: Encoder, conv-only VideoDecoder with video
+    kernel (3, 1, 1)) from seed 0 on the card with TF32 off encodes main
+    path 1's 16 × 512² frames and decodes them as one 16-frame video; a
+    time_mode "all" decoder (seed 1; 4096 mid tokens, one head of 512)
+    decodes the same latents. Checks finite (16, 3, 512, 512) outputs,
+    launches equal to `ae_launches` (#9 at every norm, #10 at the "all"
+    decoder's LayerNorms, no K2 or #6), and that `skip_video=True` agrees
+    with the 2-D Decoder holding the same spatial weights (1e-5 of the
+    output's largest magnitude: the same fp32 ops, cuDNN free to pick
+    another algorithm). Prints seconds and the peak. Returns the launch
+    count of each kernel."""
+    import torch
+
+    from hi3d_tpu_torch.config import instantiate_from_config, load_config
+    from hi3d_tpu_torch.models.autoencoding import SVD_FIRST_STAGE_CONFIG
+    from hi3d_tpu_torch.models.temporal_ae import VideoDecoder
+    from hi3d_tpu_torch.models.vae import Decoder
+    from hi3d_tpu_torch.pipelines.common import configure_precision
+    from hi3d_tpu_torch.utils.video import import_video, range_from_uint8
+
+    configure_precision()
+    cfg = load_config(SVD_FIRST_STAGE_CONFIG)
+    dd = cfg["params"]["decoder_config"]["params"]
+    torch.manual_seed(0)
+    engine = instantiate_from_config(cfg)
+    _unzero_time_stacks(engine.decoder)
+    torch.manual_seed(1)
+    video_all = VideoDecoder(**{**dd, "time_mode": "all"})
+    _unzero_time_stacks(video_all)
+    engine.to("cuda").eval()
+    video_all.to("cuda").eval()
+    frames = import_video(os.path.join(stage1_dir, "first_step", "frames"), SVD_FRAMES)
+    x = range_from_uint8(torch.as_tensor(frames).to("cuda")).permute(0, 3, 1, 2).contiguous()
+    expected = ae_launches(dd, "svd_vae")
+    secs = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    with torch.no_grad():
+        z = timed("encode", lambda: engine.encode(x))
+        rec = timed("decode conv-only", lambda: engine.decode(z, timesteps=SVD_FRAMES))
+        rec_all = timed("decode all", lambda: video_all(z, timesteps=SVD_FRAMES))
+    launches = read_launches(expected)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name, out in (("conv-only", rec), ("all", rec_all)):
+        if out.shape != (SVD_FRAMES, 3, 512, 512) or not torch.isfinite(out).all():
+            raise AssertionError(f"{name} decode: {tuple(out.shape)}, finite "
+                                 f"{bool(torch.isfinite(out).all())}")
+    plain = Decoder(**dd).to("cuda").eval()
+    spatial = plain.state_dict()
+    plain.load_state_dict({k: v for k, v in engine.decoder.state_dict().items() if k in spatial},
+                          strict=True)
+    with torch.no_grad():
+        skip = engine.decoder(z, timesteps=SVD_FRAMES, skip_video=True)
+        want = plain(z)
+    skip_err = ((skip - want).abs().max() / want.abs().max()).item()
+    print(f"[svd] main path 13: SVD's first stage on {SVD_FRAMES} × 512² (main path 1's frames), "
+          f"seconds {secs}, peak allocated {peak:.2f} GiB; latents {tuple(z.shape)}, outputs "
+          f"finite in [{rec.min().item():.3f}, {rec.max().item():.3f}] (conv-only), "
+          f"[{rec_all.min().item():.3f}, {rec_all.max().item():.3f}] (all); |temporal − "
+          f"skip_video| max {(rec - skip).abs().max().item():.3e}; skip_video against the 2-D "
+          f"Decoder: max |Δ| / max |y| {skip_err:.2e} (bound 1e-5); launches {launches}",
+          flush=True)
+    _check_launches(launches, expected)
+    if not skip_err <= 1e-5:
+        raise AssertionError(f"skip_video against the 2-D decoder: {skip_err}")
+    del engine, video_all, plain, x, z, rec, rec_all, skip, want
+    torch.cuda.empty_cache()
+    return launches
+
+
 SERVE_CLIP = 48  # a 48-view orbit: three times the 16 views, 7.5° apart
 SERVE_ASSETS = 2
 
@@ -3411,6 +3870,13 @@ def main() -> None:
           f"(torchrun's environment), {DIST_TRAIN_STEPS} steps, 2 × 16 × 512², random weights, "
           "ZeRO-2 AdamW", flush=True)
     by_path["train_dist"] = distributed_training_path(path2)
+    print(f"[smoke] main path 12: AutoencoderTrainer (the VAE of configs/inference-v01.yaml, a "
+          f"3-layer PatchGAN, VGG16 LPIPS), {AE_TRAIN_STEPS} steps of {AE_BATCH} × 512², random "
+          "weights", flush=True)
+    by_path["ae_train"] = ae_training_path()
+    print(f"[smoke] main path 13: SVD's first stage (temporal VideoDecoder), {SVD_FRAMES} × 512² "
+          "from main path 1, conv-only and all, random weights", flush=True)
+    by_path["svd_vae"] = svd_vae_path(stage1_dir)
     print(f"[smoke] all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
 
     rows = []

@@ -16,6 +16,7 @@ little-endian tensor bytes, offsets counted from the end of the header.
 from __future__ import annotations
 
 import json
+import re
 import struct
 from typing import Dict, Mapping, Tuple
 
@@ -171,3 +172,104 @@ def load_u2net(path: str) -> Tuple[Dict[str, torch.Tensor], bool]:
     import os
 
     return load_checkpoint_file(path), "u2netp" not in os.path.basename(path)
+
+
+# --- flax variable trees (as numpy arrays) → the port's modules -------------
+
+# flax leaf names → torch names where the module has no leaf of the flax name
+# (ActNorm's `scale` and `loc`, a block's `mix_factor` keep theirs)
+_FLAX_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
+                "mean": "running_mean", "var": "running_var"}
+_FLAX_BLOCK = re.compile(r"^(up|down)_(\d+)_(block|attn)_(\d+)$")
+_FLAX_RESAMPLE = re.compile(r"^(up|down)_(\d+)_(upsample|downsample)$")
+_FLAX_INDEXED = re.compile(r"^(\w+?)_(\d+)$")
+
+
+def flax_module_name(path: Tuple[str, ...]) -> str:
+    """The port's dotted module name of a flax module path: VAE towers
+    (`up_3_block_0` → `up.3.block.0`, `mid_attn_1` → `mid.attn_1`,
+    `up_1_upsample` → `up.1.upsample`), `name_N` → `name.N` (`in_layers_0`,
+    `to_out_0`, `net_0`, `video_time_embed_2`), and the norms' inner fp32
+    wrapper scope `norm` dropped."""
+    out = []
+    for i, seg in enumerate(path):
+        if seg == "norm" and i == len(path) - 1 and i > 0:
+            continue  # the fp32 wrapper's inner norm scope
+        if seg.startswith("mid_"):
+            out += ["mid", seg[4:]]
+        elif _FLAX_BLOCK.match(seg):
+            out += list(_FLAX_BLOCK.match(seg).groups())
+        elif _FLAX_RESAMPLE.match(seg):
+            out += list(_FLAX_RESAMPLE.match(seg).groups())
+        elif _FLAX_INDEXED.match(seg):
+            out += list(_FLAX_INDEXED.match(seg).groups())
+        else:
+            out.append(seg)
+    return ".".join(out)
+
+
+def discriminator_flax_name(n_layers: int = 3):
+    """Module names of the JAX NLayerDiscriminator (`conv0`, `convN`,
+    `normN`, `conv_out`) in the reference's `main` Sequential."""
+    def name(path: Tuple[str, ...]) -> str:
+        (seg,) = path
+        if seg == "conv_out":
+            return f"main.{3 * n_layers + 2}"
+        n = int(seg[4:])
+        return f"main.{3 * n - 1 if n else 0}" if seg.startswith("conv") else f"main.{3 * n}"
+    return name
+
+
+def lpips_flax_name(path: Tuple[str, ...]) -> str:
+    """Module names of the JAX LPIPS: `net/convJ` → `net.sliceK.J` with
+    torchvision's index (the JAX package names features 2 and 7 `conv3`
+    and `conv8`), `linI` → `linI.model.1`."""
+    from .models.lpips import _slice_of
+
+    if path[0] == "net":
+        idx = {3: 2, 8: 7}.get(int(path[1][4:]), int(path[1][4:]))
+        return f"net.slice{_slice_of(idx)}.{idx}"
+    return f"{path[0]}.model.1"
+
+
+def _flatten_tree(tree: Mapping, prefix: Tuple[str, ...] = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten_tree(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), v
+
+
+def load_flax_tree(module: nn.Module, variables: Mapping, name_of=flax_module_name) -> None:
+    """Fill every parameter and buffer of `module` from a flax variable tree
+    of numpy arrays: `{"params": ..., "batch_stats": ...}` or a bare params
+    tree. `name_of` maps a flax module path to the port's dotted module
+    name; leaves are renamed by `_FLAX_LEAVES` unless the module has a leaf
+    of the flax name, kernels go from HWIO / DHWIO / (in, out) to torch's
+    OIHW / OIDHW / (out, in), and a value takes the parameter's shape (an
+    ActNorm's (C,) → (1, C, 1, 1)). Raises KeyError on a flax leaf with no
+    place in the module or a state-dict entry that no leaf fills (BatchNorm's
+    `num_batches_tracked` excepted)."""
+    collections = ([variables[c] for c in ("params", "batch_stats") if c in variables]
+                   if "params" in variables else [variables])
+    own = module.state_dict()
+    filled: Dict[str, torch.Tensor] = {}
+    for tree in collections:
+        for path, value in _flatten_tree(tree):
+            prefix = name_of(path[:-1]) if len(path) > 1 else ""
+            leaf = path[-1]
+            base = f"{prefix}." if prefix else ""
+            key = base + leaf if base + leaf in own else base + _FLAX_LEAVES.get(leaf, leaf)
+            if key not in own:
+                raise KeyError(f"flax leaf {'/'.join(path)} has no place in the module "
+                               f"(looked for {key!r})")
+            v = np.asarray(value)
+            if leaf.endswith("kernel") and v.ndim in (2, 4, 5):
+                v = v.transpose({2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}[v.ndim])
+            ref = own[key]
+            filled[key] = torch.from_numpy(np.array(v, dtype=v.dtype)).reshape(ref.shape).to(
+                dtype=ref.dtype, device=ref.device)
+    missing = [k for k in own if k not in filled and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise KeyError(f"no flax leaf for {missing[:10]} ({len(missing)} entries)")
+    module.load_state_dict({**own, **filled}, strict=True)

@@ -684,12 +684,15 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
   p.items = (p.nseg + p.G - 1) / p.G * p.nqc;
   const int threads = p.G * p.qt * 32;
   const int smem = 2 * p.G * seg_bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      block_attn_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
+  // the ceiling, not this call's size, so that concurrent host threads
+  // never lower it under each other's launch; set once per instance (a
+  // thread-safe static; the port drives one card a process)
+  static const cudaError_t ceiling = cudaFuncSetAttribute(
+      block_attn_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (ceiling != cudaSuccess) return ceiling;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, block_attn_fwd_kernel<D>,
-                                                      threads, smem);
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, block_attn_fwd_kernel<D>, threads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int grid = std::min(p.items, per_sm * sm_count());
@@ -741,12 +744,12 @@ cudaError_t launch_bwd_kernel(const BwdArgs& a, BwdPlan p, int S, int T, int H, 
   if (smem > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
   p.items = (p.nseg + p.G - 1) / p.G * p.nb;
   const int threads = p.G * seg_warps * 32;
-  cudaError_t err = cudaFuncSetAttribute(block_attn_bwd_kernel<D, MULTI>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  static const cudaError_t ceiling = cudaFuncSetAttribute(  // as launch_fwd's
+      block_attn_bwd_kernel<D, MULTI>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (ceiling != cudaSuccess) return ceiling;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, block_attn_bwd_kernel<D, MULTI>,
-                                                      threads, smem);
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, block_attn_bwd_kernel<D, MULTI>, threads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int grid = std::min(p.items, per_sm * sm_count());

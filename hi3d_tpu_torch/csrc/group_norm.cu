@@ -299,11 +299,20 @@ cudaError_t launch_gn(const void* x, void* y, const void* w, const void* b, cons
   using Raw = typename Access<T, VEC>::Raw;
   const size_t smem = keep_bytes<Raw>(a.res) + (size_t)2 * a.cpg * sizeof(float);
   if (smem > (size_t)GN_SMEM_MAX) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024) {  // above the default only by opting in
-    err = cudaFuncSetAttribute(group_norm_kernel<T, VEC>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+    // the kernel's ceiling (the opt-in limit less its static shared memory),
+    // not this call's size, so that host threads launching concurrently
+    // (two-stage serving) never lower it under each other; set once per
+    // instance (a thread-safe static; the port drives one card a process)
+    static const cudaError_t ceiling = [] {
+      cudaFuncAttributes fa;
+      cudaError_t e = cudaFuncGetAttributes(&fa, group_norm_kernel<T, VEC>);
+      if (e != cudaSuccess) return e;
+      return cudaFuncSetAttribute(group_norm_kernel<T, VEC>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  GN_SMEM_MAX - (int)fa.sharedSizeBytes);
+    }();
+    if (ceiling != cudaSuccess) return ceiling;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)groups * (unsigned)a.nranks);
@@ -317,8 +326,8 @@ cudaError_t launch_gn(const void* x, void* y, const void* w, const void* b, cons
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = a.nranks > 1 ? 1 : 0;  // a group a CTA: an ordinary launch
-  err = cudaLaunchKernelEx(&cfg, group_norm_kernel<T, VEC>, static_cast<const T*>(x),
-                           static_cast<T*>(y), w, b, a);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, group_norm_kernel<T, VEC>,
+                                             static_cast<const T*>(x), static_cast<T*>(y), w, b, a);
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }

@@ -2,7 +2,8 @@
 
 StandardDiffusionLoss: one σ per *video*, repeated over its T frames; noise
 added at that σ; the denoiser's output weighted per σ and reduced to a
-per-frame L2 or L1. `network` is the wrapped UNet with the batch's bound
+per-frame L2 or L1, or the LPIPS distance (unweighted) of 3-channel
+outputs. `network` is the wrapped UNet with the batch's bound
 keyword arguments, `cond` the conditioner's output; latents are NCHW.
 
 `parity_sigmas` ((B,) per-video σ before the repeat) and `parity_noise`
@@ -30,13 +31,17 @@ class StandardDiffusionLoss:
         batch2model_keys: Optional[Union[str, List[str]]] = None,
         num_frames: int = 1,
     ):
-        if loss_type == "lpips":
-            raise NotImplementedError(
-                "loss_type 'lpips' (a perceptual loss for pixel-space models) is not ported; "
-                "a later PR of the PyTorch port adds it"
-            )
-        if loss_type not in ("l2", "l1"):
+        if loss_type not in ("l2", "l1", "lpips"):
             raise ValueError(f"loss_type {loss_type!r}")
+        if loss_type == "lpips":
+            # a perceptual distance for pixel-space models, built once from
+            # seed 0 (the JAX package initialises its LPIPS from PRNGKey(0));
+            # load trained weights with models.lpips.load_lpips_params
+            from ..models.lpips import LPIPS
+
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(0)
+                self.lpips = LPIPS()
         self.sigma_sampler = instantiate_from_config(sigma_sampler_config)
         self.loss_weighting = instantiate_from_config(loss_weighting_config)
         self.loss_type = loss_type
@@ -76,6 +81,12 @@ class StandardDiffusionLoss:
 
     def get_loss(self, model_output: torch.Tensor, target: torch.Tensor,
                  w: torch.Tensor) -> torch.Tensor:
+        if self.loss_type == "lpips":
+            # no σ-weighting on this branch; (B,). LPIPS raises a ValueError
+            # on outputs without 3 channels, where the JAX package fails to
+            # broadcast its RGB shift
+            self.lpips.to(model_output.device)
+            return self.lpips(model_output.float(), target.float())
         diff = model_output.float() - target.float()
         per = w * (diff**2 if self.loss_type == "l2" else diff.abs())
         return per.reshape(target.shape[0], -1).mean(dim=1)

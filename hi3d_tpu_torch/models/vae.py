@@ -37,7 +37,7 @@ class ResnetBlock(nn.Module):
         if in_channels != out_channels:
             self.nin_shortcut = nn.Conv2d(in_channels, out_channels, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, **_video) -> torch.Tensor:
         h = self.conv1(F.silu(self.norm1(x)))
         h = self.conv2(F.silu(self.norm2(h)))
         if hasattr(self, "nin_shortcut"):
@@ -56,14 +56,19 @@ class AttnBlock(nn.Module):
         self.v = nn.Conv2d(channels, channels, 1)
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        """(n, h·w, c): the attention output over the normed x's tokens,
+        before proj_out."""
         n, c, h, w = x.shape
         hn = self.norm(x)
         # (n, h·w, 1, c): h·w tokens, one head
         q, k, v = (m(hn).reshape(n, c, h * w, 1).permute(0, 2, 3, 1)
                    for m in (self.q, self.k, self.v))
-        out = flash_attention_reference(q, k, v)[0]
-        return x + self.proj_out(out.permute(0, 3, 1, 2).reshape(n, c, h, w))
+        return flash_attention_reference(q, k, v)[0][:, :, 0]
+
+    def forward(self, x: torch.Tensor, **_video) -> torch.Tensor:
+        n, c, h, w = x.shape
+        return x + self.proj_out(self.attend(x).transpose(1, 2).reshape(n, c, h, w))
 
 
 class Downsample(nn.Module):
@@ -95,16 +100,16 @@ def _level(blocks, attns, resample_name=None, resample=None) -> nn.Module:
     return level
 
 
-def _mid(ch: int) -> nn.Module:
+def _mid(ch: int, resblock=ResnetBlock, attn=AttnBlock) -> nn.Module:
     mid = nn.Module()
-    mid.block_1 = ResnetBlock(ch, ch)
-    mid.attn_1 = AttnBlock(ch)
-    mid.block_2 = ResnetBlock(ch, ch)
+    mid.block_1 = resblock(ch, ch)
+    mid.attn_1 = attn(ch)
+    mid.block_2 = resblock(ch, ch)
     return mid
 
 
-def _run_mid(mid: nn.Module, h: torch.Tensor) -> torch.Tensor:
-    return mid.block_2(mid.attn_1(mid.block_1(h)))
+def _run_mid(mid: nn.Module, h: torch.Tensor, **video) -> torch.Tensor:
+    return mid.block_2(mid.attn_1(mid.block_1(h, **video), **video), **video)
 
 
 class Encoder(nn.Module):
@@ -147,6 +152,11 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
+    """The 2-D decoder. Its blocks are made by `make_resblock`, `make_attn`
+    and `make_conv_out`, which `temporal_ae.VideoDecoder` overrides; the
+    keyword arguments of `forward` go to every block and to conv_out (the
+    video decoder's `timesteps`, `skip_video`; none here)."""
+
     def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2, z_channels: int = 4, out_ch: int = 3,
                  attn_resolutions: Sequence[int] = (), resolution: int = 256,
@@ -155,33 +165,45 @@ class Decoder(nn.Module):
         block_in = ch * ch_mult[-1]
         curr_res = resolution // 2 ** (len(ch_mult) - 1)
         self.conv_in = nn.Conv2d(z_channels, block_in, 3, padding=1)
-        self.mid = _mid(block_in)
+        self.mid = _mid(block_in, self.make_resblock, self.make_attn)
         levels = [None] * len(ch_mult)
         for i in reversed(range(len(ch_mult))):
             blocks, attns = [], []
             for _ in range(num_res_blocks + 1):
-                blocks.append(ResnetBlock(block_in, ch * ch_mult[i]))
+                blocks.append(self.make_resblock(block_in, ch * ch_mult[i]))
                 block_in = ch * ch_mult[i]
                 if curr_res in attn_resolutions:
-                    attns.append(AttnBlock(block_in))
+                    attns.append(self.make_attn(block_in))
             levels[i] = _level(blocks, attns, "upsample", Upsample(block_in) if i else None)
             if i:
                 curr_res *= 2
         self.up = nn.ModuleList(levels)
         self.norm_out = _norm(block_in)
-        self.conv_out = nn.Conv2d(block_in, out_ch, 3, padding=1)
+        self.conv_out = self.make_conv_out(block_in, out_ch)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = _run_mid(self.mid, self.conv_in(z))
+    def make_resblock(self, in_channels: int, out_channels: int) -> nn.Module:
+        return ResnetBlock(in_channels, out_channels)
+
+    def make_attn(self, channels: int) -> nn.Module:
+        return AttnBlock(channels)
+
+    def make_conv_out(self, in_channels: int, out_channels: int) -> nn.Module:
+        return nn.Conv2d(in_channels, out_channels, 3, padding=1)
+
+    def run_conv_out(self, h: torch.Tensor, **_video) -> torch.Tensor:
+        return self.conv_out(h)
+
+    def forward(self, z: torch.Tensor, **video) -> torch.Tensor:
+        h = _run_mid(self.mid, self.conv_in(z), **video)
         for i in reversed(range(len(self.up))):
             level = self.up[i]
             for j, block in enumerate(level.block):
-                h = block(h)
+                h = block(h, **video)
                 if len(level.attn):
-                    h = level.attn[j](h)
+                    h = level.attn[j](h, **video)
             if i:
                 h = level.upsample(h)
-        return self.conv_out(F.silu(self.norm_out(h)))
+        return self.run_conv_out(F.silu(self.norm_out(h)), **video)
 
 
 def _tile_starts(n: int, tile: int, overlap: int):
@@ -220,6 +242,12 @@ class DiagonalGaussianDistribution:
 
     def mode(self) -> torch.Tensor:
         return self.mean
+
+    def kl(self) -> torch.Tensor:
+        """(N,) KL divergence to N(0, I): ½·Σ(μ² + σ² − 1 − log σ²) over all
+        but the batch dim, with the clamped log-variance."""
+        return 0.5 * (self.mean.pow(2) + torch.exp(self.logvar) - 1.0 - self.logvar).sum(
+            dim=tuple(range(1, self.mean.ndim)))
 
 
 class AutoencoderKL(nn.Module):

@@ -1,8 +1,10 @@
 """Target-name registry: the reference's config `target` strings → the
 PyTorch classes of this package, for the targets the stage-1 configs
 (`configs/inference-v01.yaml`, `configs/train-v01.yaml`) and the stage-2
-configs (`configs/inference-v02.yaml`, `configs/train-v02.yaml`) name, and every sampler,
-guider, discretization, denoiser and scaling a config can name. Entries are
+configs (`configs/inference-v02.yaml`, `configs/train-v02.yaml`) name, every sampler,
+guider, discretization, denoiser and scaling a config can name, and the
+autoencoder surface (engine, encoder and decoders, regularizers and
+quantizers, LPIPS, the discriminator and its losses). Entries are
 lazy "module:attr" strings. Targets that name a JAX-package class
 (`hi3d_tpu.training.schedules.*`) map to the port's counterpart, so a
 config never imports the JAX package.
@@ -42,6 +44,28 @@ _ALIASES: Dict[str, str] = {
     # autoencoder
     "sgm.models.autoencoder.AutoencoderKL": f"{_P}.models.vae:AutoencoderKL",
     "sgm.models.autoencoder.AutoencoderKLModeOnly": f"{_P}.models.vae:AutoencoderKLModeOnly",
+    "sgm.models.autoencoder.AutoencodingEngine": f"{_P}.models.autoencoding:AutoencodingEngine",
+    # as in the JAX package: the Legacy (`ddconfig`) engine resolves to the
+    # same class, which refuses its config
+    "sgm.models.autoencoder.AutoencodingEngineLegacy":
+        f"{_P}.models.autoencoding:AutoencodingEngine",
+    "sgm.modules.autoencoding.temporal_ae.VideoDecoder": f"{_P}.models.temporal_ae:VideoDecoder",
+    "sgm.modules.diffusionmodules.model.Encoder": f"{_P}.models.vae:Encoder",
+    "sgm.modules.diffusionmodules.model.Decoder": f"{_P}.models.vae:Decoder",
+    "sgm.modules.autoencoding.regularizers.DiagonalGaussianRegularizer":
+        f"{_P}.models.autoencoding:DiagonalGaussianRegularizer",
+    **{f"sgm.modules.autoencoding.regularizers.quantize.{name}": f"{_P}.models.quantizers:{name}"
+       for name in ("VectorQuantizer", "GumbelQuantizer", "EMAVectorQuantizer",
+                    "VectorQuantizerWithInputProjection")},
+    "sgm.modules.autoencoding.lpips.loss.lpips.LPIPS": f"{_P}.models.lpips:LPIPS",
+    "sgm.modules.autoencoding.lpips.model.model.NLayerDiscriminator":
+        f"{_P}.models.discriminator:NLayerDiscriminator",
+    **{target: f"{_P}.models.discriminator:{target.rsplit('.', 1)[1]}"
+       for target in ("sgm.modules.autoencoding.losses.GeneralLPIPSWithDiscriminator",
+                      "sgm.modules.autoencoding.losses.discriminator_loss."
+                      "GeneralLPIPSWithDiscriminator",
+                      "sgm.modules.autoencoding.losses.LatentLPIPS",
+                      "sgm.modules.autoencoding.losses.lpips.LatentLPIPS")},
     # conditioners
     "sgm.modules.GeneralConditioner": f"{_P}.conditioners:GeneralConditioner",
     "sgm.modules.encoders.modules.GeneralConditioner": f"{_P}.conditioners:GeneralConditioner",

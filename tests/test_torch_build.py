@@ -16,6 +16,8 @@ import shutil
 
 import pytest
 import torch
+
+import torch_threads  # noqa: F401
 import yaml
 
 from hi3d_tpu_torch.ops import build

@@ -44,6 +44,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+
+import torch_threads  # noqa: F401
 import yaml
 
 import torch_dist_scenarios as scen

@@ -39,6 +39,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from test_torch_slice import RES, T, VAE_DD, tiny_config
 from test_torch_stage2 import tiny_stage2_config
 

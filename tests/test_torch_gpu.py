@@ -660,6 +660,28 @@ def test_time_self_attention_routes_long_clips_to_block_kernel(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("t", [16, 48])
+def test_time_self_attention_raises_on_fp32_at_kernel_head_dims(cuda, t):
+    """An fp32 frame-axis call at head dim 64 reaches its kernel's wrapper
+    (K2 at 16 frames, #6 at 48), which refuses the dtype: no plain path
+    hides the kernel. Past head dim 256 the same call is plain and launches
+    nothing."""
+    from hi3d_tpu_torch.ops import attention as attn_ops
+
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v = (torch.randn((1, t, 8, 64), generator=g, device=cuda).view(1, t, 8, 1, 64)
+               for _ in range(3))
+    with pytest.raises(TypeError, match="bfloat16"):
+        attn_ops.time_self_attention(q, k, v)
+    q, k, v = (torch.randn((1, t, 8, 512), generator=g, device=cuda).view(1, t, 8, 1, 512)
+               for _ in range(3))
+    k2, blk = ta.temporal_attention.launches, ta.temporal_block_attention.launches
+    out = attn_ops.time_self_attention(q, k, v)
+    assert (ta.temporal_attention.launches, ta.temporal_block_attention.launches) == (k2, blk)
+    assert (out - ta.temporal_attention_reference(q, k, v)).abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
 def test_u2net_mask_on_the_card_matches_the_cpu(cuda):
     """The full U²-Net (random weights from a seed, random BatchNorm
     statistics) segments one 200 × 240 image on the card and on the CPU, in
@@ -950,3 +972,52 @@ def test_verify_weights_smoke_on_the_card(cuda, tmp_path):
     assert results["stage1 engine (first_stage.pt)"][0] == "PASS", results
     status, detail = results["stage1 2-step sampling smoke"]
     assert status == "PASS" and "(8, 256, 256, 3)" in detail and "cuda" in detail, detail
+
+
+@pytest.mark.gpu
+def test_group_stats_on_the_time_stack_view(cuda):
+    """#9 at SVD's time stack on the 64² latent, (B, C, T, H, W) = (1, 512,
+    16, 64, 64) fp32 as `FoldedGroupNorm` reads it (the permuted frames
+    copied to contiguous memory): (mean, inv_std) within 1e-4 of the plain
+    version's largest magnitude, and the folded norm against F.group_norm."""
+    import torch.nn.functional as F
+
+    from hi3d_tpu_torch.models.vae import _norm
+
+    g = torch.Generator(device=cuda).manual_seed(23)
+    frames = torch.randn((16, 512, 64, 64), generator=g, device=cuda) * 3 + 1
+    x = frames.view(1, 16, 512, 64, 64).transpose(1, 2).contiguous()
+    for a, b in zip(gn.group_stats(x, 32, 1e-6), gn.group_stats_reference(x, 32, 1e-6)):
+        assert ((a - b).abs().max() / b.abs().max()).item() < 1e-4
+    norm = _norm(512).to(cuda)
+    with torch.no_grad():
+        norm.weight.normal_(1.0, 0.1, generator=g)
+        norm.bias.normal_(0.0, 0.1, generator=g)
+        y, want = norm(x), F.group_norm(x, 32, norm.weight, norm.bias, 1e-6)
+    assert ((y - want).abs().max() / want.abs().max()).item() < 1e-4
+
+
+@pytest.mark.gpu
+def test_ae_generator_pass_on_the_card_matches_the_cpu(cuda):
+    """One generator pass of main path 12's AutoencoderTrainer
+    (`chip_smoke.ae_trainer`: the VAE of configs/inference-v01.yaml, a
+    3-layer PatchGAN with its logit conv ×1000, a random VGG16 LPIPS) on a
+    1 × 128² input, on the card with TF32 off against a copy on the CPU that
+    takes the card's LeakyReLU slopes (`chip_smoke.ae_pass_on_both`), within
+    `chip_smoke.ae_pass_errors`' bounds: the reconstruction within 1e-4
+    (summation order only); the loss, d_weight, the conv_out weight
+    gradients of the NLL, of the GAN term on running statistics and of the
+    loss, and the share of flipped slopes within 100× the reconstruction's
+    error, at least 1e-4."""
+    from chip_smoke import ae_pass_errors, ae_pass_on_both, ae_trainer
+
+    x = torch.rand((1, 3, 128, 128), generator=torch.Generator().manual_seed(1)) * 2 - 1
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got, want = ae_pass_on_both(ae_trainer("cpu"), x)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert 0 < want["d_weight"] < 1e4
+    errs, bounds = ae_pass_errors(got, want)
+    assert all(errs[k] <= b for k, b in bounds.items()), (errs, bounds)

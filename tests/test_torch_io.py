@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+import torch_threads  # noqa: F401
 from hi3d_tpu.data import video_dataset as jax_video_dataset
 from hi3d_tpu.utils.image import load_image_rgb as jax_load_image_rgb
 from hi3d_tpu_torch.data.video_dataset import rgba_white

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from hi3d_tpu.ops import attention as jax_attn
 from hi3d_tpu.ops import temporal_attention as jax_ta
 from hi3d_tpu_torch.ops import attention as attn_ops
@@ -104,10 +105,11 @@ def test_block_attention_grad_matches_jax(t, jax_lm_kernels):
 
 
 def test_frame_attention_route_splits_at_32():
-    """One predicate picks the kernel: K2 up to 32 frames, #6 above; on the
-    CPU both routes give the plain frame-axis softmax."""
-    assert attn_ops.frame_attention_kernel(32) == "temporal_attention"
-    assert attn_ops.frame_attention_kernel(33) == "temporal_block_attention"
+    """One predicate picks the kernel: K2 up to 32 frames, #6 above, at the
+    UNet's head dim 64; on the CPU both routes give the plain frame-axis
+    softmax."""
+    assert attn_ops.frame_attention_kernel(32, 64) == "temporal_attention"
+    assert attn_ops.frame_attention_kernel(33, 64) == "temporal_block_attention"
     rnd = np.random.RandomState(7)
     for t in (32, 33):
         q, k, v = (torch.from_numpy(rnd.randn(2, t, 6, 2, 16).astype(np.float32))
@@ -122,7 +124,7 @@ def test_segment_attention_any_length_stays_on_block_kernel(monkeypatch):
     nothing else: on CPU tensors `segment_attention` runs, and the frame-axis
     dispatch never reaches K2."""
     t = 200
-    assert attn_ops.frame_attention_kernel(t) == "temporal_block_attention"
+    assert attn_ops.frame_attention_kernel(t, 16) == "temporal_block_attention"
     calls = []
 
     def no_k2(*a, **kw):

@@ -30,6 +30,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+
+import torch_threads  # noqa: F401
 import yaml
 
 from test_torch_slice import RES, T, _randomize_zeros, tiny_config

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from hi3d_tpu.convert.jax_to_torch import _export_tree, unet_path_to_torch, vae_path_to_torch
 from hi3d_tpu_torch.convert import load_reference_state_dict
 

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from hi3d_tpu_torch.ops import attention as attn_ops
 from hi3d_tpu_torch.ops import flash_attention as fa
 from hi3d_tpu_torch.ops import group_norm as gn

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 import hi3d_tpu.diffusion.samplers as jsamplers
 import hi3d_tpu_torch.diffusion.samplers as tsamplers
 

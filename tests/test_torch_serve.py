@@ -17,6 +17,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+
+import torch_threads  # noqa: F401
 import yaml
 
 from test_torch_slice import models, tiny_config  # noqa: F401  (module fixture)

@@ -18,6 +18,7 @@ import tarfile
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401
 from test_torch_stage2_training import _NoIPP
 from test_torch_training import _write_renders
 

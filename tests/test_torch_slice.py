@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from hi3d_tpu.conditioners import AbstractEmbedder as JaxEmbedder
 from hi3d_tpu_torch.conditioners import AbstractEmbedder as TorchEmbedder
 

@@ -34,6 +34,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from test_torch_slice import CTX, RES, T, VAE_DD, _randomize_zeros, tiny_config
 
 ATOL = 1e-4

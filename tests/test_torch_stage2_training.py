@@ -46,6 +46,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+
+import torch_threads  # noqa: F401
 import yaml
 
 from test_torch_slice import RES, T, _randomize_zeros
@@ -664,7 +666,8 @@ def test_stage2_modules_run_without_jax_cv2_or_safetensors(tmp_path):
     not import: the safetensors IO, the surgery tool, the kernels, the
     degradation, the stage-2 dataset and VideoLDMStage2.add_custom_cond
     (infer=False) run on the CPU at a tiny size, and every target of
-    configs/train-v02.yaml resolves to a port class."""
+    configs/train-v02.yaml resolves to a port class; so do the autoencoder
+    modules (a VideoDecoder, two AutoencoderTrainer steps, a quantizer)."""
     renders = _write_renders(tmp_path / "renders", 1, 24, seed=6)
     code = f"""
 import sys
@@ -699,6 +702,25 @@ def targets(node):
 found = list(targets(load_config('configs/train-v02.yaml')))
 assert len(found) > 15 and all(get_obj_from_str(t).__module__.startswith('hi3d_tpu_torch.')
                                for t in found)
+from hi3d_tpu_torch.models import lpips, quantizers
+from hi3d_tpu_torch.models.autoencoding import AutoencodingEngine
+from hi3d_tpu_torch.models.discriminator import GeneralLPIPSWithDiscriminator
+from hi3d_tpu_torch.models.temporal_ae import VideoDecoder
+from hi3d_tpu_torch.training.ae_step import AutoencoderTrainer
+dd = dict(ch=8, ch_mult=[1, 2], num_res_blocks=1, z_channels=4, resolution=16)
+vd = VideoDecoder(time_mode='all', **dd)
+assert vd(torch.randn(4, 4, 8, 8), timesteps=2).shape == (4, 3, 16, 16)
+enc = {{'target': 'sgm.modules.diffusionmodules.model.Encoder', 'params': dd}}
+dec = {{'target': 'sgm.modules.diffusionmodules.model.Decoder', 'params': dd}}
+trainer = AutoencoderTrainer(AutoencodingEngine(enc, dec, {{
+    'target': 'sgm.modules.autoencoding.regularizers.DiagonalGaussianRegularizer'}}),
+    GeneralLPIPSWithDiscriminator(disc_start=0, perceptual_weight=0.0, disc_num_layers=2),
+    device='cpu')
+for i in range(2):
+    loss, log = trainer.train_step(torch.rand(2, 3, 16, 16) * 2 - 1, i, torch.Generator().manual_seed(i))
+    assert torch.isfinite(loss)
+q = quantizers.VectorQuantizer(8, 4)
+assert q(torch.randn(1, 4, 2, 2))[0].shape == (1, 4, 2, 2)
 assert not any(sys.modules.get(k) for k in ('jax', 'hi3d_tpu', 'tools', 'cv2', 'PIL', 'safetensors'))
 print('ok')
 """

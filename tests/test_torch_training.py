@@ -30,6 +30,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+
+import torch_threads  # noqa: F401
 import yaml
 
 from test_torch_slice import CTX, RES, T, _randomize_zeros, tiny_config
@@ -301,11 +303,14 @@ def test_sigma_samplers_and_weightings_match_jax():
     for name in ("UnitWeighting", "EDMWeighting", "VWeighting", "EpsWeighting"):
         np.testing.assert_allclose(getattr(w, name)()(torch.from_numpy(sig)).numpy(),
                                    np.asarray(getattr(jw, name)()(jnp.asarray(sig))), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="lpips"):
-        from hi3d_tpu_torch.diffusion.loss import StandardDiffusionLoss
+    # loss_type "lpips" builds, and refuses an output without 3 channels
+    # (tests/test_torch_autoencoder.py holds its values against JAX)
+    from hi3d_tpu_torch.diffusion.loss import StandardDiffusionLoss
 
-        StandardDiffusionLoss(LOSS_CFG["params"]["sigma_sampler_config"],
-                              LOSS_CFG["params"]["loss_weighting_config"], loss_type="lpips")
+    lp = StandardDiffusionLoss(LOSS_CFG["params"]["sigma_sampler_config"],
+                               LOSS_CFG["params"]["loss_weighting_config"], loss_type="lpips")
+    with pytest.raises(ValueError, match="3-channel"):
+        lp.get_loss(torch.zeros(2, 4, 8, 8), torch.zeros(2, 4, 8, 8), None)
 
 
 def test_trainable_params_match_jax_mask(engines):

@@ -18,6 +18,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+
+import torch_threads  # noqa: F401
 import yaml
 
 from test_torch_slice import ATOL, RES, T, models, tiny_config  # noqa: F401  (module fixture)

@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
+import torch_threads  # noqa: F401
 from test_torch_stage2 import SLICE_ATOL, _inputs, models  # noqa: F401  (module fixture)
 
 

@@ -15,6 +15,8 @@ import sys
 
 import pytest
 import torch
+
+import torch_threads  # noqa: F401
 import torch.nn as nn
 import yaml
 
