@@ -1,5 +1,5 @@
 """GPU smoke run of the PyTorch port's inference, training (stage 1 and 2; one process,
-and in a process group) and serving paths on one NVIDIA H100.
+and in a process group), serving, autoencoder and text-to-image paths on one NVIDIA H100.
 
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --profile-serve  # only a 2-step profile of the serve batch
@@ -20,6 +20,7 @@ and in a process group) and serving paths on one NVIDIA H100.
                                            # the plain Python unfilter, on the host's CPU
     python3 chip_smoke.py --replay-degradation [PLANS]  # only the stage-2 degradation on
                                            # the card against its CPU replay at 1024²
+    python3 chip_smoke.py --t2i            # only main paths 14 and 15 with their phases
 
 1. prints the card (nvidia-smi name and power limit) and fails without CUDA;
 2. builds the kernels from this checkout (`hi3d_tpu_torch/csrc`);
@@ -36,7 +37,7 @@ and in a process group) and serving paths on one NVIDIA H100.
    holds its output, then its parameter gradient, against the same weights
    on the CPU (plain versions, fp32 and bf16); the same for the output and
    the gradient of the full-width stage-2 UNet (17 input channels), and for
-   the stage-1 UNet's output and gradient at a 40-frame clip (every
+   the stage-1 UNet's output and gradient at a 33-frame clip (every
    frame-axis site on #6/#7);
 5. main path 1: `hi3d_tpu_torch.pipelines.i2v.main` on `demo/3.png` at full
    width (configs/inference-v01.yaml, 16×512², random weights); checks the
@@ -124,7 +125,24 @@ and in a process group) and serving paths on one NVIDIA H100.
    #9 and #10 launches equal to the plan (no K2 or #6: the frame attention
    of head dim 512 in fp32 is plain), skip_video equal to the 2-D decoder;
    prints seconds and the peak;
-16. prints the kernel JSON line (launches per path and summed, errors, times,
+16. main path 14: SD 2.1 text-to-image from hi3d_tpu_torch/configs/sd_2_1.yaml
+   at full width (865 M UNet, OpenCLIP ViT-H/14 text `penultimate`, random
+   weights): first the UNetModel at a 16² latent in bf16 on the card against
+   fp32 on the CPU (within 1.5 × the plain bf16 error) and its gradient at a
+   32² latent through use_checkpoint (every gradient finite, #3 once per
+   transformer block); then the conditioner on 2 prompts' ids and the empty
+   prompt's, 25 EulerEDMSampler steps (LegacyDDPMDiscretization, VanillaCFG
+   7.5) over 2 × 4 × 64² latents, one B4 ConcatConditionWrapper(UNetModel)
+   call under DiscreteDenoiser a step, the fp32 AutoencoderKL decode to 2 ×
+   512² PNGs (outputs/t2i/); finite outputs, 25 calls, launches equal to
+   `t2i_launches`, seconds and the peak;
+17. main path 15: FrozenCLIPT5Encoder (CLIP ViT-L/14 text, a T5 encoder at
+   google/t5-v1_1-xl's widths) and FrozenCLIPEmbedder (hidden layer 11) in
+   bf16 against fp32 on the CPU, InceptionV3 on main path 1's 16 frames in
+   fp32 on both sides, and every other new embedder once (finite, JAX's
+   shapes); launches equal to `towers_launches` (`--t2i` runs paths 14–15
+   alone);
+18. prints the kernel JSON line (launches per path and summed, errors, times,
    bounds), the card line, and the contract line last.
 
 The training paths log metrics every step (`metrics_every_step`; the CLI
@@ -136,6 +154,7 @@ Any failure raises and exits non-zero.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import struct
@@ -149,6 +168,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NUM_STEPS = 25  # the configured sampler steps (configs/inference-v01.yaml)
 TRAIN_STEPS = 4  # optimizer steps of configs/train-v01.yaml
+# frames of the UNet checks on #6/#7: the shortest clip past K2's 32 frames
+# (the host CPU's fp32 and bf16 passes of the full-width UNet scale with it)
+LONG_UNET_CLIP = 33
 STAGE2_STEPS = 25  # the configured sampler steps (configs/inference-v02.yaml)
 
 
@@ -2995,6 +3017,526 @@ def svd_vae_path(stage1_dir: str) -> dict:
     return launches
 
 
+SD21_CONFIG = os.path.join(ROOT, "hi3d_tpu_torch", "configs", "sd_2_1.yaml")
+T2I_PROMPTS = 2  # main path 14: two prompts a batch, CFG-doubled to B4 a UNet call
+T2I_LATENT = 64  # 512² images
+T2I_CFG_SCALE = 7.5
+CLIP_SOT, CLIP_EOT = 49406, 49407  # the CLIP BPE vocabulary's start and end tokens
+CONTEXT_LENGTH = 77
+# google/t5-v1_1-xl's published encoder widths (its config.json)
+T5_XL = dict(vocab_size=32128, d_model=2048, d_kv=64, d_ff=5120, num_layers=24, num_heads=32,
+             relative_attention_num_buckets=32, relative_attention_max_distance=128,
+             layer_norm_epsilon=1e-6, feed_forward_proj="gated-gelu")
+# google/byt5-base's published encoder widths
+BYT5_BASE = dict(vocab_size=384, d_model=1536, d_kv=64, d_ff=3968, num_layers=18, num_heads=12,
+                 relative_attention_num_buckets=32, relative_attention_max_distance=128,
+                 layer_norm_epsilon=1e-6, feed_forward_proj="gated-gelu")
+TOWER_T5_BOUND = 5e-2  # relative L2 of T5-XL's bf16 output on the card against fp32 on the CPU
+INCEPTION_BOUND = 1e-4  # relative L2 of InceptionV3 in fp32 on the card against the CPU
+
+
+@functools.lru_cache(maxsize=4)
+def t2i_sites(config_path: str = SD21_CONFIG) -> dict:
+    """#10 and #9 sites of the image model's parts, counted on the meta
+    device: the UNetModel's LayerNorm32s, the text tower's (plus one for the
+    `penultimate` layer, which applies ln_final again), the first stage's
+    encoder and decoder FoldedGroupNorms, CLIP ViT-L/14's text tower's."""
+    import torch
+
+    from hi3d_tpu_torch.config import instantiate_from_config, load_config
+    from hi3d_tpu_torch.models.attention import LayerNorm32
+    from hi3d_tpu_torch.models.clip import text_vit_l_14
+    from hi3d_tpu_torch.models.layers import FoldedGroupNorm
+
+    p = load_config(config_path)["model"]["params"]
+    (emb,) = p["conditioner_config"]["params"]["emb_models"]
+
+    def count(build, cls) -> int:
+        with torch.device("meta"):
+            return sum(isinstance(m, cls) for m in build().modules())
+
+    vae = lambda: instantiate_from_config(p["first_stage_config"])  # noqa: E731
+    text = count(lambda: instantiate_from_config(emb), LayerNorm32)
+    return {"unet": count(lambda: instantiate_from_config(p["network_config"]), LayerNorm32),
+            "text": text + (emb.get("params", {}).get("layer") == "penultimate"),
+            "encoder": count(lambda: vae().encoder, FoldedGroupNorm),
+            "decoder": count(lambda: vae().decoder, FoldedGroupNorm),
+            "clip_l_text": count(text_vit_l_14, LayerNorm32)}
+
+
+def unet2d_launches(config_path: str = SD21_CONFIG, calls: int = 1, grad: bool = False) -> dict:
+    """Launches of `calls` UNetModel calls of the config (`grad`: one forward
+    and backward): K1 once per transformer block (self-attention; the
+    cross-attention against 77 tokens is plain), K3 twice per ResBlock, once
+    per SpatialTransformer `norm` and once for `out.0`, #10 once per
+    LayerNorm32, no frame-axis kernel. With `grad` and `use_checkpoint`,
+    the blocks' forwards run twice (`out.0` once) and #3 once per
+    transformer block."""
+    from hi3d_tpu_torch.config import load_config
+    from hi3d_tpu_torch.models.unet import _build_plan
+
+    p = load_config(config_path)["model"]["params"]["network_config"]["params"]
+    depth = p.get("transformer_depth", 1)
+    depth = [depth] * len(p["channel_mult"]) if isinstance(depth, int) else depth
+    inp, mid, out = _build_plan(p["model_channels"], p["channel_mult"], p["num_res_blocks"],
+                                p["attention_resolutions"], depth)
+    specs = [s for block in inp + [mid] + out for s in block]
+    blocks = sum(s[2] for s in specs if s[0] == "attn")
+    n_attn = sum(1 for s in specs if s[0] == "attn")
+    n_res = sum(1 for s in specs if s[0] == "res")
+    fwd = 2 if grad and p.get("use_checkpoint") else 1
+    return {"flash_attention": calls * fwd * blocks,
+            "flash_attention_backward": calls * blocks if grad else 0,
+            **_frame_kernels("plain", 0, 0),
+            "group_norm": calls * (fwd * (2 * n_res + n_attn) + 1), "group_stats": 0,
+            "layer_norm": calls * fwd * t2i_sites(config_path)["unet"]}
+
+
+def t2i_launches(config_path: str = SD21_CONFIG, steps: int = NUM_STEPS) -> dict:
+    """Main path 14's plan: one CFG-batched UNetModel call a step, the text
+    tower on the prompts and on the empty prompt (two conditioner passes,
+    as `get_unconditional_conditioning` with a `batch_uc` runs them), one
+    decode of all the latents."""
+    sites = t2i_sites(config_path)
+    return _sum_launches(unet2d_launches(config_path, steps),
+                         {"layer_norm": 2 * sites["text"], "group_stats": sites["decoder"]})
+
+
+def towers_launches(config_path: str = SD21_CONFIG) -> dict:
+    """Main path 15's plan: CLIP ViT-L/14's text tower twice (inside
+    FrozenCLIPT5Encoder and as FrozenCLIPEmbedder), #10 at each of its
+    LayerNorm32s; LowScaleEncoder's and GaussianEncoder's encoders once
+    each, #9 at each FoldedGroupNorm. T5's RMS norms, the text towers'
+    causal attention, InceptionV3 and the resizes launch no kernel."""
+    sites = t2i_sites(config_path)
+    return {**{name: 0 for name, *_ in KERNELS}, "layer_norm": 2 * sites["clip_l_text"],
+            "group_stats": 2 * sites["encoder"]}
+
+
+def _full_width_unet2d(b: int = 2, hw: int = 16):
+    """SD 2.1's UNetModel at full width on the card, fp32 weights from seed
+    0, the zero-initialised leaves (out.2, proj_out) made random; inputs of
+    `b` images at an `hw`² latent with a (b, 77, 1024) context."""
+    import torch
+
+    from hi3d_tpu_torch.config import instantiate_from_config, load_config
+
+    cfg = load_config(SD21_CONFIG)["model"]["params"]["network_config"]
+    with torch.random.fork_rng(devices=[0]), torch.device("cuda"):
+        torch.manual_seed(0)
+        unet = instantiate_from_config(cfg).eval()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        for p in unet.parameters():
+            if not p.any():
+                p.normal_(0.0, 0.02, generator=gen)
+    inputs = dict(
+        x=torch.randn((b, 4, hw, hw), generator=gen, device="cuda"),
+        timesteps=torch.randint(0, 1000, (b,), generator=gen, device="cuda").float(),
+        context=torch.randn((b, CONTEXT_LENGTH, cfg["params"]["context_dim"]), generator=gen,
+                            device="cuda"),
+    )
+    return unet, inputs
+
+
+def unet2d_reference_phase(b: int = 2, hw: int = 16) -> float:
+    """SD 2.1's full-width UNetModel, one call of `b` images at an `hw`²
+    latent: bf16 on the card (K1 self-attention, K3, #10), held against the
+    same weights in fp32 on the CPU (plain versions), with launches equal
+    to `unet2d_launches`. Tolerance: 1.5 × the relative L2 error of the
+    plain versions in bf16 on the CPU, measured in the same run."""
+    import copy
+
+    import torch
+
+    t0 = time.perf_counter()
+    unet, inputs = _full_width_unet2d(b, hw)
+    cpu_fp32 = copy.deepcopy(unet).to("cpu", torch.float32)
+    cpu_bf16 = copy.deepcopy(unet).to("cpu", torch.bfloat16)
+    unet.to(torch.bfloat16)
+    expected = unet2d_launches()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with torch.no_grad():
+        out = unet(**inputs).float().cpu()
+        launches = read_launches(expected)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ref, plain = (net(**{k: v.cpu() for k, v in inputs.items()}).float()
+                      for net in (cpu_fp32, cpu_bf16))
+    _check_launches(launches, expected)
+    if not torch.isfinite(out).all():
+        raise AssertionError("UNetModel output on the card is not finite")
+    rel, plain_rel = (((a - ref).norm() / ref.norm()).item() for a in (out, plain))
+    print(f"[smoke] full-width SD 2.1 UNetModel, B{b} at a {hw}² latent with a (B, 77, 1024) "
+          f"context, vs CPU fp32: card bf16 relative L2 error {rel:.3e}, plain bf16 "
+          f"{plain_rel:.3e} (tol {1.5 * plain_rel:.3e}); launches {launches}; card peak "
+          f"{peak:.2f} GiB ({time.perf_counter() - t0:.1f} s with the CPU passes)", flush=True)
+    if not rel <= 1.5 * plain_rel:
+        raise AssertionError(f"UNetModel on the card: error {rel} > 1.5 × plain bf16 {plain_rel}")
+    del unet, cpu_fp32, cpu_bf16
+    torch.cuda.empty_cache()
+    return rel
+
+
+def unet2d_gradient_phase(b: int = 2, hw: int = 32) -> dict:
+    """The gradient of an MSE loss through SD 2.1's full-width UNetModel on
+    the card, training's way: fp32 weights, bf16 compute under autocast,
+    `use_checkpoint` (torch.utils.checkpoint) as configured; every
+    parameter's gradient present and finite, launches equal to
+    `unet2d_launches(grad=True)` (#3 once per transformer block). Returns
+    the launches."""
+    import torch
+    import torch.nn.functional as F
+
+    t0 = time.perf_counter()
+    unet, inputs = _full_width_unet2d(b, hw)
+    unet.dtype = torch.bfloat16
+    unet.train()
+    target = torch.randn(inputs["x"].shape, generator=torch.Generator(device="cuda").manual_seed(5),
+                         device="cuda")
+    expected = unet2d_launches(grad=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    loss = F.mse_loss(unet(**inputs).float(), target)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = read_launches(expected)
+    secs = time.perf_counter() - t0
+    bad = [n for n, p in unet.named_parameters()
+           if p.grad is None or not torch.isfinite(p.grad).all()]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[smoke] full-width SD 2.1 UNetModel gradient, B{b} at a {hw}² latent through "
+          f"use_checkpoint: loss {loss.item():.6f}, {sum(1 for _ in unet.parameters())} tensors, "
+          f"missing or non-finite {len(bad)}; launches {launches}; peak {peak:.2f} GiB "
+          f"({secs:.1f} s with the build)", flush=True)
+    if bad:
+        raise AssertionError(f"gradients missing or not finite: {bad[:5]}")
+    _check_launches(launches, expected)
+    del unet
+    torch.cuda.empty_cache()
+    return launches
+
+
+def t2i_prompt_ids(gen, n: int = T2I_PROMPTS, vocab_top: int = CLIP_SOT):
+    """(n, 77) int64 prompt ids on the card: SOT, 8–40 tokens drawn from
+    [1, vocab_top), EOT, then 0 padding (open_clip pads with 0); and the
+    empty prompt's ids [SOT, EOT, 0, …] n times."""
+    import torch
+
+    ids = torch.zeros((n, CONTEXT_LENGTH), dtype=torch.long)
+    lengths = torch.randint(8, 41, (n,), generator=gen).tolist()
+    for i, k in enumerate(lengths):
+        ids[i, 0] = CLIP_SOT
+        ids[i, 1:k + 1] = torch.randint(1, vocab_top, (k,), generator=gen)
+        ids[i, k + 1] = CLIP_EOT
+    empty = torch.zeros((n, CONTEXT_LENGTH), dtype=torch.long)
+    empty[:, 0], empty[:, 1] = CLIP_SOT, CLIP_EOT
+    return ids.to("cuda"), empty.to("cuda")
+
+
+def t2i_path(steps: int = NUM_STEPS) -> dict:
+    """Main path 14: SD 2.1 text-to-image at full width from
+    hi3d_tpu_torch/configs/sd_2_1.yaml with seeded weights: the conditioner
+    (OpenCLIP ViT-H/14 text, `penultimate`, bf16) on 2 prompts' ids and the
+    empty prompt's (`get_unconditional_conditioning`), EulerEDMSampler with
+    LegacyDDPMDiscretization and VanillaCFG 7.5 over 2 × 4 × 64² latents
+    (bf16), each step one B4 call of ConcatConditionWrapper(UNetModel) under
+    DiscreteDenoiser, then the fp32 AutoencoderKL (TF32 off) decodes 2 ×
+    512² images, written as PNGs under outputs/t2i/. Checks finite outputs
+    of the expected shapes, 25 UNet calls of batch 4, and launches equal to
+    `t2i_launches`; prints seconds by phase and the peak. Returns the
+    launches."""
+    import torch
+
+    from hi3d_tpu_torch.config import instantiate_from_config, load_config
+    from hi3d_tpu_torch.diffusion.samplers import EulerEDMSampler
+    from hi3d_tpu_torch.models.wrappers import ConcatConditionWrapper
+    from hi3d_tpu_torch.pipelines.common import configure_precision
+    from hi3d_tpu_torch.utils.png import write_png
+    from hi3d_tpu_torch.utils.video import denorm_to_uint8
+
+    configure_precision()
+    p = load_config(SD21_CONFIG)["model"]["params"]
+    secs = {}
+    t0 = time.perf_counter()
+    with torch.random.fork_rng(devices=[0]), torch.device("cuda"):
+        torch.manual_seed(0)
+        conditioner = instantiate_from_config(p["conditioner_config"]).eval()
+        unet = instantiate_from_config(p["network_config"]).eval()
+        vae = instantiate_from_config(p["first_stage_config"]).eval()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        for q in unet.parameters():
+            if not q.any():
+                q.normal_(0.0, 0.02, generator=gen)
+    conditioner.to(torch.bfloat16)
+    unet.to(torch.bfloat16)
+    denoiser = instantiate_from_config(p["denoiser_config"])
+    network = ConcatConditionWrapper(unet)
+    sampler = EulerEDMSampler(
+        num_steps=steps,
+        discretization_config=p["denoiser_config"]["params"]["discretization_config"],
+        guider_config={"target": "sgm.modules.diffusionmodules.guiders.VanillaCFG",
+                       "params": {"scale": T2I_CFG_SCALE}})
+    ids, empty = t2i_prompt_ids(torch.Generator().manual_seed(2))
+    secs["build"] = round(time.perf_counter() - t0, 3)
+    calls = []
+
+    def denoise(x, sigma, cond):
+        calls.append(x.shape[0])
+        return denoiser(network, x, sigma, cond)
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = round(time.perf_counter() - t1, 3)
+        return out
+
+    expected = t2i_launches(SD21_CONFIG, steps)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with torch.no_grad():
+        c, uc = timed("conditioner", lambda: conditioner.get_unconditional_conditioning(
+            {"txt": ids}, {"txt": empty}))
+        x = torch.randn((T2I_PROMPTS, 4, T2I_LATENT, T2I_LATENT), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        z = timed("sampler", lambda: sampler(denoise, x, c, uc=uc))
+        img = timed("decode", lambda: vae.decode(z.float() / p["scale_factor"]))
+    launches = read_launches(expected)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out_dir = os.path.join(ROOT, "outputs", "t2i")
+    os.makedirs(out_dir, exist_ok=True)
+    frames = denorm_to_uint8(img.clamp(-1, 1)).permute(0, 2, 3, 1).cpu().numpy()
+    for i, frame in enumerate(frames):
+        write_png(os.path.join(out_dir, f"{i}.png"), frame)
+    print(f"[t2i] main path 14: SD 2.1 on {T2I_PROMPTS} prompts, {steps} steps at "
+          f"{T2I_LATENT}² latents: seconds {secs}, {secs['sampler'] / steps:.4f} s/step, peak "
+          f"allocated {peak:.2f} GiB; crossattn {tuple(c['crossattn'].shape)}, latents "
+          f"{tuple(z.shape)} {z.dtype}, images {tuple(img.shape)} in [{img.min().item():.3f}, "
+          f"{img.max().item():.3f}], UNet calls {len(calls)} of batch {sorted(set(calls))}, "
+          f"PNGs {sorted(os.listdir(out_dir))}; launches {launches}", flush=True)
+    if c["crossattn"].shape != (T2I_PROMPTS, CONTEXT_LENGTH, 1024) or \
+            uc["crossattn"].shape != c["crossattn"].shape:
+        raise AssertionError(f"conditioning {c['crossattn'].shape}, {uc['crossattn'].shape}")
+    if z.shape != (T2I_PROMPTS, 4, T2I_LATENT, T2I_LATENT) or not torch.isfinite(z).all():
+        raise AssertionError(f"latents {tuple(z.shape)}, finite {bool(torch.isfinite(z).all())}")
+    if img.shape != (T2I_PROMPTS, 3, 8 * T2I_LATENT, 8 * T2I_LATENT) or \
+            not torch.isfinite(img).all():
+        raise AssertionError(f"images {tuple(img.shape)}, finite {bool(torch.isfinite(img).all())}")
+    if calls != [2 * T2I_PROMPTS] * steps:
+        raise AssertionError(f"UNet calls {calls}, want {steps} of batch {2 * T2I_PROMPTS}")
+    _check_launches(launches, expected)
+    del conditioner, unet, vae, network, c, uc, z, img
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _card_and_cpu(build, seed: int):
+    """A module built by `build()` on the card from `seed` (fast init) and
+    its fp32 copy on the CPU; the card's is then cast to bf16."""
+    import copy
+
+    import torch
+
+    with torch.random.fork_rng(devices=[0]), torch.device("cuda"):
+        torch.manual_seed(seed)
+        card = build().eval()
+    cpu = copy.deepcopy(card).to("cpu", torch.float32)
+    return card.to(torch.bfloat16), cpu
+
+
+def _rel_l2(got, want) -> float:
+    """Relative L2 error of tensor `got` against `want`, in fp32 on the CPU."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def _inception_init(model) -> None:
+    """He-normal convolutions and unit BatchNorms, so that random features
+    keep their scale through the 94 layers (torch's default init shrinks
+    them towards 0)."""
+    import torch
+
+    for q in model.parameters():
+        if q.ndim == 4:
+            torch.nn.init.kaiming_normal_(q, nonlinearity="relu")
+
+
+def towers_path(frames: np.ndarray) -> dict:
+    """Main path 15: the other text towers at their published widths and the
+    other new embedders, on the card. Seeded weights.
+
+    - FrozenCLIPT5Encoder on 2 prompts' ids (CLIP ViT-L/14 text "last" and
+      a T5 encoder at google/t5-v1_1-xl's widths; the same ids go to both,
+      as in the JAX package, so they are drawn below T5's vocabulary), and
+      FrozenCLIPEmbedder with `layer: hidden, layer_idx: 11`: bf16 on the
+      card against fp32 on the CPU — CLIP within 1.5 × the plain bf16
+      error on the CPU, T5 within TOWER_T5_BOUND;
+    - InceptionV3 (pytorch-fid's variant, normalize_input) on `frames` (main
+      path 1's 16 × 512² frames, [0, 1]): fp32 on both sides, TF32 off,
+      within INCEPTION_BOUND;
+    - IdentityEncoder, ClassEmbedder, ClassEmbedderForMultiCond,
+      SpatialRescaler (2 bicubic halvings and a 3×3 remap), FrozenByT5Embedder
+      at google/byt5-base's widths on raw strings, LowScaleEncoder (SD 2.1's
+      first stage, x4-upscaler settings) and GaussianEncoder (SD 2.1's
+      encoder): finite outputs of JAX's shapes.
+
+    Launches equal `towers_launches`. Prints seconds and the peak. Returns
+    the launches."""
+    import copy
+
+    import torch
+
+    from hi3d_tpu_torch.conditioners import (
+        ClassEmbedder, ClassEmbedderForMultiCond, FrozenByT5Embedder, FrozenCLIPEmbedder,
+        FrozenCLIPT5Encoder, GaussianEncoder, IdentityEncoder, LowScaleEncoder,
+        SpatialRescaler)
+    from hi3d_tpu_torch.config import load_config
+    from hi3d_tpu_torch.models.inception import InceptionV3
+    from hi3d_tpu_torch.models.t5 import T5EncoderModel
+    from hi3d_tpu_torch.pipelines.common import configure_precision
+
+    configure_precision()
+    p = load_config(SD21_CONFIG)["model"]["params"]
+    dd = p["first_stage_config"]["params"]["ddconfig"]
+    secs, errs = {}, {}
+    expected = towers_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = round(time.perf_counter() - t1, 3)
+        return out
+
+    # CLIP ViT-L/14 text + T5-XL, and the hidden-layer CLIP embedder
+    def clip_t5():
+        emb = FrozenCLIPT5Encoder(clip_version=None, t5_version=None)
+        emb.t5_encoder.transformer = T5EncoderModel(**T5_XL)
+        return emb
+
+    ids, _ = t2i_prompt_ids(torch.Generator().manual_seed(3), vocab_top=T5_XL["vocab_size"])
+    ids[ids >= T5_XL["vocab_size"]] = 1  # SOT/EOT: T5's EOS; the CLIP part reads "last"
+    card, cpu = _card_and_cpu(clip_t5, 4)
+    with torch.no_grad():
+        got = timed("clip_t5 card", lambda: card(ids))
+        want = timed("clip_t5 cpu", lambda: cpu(ids.cpu()))
+        plain = timed("clip bf16 cpu", lambda: cpu.clip_encoder.to(torch.bfloat16)(ids.cpu()))
+    errs["clip_t5 clip"], errs["clip plain"] = _rel_l2(got[0], want[0]), _rel_l2(plain, want[0])
+    errs["clip_t5 t5"] = _rel_l2(got[1], want[1])
+    shapes = {"clip_t5": [tuple(o.shape) for o in got]}
+    del card, cpu
+    hidden_ids, _ = t2i_prompt_ids(torch.Generator().manual_seed(5))
+    card, cpu = _card_and_cpu(lambda: FrozenCLIPEmbedder(version=None, layer="hidden",
+                                                         layer_idx=11), 6)
+    with torch.no_grad():
+        got = timed("clip hidden card", lambda: card(hidden_ids))
+        want = cpu(hidden_ids.cpu())
+        plain = cpu.to(torch.bfloat16)(hidden_ids.cpu())
+    errs["clip hidden"], errs["clip hidden plain"] = _rel_l2(got, want), _rel_l2(plain, want)
+    shapes["clip hidden_11"] = tuple(got.shape)
+    del card, cpu
+
+    # InceptionV3 in fp32 on both sides
+    with torch.random.fork_rng(devices=[0]), torch.device("cuda"):
+        torch.manual_seed(7)
+        inception = InceptionV3(normalize_input=True).eval()
+        _inception_init(inception)
+    inception_cpu = copy.deepcopy(inception).to("cpu")
+    x = torch.as_tensor(frames).permute(0, 3, 1, 2).float().div(255.0).contiguous()
+    with torch.no_grad():
+        feats = timed("inception card", lambda: inception(x.to("cuda")))
+        feats_cpu = timed("inception cpu", lambda: inception_cpu(x))
+    errs["inception"] = _rel_l2(feats, feats_cpu)
+    shapes["inception"] = tuple(feats.shape)
+    del inception, inception_cpu
+
+    # the other embedders once
+    g = torch.Generator(device="cuda").manual_seed(8)
+    img = torch.rand((2, 3, 256, 256), generator=g, device="cuda") * 2 - 1
+    outs = {}
+    with torch.no_grad(), torch.random.fork_rng(devices=[0]), torch.device("cuda"):
+        torch.manual_seed(9)
+        outs["identity"] = IdentityEncoder()(img)
+        labels = torch.tensor([3, 999], device="cuda")
+        outs["class"] = ClassEmbedder(embed_dim=1024, n_classes=1000)(labels)
+        outs["class_multi"] = ClassEmbedderForMultiCond(embed_dim=1024, n_classes=1000)([labels])
+        outs["rescaler"] = SpatialRescaler(n_stages=2, method="bicubic", multiplier=0.5,
+                                           out_channels=4, kernel_size=3)(img)
+        byt5 = FrozenByT5Embedder(max_length=CONTEXT_LENGTH)
+        byt5.transformer = T5EncoderModel(**BYT5_BASE).to(torch.bfloat16)
+        outs["byt5"] = timed("byt5 card", lambda: byt5(["a photograph of an astronaut riding "
+                                                        "a horse", "ein Ölgemälde"]))
+        low = LowScaleEncoder(model_config=p["first_stage_config"], linear_start=1e-4,
+                              linear_end=2e-2, timesteps=1000, max_noise_level=350,
+                              output_size=64, scale_factor=p["scale_factor"]).eval()
+        outs["low_scale"] = low(img, generator=g)
+        outs["gaussian"] = GaussianEncoder(weight=1.0, **dd).eval()(img, generator=g)
+        del byt5, low
+    launches = read_launches(expected)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    flat = lambda o: [t for t in (o if isinstance(o, (list, tuple)) else [o])  # noqa: E731
+                      if torch.is_tensor(t)]
+    shapes.update({k: [tuple(t.shape) for t in flat(v)] for k, v in outs.items()})
+    want_shapes = {
+        "clip_t5": [(2, 77, 768), (2, 77, 2048)], "clip hidden_11": (2, 77, 768),
+        "inception": (len(frames), 2048), "identity": [(2, 3, 256, 256)],
+        "class": [(2, 1024)], "class_multi": [(2, 1024)], "rescaler": [(2, 4, 64, 64)],
+        "byt5": [(2, 77, 1536)], "low_scale": [(2, 4, 64, 64), (2, 1)],
+        "gaussian": [(2, 32 * 32, 4)]}
+    print(f"[towers] main path 15: seconds {secs}, peak allocated {peak:.2f} GiB; relative L2 "
+          f"errors {({k: f'{v:.3e}' for k, v in errs.items()})}; shapes {shapes}; gaussian KL "
+          f"{outs['gaussian'][0]['kl_loss'].item():.4f}; launches {launches}", flush=True)
+    if shapes != want_shapes:
+        raise AssertionError(f"shapes {shapes} != {want_shapes}")
+    nonfinite = [k for k, v in outs.items() if not all(torch.isfinite(t).all() for t in flat(v))]
+    if nonfinite:
+        raise AssertionError(f"non-finite outputs: {nonfinite}")
+    for name, plain_name in (("clip_t5 clip", "clip plain"), ("clip hidden", "clip hidden plain")):
+        if not errs[name] <= 1.5 * errs[plain_name]:
+            raise AssertionError(f"{name}: error {errs[name]} > 1.5 × plain bf16 "
+                                 f"{errs[plain_name]}")
+    if not errs["clip_t5 t5"] <= TOWER_T5_BOUND:
+        raise AssertionError(f"T5-XL on the card: error {errs['clip_t5 t5']} > {TOWER_T5_BOUND}")
+    if not errs["inception"] <= INCEPTION_BOUND:
+        raise AssertionError(f"InceptionV3 on the card: error {errs['inception']} > "
+                             f"{INCEPTION_BOUND}")
+    _check_launches(launches, expected)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def t2i_phases(frames_dir=None) -> dict:
+    """Main paths 14 and 15 with the UNetModel's reference and gradient
+    phases; `frames_dir` holds main path 1's frames (16 seeded random 512²
+    frames stand in without it). Returns the launches by path."""
+    from hi3d_tpu_torch.utils.video import import_video
+
+    print(f"[smoke] main path 14: SD 2.1 text-to-image (hi3d_tpu_torch/configs/sd_2_1.yaml), "
+          f"{T2I_PROMPTS} prompts, {NUM_STEPS} steps, CFG {T2I_CFG_SCALE}, {8 * T2I_LATENT}², "
+          "random weights", flush=True)
+    t0 = time.perf_counter()
+    unet2d_reference_phase()
+    by_path = {"unet2d_grad": unet2d_gradient_phase(), "t2i": t2i_path()}
+    t1 = time.perf_counter()
+    print("[smoke] main path 15: CLIP ViT-L/14 + T5-XL, CLIP hidden 11, InceptionV3 and the "
+          "other embedders, random weights", flush=True)
+    frames = (import_video(frames_dir, 16) if frames_dir else
+              np.random.RandomState(0).randint(0, 256, (16, 512, 512, 3), dtype=np.uint8))
+    by_path["towers"] = towers_path(frames)
+    t2 = time.perf_counter()
+    print(f"[smoke] paths 14 and 15: {t2 - t0:.1f} s of phases (path 14 with its reference and "
+          f"gradient phases {t1 - t0:.1f} s, path 15 {t2 - t1:.1f} s)", flush=True)
+    return by_path
+
+
 SERVE_CLIP = 48  # a 48-view orbit: three times the 16 views, 7.5° apart
 SERVE_ASSETS = 2
 
@@ -3806,6 +4348,9 @@ def main() -> None:
     if sys.argv[1:2] == ["--time-block-backward"]:
         time_block_backward(*map(int, sys.argv[2:3]))
         return
+    if sys.argv[1:] == ["--t2i"]:
+        t2i_phases()
+        return
 
     measured = kernel_phase()
     print("[smoke] kernel phase ok", flush=True)
@@ -3818,8 +4363,9 @@ def main() -> None:
     unet_reference_phase(stage2)
     by_path = {"unet_grad_stage2": unet_gradient_phase(stage2)}
     # a long clip: every frame-axis site on #6 forward and #7 backward
-    unet_reference_phase(inference, b=1, t=40)
-    by_path["unet_grad_t40"] = unet_gradient_phase(inference, b=1, t=40)
+    unet_reference_phase(inference, b=1, t=LONG_UNET_CLIP)
+    by_path[f"unet_grad_t{LONG_UNET_CLIP}"] = unet_gradient_phase(inference, b=1,
+                                                                  t=LONG_UNET_CLIP)
     print(f"[smoke] main path 1: configs/inference-v01.yaml, 16×512², {NUM_STEPS} steps, "
           "random weights", flush=True)
     by_path["i2v"], stage1_dir, phases1 = main_path(NUM_STEPS)
@@ -3877,6 +4423,7 @@ def main() -> None:
     print(f"[smoke] main path 13: SVD's first stage (temporal VideoDecoder), {SVD_FRAMES} × 512² "
           "from main path 1, conv-only and all, random weights", flush=True)
     by_path["svd_vae"] = svd_vae_path(stage1_dir)
+    by_path.update(t2i_phases(os.path.join(stage1_dir, "first_step", "frames")))
     print(f"[smoke] all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
 
     rows = []

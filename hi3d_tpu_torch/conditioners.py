@@ -1,33 +1,49 @@
-"""Conditioning: GeneralConditioner and the stage-1 and stage-2 embedders
-(counterpart of hi3d_tpu/conditioners.py).
+"""Conditioning: GeneralConditioner, the stage-1 and stage-2 embedders and
+the rest of sgm's embedder set (counterpart of hi3d_tpu/conditioners.py):
+the text encoders (OpenCLIP ViT-H/14, CLIP ViT-L/14, T5, ByT5, CLIP + T5),
+class labels, spatial rescaling, the low-scale and Gaussian encoders.
 
 NCHW throughout: frames are (N, 3, H, W) and videos (B, T, 3, H, W) in
-[-1, 1]. Outputs route by rank into {vector (B, D), crossattn (B, S, C),
-concat (B, C, h, w)} and concatenate along the reference's dims (1, 2, 1).
+[-1, 1]. An embedder returns one tensor or a list or tuple of them; each
+routes by rank into {vector (B, D), crossattn (B, S, C), concat (B, C, h,
+w)} and concatenates along the reference's dims (1, 2, 1). An embedder reads
+one batch key (`input_key`) or several (`input_keys`, passed in order). The
+embedders that draw (`draws = True`: LowScaleEncoder, GaussianEncoder) take
+a `generator` keyword; their draws are the port's own stream, as ucg's are.
 The towers load their released files when present and otherwise keep a
-random initialisation, with a printed notice.
+random initialisation, with a printed notice. The text encoders take token
+ids (B, L): the CLIP BPE vocabulary is not in the repository, so raw
+strings raise, and T5's raw strings reach its tokenizer only where
+`transformers` imports.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from .config import instantiate_from_config
+from .models.autoencoding import DiagonalGaussianRegularizer
 from .models.clip import (
     AestheticMLP,
     clip_normalize,
+    image_resize,
     resize_bicubic,
     resize_bilinear,
+    text_vit_h_14,
+    text_vit_l_14,
     vit_h_14,
     vit_l_14,
 )
 from .models.dpt import DPTDepthModel
 from .models.layers import timestep_embedding
+from .models.vae import Encoder
 from .utils.misc import append_dims
 
 CondDict = Dict[str, torch.Tensor]
@@ -43,16 +59,27 @@ def _load_visual(tower: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
 
 
 class AbstractEmbedder(nn.Module):
-    """An embedder computes one conditioning tensor from one batch key."""
+    """An embedder computes conditioning from one batch key (`input_key`)
+    or several (`input_keys`)."""
 
     OUT_KEY_BY_NDIM = {2: "vector", 3: "crossattn", 4: "concat"}
     # whether an engine checkpoint's `conditioner.embedders.N.*` keys load here
     loads_engine_checkpoint = True
+    # whether forward takes a `generator` to draw from
+    draws = False
 
     def __init__(self):
         super().__init__()
         self.input_key: Optional[str] = None
+        self.input_keys: Optional[List[str]] = None
         self.ucg_rate = 0.0
+
+    def embed(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None):
+        """The embedder on its batch values, as a list of output tensors."""
+        args = ([batch[self.input_key]] if self.input_key is not None
+                else [batch[k] for k in self.input_keys])
+        out = self(*args, generator=generator) if self.draws else self(*args)
+        return list(out) if isinstance(out, (list, tuple)) else [out]
 
 
 class GeneralConditioner(nn.Module):
@@ -65,9 +92,12 @@ class GeneralConditioner(nn.Module):
             emb = instantiate_from_config(cfg)
             if not isinstance(emb, AbstractEmbedder):
                 raise TypeError(f"embedder {type(emb).__name__} must inherit AbstractEmbedder")
-            if "input_key" not in cfg:
-                raise KeyError(f"embedder #{n} needs 'input_key'")
-            emb.input_key = cfg["input_key"]
+            if "input_key" in cfg:
+                emb.input_key = cfg["input_key"]
+            elif "input_keys" in cfg:
+                emb.input_keys = list(cfg["input_keys"])
+            else:
+                raise KeyError(f"embedder #{n} needs 'input_key(s)'")
             emb.ucg_rate = float(cfg.get("ucg_rate", 0.0))
             self.embedders.append(emb)
         # parity-test hook: one (N,) keep mask per embedder (None where it has
@@ -81,26 +111,28 @@ class GeneralConditioner(nn.Module):
     def forward(self, batch: Dict[str, Any], force_zero_embeddings: Optional[Sequence[str]] = None,
                 generator: Optional[torch.Generator] = None, ucg_enabled: bool = True) -> CondDict:
         """Embed every key; with a generator (or `parity_ucg_keep`), drop each
-        embedder's output per sample with probability ucg_rate (training-time
-        CFG dropout)."""
+        embedder's outputs per sample with probability ucg_rate (training-time
+        CFG dropout; one mask for all of an embedder's outputs). The
+        embedders that draw take the same generator."""
         force_zero = force_zero_embeddings or []
         out: CondDict = {}
         pinned = self.parity_ucg_keep
         for n, emb_mod in enumerate(self.embedders):
-            emb = emb_mod(batch[emb_mod.input_key])
-            key = AbstractEmbedder.OUT_KEY_BY_NDIM[emb.ndim]
-            if ucg_enabled and emb_mod.ucg_rate > 0.0 and (generator is not None or pinned is not None):
-                if pinned is not None:
-                    keep = torch.as_tensor(pinned[n], dtype=torch.float32, device=emb.device)
-                else:
-                    keep = torch.bernoulli(
-                        torch.full((emb.shape[0],), 1.0 - emb_mod.ucg_rate, device=emb.device),
-                        generator=generator,
-                    )
-                emb = append_dims(keep, emb.ndim).to(emb.dtype) * emb
-            if emb_mod.input_key in force_zero:
-                emb = torch.zeros_like(emb)
-            self._add(out, key, emb)
+            drop = ucg_enabled and emb_mod.ucg_rate > 0.0 and (generator is not None
+                                                               or pinned is not None)
+            keep = None
+            for emb in emb_mod.embed(batch, generator):
+                key = AbstractEmbedder.OUT_KEY_BY_NDIM[emb.ndim]
+                if drop:
+                    if keep is None:
+                        keep = (torch.as_tensor(pinned[n], dtype=torch.float32, device=emb.device)
+                                if pinned is not None else torch.bernoulli(
+                                    torch.full((emb.shape[0],), 1.0 - emb_mod.ucg_rate,
+                                               device=emb.device), generator=generator))
+                    emb = append_dims(keep, emb.ndim).to(emb.dtype) * emb
+                if emb_mod.input_key in force_zero:
+                    emb = torch.zeros_like(emb)
+                self._add(out, key, emb)
         return out
 
     @torch.no_grad()
@@ -119,10 +151,11 @@ class GeneralConditioner(nn.Module):
         c: CondDict = {}
         uc: CondDict = {}
         for emb_mod in self.embedders:
-            emb = emb_mod(batch_c[emb_mod.input_key])
-            key = AbstractEmbedder.OUT_KEY_BY_NDIM[emb.ndim]
-            for out, forced in ((c, force_c), (uc, force_uc)):
-                self._add(out, key, torch.zeros_like(emb) if emb_mod.input_key in forced else emb)
+            for emb in emb_mod.embed(batch_c):
+                key = AbstractEmbedder.OUT_KEY_BY_NDIM[emb.ndim]
+                for out, forced in ((c, force_c), (uc, force_uc)):
+                    self._add(out, key,
+                              torch.zeros_like(emb) if emb_mod.input_key in forced else emb)
         return c, uc
 
 
@@ -289,3 +322,343 @@ class DepthEmbedder(AbstractEmbedder):
         y = y - y.amin(dim=(1, 2, 3), keepdim=True)
         y = y / y.amax(dim=(1, 2, 3), keepdim=True).clamp_min(1e-6)
         return F.pixel_unshuffle(y, s)
+
+
+# --- the rest of sgm's embedder set (unused by the Hi3D configs) ------------
+
+
+def _is_raw_text(text) -> bool:
+    return isinstance(text, (list, tuple)) and bool(text) and isinstance(text[0], str)
+
+
+def _refuse_raw_text(text, vocab: str) -> None:
+    if _is_raw_text(text):
+        raise NotImplementedError(f"raw-text tokenization needs {vocab} (not in the "
+                                  "repository); pass token ids of shape (B, 77)")
+
+
+class IdentityEncoder(AbstractEmbedder):
+    """The batch value as the conditioning."""
+
+    def forward(self, x):
+        return torch.as_tensor(x)
+
+
+class ClassEmbedder(AbstractEmbedder):
+    """Learned class-label table (B,) → (B, embed_dim), or (B, 1, embed_dim)
+    with `add_sequence_dim`; class n_classes − 1 is the unconditional one."""
+
+    def __init__(self, embed_dim: int, n_classes: int = 1000, add_sequence_dim: bool = False):
+        super().__init__()
+        self.n_classes = int(n_classes)
+        self.add_sequence_dim = add_sequence_dim
+        self.embedding = nn.Embedding(self.n_classes, int(embed_dim))
+        nn.init.normal_(self.embedding.weight, std=0.02)
+
+    def forward(self, c):
+        emb = self.embedding(torch.as_tensor(c, device=self.embedding.weight.device).long())
+        return emb[:, None, :] if self.add_sequence_dim else emb
+
+    def get_unconditional_conditioning(self, bs: int, device=None) -> Dict[str, torch.Tensor]:
+        return {self.input_key: torch.full((bs,), self.n_classes - 1, dtype=torch.long,
+                                           device=device)}
+
+
+class ClassEmbedderForMultiCond(ClassEmbedder):
+    """ClassEmbedder of the first entry of a list-wrapped batch value,
+    re-wrapped in a list."""
+
+    def forward(self, c):
+        if isinstance(c, list):
+            return [super().forward(c[0])]
+        return super().forward(c)
+
+
+class SpatialRescaler(AbstractEmbedder):
+    """n_stages resizes by `multiplier` with jax.image.resize's semantics
+    ("nearest" with half-pixel centres; "bilinear"/"linear" and "bicubic"
+    (Keys a = −0.5) antialiased when downscaling), then an optional k×k
+    `channel_mapper` conv; `wrap_video` folds (B, T, C, H, W) into frames
+    and back."""
+
+    METHODS = {"nearest": "nearest", "linear": "bilinear", "bilinear": "bilinear",
+               "bicubic": "cubic"}
+
+    def __init__(self, n_stages: int = 1, method: str = "bilinear", multiplier: float = 0.5,
+                 in_channels: int = 3, out_channels: Optional[int] = None, bias: bool = False,
+                 wrap_video: bool = False, kernel_size: int = 1, remap_output: bool = False):
+        super().__init__()
+        if method not in self.METHODS:
+            raise NotImplementedError(f"method {method!r}")
+        self.n_stages = int(n_stages)
+        self.method = self.METHODS[method]
+        self.multiplier = float(multiplier)
+        self.wrap_video = wrap_video
+        self.channel_mapper = None
+        if out_channels is not None or remap_output:
+            if out_channels is None:
+                raise ValueError("remap_output needs out_channels (as in the JAX package)")
+            self.channel_mapper = nn.Conv2d(in_channels, out_channels, kernel_size, bias=bias,
+                                            padding=kernel_size // 2)
+
+    def forward(self, x):
+        x = torch.as_tensor(x)
+        video = x.shape[:2] if self.wrap_video and x.ndim == 5 else None
+        if video is not None:
+            x = x.flatten(0, 1)
+        for _ in range(self.n_stages):
+            h, w = x.shape[-2:]
+            x = image_resize(x, (int(h * self.multiplier), int(w * self.multiplier)), self.method)
+        if self.channel_mapper is not None:
+            x = self.channel_mapper(x)
+        return x.unflatten(0, video) if video is not None else x
+
+
+class FrozenOpenCLIPEmbedder(AbstractEmbedder):
+    """OpenCLIP ViT-H/14 text tower on token ids (B, 77). `layer`: "last" =
+    ln_final of the last block; "penultimate" = ln_final of the block
+    before it; "pooled" = the projected EOT embedding (B, 1024).
+    `always_return_pooled` returns (out, pooled). Weights: the text keys of
+    the open_clip file `version` (the image embedder's file)."""
+
+    LAYERS = ("last", "penultimate", "pooled")
+
+    def __init__(self, arch: str = "ViT-H-14", version: Optional[str] = None,
+                 max_length: int = 77, freeze: bool = True, layer: str = "last",
+                 always_return_pooled: bool = False, legacy: bool = True, **_unused):
+        super().__init__()
+        if layer not in self.LAYERS:
+            raise ValueError(f"layer {layer!r}")
+        if arch != "ViT-H-14":
+            raise NotImplementedError(f"arch {arch}")
+        self.layer = layer
+        self.max_length = int(max_length)
+        self.return_pooled = always_return_pooled
+        self.model = text_vit_h_14()
+        if version and os.path.exists(version):
+            from .convert import open_clip_text_state_dict
+
+            self.model.load_state_dict(open_clip_text_state_dict(
+                torch.load(version, map_location="cpu", weights_only=True)), strict=True)
+        else:
+            _tower_file_notice("OpenCLIP ViT-H-14 text", version)
+
+    def forward(self, text):
+        _refuse_raw_text(text, "open_clip's BPE vocabulary")
+        ids = torch.as_tensor(text, device=self.model.positional_embedding.device)
+        pooled, _, extras = self.model(ids)
+        if self.layer == "pooled":
+            out = pooled
+        elif self.layer == "last":
+            out = extras["final"]
+        else:
+            out = self.model.ln_final(extras["hidden"][-2])
+        return (out, pooled) if self.return_pooled else out
+
+
+class FrozenCLIPEmbedder(AbstractEmbedder):
+    """OpenAI CLIP ViT-L/14 text tower on token ids (B, 77), with Hugging
+    Face's outputs: "last" = the final-layer-normed sequence; "pooled" =
+    that sequence at EOT, unprojected, with a length-1 sequence axis;
+    "hidden" = hidden_states[layer_idx] (0 = the embeddings).
+    `always_return_pooled` returns (out, EOT (B, 768)). Weights: the text
+    keys of the OpenAI jit archive `version`, as the JAX package reads
+    them; the names are open_clip's, not sgm's Hugging Face module's, so an
+    engine checkpoint's keys do not load here."""
+
+    LAYERS = ("last", "pooled", "hidden")
+    loads_engine_checkpoint = False
+
+    def __init__(self, version: str = "openai/clip-vit-large-patch14", max_length: int = 77,
+                 freeze: bool = True, layer: str = "last", layer_idx: Optional[int] = None,
+                 always_return_pooled: bool = False, **_unused):
+        super().__init__()
+        if layer not in self.LAYERS:
+            raise ValueError(f"layer {layer!r}")
+        if layer == "hidden" and (layer_idx is None or not 0 <= abs(layer_idx) <= 12):
+            raise ValueError("layer='hidden' needs layer_idx in [-12, 12]")
+        self.layer = layer
+        self.layer_idx = layer_idx
+        self.max_length = int(max_length)
+        self.return_pooled = always_return_pooled
+        self.transformer = text_vit_l_14()
+        if version and os.path.exists(version):
+            from .convert import load_checkpoint_file, open_clip_text_state_dict
+
+            try:
+                sd = torch.jit.load(version, map_location="cpu").state_dict()
+            except RuntimeError:  # a plain state dict, as the JAX reader also takes
+                sd = load_checkpoint_file(version)
+            self.transformer.load_state_dict(open_clip_text_state_dict(sd), strict=True)
+        else:
+            _tower_file_notice("CLIP ViT-L/14 text", version)
+
+    def forward(self, text):
+        _refuse_raw_text(text, "the CLIP BPE vocabulary")
+        ids = torch.as_tensor(text, device=self.transformer.positional_embedding.device)
+        _, _, extras = self.transformer(ids)
+        final = extras["final"]
+        pooler = final[torch.arange(final.shape[0], device=final.device), ids.long().argmax(-1)]
+        if self.layer == "last":
+            out = final
+        elif self.layer == "pooled":
+            out = pooler[:, None, :]
+        else:
+            out = extras["hidden"][self.layer_idx]
+        return (out, pooler) if self.return_pooled else out
+
+
+class FrozenT5Embedder(AbstractEmbedder):
+    """T5 encoder's last hidden state (B, L, d_model) of token ids, or of
+    raw strings through the model directory's tokenizer where `transformers`
+    imports. `version` names a local Hugging Face model directory, read at
+    the first call (models.t5.load_t5_directory), as the JAX embedder loads
+    at its first call; `transformer` may be set beforehand instead."""
+
+    loads_engine_checkpoint = False
+
+    def __init__(self, version: str = "google/t5-v1_1-xxl", max_length: int = 77,
+                 freeze: bool = True, **_unused):
+        super().__init__()
+        self.version = version
+        self.max_length = int(max_length)
+        self.transformer: Optional[nn.Module] = None
+
+    def encoder(self, device) -> nn.Module:
+        if self.transformer is None:
+            from .models.t5 import load_t5_directory
+
+            self.transformer = load_t5_directory(self.version).to(device)
+        return self.transformer
+
+    def tokenize(self, texts: Sequence[str]) -> np.ndarray:
+        """(B, max_length) ids of raw strings by the directory's tokenizer;
+        `transformers` is imported here and nowhere else in the package."""
+        try:
+            from transformers import AutoTokenizer
+        except ImportError as e:
+            raise NotImplementedError(
+                "raw-text T5 tokenization needs the transformers package; pass token ids "
+                "of shape (B, L)") from e
+        tok = AutoTokenizer.from_pretrained(self.version)
+        return tok(list(texts), truncation=True, max_length=self.max_length,
+                   padding="max_length", return_tensors="np")["input_ids"]
+
+    def forward(self, text):
+        if _is_raw_text(text):
+            text = self.tokenize(text)
+        ids = text if torch.is_tensor(text) else torch.as_tensor(np.asarray(text))
+        model = self.encoder(ids.device)
+        return model(ids.to(model.shared.weight.device))
+
+
+class FrozenByT5Embedder(FrozenT5Embedder):
+    """ByT5: T5 on UTF-8 bytes, tokenized inline (byte + 3, EOS 1, PAD 0)."""
+
+    def __init__(self, version: str = "google/byt5-base", max_length: int = 77,
+                 freeze: bool = True, **_unused):
+        super().__init__(version, max_length, freeze)
+
+    def tokenize(self, texts: Sequence[str]) -> np.ndarray:
+        ids = np.zeros((len(texts), self.max_length), np.int32)  # pad = 0
+        for i, t in enumerate(texts):
+            raw = list(t.encode("utf-8"))[: self.max_length - 1]
+            row = [b + 3 for b in raw] + [1]  # +3 special offset, eos = 1
+            ids[i, : len(row)] = row
+        return ids
+
+
+class FrozenCLIPT5Encoder(AbstractEmbedder):
+    """[CLIP ViT-L/14 "last" (B, 77, 768), T5 (B, L, d_model)]: a list, so
+    both concatenate onto crossattn."""
+
+    loads_engine_checkpoint = False
+
+    def __init__(self, clip_version: str = "openai/clip-vit-large-patch14",
+                 t5_version: str = "google/t5-v1_1-xl", clip_max_length: int = 77,
+                 t5_max_length: int = 77, **_unused):
+        super().__init__()
+        self.clip_encoder = FrozenCLIPEmbedder(clip_version, max_length=clip_max_length)
+        self.t5_encoder = FrozenT5Embedder(t5_version, max_length=t5_max_length)
+
+    def forward(self, text):
+        return [self.clip_encoder(text), self.t5_encoder(text)]
+
+
+def _seeded(generator: Optional[torch.Generator], device) -> torch.Generator:
+    """The given generator, or a fresh one seeded 0 on `device` (the JAX
+    embedders draw from PRNGKey(0) when given no key)."""
+    return generator if generator is not None else torch.Generator(device=device).manual_seed(0)
+
+
+class LowScaleEncoder(AbstractEmbedder):
+    """First-stage encode (sampled from the generator) × scale_factor, then
+    q_sample at a timestep t ∈ [0, max_noise_level) on the linear β
+    schedule, then a nearest resize to output_size: [z, t (B, 1) fp32]."""
+
+    draws = True
+
+    def __init__(self, model_config: Dict, linear_start: float, linear_end: float,
+                 timesteps: int = 1000, max_noise_level: int = 250,
+                 output_size: Optional[int] = 64, scale_factor: float = 1.0, **_unused):
+        super().__init__()
+        from .diffusion.discretization import make_beta_schedule
+
+        self.model = instantiate_from_config(model_config)
+        self.max_noise_level = int(max_noise_level)
+        self.out_size = output_size
+        self.scale_factor = float(scale_factor)
+        betas = make_beta_schedule("linear", timesteps, linear_start=linear_start,
+                                   linear_end=linear_end)
+        alphas_cumprod = np.cumprod(1.0 - betas, axis=0)
+        self.register_buffer("sqrt_alphas_cumprod",
+                             torch.tensor(np.sqrt(alphas_cumprod), dtype=torch.float32),
+                             persistent=False)
+        self.register_buffer("sqrt_one_minus_alphas_cumprod",
+                             torch.tensor(np.sqrt(1.0 - alphas_cumprod), dtype=torch.float32),
+                             persistent=False)
+
+    def q_sample(self, x0: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        a = append_dims(self.sqrt_alphas_cumprod[t], x0.ndim)
+        s = append_dims(self.sqrt_one_minus_alphas_cumprod[t], x0.ndim)
+        return a * x0 + s * noise
+
+    def draw(self, z: torch.Tensor, generator: torch.Generator):
+        """(t (B,), noise like z): the noise level and the q_sample noise."""
+        t = torch.randint(0, self.max_noise_level, (z.shape[0],), generator=generator,
+                          device=z.device)
+        return t, torch.randn(z.shape, generator=generator, device=z.device, dtype=z.dtype)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        generator = _seeded(generator, x.device)
+        z = self.model.encode(x, generator) * self.scale_factor
+        t, noise = self.draw(z, generator)
+        z = self.q_sample(z, t, noise)
+        if self.out_size is not None:
+            z = image_resize(z, (self.out_size, self.out_size), "nearest")
+        return [z, t.float()[:, None]]
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        return self.model.decode(z / self.scale_factor)
+
+
+class GaussianEncoder(Encoder, AbstractEmbedder):
+    """A VAE Encoder (its parameters at the top level, as sgm's subclass
+    has them) and a diagonal-Gaussian posterior sampled from the generator
+    (its mode without one): (log {kl_loss, loss, weight}, z), z flattened
+    to (B, h·w, C) tokens with `flatten_output`."""
+
+    draws = True
+
+    def __init__(self, weight: float = 1.0, flatten_output: bool = True, **ddkw):
+        super().__init__(**ddkw)
+        self.posterior = DiagonalGaussianRegularizer()
+        self.weight = float(weight)
+        self.flatten_output = flatten_output
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        z, log = self.posterior(Encoder.forward(self, x), generator)
+        log = {**log, "loss": log["kl_loss"], "weight": self.weight}
+        if self.flatten_output:
+            z = z.flatten(2).transpose(1, 2)
+        return log, z

@@ -273,3 +273,93 @@ def load_flax_tree(module: nn.Module, variables: Mapping, name_of=flax_module_na
     if missing:
         raise KeyError(f"no flax leaf for {missing[:10]} ({len(missing)} entries)")
     module.load_state_dict({**own, **filled}, strict=True)
+
+
+def dotted_name(path: Tuple[str, ...]) -> str:
+    """Module names that are the flax path joined by dots: the Inception
+    trunk (`Mixed_5b/branch5x5_1/conv` → `Mixed_5b.branch5x5_1.conv`) and
+    transformers' flax T5 (`encoder/block/0/layer/0/SelfAttention/q`)."""
+    return ".".join(path)
+
+
+_UNET2D_HEAD = re.compile(r"^(input_blocks|output_blocks|label_emb)_(\d+)\.")
+
+
+def unet2d_flax_name(path: Tuple[str, ...]) -> str:
+    """Module names of the JAX UNetModel: `input_blocks_1_1` →
+    `input_blocks.1.1`, `label_emb_0_0` → `label_emb.0.0`, and
+    `flax_module_name` inside the blocks (`transformer_blocks_0`,
+    `to_out_0`, `in_layers_0`, the norms' inner `norm` scope dropped)."""
+    return _UNET2D_HEAD.sub(r"\1.\2.", flax_module_name(path))
+
+
+def load_flax_unet2d(module: nn.Module, variables: Mapping) -> None:
+    """The JAX UNetModel's parameters into models.unet.UNetModel."""
+    load_flax_tree(module, variables, unet2d_flax_name)
+
+
+def load_flax_inception(module: nn.Module, variables: Mapping) -> None:
+    """The JAX InceptionV3Trunk's params and batch_stats into
+    models.inception.InceptionV3Trunk (torchvision's names)."""
+    load_flax_tree(module, variables, dotted_name)
+
+
+def load_flax_t5(module: nn.Module, params: Mapping) -> None:
+    """transformers' FlaxT5EncoderModel params into models.t5.T5EncoderModel
+    (the same names; kernels transposed, `embedding` → `weight`)."""
+    load_flax_tree(module, params, dotted_name)
+
+
+# the OpenAI jit archive's and open_clip's non-text entries
+_CLIP_NON_TEXT = ("visual.", "logit_scale", "input_resolution", "context_length", "vocab_size",
+                  "attn_mask")
+
+
+def open_clip_text_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The text tower's entries of an open_clip state dict or of the OpenAI
+    CLIP jit archive's: models.clip.CLIPTextTransformer's names."""
+    return {k: v for k, v in sd.items() if not k.startswith(_CLIP_NON_TEXT)}
+
+
+def clip_text_flax_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX CLIPTextTransformer's params as the state dict of
+    models.clip.CLIPTextTransformer: `resblocks_N` → `transformer.
+    resblocks.N`, the packed `attn/in_proj` Dense → `attn.in_proj_weight`/
+    `in_proj_bias`, `mlp_c_fc` → `mlp.c_fc`, LayerNorm `scale` → `weight`,
+    Dense kernels transposed."""
+    params = variables.get("params", variables)
+    sd: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten_tree(params):
+        v = np.array(value, dtype=np.float32)  # a writable copy
+        head, leaf = path[0], path[-1]
+        if head in ("positional_embedding", "text_projection"):
+            name = head
+        elif head == "token_embedding":
+            name = "token_embedding.weight"
+        elif head == "ln_final":
+            name = f"ln_final.{_FLAX_LEAVES.get(leaf, leaf)}"
+        else:
+            block = f"transformer.resblocks.{head.split('_')[1]}"
+            sub = path[1]
+            weight = _FLAX_LEAVES.get(leaf, leaf)
+            if leaf == "kernel":
+                v = v.T
+            if sub == "attn" and path[2] == "in_proj":
+                name = f"{block}.attn.in_proj_{weight}"
+            elif sub == "attn":
+                name = f"{block}.attn.out_proj.{weight}"
+            elif sub.startswith("mlp_"):
+                name = f"{block}.mlp.{sub[4:]}.{weight}"
+            else:
+                name = f"{block}.{sub}.{weight}"
+        sd[name] = torch.from_numpy(np.ascontiguousarray(v))
+    return sd
+
+
+def load_inception_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A torchvision / pytorch-fid Inception-v3 file as the state dict of
+    models.inception.InceptionV3Trunk: the `fc` and `AuxLogits` heads and
+    BatchNorm's `num_batches_tracked` dropped, nothing renamed."""
+    sd = load_checkpoint_file(path)
+    return {k: v for k, v in sd.items()
+            if not k.startswith(("fc.", "AuxLogits.")) and not k.endswith("num_batches_tracked")}

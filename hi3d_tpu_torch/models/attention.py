@@ -121,25 +121,38 @@ class BasicTransformerBlock(nn.Module):
 
 
 class SpatialTransformer(nn.Module):
-    """GroupNorm → linear proj_in → transformer blocks over H·W tokens →
-    zero-init proj_out → residual, on (N, C, H, W) (use_linear layout)."""
+    """GroupNorm → proj_in → transformer blocks over H·W tokens → zero-init
+    proj_out → residual, on (N, C, H, W). `use_linear` (the Hi3D configs')
+    projects the tokens with Linear layers; otherwise proj_in and proj_out
+    are 1×1 convolutions on the image, before and after the token view
+    (the JAX package's `use_linear=False`), under the same names."""
 
     def __init__(self, in_channels: int, heads: int, dim_head: int, depth: int = 1,
-                 context_dim: Optional[int] = None):
+                 context_dim: Optional[int] = None, use_linear: bool = True):
         super().__init__()
         inner = heads * dim_head
+        self.use_linear = use_linear
         self.norm = GroupNorm32(in_channels)
-        self.proj_in = nn.Linear(in_channels, inner)
+        self.proj_in = (nn.Linear(in_channels, inner) if use_linear
+                        else nn.Conv2d(in_channels, inner, 1))
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(inner, heads, dim_head, context_dim) for _ in range(depth)
         )
-        self.proj_out = zero_module(nn.Linear(inner, in_channels))
+        self.proj_out = zero_module(nn.Linear(inner, in_channels) if use_linear
+                                    else nn.Conv2d(inner, in_channels, 1))
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         n, c, h, w = x.shape
-        tokens = self.norm(x).permute(0, 2, 3, 1).reshape(n, h * w, c)
-        tokens = self.proj_in(tokens)
+        y = self.norm(x)
+        if self.use_linear:
+            tokens = self.proj_in(y.permute(0, 2, 3, 1).reshape(n, h * w, c))
+        else:
+            y = self.proj_in(y)
+            tokens = y.permute(0, 2, 3, 1).reshape(n, h * w, y.shape[1])
         for block in self.transformer_blocks:
             tokens = block(tokens, context=context)
-        tokens = self.proj_out(tokens)
-        return tokens.reshape(n, h, w, c).permute(0, 3, 1, 2) + x
+        if self.use_linear:
+            y = self.proj_out(tokens).reshape(n, h, w, c).permute(0, 3, 1, 2)
+        else:
+            y = self.proj_out(tokens.reshape(n, h, w, -1).permute(0, 3, 1, 2))
+        return y + x

@@ -1,4 +1,4 @@
-"""VideoUNet (counterpart of hi3d_tpu/models/unet.py).
+"""VideoUNet and the 2-D image UNetModel (counterparts of hi3d_tpu/models/unet.py).
 
 x is (B·T, C_in, H, W); timesteps (B·T,); context (B or B·T, S_ctx, C_ctx);
 y (B or B·T, adm_in_channels). Parameter names are the reference's
@@ -13,8 +13,8 @@ the forward runs under `torch.autocast` in `dtype`, so linears and convs run
 in bf16 and the kernels see bf16 activations; norm statistics stay fp32.
 With weights already in `dtype` (the inference cast) nothing is autocast.
 
-`use_checkpoint` recomputes each VideoResBlock and SpatialVideoTransformer in
-the backward pass (`torch.utils.checkpoint`, non-reentrant), as the JAX UNet
+`use_checkpoint` recomputes each VideoResBlock and SpatialVideoTransformer
+(UNetModel: each ResBlock and SpatialTransformer) in the backward pass (`torch.utils.checkpoint`, non-reentrant), as the JAX UNet
 wraps them in `nn.remat`; it only acts while gradients are recorded.
 """
 
@@ -35,6 +35,7 @@ from .layers import (
     timestep_embedding,
     zero_module,
 )
+from .attention import SpatialTransformer
 from .video_attention import SpatialVideoTransformer
 
 
@@ -264,3 +265,148 @@ class VideoUNet(nn.Module):
             h = self._run(block, h, emb, context, t, image_only_indicator)
         out = self.out(h)
         return (out, cache) if return_encoder_cache else out
+
+
+class UNetModel(nn.Module):
+    """The 2-D image UNet (reference openaimodel.UNetModel; the SD/SDXL
+    denoiser family): VideoUNet's block plan with plain ResBlocks and
+    SpatialTransformers and no temporal part. x is (B, C_in, H, W),
+    timesteps (B,), context (B, S_ctx, context_dim), y (B,) class ids for
+    an int `num_classes`, (B,) values for "continuous" and (B,
+    adm_in_channels) for "sequential". Self-attention runs on K1 at every
+    length; cross-attention against the context is plain
+    (`ops.attention.cross_attention`), as the JAX package leaves it to XLA.
+    Heads come from `num_head_channels` (channels a head) or `num_heads`;
+    `use_linear_in_transformer` picks the transformers' projection layout.
+    Compute dtype and `use_checkpoint` work as in VideoUNet."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        model_channels: int,
+        out_channels: int,
+        num_res_blocks: int,
+        attention_resolutions: Sequence[int],
+        dropout: float = 0.0,
+        channel_mult: Sequence[int] = (1, 2, 4, 8),
+        num_classes: Optional[Union[int, str]] = None,
+        use_checkpoint: bool = False,
+        num_heads: int = -1,
+        num_head_channels: int = -1,
+        transformer_depth: Union[int, Sequence[int]] = 1,
+        context_dim: Optional[int] = None,
+        use_linear_in_transformer: bool = False,
+        adm_in_channels: Optional[int] = None,
+        spatial_transformer_attn_type: str = "softmax-xformers",  # YAML parity
+        dtype: Optional[str] = None,
+    ):
+        super().__init__()
+        if num_head_channels == -1 and num_heads == -1:
+            raise ValueError("either num_heads or num_head_channels must be set")
+        if dropout:
+            raise NotImplementedError("dropout > 0 is a training setting")
+        if num_classes is not None and not isinstance(num_classes, int) and \
+                num_classes not in ("sequential", "continuous"):
+            raise NotImplementedError(f"num_classes={num_classes!r} unsupported")
+        self.dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+        self.use_checkpoint = bool(use_checkpoint)
+        self.model_channels = model_channels
+        self.num_classes = num_classes
+        depth = ([transformer_depth] * len(channel_mult) if isinstance(transformer_depth, int)
+                 else list(transformer_depth))
+        input_plan, middle_plan, output_plan = _build_plan(
+            model_channels, channel_mult, num_res_blocks, attention_resolutions, depth
+        )
+        ted = model_channels * 4
+        self.time_embed = nn.Sequential(
+            nn.Linear(model_channels, ted), nn.SiLU(), nn.Linear(ted, ted)
+        )
+        if num_classes == "sequential":
+            self.label_emb = nn.Sequential(nn.Sequential(
+                nn.Linear(adm_in_channels, ted), nn.SiLU(), nn.Linear(ted, ted)
+            ))
+        elif num_classes == "continuous":
+            self.label_emb = nn.Linear(1, ted)
+        elif num_classes is not None:
+            self.label_emb = nn.Embedding(num_classes, ted)
+
+        def heads_for(ch):
+            if num_head_channels == -1:
+                return num_heads, ch // num_heads
+            return ch // num_head_channels, num_head_channels
+
+        def make(spec, ch):
+            kind = spec[0]
+            if kind == "conv_in":
+                return nn.Conv2d(in_channels, spec[1], 3, padding=1), spec[1]
+            if kind == "res":
+                return ResBlock(ch, ted, spec[1]), spec[1]
+            if kind == "attn":
+                return SpatialTransformer(ch, *heads_for(ch), depth=spec[2],
+                                          context_dim=context_dim,
+                                          use_linear=use_linear_in_transformer), ch
+            if kind == "down":
+                return Downsample(ch), ch
+            if kind == "up":
+                return Upsample(ch), ch
+            raise ValueError(kind)
+
+        def make_block(plan, ch):
+            layers = nn.ModuleList()
+            for spec in plan:
+                layer, ch = make(spec, ch)
+                layers.append(layer)
+            return layers, ch
+
+        ch = in_channels
+        skip_chans = []
+        self.input_blocks = nn.ModuleList()
+        for plan in input_plan:
+            block, ch = make_block(plan, ch)
+            self.input_blocks.append(block)
+            skip_chans.append(ch)
+        self.middle_block, ch = make_block(middle_plan, ch)
+        self.output_blocks = nn.ModuleList()
+        for plan in output_plan:
+            block, ch = make_block(plan, ch + skip_chans.pop())
+            self.output_blocks.append(block)
+        self.out = nn.Sequential(
+            GroupNorm32(ch, act="silu"), nn.Identity(),
+            zero_module(nn.Conv2d(model_channels, out_channels, 3, padding=1)),
+        )
+
+    def _run(self, layers, h, emb, context):
+        remat = self.use_checkpoint and torch.is_grad_enabled()
+        for layer in layers:
+            if isinstance(layer, ResBlock):
+                args = (h, emb)
+            elif isinstance(layer, SpatialTransformer):
+                args = (h, context)
+            else:
+                h = layer(h)
+                continue
+            h = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
+        return h
+
+    def forward(self, x, timesteps, context=None, y=None):
+        weight_dtype = self.time_embed[0].weight.dtype
+        dtype = self.dtype or weight_dtype
+        with torch.autocast(x.device.type, dtype=dtype, enabled=dtype != weight_dtype):
+            emb = self.time_embed(timestep_embedding(timesteps, self.model_channels).to(dtype))
+            if self.num_classes == "continuous":
+                emb = emb + self.label_emb(y.to(dtype)[:, None])
+            elif isinstance(self.num_classes, int):
+                emb = emb + self.label_emb(y.long()).to(emb.dtype)
+            elif self.num_classes is not None:
+                emb = emb + self.label_emb(y.to(dtype))
+            if context is not None:
+                context = context.to(dtype)
+            h = x.to(dtype)
+            skips = []
+            for block in self.input_blocks:
+                h = self._run(block, h, emb, context)
+                skips.append(h)
+            h = self._run(self.middle_block, h, emb, context)
+            for block in self.output_blocks:
+                h = self._run(block, torch.cat([h, skips.pop()], dim=1), emb, context)
+            return self.out(h)

@@ -40,7 +40,9 @@ _ALIASES: Dict[str, str] = {
     "sgm.modules.diffusionmodules.loss_weighting.EpsWeighting": f"{_P}.diffusion.weighting:EpsWeighting",
     # networks
     "sgm.modules.diffusionmodules.video_model.VideoUNet": f"{_P}.models.unet:VideoUNet",
+    "sgm.modules.diffusionmodules.openaimodel.UNetModel": f"{_P}.models.unet:UNetModel",
     "sgm.modules.diffusionmodules.wrappers.OpenAIWrapper": f"{_P}.models.wrappers:ConcatConditionWrapper",
+    "sgm.modules.diffusionmodules.wrappers.IdentityWrapper": f"{_P}.models.wrappers:IdentityWrapper",
     # autoencoder
     "sgm.models.autoencoder.AutoencoderKL": f"{_P}.models.vae:AutoencoderKL",
     "sgm.models.autoencoder.AutoencoderKLModeOnly": f"{_P}.models.vae:AutoencoderKLModeOnly",
@@ -75,6 +77,14 @@ _ALIASES: Dict[str, str] = {
     "sgm.modules.encoders.modules.VideoPredictionEmbedderWithEncoder": f"{_P}.conditioners:VideoPredictionEmbedderWithEncoder",
     "vtdm.encoders.AesEmbedder": f"{_P}.conditioners:AesEmbedder",
     "vtdm.encoders.DepthEmbedder": f"{_P}.conditioners:DepthEmbedder",
+    **{f"sgm.modules.encoders.modules.{name}": f"{_P}.conditioners:{name}"
+       for name in ("FrozenOpenCLIPEmbedder", "IdentityEncoder", "ClassEmbedder",
+                    "SpatialRescaler", "FrozenT5Embedder", "FrozenByT5Embedder",
+                    "FrozenCLIPEmbedder", "FrozenCLIPT5Encoder", "ClassEmbedderForMultiCond",
+                    "LowScaleEncoder", "GaussianEncoder")},
+    # sgm's second OpenCLIP text embedder (SDXL) takes the same options here
+    "sgm.modules.encoders.modules.FrozenOpenCLIPEmbedder2": f"{_P}.conditioners:FrozenOpenCLIPEmbedder",
+    "sgm.modules.encoders.modules.InceptionV3": f"{_P}.models.inception:InceptionV3",
     # task layer
     "vtdm.vtdm_gen_v01.VideoLDM": f"{_P}.engine:VideoLDM",
     "vtdm.vtdm_gen_stage2_degradeImage.VideoLDM": f"{_P}.engine:VideoLDMStage2",

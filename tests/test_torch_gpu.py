@@ -1021,3 +1021,81 @@ def test_ae_generator_pass_on_the_card_matches_the_cpu(cuda):
     assert 0 < want["d_weight"] < 1e4
     errs, bounds = ae_pass_errors(got, want)
     assert all(errs[k] <= b for k, b in bounds.items()), (errs, bounds)
+
+
+@pytest.mark.gpu
+def test_text_tower_layer_norms_run_on_the_kernel(cuda):
+    """The CLIP text tower in bf16 on the card: each LayerNorm32 (ln_1,
+    ln_2 of every block, ln_final) is one #10 launch, and the output agrees
+    with the same tower in fp32 on the CPU (relative L2, bf16's error)."""
+    import copy
+
+    from hi3d_tpu_torch.models.clip import CLIPTextTransformer
+
+    torch.manual_seed(0)
+    tower = CLIPTextTransformer(vocab_size=1000, width=768, layers=2, heads=12, proj_dim=768,
+                                quick_gelu=True)
+    ids = torch.randint(1, 999, (2, 77))
+    cpu = copy.deepcopy(tower)
+    with torch.no_grad():
+        want_pooled, _, want = cpu(ids)
+        tower.to(cuda, torch.bfloat16)
+        ln.layer_norm.launches = 0
+        pooled, _, got = tower(ids.to(cuda))
+    assert ln.layer_norm.launches == 2 * 2 + 1
+    for a, b in ((got["final"], want["final"]), (pooled, want_pooled)):
+        assert ((a.float().cpu() - b).norm() / b.norm()).item() < 2e-2
+
+
+@pytest.mark.gpu
+def test_unet2d_launches_k1_and_k3_and_matches_plain(cuda):
+    """A narrow UNetModel (two levels, self-attention at 256 and 64 tokens,
+    head dim 64, a 77-token context) in bf16: K1 once per transformer block,
+    K3 twice per ResBlock, once per SpatialTransformer and once for out.0,
+    in both transformer layouts; the output agrees with its plain versions
+    on the CPU in bf16 (relative L2)."""
+    import copy
+
+    from hi3d_tpu_torch.models.unet import UNetModel, _build_plan
+
+    inp, mid, out = _build_plan(128, [1, 2], 1, [1, 2], [1, 1])
+    specs = [s for block in inp + [mid] + out for s in block]
+    n_attn, n_res = (sum(s[0] == kind for s in specs) for kind in ("attn", "res"))
+    assert (n_attn, n_res) == (7, 8)
+    for linear in (True, False):
+        torch.manual_seed(1)
+        net = UNetModel(in_channels=4, out_channels=4, model_channels=128, num_res_blocks=1,
+                        channel_mult=[1, 2], attention_resolutions=[1, 2], num_head_channels=64,
+                        context_dim=256, use_linear_in_transformer=linear).eval()
+        for p in net.parameters():
+            if not p.any():
+                torch.nn.init.normal_(p, std=0.02)
+        x, t, ctx = torch.randn(2, 4, 16, 16), torch.tensor([10.0, 900.0]), torch.randn(2, 77, 256)
+        cpu = copy.deepcopy(net).to(torch.bfloat16)
+        net.to(cuda, torch.bfloat16)
+        fa.flash_attention.launches = gn.group_norm.launches = 0
+        with torch.no_grad():
+            out = net(x.to(cuda), t.to(cuda), context=ctx.to(cuda)).float().cpu()
+            ref = cpu(x, t, context=ctx).float()
+        assert fa.flash_attention.launches == n_attn
+        assert gn.group_norm.launches == 2 * n_res + n_attn + 1
+        assert ((out - ref).norm() / ref.norm()).item() < 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["bilinear", "cubic", "nearest"])
+def test_antialiased_resize_on_the_card_matches_the_cpu(cuda, method):
+    """jax.image.resize's semantics (`models.clip.image_resize`) on the card
+    against the CPU: 512² → 299² and 64² → 160², fp32 (TF32 off)."""
+    from hi3d_tpu_torch.models.clip import image_resize
+
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for src, dst in ((512, 299), (64, 160)):
+            x = torch.rand(2, 3, src, src, generator=torch.Generator().manual_seed(src))
+            got = image_resize(x.to(cuda), (dst, dst), method).cpu()
+            want = image_resize(x, (dst, dst), method)
+            assert (got - want).abs().max().item() <= 1e-6
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
