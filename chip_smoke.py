@@ -1,5 +1,6 @@
 """GPU smoke run of the PyTorch port's inference, training (stage 1 and 2; one process,
-and in a process group), serving, autoencoder and text-to-image paths on one NVIDIA H100.
+and in a process group), serving, autoencoder, text-to-image and module-surface paths on
+one NVIDIA H100.
 
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --profile-serve  # only a 2-step profile of the serve batch
@@ -21,6 +22,8 @@ and in a process group), serving, autoencoder and text-to-image paths on one NVI
     python3 chip_smoke.py --replay-degradation [PLANS]  # only the stage-2 degradation on
                                            # the card against its CPU replay at 1024²
     python3 chip_smoke.py --t2i            # only main paths 14 and 15 with their phases
+    python3 chip_smoke.py --module-surface # only main path 16 (16 random frames stand in
+                                           # for path 1's)
 
 1. prints the card (nvidia-smi name and power limit) and fails without CUDA;
 2. builds the kernels from this checkout (`hi3d_tpu_torch/csrc`);
@@ -37,8 +40,8 @@ and in a process group), serving, autoencoder and text-to-image paths on one NVI
    holds its output, then its parameter gradient, against the same weights
    on the CPU (plain versions, fp32 and bf16); the same for the output and
    the gradient of the full-width stage-2 UNet (17 input channels), and for
-   the stage-1 UNet's output and gradient at a 33-frame clip (every
-   frame-axis site on #6/#7);
+   the stage-1 UNet's gradient and, from the same passes, its output at a
+   33-frame clip (every frame-axis site on #6/#7);
 5. main path 1: `hi3d_tpu_torch.pipelines.i2v.main` on `demo/3.png` at full
    width (configs/inference-v01.yaml, 16×512², random weights); checks the
    frames and every kernel's launch count against the model's plan;
@@ -76,7 +79,8 @@ and in a process group), serving, autoencoder and text-to-image paths on one NVI
    steps each stage, both engines resident: 2 × 16 × 1024² frames, the
    launch counts, peak memory, s/asset;
 11. main path 7: `i2v.main --cfg_interval 0.3 6` as path 1 (CFG on steps
-   15–19, one conditioned pass of 16 frames on the other 20); main path 8:
+   15–19, one conditioned pass of 16 frames on the other 20) on
+   tests/data/torch_jpeg/demo3_q90.jpg (demo/3.png as a JPEG); main path 8:
    `v2v.main --encoder_reuse 3` on path 1's frames (9 whole UNet calls, 16
    from the encoder cache); main path 9: `generate_orbit` on one stage-1
    engine with each other sampler (Heun, Euler ancestral, DPM++(2S) at η =
@@ -107,8 +111,10 @@ and in a process group), serving, autoencoder and text-to-image paths on one NVI
    Trainer (no group); from that state, one plain step and one ZeRO step
    of one batch with one generator seed (cuDNN deterministic for both):
    the loss and every parameter bit-equal, the gradient norm within 1e-6;
+   then the same step with `param_sharding="fsdp"`, held to the same;
    prints s/step, peak memory and the reduce-scatter and all-gather ms
-   beside path 2's;
+   beside path 2's, and the bytes of trained state each step keeps between
+   steps;
 14. main path 12: `training.ae_step.AutoencoderTrainer` on an
    `AutoencodingEngine` with configs/inference-v01.yaml's VAE (Encoder,
    2-D Decoder, a sampling Gaussian regularizer), a 3-layer PatchGAN and a
@@ -1172,16 +1178,18 @@ def two_stage_launches(stage1: str, stage2: str, steps: int, batches: int, asset
     return _sum_launches(*(per_batch * batches))
 
 
-def _full_width_unet(config_path: str, b: int = 2, t: int = 4):
+def _full_width_unet(config_path: str, b: int = 2, t: int = 4, hw: int = 16, overrides=None):
     """The config's full-width UNet on the card, fp32 weights, seeded; the
     zero-initialised leaves (out convs, proj_out) get random values: with
-    them at zero the output would be 0 whatever the kernels do. Inputs: `b`
-    videos of `t` frames at a 16² latent."""
+    them at zero the output would be 0 whatever the kernels do. `overrides`
+    replace network parameters (main path 16's options). Inputs: `b` videos
+    of `t` frames at an `hw`² latent."""
     import torch
 
     from hi3d_tpu_torch.config import instantiate_from_config, load_config
 
     cfg = load_config(config_path)["model"]["params"]["network_config"]
+    cfg = {**cfg, "params": {**cfg["params"], **(overrides or {})}}
     with torch.random.fork_rng(devices=[0]), torch.device("cuda"):
         torch.manual_seed(0)
         unet = instantiate_from_config(cfg).eval()
@@ -1191,7 +1199,6 @@ def _full_width_unet(config_path: str, b: int = 2, t: int = 4):
             if not p.any():
                 p.normal_(0.0, 0.02, generator=gen)
     p = cfg["params"]
-    hw = 16
     inputs = dict(
         x=torch.randn((b * t, p["in_channels"], hw, hw), generator=gen, device="cuda"),
         timesteps=0.25 * torch.log(torch.rand((b * t,), generator=gen, device="cuda") * 100 + 0.01),
@@ -1206,21 +1213,38 @@ def _run_unet(net, inputs, t, dev):
     return net(**{k: v.to(dev) for k, v in inputs.items()}, num_video_frames=t)
 
 
-def _check_frame_route(config_path: str, t: int, backward: bool) -> None:
-    """The frame-axis kernels that ran since the last `reset_launches` are
-    the route's for the config's UNet at `t` frames (and its backward when
-    `backward`), and the other route's did not run."""
-    want = _frame_kernels(unet_frame_route(config_path, t), 1, 1 if backward else 0)
-    got = read_launches(want)
-    if {n: min(c, 1) for n, c in got.items()} != want:
-        raise AssertionError(f"frame-axis kernels at T={t}: launches {got}, route {want}")
+def unet_module_launches(net, t: int, time_context: bool = False) -> dict:
+    """Launches of one forward of a VideoUNet, counted from the module: K1
+    once per BasicTransformerBlock, the frame kernel of `t` frames once per
+    frame self-attention its SpatialVideoTransformers run
+    (`frame_self_attentions`: two a temporal block without the spatial
+    context or a time_context), K3 once per GroupNorm32 and #10 once per
+    LayerNorm32."""
+    from hi3d_tpu_torch.models.attention import BasicTransformerBlock, LayerNorm32
+    from hi3d_tpu_torch.models.layers import GroupNorm32
+    from hi3d_tpu_torch.models.video_attention import SpatialVideoTransformer
+    from hi3d_tpu_torch.ops.attention import frame_attention_kernel
+
+    mods = list(net.modules())
+    svt = [m for m in mods if isinstance(m, SpatialVideoTransformer)]
+    frames = sum(m.frame_self_attentions(time_context) for m in svt)
+    d = svt[0].transformer_blocks[0].attn1.dim_head
+    return {"flash_attention": sum(isinstance(m, BasicTransformerBlock) for m in mods),
+            "flash_attention_backward": 0,
+            **_frame_kernels(frame_attention_kernel(t, d), frames, 0),
+            "group_norm": sum(isinstance(m, GroupNorm32) for m in mods), "group_stats": 0,
+            "layer_norm": sum(isinstance(m, LayerNorm32) for m in mods)}
 
 
-def unet_reference_phase(config_path: str, b: int = 2, t: int = 4) -> float:
+def unet_reference_phase(config_path: str, b: int = 2, t: int = 4, hw: int = 16,
+                         overrides=None, label: str = "") -> dict:
     """The full-width UNet of the config, one call at a small input (`b`
-    videos × `t` frames, 16² latent): bf16 on the card through K1, the frame
-    kernel of `t` frames (K2 or #6) and K3, held against the same weights in
-    fp32 on the CPU through the plain versions.
+    videos × `t` frames, `hw`² latent; `overrides` replace network
+    parameters): bf16 on the card through K1, the frame kernel of `t`
+    frames (K2 or #6) and K3, held against the same weights in fp32 on the
+    CPU through the plain versions. Returns the card call's launches, which
+    must equal `unet_module_launches` of the module; prints each pass's
+    seconds.
 
     Tolerance: bf16 itself is ~1.6e-2 of relative L2 error here (the plain
     versions in bf16 on the CPU measure that in the same run), so the card's
@@ -1230,28 +1254,40 @@ def unet_reference_phase(config_path: str, b: int = 2, t: int = 4) -> float:
     import torch
 
     t0 = time.perf_counter()
-    unet, inputs, t = _full_width_unet(config_path, b, t)
-    cpu_fp32 = copy.deepcopy(unet).to("cpu", torch.float32)
-    cpu_bf16 = copy.deepcopy(unet).to("cpu", torch.bfloat16)
+    unet, inputs, t = _full_width_unet(config_path, b, t, hw, overrides)
+    expected = unet_module_launches(unet, t)
+    cpu = copy.deepcopy(unet).to("cpu", torch.float32)
     unet.to(torch.bfloat16)
+    secs = {"build": time.perf_counter() - t0}
     reset_launches()
     with torch.no_grad():
+        t1 = time.perf_counter()
         out = _run_unet(unet, inputs, t, "cuda").float().cpu()
-        _check_frame_route(config_path, t, backward=False)
-        ref, plain = (_run_unet(net, inputs, t, "cpu").float() for net in (cpu_fp32, cpu_bf16))
+        launches = read_launches(expected)
+        secs["card"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        ref = _run_unet(cpu, inputs, t, "cpu").float()
+        secs["cpu fp32"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        plain = _run_unet(cpu.to(torch.bfloat16), inputs, t, "cpu").float()  # cast in place
+        secs["cpu bf16"] = time.perf_counter() - t1
+    _check_launches(launches, expected)
     if not torch.isfinite(out).all():
         raise AssertionError("UNet output on the card is not finite")
     rel, plain_rel = (((a - ref).norm() / ref.norm()).item() for a in (out, plain))
-    print(f"[smoke] full-width UNet of {os.path.basename(config_path)}, {b}×{t} frames at 16² "
-          f"latent, vs CPU fp32: card bf16 "
-          f"relative L2 error {rel:.3e}, plain bf16 {plain_rel:.3e} (tol {1.5 * plain_rel:.3e}) "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"[smoke] full-width UNet of {os.path.basename(config_path)}{label}, {b}×{t} frames at "
+          f"{hw}² latent, vs CPU fp32: card bf16 relative L2 error {rel:.3e}, plain bf16 "
+          f"{plain_rel:.3e} (tol {1.5 * plain_rel:.3e}); launches {launches}; seconds "
+          f"{ {k: round(v, 1) for k, v in secs.items()} } ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
     if not rel <= 1.5 * plain_rel:
         raise AssertionError(f"UNet on the card: error {rel} > 1.5 × plain bf16 {plain_rel}")
-    return rel
+    del unet, cpu
+    torch.cuda.empty_cache()
+    return launches
 
 
-def unet_gradient_phase(config_path: str, b: int = 2, t: int = 4) -> dict:
+def unet_gradient_phase(config_path: str, b: int = 2, t: int = 4, outputs: bool = False) -> dict:
     """The gradient of a loss on the full-width UNet (same set-up as
     `unet_reference_phase`) with respect to every parameter, training's way
     on the card — fp32 weights, bf16 compute under the UNet's autocast,
@@ -1266,7 +1302,10 @@ def unet_gradient_phase(config_path: str, b: int = 2, t: int = 4) -> dict:
     nonzero wherever the fp32 reference's is (the only exact zeros are the
     to_q / to_k / norm2 of the cross-attentions over one context token,
     whose softmax over one key is constant); the card's launches equal the
-    UNet's plan for one forward and backward. Returns those launches."""
+    UNet's plan for one forward and backward. With `outputs`, the forward
+    outputs of the same passes are held as `unet_reference_phase` holds
+    its: the card's within 1.5× the plain bf16 path's error. Prints each
+    pass's seconds. Returns the launches."""
     import copy
 
     import torch
@@ -1278,43 +1317,87 @@ def unet_gradient_phase(config_path: str, b: int = 2, t: int = 4) -> dict:
     gen = torch.Generator().manual_seed(5)
     out_shape = (inputs["x"].shape[0], 4, *inputs["x"].shape[2:])
     cot = torch.randn(out_shape, generator=gen)
+    secs = {"build": time.perf_counter() - t0}
 
-    def grads(net, dev, dtype):
+    def grads(net, dev, dtype, label):
+        t1 = time.perf_counter()
         net.dtype = dtype
         net.zero_grad(set_to_none=True)
-        loss = (_run_unet(net, inputs, t, dev).float() * cot.to(dev)).mean()
+        out = _run_unet(net, inputs, t, dev).float()
+        loss = (out * cot.to(dev)).mean()
         loss.backward()
         gs = [torch.zeros(p.numel()) if p.grad is None else p.grad.detach().float().flatten().cpu()
               for p in net.parameters()]
-        return gs, loss.item()
+        secs[label] = time.perf_counter() - t1
+        return gs, loss.item(), out.detach().cpu()
 
     expected = expected_launches(config_path, 1, "unet_grad", clip_size=t)
     reset_launches()
-    card, card_loss = grads(unet, "cuda", torch.bfloat16)
+    card, card_loss, card_out = grads(unet, "cuda", torch.bfloat16, "card")
     launches = read_launches(expected)
     _check_launches(launches, expected)
-    ref, ref_loss = grads(cpu, "cpu", torch.float32)
-    plain, _ = grads(cpu, "cpu", torch.bfloat16)
+    ref, ref_loss, ref_out = grads(cpu, "cpu", torch.float32, "cpu fp32")
+    plain, _, plain_out = grads(cpu, "cpu", torch.bfloat16, "cpu bf16")
     names = [n for n, _ in unet.named_parameters()]
-    zero_ref = 0
-    for name, g, r in zip(names, card, ref):
-        if not torch.isfinite(g).all():
-            raise AssertionError(f"gradient of {name} on the card is not finite")
-        if r.any() and not g.any():
-            raise AssertionError(f"gradient of {name} is 0 on the card, nonzero in the reference")
-        zero_ref += not r.any()
-    card, ref, plain = (torch.cat(v) for v in (card, ref, plain))
-    rel, plain_rel = (((a - ref).norm() / ref.norm()).item() for a in (card, plain))
+    # per-tensor norms find the candidates (a non-finite entry makes the norm
+    # non-finite; a norm of 0 means zeros, or entries whose squares
+    # underflow); each candidate is checked entry by entry
+    card_n, ref_n = (torch.stack(torch._foreach_norm(gs)) for gs in (card, ref))
+    for i in torch.nonzero(~torch.isfinite(card_n)).flatten().tolist():
+        if not torch.isfinite(card[i]).all():
+            raise AssertionError(f"gradient of {names[i]} on the card is not finite")
+    for i in torch.nonzero(card_n == 0).flatten().tolist():
+        if ref[i].any() and not card[i].any():
+            raise AssertionError(f"gradient of {names[i]} is 0 on the card, nonzero in the "
+                                 "reference")
+    zero_ref = sum(not ref[i].any() for i in torch.nonzero(ref_n == 0).flatten().tolist())
+    # relative L2 over all the gradients from per-tensor norms, summed in
+    # float64 (no concatenated copies of the 1.5 G values)
+    ref_sq = ref_n.double().square().sum().item()
+    rel, plain_rel = ((torch.stack(torch._foreach_norm(torch._foreach_sub(gs, ref))).double()
+                       .square().sum().item() / ref_sq) ** 0.5 for gs in (card, plain))
+    numel = sum(r.numel() for r in ref)
+    out_line = ""
+    if outputs:
+        out_rel, out_plain = (((a - ref_out).norm() / ref_out.norm()).item()
+                              for a in (card_out, plain_out))
+        out_line = (f"; its forward output: card relative L2 error {out_rel:.3e}, plain bf16 "
+                    f"{out_plain:.3e} (tol {1.5 * out_plain:.3e})")
+        if not torch.isfinite(card_out).all() or not out_rel <= 1.5 * out_plain:
+            raise AssertionError(f"UNet output on the card: error {out_rel} > 1.5 × plain bf16 "
+                                 f"{out_plain}")
     print(f"[smoke] full-width UNet gradient, {b}×{t} frames ({len(names)} tensors, "
-          f"{ref.numel()} values), loss card {card_loss:.6f} ref {ref_loss:.6f}: card relative L2 "
+          f"{numel} values), loss card {card_loss:.6f} ref {ref_loss:.6f}: card relative L2 "
           f"error {rel:.3e}, plain bf16 {plain_rel:.3e} (tol {1.5 * plain_rel:.3e}); every "
           f"gradient finite, nonzero where the reference's is ({zero_ref} structurally zero in "
-          f"both) ({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"both){out_line}; seconds { {k: round(v, 1) for k, v in secs.items()} } "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
     if not rel <= 1.5 * plain_rel:
         raise AssertionError(f"UNet gradient on the card: error {rel} > 1.5 × plain bf16 {plain_rel}")
     del unet, cpu
     torch.cuda.empty_cache()
     return launches
+
+
+def reference_phases() -> dict:
+    """Phase 4: the full-width UNets of both stages on the card against the
+    CPU, output and gradient, and the stage-1 UNet's gradient and output at
+    a LONG_UNET_CLIP clip (every frame-axis site on #6 forward and #7
+    backward). Returns the gradient phases' launches by name."""
+    t0 = time.perf_counter()
+    inference = os.path.join(ROOT, "configs", "inference-v01.yaml")
+    stage2 = os.path.join(ROOT, "configs", "inference-v02.yaml")
+    unet_reference_phase(inference)
+    unet_gradient_phase(inference)
+    unet_reference_phase(stage2)
+    by_path = {"unet_grad_stage2": unet_gradient_phase(stage2)}
+    # the long clip's output is held inside its gradient phase (the same
+    # fp32 reference, the same bound), one full-width build and two CPU
+    # forward passes fewer than a reference phase of its own
+    by_path[f"unet_grad_t{LONG_UNET_CLIP}"] = unet_gradient_phase(inference, b=1,
+                                                                  t=LONG_UNET_CLIP, outputs=True)
+    print(f"[smoke] reference phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    return by_path
 
 
 def _check_frames(frame_dir: str, shape) -> None:
@@ -1418,12 +1501,14 @@ def _run_printing_phases(tag: str, fn, argv) -> dict:
     return json.loads(lines[-1][len(head):])
 
 
-def main_path(steps: int, flags=(), label: str = "1", want_calls=None):
-    """Stage-1 CLI at full width (with `flags`, path 7's --cfg_interval);
-    checks the frames, the UNet's calls (`want_calls`: by kind and batch;
-    25 CFG-doubled calls of 32 frames by default) and the launches; returns
-    the launch count of each kernel, the output directory (its frames feed
-    main paths 3 and 8) and the phase seconds."""
+def main_path(steps: int, flags=(), label: str = "1", want_calls=None,
+              image: str = os.path.join(ROOT, "demo", "3.png")):
+    """Stage-1 CLI at full width on `image` (with `flags`, path 7's
+    --cfg_interval; path 7 reads a JPEG); checks the frames, the UNet's
+    calls (`want_calls`: by kind and batch; 25 CFG-doubled calls of 32
+    frames by default) and the launches; returns the launch count of each
+    kernel, the output directory (its frames feed main paths 3 and 8) and
+    the phase seconds."""
     import torch
 
     from hi3d_tpu_torch.pipelines import i2v
@@ -1435,7 +1520,7 @@ def main_path(steps: int, flags=(), label: str = "1", want_calls=None):
     t0 = time.perf_counter()
     with UNetProbe() as probe:
         phases = _run_printing_phases("i2v", i2v.main, [
-            "--denoise_config", config, "--image_path", os.path.join(ROOT, "demo", "3.png"),
+            "--denoise_config", config, "--image_path", image,
             "--output_dir", out_dir, "--skip_rembg", "--device", "cuda", "--seed", "0",
             "--num_steps", str(steps), *flags])
     launches = read_launches(expected)
@@ -2416,7 +2501,12 @@ def _dist_step_check(engine, batch, host_params, host_opt, lr, want) -> str:
     state (`host_params`, `host_opt`: weights and AdamW moments on the host),
     under a world-1 NCCL group, against the plain step's loss and updated
     parameters (`want`): the loss and every parameter bit-equal, the
-    gradient norm within a stated bound."""
+    gradient norm within a stated bound; then the same step with the
+    parameters sharded (`param_sharding="fsdp"`), held to the same, its
+    parameters gathered for the comparison. Reports each step's seconds and
+    the bytes of trained state it keeps between steps (`TrainStep.
+    resident_bytes`: at world 1 "fsdp" keeps the parameter slice and the
+    moments, without the full flat parameters and gradients)."""
     import torch
 
     from hi3d_tpu_torch.parallel import dist as pdist
@@ -2425,44 +2515,61 @@ def _dist_step_check(engine, batch, host_params, host_opt, lr, want) -> str:
     from hi3d_tpu_torch.training.step import TrainStep
 
     params = [p for _, p in freeze_frozen(engine, engine.trained_param_keys)]
-    with torch.no_grad():
-        for p, h in zip(params, host_params):
-            p.grad = None
-            p.copy_(h)
+    report = {}
     with torchrun_env():
         _, own = pdist.init("cuda")
         if not own:
             raise AssertionError("main path 11's step check found a process group already open")
         try:
-            opt = build_optimizer(params, lr)
-            if not isinstance(opt, ZeroAdamW):
-                raise AssertionError(f"the optimizer in a process group is {type(opt).__name__}")
-            opt.load_state_dict(host_opt)
-            step = TrainStep(engine.make_loss_fn(), params, opt)
-            with CollectiveProbe() as coll:
-                got = step(batch, torch.Generator(device=batch["video"].device).manual_seed(7))
-            ms = coll.ms()
+            for sharding in ("replicated", "fsdp"):
+                with torch.no_grad():
+                    for p, h in zip(params, host_params):
+                        p.grad = None
+                        p.copy_(h)
+                opt = build_optimizer(params, lr)
+                if not isinstance(opt, ZeroAdamW):
+                    raise AssertionError(f"the optimizer in a process group is "
+                                         f"{type(opt).__name__}")
+                opt.load_state_dict(host_opt)
+                step = TrainStep(engine.make_loss_fn(), params, opt, param_sharding=sharding)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with CollectiveProbe() as coll:
+                    got = step(batch, torch.Generator(device=batch["video"].device).manual_seed(7))
+                    loss, norm = float(got["loss"]), float(got["grad_norm"])
+                secs = time.perf_counter() - t0
+                resident = step.resident_bytes()
+                if loss != want["loss"]:
+                    raise AssertionError(f"{sharding} step loss {loss!r} != plain {want['loss']!r}")
+                with step.gathered():
+                    differ = [i for i, (p, w) in enumerate(zip(params, want["params"]))
+                              if not torch.equal(p.detach().cpu(), w)]
+                    if differ:
+                        worst = max((params[i].detach().cpu() - want["params"][i]).abs().max()
+                                    .item() for i in differ)
+                        raise AssertionError(f"{sharding}: {len(differ)} of {len(params)} "
+                                             f"parameters differ from the plain step's (max "
+                                             f"|Δ| {worst:.3e})")
+                norm_err = abs(norm - want["grad_norm"]) / want["grad_norm"]
+                if norm_err > 1e-6:  # sqrt(x²) against x, the norms of the same per-parameter norms
+                    raise AssertionError(f"{sharding} grad_norm {norm!r} against the plain "
+                                         f"step's {want['grad_norm']!r}")
+                report[sharding] = dict(secs=secs, resident=resident, norm_err=norm_err,
+                                        ms=coll.ms())
+                del opt, step, got
+                torch.cuda.empty_cache()
         finally:
             torch.distributed.destroy_process_group()
-    if float(got["loss"]) != want["loss"]:
-        raise AssertionError(f"distributed step loss {float(got['loss'])!r} != plain "
-                             f"{want['loss']!r}")
-    differ = [i for i, (p, w) in enumerate(zip(params, want["params"]))
-              if not torch.equal(p.detach().cpu(), w)]
-    if differ:
-        worst = max((params[i].detach().cpu() - want["params"][i]).abs().max().item()
-                    for i in differ)
-        raise AssertionError(f"{len(differ)} of {len(params)} parameters differ from the plain "
-                             f"step's (max |Δ| {worst:.3e})")
-    norm_err = abs(float(got["grad_norm"]) - want["grad_norm"]) / want["grad_norm"]
-    if norm_err > 1e-6:  # sqrt(x²) against x, the norms of the same per-parameter norms
-        raise AssertionError(f"grad_norm {float(got['grad_norm'])!r} against the plain step's "
-                             f"{want['grad_norm']!r}")
-    del opt, step
+    rep, fsdp = report["replicated"], report["fsdp"]
     return (f"step check: loss {want['loss']!r} bit-equal, {len(params)} of {len(params)} "
             f"parameters bit-equal after the update, grad_norm relative difference "
-            f"{norm_err:.2e} (bound 1e-6); its collectives reduce-scatter "
-            f"{ms['reduce_scatter_tensor']} ms, all-gather {ms['all_gather_into_tensor']} ms")
+            f"{rep['norm_err']:.2e} (bound 1e-6); its collectives reduce-scatter "
+            f"{rep['ms']['reduce_scatter_tensor']} ms, all-gather "
+            f"{rep['ms']['all_gather_into_tensor']} ms; the fsdp step: loss and every parameter "
+            f"bit-equal too, grad_norm {fsdp['norm_err']:.2e}; seconds a step replicated "
+            f"{rep['secs']:.3f}, fsdp {fsdp['secs']:.3f}; trained state kept between steps "
+            f"replicated {rep['resident']} B ({rep['resident'] / 2**30:.2f} GiB), fsdp "
+            f"{fsdp['resident']} B ({fsdp['resident'] / 2**30:.2f} GiB)")
 
 
 def distributed_training_path(path2: dict, steps: int = DIST_TRAIN_STEPS) -> dict:
@@ -3537,6 +3644,357 @@ def t2i_phases(frames_dir=None) -> dict:
     return by_path
 
 
+# ------------------------------------------------------------ main path 16
+def path1_frames(stage1_dir) -> np.ndarray:
+    """Main path 1's 16 frames (16 seeded random 512² frames stand in
+    without them)."""
+    from hi3d_tpu_torch.utils.video import import_video
+
+    if stage1_dir is None:
+        return np.random.RandomState(0).randint(0, 256, (16, 512, 512, 3), dtype=np.uint8)
+    return import_video(os.path.join(stage1_dir, "first_step", "frames"), 16)
+
+
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_jpeg")
+PATH7_IMAGE = os.path.join(JPEG_FIXTURES, "demo3_q90.jpg")  # path 7 reads a JPEG
+SPLAT_MODES = ("sum", "avg", "linear", "soft")
+# fp32 on the card against float64 on the CPU, relative to the largest entry
+# of each tensor: sums of a few bilinear terms (the card's atomics add them
+# in any order: (k − 1)·2⁻²⁴ of their magnitudes) and one division
+WARP_TOL = 1e-5
+# softsplat's flow gradient differences neighbouring samples: on smooth
+# frames fp32 loses 2⁻²⁴ of terms far larger than their difference, so its
+# error depends on the data (`flow_grad_readings`, 6 seeds × 4 modes: on
+# demo/3.png's frames the card's fp32 is up to 1.15e-4 off float64 and the
+# host CPU's fp32 up to 7.4e-5, on noise frames both under 1.4e-6; the
+# card's error at most 2.2× the host's where the host's passes 1e-6). Its
+# bound is the host fp32's error on the same inputs times this factor, and
+# never below WARP_TOL
+FLOW_GRAD_FACTOR = 4
+# PWC-Net's pyramid for a 512² frame: (channels, side) at levels 6 … 2
+PWC_LEVELS = ((196, 8), (128, 16), (96, 32), (64, 64), (32, 128))
+# the VideoUNet options of main path 16: no spatial context and no
+# time_context (attn2 attends over the frames: two frame kernels a block),
+# 1×1-conv projections, an inert dropout
+UNET_OPTIONS = {"use_spatial_context": False, "use_linear_in_transformer": False,
+                "dropout": 0.1}
+OPTIONS_CHECK = dict(b=1, t=4, hw=32)  # the options' card-against-CPU call
+COND_SIGMA = {"target": "sgm.modules.diffusionmodules.sigma_sampling.EDMSampling",
+              "params": {"p_mean": -3.0, "p_std": 0.5}}
+
+
+def _warp_err(got, want) -> float:
+    return ((got.double().cpu() - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def _splat_inputs(frames: np.ndarray, seed: int = 16):
+    """softsplat's inputs on `frames` (T, H, W, 3) uint8: the frames in
+    [0, 1], a seeded smooth flow of up to ±12 px quantised to 1/1024 px (so
+    that fp32 and float64 land each pixel on the same integer grid cell), a
+    metric in [0.5, 1.5) (a signed metric makes linear splatting's
+    normaliser cancel, and the division ill-conditioned in fp32) and a
+    cotangent, all float32 on the CPU."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.from_numpy(frames).permute(0, 3, 1, 2).float() / 255.0
+    t, _, h, w = x.shape
+    flow = F.interpolate(torch.randn(t, 2, h // 64, w // 64, generator=gen) * 6.0, size=(h, w),
+                         mode="bicubic", align_corners=False).clamp(-12, 12)
+    flow = torch.round(flow * 1024) / 1024
+    metric = 0.5 + torch.rand(t, 1, h, w, generator=gen)  # a positive weight, as linear needs
+    cot = torch.randn(t, 3, h, w, generator=gen)
+    return x, flow, metric, cot
+
+
+def _splat_call(mode: str, inputs, dev: str, dtype) -> list:
+    """softsplat in `mode` and the gradients of sum(out · cotangent): out,
+    ingrad, flowgrad[, metricgrad]."""
+    import torch
+
+    from hi3d_tpu_torch.ops.softsplat import softsplat
+
+    x, flow, metric, cot = inputs
+    a, f, m = (v.detach().to(dev, dtype).requires_grad_() for v in (x, flow, metric))
+    out = softsplat(a, f, m if mode in ("linear", "soft") else None, mode)
+    (out * cot.to(dev, dtype)).sum().backward()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return [out.detach(), a.grad, f.grad] + ([m.grad] if m.grad is not None else [])
+
+
+def softsplat_phase(frames: np.ndarray) -> dict:
+    """`ops.softsplat` in its four modes, forward and backward (input, flow
+    and metric gradients of sum(out · cotangent)), on the 16 frames at 512²
+    (`_splat_inputs`), against the same call in float64 on the CPU
+    (WARP_TOL; for the flow gradient FLOW_GRAD_FACTOR × the error of the
+    host CPU's fp32 flow gradient, at least WARP_TOL)."""
+    import torch
+
+    inputs = _splat_inputs(frames)
+    t, _, h, _ = inputs[0].shape
+    errs, secs, flow_bounds = {}, {}, {}
+    for mode in SPLAT_MODES:
+        res = {}
+        for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+            t0 = time.perf_counter()
+            res[dev] = _splat_call(mode, inputs, dev, dtype)
+            secs[f"{mode} {dev}"] = round(time.perf_counter() - t0, 2)
+        errs[mode] = [_warp_err(g, r) for g, r in zip(res["cuda"], res["cpu"])]
+        flow_bounds[mode] = WARP_TOL
+        if errs[mode][2] > WARP_TOL:  # the host's fp32 pass is needed only past the floor
+            host = _warp_err(_splat_call(mode, inputs, "cpu", torch.float32)[2], res["cpu"][2])
+            flow_bounds[mode] = max(WARP_TOL, FLOW_GRAD_FACTOR * host)
+        bounds = [WARP_TOL, WARP_TOL, flow_bounds[mode], WARP_TOL][:len(errs[mode])]
+        if not all(torch.isfinite(v).all() for v in res["cuda"]) or any(
+                e > b for e, b in zip(errs[mode], bounds)):
+            raise AssertionError(f"softsplat {mode}: errors (out, ingrad, flowgrad[, metricgrad]) "
+                                 f"{errs[mode]} against float64 (bounds {bounds})")
+    print(f"[path16] softsplat on {t} × {h}² frames, flow within ±12 px: max |Δ| / max |ref| "
+          f"against float64 (out, ingrad, flowgrad[, metricgrad]) "
+          f"{ {k: [f'{e:.1e}' for e in v] for k, v in errs.items()} } (bound {WARP_TOL}; the "
+          f"flow gradient's, {FLOW_GRAD_FACTOR} × the host fp32's error past it: "
+          f"{ {k: f'{b:.1e}' for k, b in flow_bounds.items()} }); seconds {secs}", flush=True)
+    return errs
+
+
+def flow_grad_readings(seeds=(0, 1, 2, 3, 4, 5)) -> dict:
+    """The readings FLOW_GRAD_FACTOR rests on: softsplat's flow gradient, fp32
+    on the card and fp32 on the host CPU, each against float64 on the CPU
+    (max |Δ| / max |ref|), in every mode, for each flow seed, on two sets
+    of 16 frames at 512²: demo/3.png rolled by 3 px a frame (smooth, as
+    rendered frames are) and seeded uniform noise. Run on the card:
+    `python3 -c "import chip_smoke; chip_smoke.flow_grad_readings()"`."""
+    import torch
+
+    from hi3d_tpu_torch.utils.image import load_image_rgb
+
+    demo = load_image_rgb(os.path.join(ROOT, "demo", "3.png"))
+    sets = {"demo3": np.stack([np.roll(demo, 3 * i, axis=1) for i in range(16)]),
+            "noise": path1_frames(None)}
+    out = {}
+    for name, frames in sets.items():
+        for seed in seeds:
+            inputs = _splat_inputs(frames, seed)
+            for mode in SPLAT_MODES:
+                ref = _splat_call(mode, inputs, "cpu", torch.float64)[2]
+                card = _warp_err(_splat_call(mode, inputs, "cuda", torch.float32)[2], ref)
+                host = _warp_err(_splat_call(mode, inputs, "cpu", torch.float32)[2], ref)
+                out[f"{name} seed {seed} {mode}"] = (card, host)
+                print(f"[flowgrad] {name} seed {seed} {mode}: card fp32 {card:.3e}, "
+                      f"host fp32 {host:.3e}", flush=True)
+    for name in sets:
+        card = max(v[0] for k, v in out.items() if k.startswith(name))
+        host = max(v[1] for k, v in out.items() if k.startswith(name))
+        print(f"[flowgrad] {name}: largest card fp32 {card:.3e}, host fp32 {host:.3e} "
+              f"({len(seeds)} seeds × {len(SPLAT_MODES)} modes)", flush=True)
+    return out
+
+
+def correlation_phase() -> dict:
+    """`ops.correlation` forward and backward at PWC-Net's pyramid levels of
+    a 512² frame pair, fp32 on the card against float64 on the CPU."""
+    import torch
+
+    from hi3d_tpu_torch.ops.correlation import correlation
+
+    gen = torch.Generator().manual_seed(17)
+    errs = {}
+    t0 = time.perf_counter()
+    for c, side in PWC_LEVELS:
+        one, two = (torch.randn(1, c, side, side, generator=gen) for _ in range(2))
+        cot = torch.randn(1, 81, side, side, generator=gen)
+        res = {}
+        for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+            a, b = (v.detach().to(dev, dtype).requires_grad_() for v in (one, two))
+            out = correlation(a, b)
+            (out * cot.to(dev, dtype)).sum().backward()
+            res[dev] = (out.detach(), a.grad, b.grad)
+        errs[f"C{c} {side}²"] = [_warp_err(g, r) for g, r in zip(res["cuda"], res["cpu"])]
+        if max(errs[f"C{c} {side}²"]) > WARP_TOL:
+            raise AssertionError(f"correlation C{c} {side}²: {errs[f'C{c} {side}²']}")
+    print(f"[path16] correlation at PWC-Net's levels, (out, grad one, grad two) against float64: "
+          f"{ {k: [f'{e:.1e}' for e in v] for k, v in errs.items()} } (bound {WARP_TOL}) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return errs
+
+
+def transforms_phase() -> float:
+    """Every function of `data.transforms` on demo/3.png on this host (no
+    cv2, no PIL here): shapes and dtypes, and the identities that must hold
+    exactly (an identity warp, gamma 1, a resize to the same size, the
+    crops and flips against slicing) or nearly (hue ±0.5, as the JAX
+    package's test holds them)."""
+    from hi3d_tpu_torch.data import transforms as T
+    from hi3d_tpu_torch.utils.png import read_png
+
+    t0 = time.perf_counter()
+    img = read_png(os.path.join(ROOT, "demo", "3.png"))[..., :3]
+    h, w = img.shape[:2]
+    checks = {
+        "to_tensor": T.to_tensor(img).dtype == np.float32,
+        "normalize": T.normalize(T.to_tensor(img), [0.5] * 3, [0.5] * 3).min() >= -1.0,
+        "crop": np.array_equal(T.crop(img, 3, 5, 40, 50), img[3:43, 5:55]),
+        "center_crop": T.center_crop(img, 256).shape == (256, 256, 3),
+        "pad": T.pad(img, 4, fill=7).shape == (h + 8, w + 8, 3),
+        "flips": np.array_equal(T.hflip(T.hflip(img)), img)
+        and np.array_equal(T.vflip(img), img[::-1]),
+        "five_crop": len(T.five_crop(img, 128)) == 5,
+        "ten_crop": len(T.ten_crop(img, 128, vertical_flip=True)) == 10,
+        "resize same": np.array_equal(T.resize(img, (h, w)), img),
+        "rotate 0": np.array_equal(T.rotate(img, 0), img),
+        "affine identity": np.array_equal(T.affine(img, 0, (0, 0), 1.0, 0), img),
+        # PIL's HSV round trip truncates: hue ±0.5 land 2/255 apart (the JAX test's check)
+        "hue ±0.5": np.mean(np.abs(T.adjust_hue(img, 0.5).astype(int)
+                                   - T.adjust_hue(img, -0.5).astype(int))) < 4,
+        "gamma 1": np.array_equal(T.adjust_gamma(img, 1.0), img),
+        "gray": T.to_grayscale(np.full((2, 2, 3), 255, np.uint8))[0, 0, 0] == 255,
+    }
+    for interp in ("nearest", "bilinear", "bicubic", "area", "lanczos"):
+        checks[f"resize {interp}"] = (T.resize(img, 300, interp).shape == (300, 300, 3)
+                                      and T.resize(img, (700, 613), interp).dtype == np.uint8)
+    for interp, mode in (("nearest", "constant"), ("bilinear", "replicate"),
+                         ("bicubic", "reflect"), ("area", "reflect101")):
+        out = T.affine(img, 17.0, (5, -3), 1.2, 4.0, interp, mode, (255, 0, 0))
+        checks[f"affine {interp} {mode}"] = out.shape == img.shape and out.dtype == np.uint8
+    checks["rotate expand"] = T.rotate(img, 30, expand=True).shape == (699, 699, 3)
+    for f in (T.adjust_brightness, T.adjust_contrast, T.adjust_saturation):
+        checks[f.__name__] = f(img, 1.3).shape == img.shape
+    checks["adjust_hue"] = T.adjust_hue(img, 0.3).shape == img.shape
+    g = np.random.default_rng
+    pipeline = T.Compose([T.RandomResizedCrop(256, rng=g(1)), T.RandomHorizontalFlip(rng=g(2)),
+                          T.ColorJitter(0.2, 0.2, 0.2, 0.05, rng=g(3)),
+                          T.RandomAffine(5, (0.05, 0.05), (0.9, 1.1), 3, rng=g(4)),
+                          T.RandomRotation(5, rng=g(5)), T.Grayscale(3), T.ToTensor(),
+                          T.Normalize([0.5] * 3, [0.5] * 3)])
+    out = pipeline(img)
+    checks["pipeline"] = out.shape == (256, 256, 3) and np.isfinite(out).all()
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"transforms on demo/3.png: {failed}")
+    secs = time.perf_counter() - t0
+    print(f"[path16] transforms: {len(checks)} checks on demo/3.png passed on this host "
+          f"({secs:.1f} s)", flush=True)
+    return secs
+
+
+def jpeg_phase() -> None:
+    """The JPEG fixtures decoded on this host (no cv2 here) against their
+    cv2 goldens (shape and SHA-256 of cv2's decode, tests/data/torch_jpeg),
+    and through `load_image_rgb`."""
+    import hashlib
+
+    from hi3d_tpu_torch.utils.image import load_image_rgb
+    from hi3d_tpu_torch.utils.jpeg import read_jpeg
+
+    t0 = time.perf_counter()
+    with open(os.path.join(JPEG_FIXTURES, "goldens.json")) as f:
+        goldens = json.load(f)
+    for name, want in sorted(goldens.items()):
+        path = os.path.join(JPEG_FIXTURES, name)
+        img = read_jpeg(path)
+        got = {"shape": list(img.shape), "sha256": hashlib.sha256(img.tobytes()).hexdigest()}
+        if got != want:
+            raise AssertionError(f"{name}: decoded {got}, cv2's golden {want}")
+        rgb = load_image_rgb(path)
+        if rgb.shape != img.shape[:2] + (3,) or not np.array_equal(rgb[..., :img.shape[2]], img):
+            raise AssertionError(f"{name}: load_image_rgb disagrees with the decode")
+    print(f"[path16] {len(goldens)} JPEG fixtures decoded bit-equal to their cv2 goldens "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+
+
+def logger_phase(out_dir: str) -> None:
+    from hi3d_tpu_torch.utils.logger import setup_logger
+
+    log = setup_logger("hi3d_tpu_torch.smoke", out_dir)
+    if setup_logger("hi3d_tpu_torch.smoke", out_dir) is not log:
+        raise AssertionError("setup_logger is not cached")
+    log.info("main path 16")
+    for handler in log.handlers:
+        handler.flush()
+    with open(os.path.join(out_dir, "log.txt")) as f:
+        if "hi3d_tpu_torch.smoke INFO] main path 16" not in f.read():
+            raise AssertionError("setup_logger wrote no log.txt line")
+
+
+def cond_sigma_phase(frames: np.ndarray) -> dict:
+    """configs/inference-v01.yaml's conditioning-frame embedder (its VAE
+    encoder, random weights) with an EDMSampling σ sampler, on two of the
+    frames: with a generator, one σ a video times unit normals is added
+    before the encode, and the output equals the encode of the frames
+    noised by hand with the same draws; without one the frames stay clean.
+    #9 launches equal the three encodes' norms. Returns the launches."""
+    import torch
+
+    from hi3d_tpu_torch.config import instantiate_from_config, load_config
+    from hi3d_tpu_torch.models.layers import FoldedGroupNorm
+
+    t0 = time.perf_counter()
+    cfg = load_config(os.path.join(ROOT, "configs", "inference-v01.yaml"))
+    (emb_cfg,) = [e for e in cfg["model"]["params"]["conditioner_config"]["params"]["emb_models"]
+                  if e["target"].endswith("VideoPredictionEmbedderWithEncoder")]
+    emb_cfg = {"target": emb_cfg["target"],
+               "params": {**emb_cfg["params"], "sigma_sampler_config": COND_SIGMA}}
+    with torch.random.fork_rng(devices=[0]), torch.device("cuda"):
+        torch.manual_seed(0)
+        emb = instantiate_from_config(emb_cfg).eval()
+    vid = (torch.from_numpy(frames[:2]).permute(0, 3, 1, 2).float() / 127.5 - 1).cuda()
+    # three encodes of the 2 frames, #9 at each of the encoder's norms a chunk
+    expected = {name: 0 for name, *_ in KERNELS}
+    expected["group_stats"] = 3 * _chunks(2, emb.en_chunk) * sum(
+        isinstance(m, FoldedGroupNorm) for m in emb.encoder.encoder.modules())
+    reset_launches()
+    with torch.no_grad():
+        noised = emb(vid, generator=torch.Generator(device="cuda").manual_seed(3))
+        clean = emb(vid)
+        sigmas, noise = emb.draw(vid, torch.Generator(device="cuda").manual_seed(3))
+        by_hand = emb(vid + noise * sigmas[:, None, None, None])
+    launches = read_launches(expected)
+    _check_launches(launches, expected)
+    err = ((noised - by_hand).abs().max() / by_hand.abs().max()).item()
+    if noised.shape != (2 * emb.n_copies, 4, 64, 64) or not torch.isfinite(noised).all() \
+            or err > 1e-5 or torch.equal(noised, clean):
+        raise AssertionError(f"σ-noised conditioning frames: shape {tuple(noised.shape)}, error "
+                             f"{err} against the frames noised by hand")
+    print(f"[path16] conditioning-frame embedder with EDMSampling(p_mean -3, p_std 0.5): σ "
+          f"{[round(s, 4) for s in sigmas.tolist()]}, output {tuple(noised.shape)} within "
+          f"{err:.1e} of the encode of the frames noised by hand, "
+          f"{((noised - clean).abs().max()).item():.3f} from the clean encode; launches "
+          f"{launches} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    del emb
+    torch.cuda.empty_cache()
+    return launches
+
+
+def module_surface_path(frames: np.ndarray) -> dict:
+    """Main path 16: softsplat and correlation on the card against float64,
+    every transform on demo/3.png, the JPEG fixtures against their cv2
+    goldens, `setup_logger`, inference-v01's full-width VideoUNet with
+    UNET_OPTIONS at b 1, t 4, 32² on the card (launches equal to the
+    module's count, finite) against the CPU in fp32 (within 1.5 × the plain
+    bf16 error), and the σ-noised conditioning-frame embedder (#9 launches
+    equal to its encodes' norms). Returns the launches of the UNet call and
+    the embedder's encodes."""
+    import torch
+
+    t0 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_16_", dir=os.path.join(ROOT, "outputs"))
+    softsplat_phase(frames)
+    correlation_phase()
+    torch.cuda.empty_cache()
+    transforms_phase()
+    jpeg_phase()
+    logger_phase(out_dir)
+    launches = unet_reference_phase(os.path.join(ROOT, "configs", "inference-v01.yaml"),
+                                    overrides=UNET_OPTIONS, label=f" with {UNET_OPTIONS}",
+                                    **OPTIONS_CHECK)
+    launches = _sum_launches(launches, cond_sigma_phase(frames))
+    print(f"[path16] main path 16 in {time.perf_counter() - t0:.1f} s; launches {launches}",
+          flush=True)
+    return launches
+
+
 SERVE_CLIP = 48  # a 48-view orbit: three times the 16 views, 7.5° apart
 SERVE_ASSETS = 2
 
@@ -4351,21 +4809,15 @@ def main() -> None:
     if sys.argv[1:] == ["--t2i"]:
         t2i_phases()
         return
+    if sys.argv[1:] == ["--module-surface"]:
+        module_surface_path(path1_frames(None))
+        return
 
     measured = kernel_phase()
     print("[smoke] kernel phase ok", flush=True)
     measured.update(backward_kernel_phase())
     print("[smoke] backward kernel phase ok", flush=True)
-    inference = os.path.join(ROOT, "configs", "inference-v01.yaml")
-    unet_reference_phase(inference)
-    unet_gradient_phase(inference)
-    stage2 = os.path.join(ROOT, "configs", "inference-v02.yaml")
-    unet_reference_phase(stage2)
-    by_path = {"unet_grad_stage2": unet_gradient_phase(stage2)}
-    # a long clip: every frame-axis site on #6 forward and #7 backward
-    unet_reference_phase(inference, b=1, t=LONG_UNET_CLIP)
-    by_path[f"unet_grad_t{LONG_UNET_CLIP}"] = unet_gradient_phase(inference, b=1,
-                                                                  t=LONG_UNET_CLIP)
+    by_path = reference_phases()
     print(f"[smoke] main path 1: configs/inference-v01.yaml, 16×512², {NUM_STEPS} steps, "
           "random weights", flush=True)
     by_path["i2v"], stage1_dir, phases1 = main_path(NUM_STEPS)
@@ -4390,11 +4842,13 @@ def main() -> None:
           f"{FULL_CLIP}×1024² in batches of 1, {NUM_STEPS} steps each stage, random weights",
           flush=True)
     by_path["two_stage"] = two_stage_path(NUM_STEPS)
-    print(f"[smoke] main path 7: i2v --cfg_interval 0.3 6, configs/inference-v01.yaml, 16×512², "
+    print(f"[smoke] main path 7: i2v --cfg_interval 0.3 6 on {os.path.relpath(PATH7_IMAGE, ROOT)}, "
+          f"configs/inference-v01.yaml, 16×512², "
           f"{NUM_STEPS} steps (CFG on steps 15–19, single passes elsewhere), random weights",
           flush=True)
     by_path["i2v_cfg_interval"], _, phases7 = main_path(
-        NUM_STEPS, ["--cfg_interval", "0.3", "6"], "7", {"whole B32": 5, "whole B16": 20})
+        NUM_STEPS, ["--cfg_interval", "0.3", "6"], "7", {"whole B32": 5, "whole B16": 20},
+        image=PATH7_IMAGE)
     print(f"[smoke] sampler seconds, stage 1: path 7 {phases7['sampler']} s, path 1 "
           f"{phases1['sampler']} s", flush=True)
     print(f"[smoke] main path 8: v2v --encoder_reuse 3, configs/inference-v02.yaml, 16×1024², "
@@ -4424,6 +4878,9 @@ def main() -> None:
           "from main path 1, conv-only and all, random weights", flush=True)
     by_path["svd_vae"] = svd_vae_path(stage1_dir)
     by_path.update(t2i_phases(os.path.join(stage1_dir, "first_step", "frames")))
+    print("[smoke] main path 16: softsplat, correlation, transforms, JPEG, the logger, the "
+          "VideoUNet's options, the σ-noised conditioning frames", flush=True)
+    by_path["modules"] = module_surface_path(path1_frames(stage1_dir))
     print(f"[smoke] all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
 
     rows = []

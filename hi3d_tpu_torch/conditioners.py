@@ -8,7 +8,8 @@ NCHW throughout: frames are (N, 3, H, W) and videos (B, T, 3, H, W) in
 routes by rank into {vector (B, D), crossattn (B, S, C), concat (B, C, h,
 w)} and concatenates along the reference's dims (1, 2, 1). An embedder reads
 one batch key (`input_key`) or several (`input_keys`, passed in order). The
-embedders that draw (`draws = True`: LowScaleEncoder, GaussianEncoder) take
+embedders that draw (`draws = True`: LowScaleEncoder, GaussianEncoder,
+VideoPredictionEmbedderWithEncoder) take
 a `generator` keyword; their draws are the port's own stream, as ucg's are.
 The towers load their released files when present and otherwise keep a
 random initialisation, with a printed notice. The text encoders take token
@@ -217,7 +218,16 @@ class FrozenOpenCLIPImagePredictionEmbedder(AbstractEmbedder):
 
 class VideoPredictionEmbedderWithEncoder(AbstractEmbedder):
     """VAE-mode latents of the conditioning frame(s) → concat input
-    (B·n_copies, n_cond_frames·C, h, w), frame-major channel packing."""
+    (B·n_copies, n_cond_frames·C, h, w), frame-major channel packing.
+
+    With `sigma_sampler_config` (hi3d_tpu/conditioners.py:329-352) the
+    frames first get noise: one σ per video from the sampler, repeated over
+    its conditioning frames, times unit normals of the frames' shape, drawn
+    from the conditioner's generator (`draws`); without a generator no noise
+    is added, as JAX adds none without a key. `sigma_cond_config` raises, as
+    in JAX."""
+
+    draws = True
 
     def __init__(self, n_cond_frames: int, n_copies: int, encoder_config: Dict,
                  sigma_sampler_config: Optional[Dict] = None,
@@ -225,15 +235,29 @@ class VideoPredictionEmbedderWithEncoder(AbstractEmbedder):
                  scale_factor: float = 1.0, disable_encoder_autocast: bool = True,
                  en_and_decode_n_samples_a_time: Optional[int] = None):
         super().__init__()
-        if sigma_sampler_config is not None or sigma_cond_config is not None:
-            raise NotImplementedError("sigma_sampler/sigma_cond are training-slice options")
+        if sigma_cond_config is not None:
+            raise NotImplementedError("sigma_cond not used by Hi3D")
         self.n_cond_frames = int(n_cond_frames)
         self.n_copies = int(n_copies)
         self.encoder = instantiate_from_config(encoder_config)
+        self.sigma_sampler = (instantiate_from_config(sigma_sampler_config)
+                              if sigma_sampler_config else None)
         self.scale_factor = float(scale_factor)
         self.en_chunk = en_and_decode_n_samples_a_time
 
-    def forward(self, vid: torch.Tensor) -> torch.Tensor:
+    def draw(self, vid: torch.Tensor, generator: torch.Generator):
+        """(σ of each video (B,), unit normals of `vid`'s shape)."""
+        sigmas = self.sigma_sampler(vid.shape[0] // self.n_cond_frames, generator=generator,
+                                    device=vid.device)
+        return sigmas, torch.randn(vid.shape, generator=generator, device=vid.device,
+                                   dtype=vid.dtype)
+
+    def forward(self, vid: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.sigma_sampler is not None and generator is not None:
+            sigmas, noise = self.draw(vid, generator)
+            sigmas = sigmas.repeat_interleave(self.n_cond_frames).to(vid.dtype)
+            vid = vid + noise * sigmas.view(-1, *([1] * (vid.ndim - 1)))
         dtype = self.encoder.quant_conv.weight.dtype
         n = self.en_chunk or vid.shape[0]
         z = torch.cat([self.encoder.encode(vid[i:i + n].to(dtype))

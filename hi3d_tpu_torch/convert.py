@@ -298,6 +298,20 @@ def load_flax_unet2d(module: nn.Module, variables: Mapping) -> None:
     load_flax_tree(module, variables, unet2d_flax_name)
 
 
+def video_unet_flax_name(path: Tuple[str, ...]) -> str:
+    """Module names of the JAX VideoUNet: `unet2d_flax_name` with the
+    VideoResBlock's `spatial` scope dropped (the reference's VideoResBlock
+    is its spatial ResBlock, `time_stack` and `time_mixer` beside)."""
+    return unet2d_flax_name(tuple(seg for seg in path if seg != "spatial"))
+
+
+def load_flax_video_unet(module: nn.Module, variables: Mapping) -> None:
+    """The JAX VideoUNet's parameters into models.unet.VideoUNet, in every
+    layout (linear or 1×1-conv projections, with or without the temporal
+    cross-attention)."""
+    load_flax_tree(module, variables, video_unet_flax_name)
+
+
 def load_flax_inception(module: nn.Module, variables: Mapping) -> None:
     """The JAX InceptionV3Trunk's params and batch_stats into
     models.inception.InceptionV3Trunk (torchvision's names)."""

@@ -28,7 +28,9 @@ computes:
   integer ISLOW inverse DCT, h2v2 "fancy" (triangle) chroma upsampling and
   the fixed-point YCbCr→RGB of jdcolor.c. Entropy coding is lossless and is
   skipped. All of it is integer arithmetic (int32), so it can agree with
-  cv2 exactly; tests/test_torch_stage2_training.py measures it.
+  cv2 exactly; tests/test_torch_stage2_training.py measures it. The decode
+  side (dequantisation, IDCT, upsampling, colour conversion) is the JPEG
+  decoder's, utils/jpeg.py.
 
 The plan's scalars come from a numpy `RandomState`, drawn in exactly the
 order of the JAX package's `degrade_clip` and `__call__`. Every large draw
@@ -50,6 +52,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.jpeg import (blocks, descale, dequantize_idct, fix, transform_2d, upsample_h2v2,
+                          ycc_to_rgb)
 from .kernels import DEFAULT_DEGRADATION_OPT, sample_frame_kernels
 
 RESIZE_MODES = ("area", "bilinear", "bicubic")
@@ -125,6 +129,29 @@ def linear_taps(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray, np.ndarr
     return sx, np.minimum(sx + 1, n_in - 1), np.float32(1) - fx, fx
 
 
+def _lanczos4_coeffs(x: np.float32) -> np.ndarray:
+    """cv2's interpolateLanczos4: 8 taps from double sines, normalised in
+    float32 as cv2 normalises them."""
+    if x < np.finfo(np.float32).eps:
+        out = np.zeros(8, np.float32)
+        out[3] = 1.0
+        return out
+    s45 = 0.70710678118654752440084436210485
+    cs = ((1, 0), (-s45, -s45), (0, 1), (s45, -s45), (-1, 0), (s45, s45), (0, -1), (-s45, s45))
+    y0 = -(float(x) + 3) * math.pi * 0.25
+    s0, c0 = math.sin(y0), math.cos(y0)
+    coeffs = np.empty(8, np.float32)
+    total = np.float32(0)
+    for i in range(8):
+        y = -(float(x) + 3 - i) * math.pi * 0.25
+        coeffs[i] = np.float32((cs[i][0] * s0 + cs[i][1] * c0) / (y * y))
+        total = np.float32(total + coeffs[i])
+    return (coeffs * (np.float32(1) / total)).astype(np.float32)
+
+
+WEIGHT_MODES = RESIZE_MODES + ("nearest", "lanczos")
+
+
 @functools.lru_cache(maxsize=64)
 def resize_weights(n_in: int, n_out: int, mode: str, shrink: bool) -> np.ndarray:
     """(n_out, n_in) float64 weights of cv2.resize along one axis, for a
@@ -133,13 +160,19 @@ def resize_weights(n_in: int, n_out: int, mode: str, shrink: bool) -> np.ndarray
     grows, INTER_AREA uses its own linear-like taps on both axes).
 
     INTER_LINEAR: half-pixel centres, clamped borders, no antialias;
-    INTER_CUBIC: A = -0.75, clamped borders; the tap positions and weights
-    are computed in float32, as cv2 computes them."""
-    if mode not in RESIZE_MODES:
-        raise ValueError(f"resize mode {mode!r} not in {RESIZE_MODES}")
+    INTER_CUBIC: A = -0.75, clamped borders; INTER_LANCZOS4 ("lanczos"): 8
+    taps, clamped borders; the tap positions and weights are computed in
+    float32, as cv2 computes them. INTER_NEAREST ("nearest"): source
+    floor(dx · n_in / n_out), clamped."""
+    if mode not in WEIGHT_MODES:
+        raise ValueError(f"resize mode {mode!r} not in {WEIGHT_MODES}")
     m = np.zeros((n_out, n_in))
     if n_in == n_out:
         m[np.arange(n_in), np.arange(n_in)] = 1.0
+    elif mode == "nearest":
+        ifx = 1.0 / (n_out / n_in)
+        src = np.minimum(np.floor(np.arange(n_out) * ifx).astype(np.int64), n_in - 1)
+        m[np.arange(n_out), src] = 1.0
     elif mode == "bilinear":
         rows = np.arange(n_out)
         i0, i1, w0, w1 = linear_taps(n_in, n_out)
@@ -159,6 +192,13 @@ def resize_weights(n_in: int, n_out: int, mode: str, shrink: bool) -> np.ndarray
                 m[dx, sx] += np.float32(1.0 / cell)
             if fsx2 - sx2 > 1e-3:
                 m[dx, sx2] += np.float32(min(min(fsx2 - sx2, 1.0), cell) / cell)
+    elif mode == "lanczos":
+        scale = 1.0 / (n_out / n_in)
+        for dx in range(n_out):
+            f = np.float32((dx + 0.5) * scale - 0.5)
+            sx = int(np.floor(f))
+            for j, c in enumerate(_lanczos4_coeffs(np.float32(f - np.float32(sx)))):
+                m[dx, min(max(sx - 3 + j, 0), n_in - 1)] += c
     else:
         inv_scale = n_out / n_in
         scale = 1.0 / inv_scale
@@ -254,14 +294,6 @@ def quant_tables(quality: int) -> Tuple[np.ndarray, np.ndarray]:
                  for t in (_LUMA_Q, _CHROMA_Q))
 
 
-def _fix(x: float) -> int:
-    return int(x * 65536 + 0.5)
-
-
-def _descale(x: torch.Tensor, n: int) -> torch.Tensor:
-    return (x + (1 << (n - 1))) >> n
-
-
 def _fdct_1d(d, final: bool):
     """One pass of libjpeg's jpeg_fdct_islow over 8 int32 tensors."""
     tmp0, tmp7 = d[0] + d[7], d[0] - d[7]
@@ -273,82 +305,32 @@ def _fdct_1d(d, final: bool):
     sh = 15 if final else 11  # CONST_BITS ± PASS1_BITS
     o = [None] * 8
     if final:
-        o[0], o[4] = _descale(tmp10 + tmp11, 2), _descale(tmp10 - tmp11, 2)
+        o[0], o[4] = descale(tmp10 + tmp11, 2), descale(tmp10 - tmp11, 2)
     else:
         o[0], o[4] = (tmp10 + tmp11) << 2, (tmp10 - tmp11) << 2
     z1 = (tmp12 + tmp13) * 4433
-    o[2] = _descale(z1 + tmp13 * 6270, sh)
-    o[6] = _descale(z1 - tmp12 * 15137, sh)
+    o[2] = descale(z1 + tmp13 * 6270, sh)
+    o[6] = descale(z1 - tmp12 * 15137, sh)
     z1, z2, z3, z4 = tmp4 + tmp7, tmp5 + tmp6, tmp4 + tmp6, tmp5 + tmp7
     z5 = (z3 + z4) * 9633
     tmp4, tmp5, tmp6, tmp7 = tmp4 * 2446, tmp5 * 16819, tmp6 * 25172, tmp7 * 12299
     z1, z2, z3, z4 = z1 * -7373, z2 * -20995, z3 * -16069 + z5, z4 * -3196 + z5
-    o[7] = _descale(tmp4 + z1 + z3, sh)
-    o[5] = _descale(tmp5 + z2 + z4, sh)
-    o[3] = _descale(tmp6 + z2 + z3, sh)
-    o[1] = _descale(tmp7 + z1 + z4, sh)
+    o[7] = descale(tmp4 + z1 + z3, sh)
+    o[5] = descale(tmp5 + z2 + z4, sh)
+    o[3] = descale(tmp6 + z2 + z3, sh)
+    o[1] = descale(tmp7 + z1 + z4, sh)
     return o
-
-
-def _idct_1d(c, final: bool):
-    """One pass of libjpeg's jpeg_idct_islow over 8 int32 tensors (its
-    all-zero-AC shortcuts give the same values)."""
-    z1 = (c[2] + c[6]) * 4433
-    tmp2 = z1 - c[6] * 15137
-    tmp3 = z1 + c[2] * 6270
-    tmp0 = (c[0] + c[4]) << 13
-    tmp1 = (c[0] - c[4]) << 13
-    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
-    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
-    tmp0, tmp1, tmp2, tmp3 = c[7], c[5], c[3], c[1]
-    z1, z2, z3, z4 = tmp0 + tmp3, tmp1 + tmp2, tmp0 + tmp2, tmp1 + tmp3
-    z5 = (z3 + z4) * 9633
-    z1, z2, z3, z4 = z1 * -7373, z2 * -20995, z3 * -16069 + z5, z4 * -3196 + z5
-    tmp0 = tmp0 * 2446 + z1 + z3
-    tmp1 = tmp1 * 16819 + z2 + z4
-    tmp2 = tmp2 * 25172 + z2 + z3
-    tmp3 = tmp3 * 12299 + z1 + z4
-    sh = 18 if final else 11  # CONST_BITS + PASS1_BITS + 3, CONST_BITS - PASS1_BITS
-    return [_descale(a, sh) for a in (tmp10 + tmp3, tmp11 + tmp2, tmp12 + tmp1, tmp13 + tmp0,
-                                      tmp13 - tmp0, tmp12 - tmp1, tmp11 - tmp2, tmp10 - tmp3)]
-
-
-def _blocks(plane: torch.Tensor) -> torch.Tensor:
-    """(T, 8·hb, 8·wb) → (T, hb, wb, 8, 8)."""
-    t, h, w = plane.shape
-    return plane.reshape(t, h // 8, 8, w // 8, 8).permute(0, 1, 3, 2, 4)
-
-
-def _unblocks(blocks: torch.Tensor) -> torch.Tensor:
-    t, hb, wb = blocks.shape[:3]
-    return blocks.permute(0, 1, 3, 2, 4).reshape(t, hb * 8, wb * 8)
-
-
-def _transform_2d(x: torch.Tensor, fn, rows_first: bool) -> torch.Tensor:
-    """Apply an 8-point 1-D pass along the rows (last axis) and then the
-    columns of (..., 8, 8) blocks, or columns first."""
-    def rows(v, final):
-        return torch.stack(fn(list(v.unbind(-1)), final), dim=-1)
-
-    def cols(v, final):
-        return torch.stack(fn(list(v.unbind(-2)), final), dim=-2)
-
-    if rows_first:
-        return cols(rows(x, False), True)
-    return rows(cols(x, False), True)
 
 
 def _code_plane(plane: torch.Tensor, qt: torch.Tensor) -> torch.Tensor:
     """Samples (T, 8·hb, 8·wb) int32 → the decoder's samples after the
     forward DCT, quantisation by `qt` (T, 8, 8), dequantisation and the
     inverse DCT."""
-    x = _blocks(plane) - 128
-    coef = _transform_2d(x, _fdct_1d, rows_first=True)  # scaled up by 8
+    x = blocks(plane) - 128
+    coef = transform_2d(x, _fdct_1d, rows_first=True)  # scaled up by 8
     div = (qt * 8)[:, None, None]
     q = (coef.abs() + div // 2) // div
-    deq = torch.where(coef < 0, -q, q) * qt[:, None, None]
-    out = _transform_2d(deq, _idct_1d, rows_first=False)
-    return _unblocks((out + 128).clamp(0, 255))
+    return dequantize_idct(torch.where(coef < 0, -q, q), qt)
 
 
 def _pad_edge(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -356,18 +338,6 @@ def _pad_edge(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     rows = torch.arange(h, device=x.device).clamp(max=x.shape[-2] - 1)
     cols = torch.arange(w, device=x.device).clamp(max=x.shape[-1] - 1)
     return x.index_select(-2, rows).index_select(-1, cols)
-
-
-@functools.lru_cache(maxsize=1)
-def _ycc_rgb_tables() -> Tuple[np.ndarray, ...]:
-    """jdcolor.c build_ycc_rgb_table: Cr→R, Cb→B, Cr→G, Cb→G."""
-    x = np.arange(256, dtype=np.int64) - 128
-    half = 1 << 15
-    tabs = ((_fix(1.40200) * x + half) >> 16, (_fix(1.77200) * x + half) >> 16,
-            -_fix(0.71414) * x, -_fix(0.34414) * x + half)
-    for t in tabs:
-        t.setflags(write=False)
-    return tabs
 
 
 def jpeg(frames: torch.Tensor, qualities: Sequence[int]) -> torch.Tensor:
@@ -387,9 +357,9 @@ def jpeg(frames: torch.Tensor, qualities: Sequence[int]) -> torch.Tensor:
     u8 = (frames * 255.0).clamp(0, 255).to(torch.int32)  # astype(np.uint8) truncates
     r, g, b = u8[:, 0], u8[:, 1], u8[:, 2]
     half, offset = 1 << 15, 128 << 16
-    y = (_fix(0.299) * r + _fix(0.587) * g + _fix(0.114) * b + half) >> 16
-    cb = (-_fix(0.16874) * r - _fix(0.33126) * g + _fix(0.5) * b + offset + half - 1) >> 16
-    cr = (_fix(0.5) * r - _fix(0.41869) * g - _fix(0.08131) * b + offset + half - 1) >> 16
+    y = (fix(0.299) * r + fix(0.587) * g + fix(0.114) * b + half) >> 16
+    cb = (-fix(0.16874) * r - fix(0.33126) * g + fix(0.5) * b + offset + half - 1) >> 16
+    cr = (fix(0.5) * r - fix(0.41869) * g - fix(0.08131) * b + offset + half - 1) >> 16
 
     # luma: edges replicated out to whole blocks
     hb, wb = -(-h // 8), -(-w // 8)
@@ -408,22 +378,9 @@ def jpeg(frames: torch.Tensor, qualities: Sequence[int]) -> torch.Tensor:
         p = (p + bias) >> 2
         return _code_plane(_pad_edge(p, ch_h, ch_w), chroma_q)[:, :hc, :wc]
 
-    def upsample(p):
-        """h2v2_fancy_upsample: 3/4 nearer + 1/4 further sample along each
-        axis, edges replicated, the 8/7 rounding bias alternating."""
-        above = torch.cat([p[:, :1], p[:, :-1]], dim=1)
-        below = torch.cat([p[:, 1:], p[:, -1:]], dim=1)
-        s = torch.stack([3 * p + above, 3 * p + below], dim=2).reshape(t, 2 * hc, wc)
-        left = torch.cat([s[..., :1], s[..., :-1]], dim=-1)
-        right = torch.cat([s[..., 1:], s[..., -1:]], dim=-1)
-        out = torch.stack([(3 * s + left + 8) >> 4, (3 * s + right + 7) >> 4], dim=-1)
-        return out.reshape(t, 2 * hc, 2 * wc)[:, :h, :w]
-
-    cb, cr = (upsample(chroma(p)) for p in (cb, cr))
-    crr, cbb, crg, cbg = (torch.tensor(a, device=dev) for a in _ycc_rgb_tables())
-    cb, cr = cb.long(), cr.long()
-    rgb = torch.stack([y + crr[cr], y + ((cbg[cb] + crg[cr]) >> 16), y + cbb[cb]], dim=1)
-    return rgb.clamp(0, 255).float() / 255.0
+    cb, cr = (upsample_h2v2(chroma(p), h, w) for p in (cb, cr))
+    rgb = ycc_to_rgb(y, cb, cr)
+    return rgb.float() / 255.0
 
 
 # ------------------------------------------------------------------ pipeline

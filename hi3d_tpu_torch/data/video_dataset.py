@@ -7,8 +7,9 @@ random start frame; the start frame's band gives the elevation and a cyclic
 16-frame window inside that band. RGBA is composited on white exactly as the
 JAX package's `_rgba_white` does (float, then truncation to uint8), frames
 are resized to the configured size when they differ (cv2 INTER_LINEAR
-sampling, utils/image.py) and scaled to [-1, 1]. Decoding uses the port's
-stdlib PNG reader: no cv2, no native loader.
+sampling, utils/image.py) and scaled to [-1, 1]. Frames decode with the
+port's PNG reader or JPEG decoder (`utils.image.read_image`, by the file's
+signature, as cv2 tells them apart): no cv2, no native loader.
 
 Stage 2 (`VideoTrainDatasetStage2`, `VideoDatasetStage2`) adds each frame's
 foreground mask — alpha / 255 resized with cv2's float INTER_LINEAR, then
@@ -18,12 +19,13 @@ device (data/degradation.py).
 
 Tar shards (`TarShardVideoDataset`, its stage-2 subclass,
 `pack_folder_to_shards`): `.tar` files whose members are
-`<object>/<frame>.png`, each object's frames contiguous, read in stream
+`<object>/<frame>` images (PNG or JPEG), each object's frames contiguous, read in stream
 mode; each process takes `order[process_index::process_count]` of the
 shards (all of them when that is empty), reshuffled every epoch with
 `seed + epoch`; by default the process's rank and the world size of its
-process group (0 and 1 outside one). Members decode with the port's PNG
-reader; a JPEG member raises (the JAX package decodes it with cv2).
+process group (0 and 1 outside one). PNG and JPEG members decode with the
+port's readers (`utils.image.decode_image`), as the JAX package's with
+cv2.
 
 The eval set (`SyncDreamerEvalData`, `prepare_eval_input`) crops RGBA
 images to their alpha, resizes them with PIL's antialiased BICUBIC
@@ -48,8 +50,8 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from ..parallel import dist as pdist
-from ..utils.image import resize_bicubic_u8, resize_bilinear_u8
-from ..utils.png import decode_png, png_colour_type, read_png
+from ..utils.image import decode_image, read_image, resize_bicubic_u8, resize_bilinear_u8
+from ..utils.png import decode_png, png_colour_type
 from .degradation import linear_taps
 from .kernels import DEFAULT_DEGRADATION_OPT, sample_frame_kernels
 
@@ -125,7 +127,7 @@ class VideoTrainDataset:
         return _frame(img, self.width, self.height)
 
     def _load_frame(self, path: str) -> np.ndarray:
-        return self._frame(read_png(path))
+        return self._frame(read_image(path))
 
     def _window(self, folder: str, rng: np.random.RandomState) -> Tuple[List[str], int]:
         """The paths of a random window of `folder`'s frames, and its elevation."""
@@ -168,7 +170,7 @@ class VideoTrainDatasetStage2(VideoTrainDataset):
     def sample(self, rng: np.random.RandomState) -> Dict:
         folder = self.folders[int(rng.randint(len(self.folders)))]
         paths, elevation = self._window(folder, rng)
-        imgs = [read_png(p) for p in paths]
+        imgs = [read_image(p) for p in paths]
         frames = [self._frame(img) for img in imgs]
         masks = [alpha_mask(img, (self.width, self.height)) for img in imgs]
         k1, k2, ks = sample_frame_kernels(self.opt, self.sample_frames, rng)
@@ -252,7 +254,7 @@ class TarShardVideoDataset:
         if len(frames) < self.sample_frames:
             raise ValueError(f"object {name!r} has {len(frames)} < {self.sample_frames} frames")
         selected, elevation = select_window(frames, rng, self.sample_frames)
-        imgs = [decode_png(files[f], f"{name}/{f}") for f in selected]
+        imgs = [decode_image(files[f], f"{name}/{f}") for f in selected]
         out: Dict = {
             "video": np.stack([_frame(img, self.width, self.height) for img in imgs]),
             "elevation": np.float32(elevation),

@@ -20,6 +20,7 @@ wraps them in `nn.remat`; it only acts while gradients are recorded.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -66,6 +67,15 @@ class VideoResBlock(ResBlock):
         return x5.reshape(bt, c, h, w)
 
 
+def _heads_for(ch: int, num_heads: int, num_head_channels: int) -> Tuple[int, int]:
+    """(heads, channels a head) of a transformer on `ch` channels, as the
+    JAX UNets' `_heads_for`: `num_head_channels` a head, or when that is
+    -1, `num_heads` heads."""
+    if num_head_channels == -1:
+        return num_heads, ch // num_heads
+    return ch // num_head_channels, num_head_channels
+
+
 def _build_plan(model_channels: int, channel_mult: Sequence[int], num_res_blocks: int,
                 attention_resolutions: Sequence[int], transformer_depth: Sequence[int]):
     """Static layer plan (input_blocks, middle, output_blocks), as in
@@ -100,7 +110,16 @@ def _build_plan(model_channels: int, channel_mult: Sequence[int], num_res_blocks
 
 
 class VideoUNet(nn.Module):
-    """The stage-1 denoising network (config keys as in the reference YAML)."""
+    """The stage-1 denoising network (config keys as in the reference YAML).
+
+    Heads come from `num_head_channels` (channels a head) or, when that is
+    -1, from `num_heads`. `use_linear_in_transformer`,
+    `use_spatial_context` and `disable_temporal_crossattention` shape the
+    SpatialVideoTransformers (models/video_attention.py); a forward without
+    `use_spatial_context` takes the temporal context as `time_context`. `dropout` is accepted and
+    inert: the JAX package's ResBlock dropout runs with
+    `deterministic=True` on every call (hi3d_tpu/models/layers.py:268,350;
+    no caller passes False)."""
 
     def __init__(
         self,
@@ -111,6 +130,7 @@ class VideoUNet(nn.Module):
         attention_resolutions: Sequence[int],
         channel_mult: Sequence[int] = (1, 2, 4, 8),
         num_classes: Optional[str] = None,
+        num_heads: int = -1,
         num_head_channels: int = -1,
         transformer_depth: Union[int, Sequence[int]] = 1,
         context_dim: Optional[int] = None,
@@ -129,19 +149,10 @@ class VideoUNet(nn.Module):
         dtype: Optional[str] = None,
     ):
         super().__init__()
-        if num_head_channels == -1:
-            raise ValueError("VideoUNet needs num_head_channels (Hi3D configs set 64)")
-        if not use_linear_in_transformer:
-            raise NotImplementedError("only use_linear_in_transformer=True is ported")
+        if num_head_channels == -1 and num_heads == -1:
+            raise ValueError("either num_heads or num_head_channels must be set")
         if num_classes not in (None, "sequential"):
             raise NotImplementedError(f"num_classes={num_classes!r} (Hi3D uses 'sequential')")
-        if dropout:
-            raise NotImplementedError("dropout > 0 is a training setting")
-        if not use_spatial_context or disable_temporal_crossattention:
-            raise NotImplementedError(
-                "only use_spatial_context=True with temporal cross-attention is ported "
-                "(the Hi3D configs' setting)"
-            )
         self.dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         self.use_checkpoint = bool(use_checkpoint)
         self.in_channels = in_channels
@@ -172,10 +183,13 @@ class VideoUNet(nn.Module):
                                      merge_strategy, merge_factor), spec[1]
             if kind == "attn":
                 return SpatialVideoTransformer(
-                    ch, ch // num_head_channels, num_head_channels, depth=spec[2],
+                    ch, *_heads_for(ch, num_heads, num_head_channels), depth=spec[2],
                     context_dim=context_dim, ff_in=extra_ff_mix_layer,
                     merge_strategy=merge_strategy, merge_factor=merge_factor,
                     max_time_embed_period=max_ddpm_temb_period,
+                    use_linear=use_linear_in_transformer,
+                    use_spatial_context=use_spatial_context,
+                    disable_temporal_crossattention=disable_temporal_crossattention,
                 ), ch
             if kind == "down":
                 return Downsample(ch), ch
@@ -207,13 +221,13 @@ class VideoUNet(nn.Module):
             zero_module(nn.Conv2d(model_channels, out_channels, 3, padding=1)),
         )
 
-    def _run(self, layers, h, emb, context, t, indicator):
+    def _run(self, layers, h, emb, context, t, indicator, time_context=None):
         remat = self.use_checkpoint and torch.is_grad_enabled()
         for layer in layers:
             if isinstance(layer, VideoResBlock):
                 args = (h, emb, t, indicator)
             elif isinstance(layer, SpatialVideoTransformer):
-                args = (h, context, t, indicator)
+                args = (h, context, t, indicator, time_context)
             else:
                 h = layer(h)
                 continue
@@ -223,7 +237,7 @@ class VideoUNet(nn.Module):
     def forward(self, x, timesteps, context=None, y=None,
                 num_video_frames: Optional[int] = None, image_only_indicator=None,
                 encoder_cache: Optional[Tuple[Tuple[torch.Tensor, ...], torch.Tensor]] = None,
-                return_encoder_cache: bool = False):
+                return_encoder_cache: bool = False, time_context=None):
         """`encoder_cache` / `return_encoder_cache` serve encoder propagation
         (diffusion/encoder_reuse.py): a forward can return its (skip
         activations, middle h), and a forward given them skips the input and
@@ -233,10 +247,11 @@ class VideoUNet(nn.Module):
         dtype = self.dtype or weight_dtype
         with torch.autocast(x.device.type, dtype=dtype, enabled=dtype != weight_dtype):
             return self._forward(x, timesteps, context, y, num_video_frames,
-                                 image_only_indicator, dtype, encoder_cache, return_encoder_cache)
+                                 image_only_indicator, dtype, encoder_cache, return_encoder_cache,
+                                 time_context)
 
     def _forward(self, x, timesteps, context, y, num_video_frames, image_only_indicator, dtype,
-                 encoder_cache=None, return_encoder_cache=False):
+                 encoder_cache=None, return_encoder_cache=False, time_context=None):
         bt = x.shape[0]
         t = num_video_frames
         emb = self.time_embed(timestep_embedding(timesteps, self.model_channels).to(dtype))
@@ -247,22 +262,25 @@ class VideoUNet(nn.Module):
             context = context.repeat_interleave(t, dim=0)
         if context is not None:
             context = context.to(dtype)
+        if time_context is not None:
+            time_context = time_context.to(dtype)
         if self.num_classes is not None:
             emb = emb + self.label_emb(y.to(dtype))
+        run = functools.partial(self._run, emb=emb, context=context, t=t,
+                                indicator=image_only_indicator, time_context=time_context)
         if encoder_cache is None:
             h = x.to(dtype)
             skips = []
             for block in self.input_blocks:
-                h = self._run(block, h, emb, context, t, image_only_indicator)
+                h = run(block, h)
                 skips.append(h)
-            h = self._run(self.middle_block, h, emb, context, t, image_only_indicator)
+            h = run(self.middle_block, h)
         else:
             skips, h = encoder_cache
         cache = (tuple(skips), h)
         skips = list(skips)  # the decoder pops from a copy: `cache` stays whole
         for block in self.output_blocks:
-            h = torch.cat([h, skips.pop()], dim=1)
-            h = self._run(block, h, emb, context, t, image_only_indicator)
+            h = run(block, torch.cat([h, skips.pop()], dim=1))
         out = self.out(h)
         return (out, cache) if return_encoder_cache else out
 
@@ -278,7 +296,8 @@ class UNetModel(nn.Module):
     (`ops.attention.cross_attention`), as the JAX package leaves it to XLA.
     Heads come from `num_head_channels` (channels a head) or `num_heads`;
     `use_linear_in_transformer` picks the transformers' projection layout.
-    Compute dtype and `use_checkpoint` work as in VideoUNet."""
+    Compute dtype, `use_checkpoint` and the inert `dropout` work as in
+    VideoUNet."""
 
     def __init__(
         self,
@@ -303,8 +322,6 @@ class UNetModel(nn.Module):
         super().__init__()
         if num_head_channels == -1 and num_heads == -1:
             raise ValueError("either num_heads or num_head_channels must be set")
-        if dropout:
-            raise NotImplementedError("dropout > 0 is a training setting")
         if num_classes is not None and not isinstance(num_classes, int) and \
                 num_classes not in ("sequential", "continuous"):
             raise NotImplementedError(f"num_classes={num_classes!r} unsupported")
@@ -330,11 +347,6 @@ class UNetModel(nn.Module):
         elif num_classes is not None:
             self.label_emb = nn.Embedding(num_classes, ted)
 
-        def heads_for(ch):
-            if num_head_channels == -1:
-                return num_heads, ch // num_heads
-            return ch // num_head_channels, num_head_channels
-
         def make(spec, ch):
             kind = spec[0]
             if kind == "conv_in":
@@ -342,7 +354,8 @@ class UNetModel(nn.Module):
             if kind == "res":
                 return ResBlock(ch, ted, spec[1]), spec[1]
             if kind == "attn":
-                return SpatialTransformer(ch, *heads_for(ch), depth=spec[2],
+                return SpatialTransformer(ch, *_heads_for(ch, num_heads, num_head_channels),
+                                          depth=spec[2],
                                           context_dim=context_dim,
                                           use_linear=use_linear_in_transformer), ch
             if kind == "down":

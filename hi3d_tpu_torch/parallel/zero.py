@@ -27,6 +27,33 @@ ZeRO-1's; DeepSpeed's stage 2 keeps only the rank's gradient partition.
 layout, the one `Trainer.state_dict()` writes in one process, and
 `load_state_dict` cuts that layout, from either origin, into this rank's
 slice: a run resumes at another world size.
+
+`param_sharding="fsdp"` (the JAX step's option of that name,
+hi3d_tpu/training/step.py:37-58,110-160,163-194) shards the parameters too.
+The rank's slice of the flat parameters lives in `shard`, storage of its
+own; between steps the flat parameter and gradient buffers hold no storage
+(their views, the trained parameters and their `.grad`, must not be read).
+`gather_parameters` all-gathers the full flat parameters before the first
+micro-batch and `zero_grad` gives the flat gradient its storage back; the
+step reduce-scatters into the slice's own gradient, runs AdamW on the slice
+and frees the full parameters and gradients and the slice's gradient. The
+update is not all-gathered after the step: the next step's gather is the
+one that brings it to every rank. A rank then keeps 1/world of the
+parameters and of the moments between steps (and 1/world of the EMA, which
+`training.step.TrainStep` keeps on the slice).
+
+How the JAX package's mesh helpers (hi3d_tpu/parallel/mesh.py) map here:
+- `make_mesh`/`get_mesh` (the "data" axis): the process group of
+  `parallel.dist` (`init`, `rank`, `world`); the port has no tensor axis;
+- `batch_sharding` (the batch over "data"): each rank loads and steps on
+  its own part of the global batch (train.py, data/video_dataset.py);
+- `replicated`: parameters on every rank, equal by `dist.broadcast_module`
+  at start and by the all-gather of every update (`param_sharding=
+  "replicated"`);
+- `zero_partition_spec` + `named_shardings` (each leaf cut along a
+  divisible axis): one flat, padded buffer cut into equal slices of
+  `shard_numel` elements, `ALIGN`-aligned, for the moments and, under
+  "fsdp", the parameters and EMA.
 """
 
 from __future__ import annotations
@@ -38,6 +65,20 @@ import torch
 import torch.distributed as dist
 
 ALIGN = 32  # elements: each rank's slice starts on a 128-byte boundary
+
+
+def _materialize(t: torch.Tensor) -> None:
+    """Give a flat buffer whose storage was freed its storage back (its
+    values are undefined until written)."""
+    storage = t.untyped_storage()
+    need = t.numel() * t.element_size()
+    if storage.nbytes() < need:
+        storage.resize_(need)
+
+
+def _free(t: torch.Tensor) -> None:
+    """Free a flat buffer's storage; its views stay, pointing at nothing."""
+    t.untyped_storage().resize_(0)
 
 
 class ZeroAdamW(torch.optim.AdamW):
@@ -74,18 +115,52 @@ class ZeroAdamW(torch.optim.AdamW):
         self.lo, self.hi = lo, lo + self.shard_numel
         shard = torch.nn.Parameter(self.flat_param[self.lo:self.hi], requires_grad=False)
         shard.grad = self.flat_grad[self.lo:self.hi]
-        # the parameters' pieces inside this slice, for the gradient norm
-        self._pieces = [self.flat_grad[max(off, lo):min(off + n, self.hi)]
-                        for off, n in zip(self.offsets, self.numels)
-                        if max(off, lo) < min(off + n, self.hi)]
         super().__init__([shard], **adamw)
         self.shard = shard
+        self.fsdp = False  # the parameters are sharded too; `shard_parameters` sets it
         self.zero_grad()
+
+    def shard_parameters(self) -> None:
+        """Switch to `param_sharding="fsdp"`: the slice gets storage of its
+        own and the full flat parameters and gradients are freed."""
+        if self.fsdp:
+            return
+        with torch.no_grad():
+            self.shard.data = self.flat_param[self.lo:self.hi].clone()
+        self.shard.grad = None
+        self.fsdp = True
+        self.release()
+
+    def gather_parameters(self) -> None:
+        """Under "fsdp", all-gather the slices into the full flat
+        parameters, which the trained parameters are views of (a
+        collective); a no-op under "replicated"."""
+        if self.fsdp:
+            _materialize(self.flat_param)
+            dist.all_gather_into_tensor(self.flat_param, self.shard.detach())
+
+    def release(self) -> None:
+        """Under "fsdp", free the full flat parameters and gradients and the
+        slice's gradient."""
+        if self.fsdp:
+            _free(self.flat_param)
+            _free(self.flat_grad)
+            self.shard.grad = None
+
+    def _pieces(self) -> List[torch.Tensor]:
+        """The parameters' pieces of this rank's slice of the gradient, for
+        the gradient norm."""
+        g = self.shard.grad
+        return [g[max(off, self.lo) - self.lo:min(off + n, self.hi) - self.lo]
+                for off, n in zip(self.offsets, self.numels)
+                if max(off, self.lo) < min(off + n, self.hi)]
 
     # ----------------------------------------------------------- the step
     def zero_grad(self, set_to_none: bool = True) -> None:
-        """Zero the flat gradient and (re)attach each parameter's `.grad`
-        view of it; the gradients are never set to None."""
+        """Zero the flat gradient (giving it its storage back under "fsdp")
+        and (re)attach each parameter's `.grad` view of it; the gradients
+        are never set to None."""
+        _materialize(self.flat_grad)
         self.flat_grad.zero_()
         for p, off, n in zip(self.params, self.offsets, self.numels):
             g = p.grad
@@ -98,11 +173,13 @@ class ZeroAdamW(torch.optim.AdamW):
         gradient (the `grad_norm` metric), summed as
         `torch.nn.utils.get_total_norm` sums it: a norm per parameter (per
         piece of one, where a slice boundary cuts it), then their norm."""
+        if self.shard.grad is None:  # "fsdp": the slice's own gradient
+            self.shard.grad = torch.empty_like(self.shard)
         shard_grad = self.shard.grad
         dist.reduce_scatter_tensor(shard_grad, self.flat_grad)
         if self.world > 1:
             shard_grad.div_(self.world)
-        sq = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(self._pieces))).square()
+        sq = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(self._pieces()))).square()
         dist.all_reduce(sq)
         return sq.sqrt()
 
@@ -114,9 +191,13 @@ class ZeroAdamW(torch.optim.AdamW):
     @torch.no_grad()
     def step(self, closure=None):
         """AdamW on this rank's slice, then the updated slices all-gathered
-        into every parameter."""
+        into every parameter ("replicated"), or the full parameters and
+        gradients freed ("fsdp")."""
         loss = super().step(closure)
-        dist.all_gather_into_tensor(self.flat_param, self.shard.detach())
+        if self.fsdp:
+            self.release()
+        else:
+            dist.all_gather_into_tensor(self.flat_param, self.shard.detach())
         return loss
 
     # ----------------------------------------------------- consolidation
@@ -164,7 +245,8 @@ class ZeroAdamW(torch.optim.AdamW):
         own = {}
         if state:
             dev = self.flat_param.device
-            own["step"] = state[ids[0]]["step"]
+            # a copy: AdamW counts its step in place, and the caller's dict stays as given
+            own["step"] = state[ids[0]]["step"].clone()
             for key in ("exp_avg", "exp_avg_sq"):
                 flat = torch.zeros(self.shard_numel, dtype=self.flat_param.dtype, device=dev)
                 for i, off, n in zip(ids, self.offsets, self.numels):

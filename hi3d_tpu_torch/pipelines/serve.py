@@ -303,7 +303,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     "batches": batches run}."""
     p = argparse.ArgumentParser(description="Hi3D batched serving on one GPU (PyTorch port)")
     p.add_argument("--image_dir", required=True,
-                   help="directory of input images (png; jpg/jpeg/webp need cv2)")
+                   help="directory of input images (png, jpg/jpeg; webp needs cv2)")
     p.add_argument("--output_dir", required=True)
     p.add_argument("--mode", default="orbit", choices=["orbit", "two_stage"])
     p.add_argument("--batch", type=int, default=0,

@@ -278,29 +278,38 @@ class Trainer:
     def state_dict(self) -> Optional[Dict]:
         """The checkpoint: step, the UNet, the optimizer (one process's
         per-parameter AdamW layout), the LR schedule, EMA. In a process
-        group a collective, and None on ranks other than 0."""
+        group a collective, and None on ranks other than 0. A step whose
+        parameters are sharded ("fsdp") is gathered for it, and rank 0
+        keeps copies on the CPU, so the checkpoint is the plain one."""
         optimizer = self.optimizer.state_dict()
-        if not self.main:
-            return None
-        sched = self.lr_scheduler.state_dict() if self.lr_scheduler is not None else None
-        if sched is not None:
-            sched = {k: v for k, v in sched.items() if k != "lr_lambdas"}  # a config object
-        return {
-            "step": self.train_step.step,
-            "model": self.engine.model.diffusion_model.state_dict(),
-            "optimizer": optimizer,
-            "lr_scheduler": sched,
-            "ema": self.train_step.ema_params,
-        }
+        with self.train_step.gathered():
+            if not self.main:
+                return None
+            sched = self.lr_scheduler.state_dict() if self.lr_scheduler is not None else None
+            if sched is not None:
+                sched = {k: v for k, v in sched.items() if k != "lr_lambdas"}  # a config object
+            model = self.engine.model.diffusion_model.state_dict()
+            ema = self.train_step.ema_params
+            if self.train_step.fsdp:  # the gathered buffers are freed on exit
+                model = {k: v.to("cpu", copy=True) for k, v in model.items()}
+                ema = None if ema is None else [e.to("cpu", copy=True) for e in ema]
+            return {
+                "step": self.train_step.step,
+                "model": model,
+                "optimizer": optimizer,
+                "lr_scheduler": sched,
+                "ema": ema,
+            }
 
     def load_state_dict(self, state: Dict) -> None:
-        self.engine.model.diffusion_model.load_state_dict(state["model"], strict=True)
+        with self.train_step.gathered():
+            self.engine.model.diffusion_model.load_state_dict(state["model"], strict=True)
+            if state["ema"] is not None and self.train_step.ema_params is not None:
+                for s, v in zip(self.train_step.ema_params, state["ema"]):
+                    s.copy_(v)
         self.optimizer.load_state_dict(state["optimizer"])
         if self.lr_scheduler is not None:
             self.lr_scheduler.load_state_dict({**state["lr_scheduler"], "lr_lambdas": [None]})
-        if state["ema"] is not None and self.train_step.ema_params is not None:
-            for s, v in zip(self.train_step.ema_params, state["ema"]):
-                s.copy_(v)
         self.train_step.step = int(state["step"])
 
     def resume_if_possible(self) -> int:
@@ -318,20 +327,22 @@ class Trainer:
     def _ema_weights(self):
         """Within: the trained parameters hold their EMA (when the run keeps
         one), as the JAX trainer hands `log_images` its EMA params; the
-        trained values come back bit for bit after."""
-        ema = self.train_step.ema_params
-        if ema is None:
-            yield
-            return
-        params = self.train_step.params
-        with torch.no_grad():
-            kept = [p.detach().clone() for p in params]
-            torch._foreach_copy_(params, ema)
-        try:
-            yield
-        finally:
+        trained values come back bit for bit after. Sharded parameters
+        ("fsdp") are gathered for it."""
+        with self.train_step.gathered():
+            ema = self.train_step.ema_params
+            if ema is None:
+                yield
+                return
+            params = self.train_step.params
             with torch.no_grad():
-                torch._foreach_copy_(params, kept)
+                kept = [p.detach().clone() for p in params]
+                torch._foreach_copy_(params, ema)
+            try:
+                yield
+            finally:
+                with torch.no_grad():
+                    torch._foreach_copy_(params, kept)
 
     # ----------------------------------------------------------------- fit
     def _device_batch(self, batch: Dict) -> Dict:
@@ -413,9 +424,12 @@ class Trainer:
                 if prof is not None and step == self.profile_steps[1]:
                     self._stop_profile(prof)
                     prof = None
-                if self.main and step % self.image_logger.every == 0:
-                    with self._ema_weights():  # the captions too, which the device batch drops
-                        self.image_logger.maybe_log(self.engine, {**host_batch, **batch}, step)
+                # sharded parameters are gathered on every rank for the dump (a collective)
+                if step % self.image_logger.every == 0 and (self.main or self.train_step.fsdp):
+                    with self._ema_weights():
+                        if self.main:  # the captions too, which the device batch drops
+                            self.image_logger.maybe_log(self.engine, {**host_batch, **batch},
+                                                        step)
                 self.checkpointer.maybe_save(step, self.state_dict, metrics)
             ended = True
         finally:

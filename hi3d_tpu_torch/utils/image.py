@@ -1,5 +1,7 @@
 """Host-side image preprocessing for the CLIs (counterpart of
-hi3d_tpu/utils/image.py), on numpy and the stdlib PNG codec only.
+hi3d_tpu/utils/image.py), on numpy, the port's PNG codec (utils/png.py) and
+its JPEG decoder (utils/jpeg.py): `read_image`/`decode_image` tell the two
+apart by their signature, as cv2 does; other formats (WebP) need cv2.
 
 `remove_background` is the stage-1 CLI's background removal: the port's
 U²-Net (`models/u2net.py`) on the caller's device when a checkpoint is
@@ -24,7 +26,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from .png import read_png, write_png
+from .jpeg import decode_jpeg, is_jpeg
+from .png import _SIGNATURE as _PNG_SIGNATURE
+from .png import decode_png, write_png
 
 
 def center_crop(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
@@ -43,13 +47,30 @@ def composite_white(rgba: np.ndarray) -> np.ndarray:
     return out.round().astype(np.uint8)
 
 
+def decode_image(blob: bytes, name: str = "<bytes>") -> np.ndarray:
+    """An encoded PNG or JPEG → uint8 (H, W, C) as `read_png` and
+    `decode_jpeg` give it (C = 1–4); anything else raises."""
+    if blob.startswith(_PNG_SIGNATURE):
+        return decode_png(blob, name)
+    if is_jpeg(blob):
+        return decode_jpeg(blob, name)
+    raise ValueError(f"{name}: neither a PNG nor a JPEG")
+
+
+def read_image(path: str) -> np.ndarray:
+    """`decode_image` of a file."""
+    with open(path, "rb") as f:
+        return decode_image(f.read(), path)
+
+
 def _read_cv2(path: str) -> np.ndarray:
-    """uint8 HWC in RGB(A) channel order, through cv2 (formats other than PNG)."""
+    """uint8 HWC in RGB(A) channel order, through cv2 (formats other than
+    PNG and JPEG)."""
     try:
         import cv2
     except ImportError:
-        raise RuntimeError(f"cannot read {path!r}: only PNG decodes without cv2, which does not "
-                           "import here; convert the image to PNG") from None
+        raise RuntimeError(f"cannot read {path!r}: only PNG and JPEG decode without cv2, which "
+                           "does not import here; convert the image to PNG") from None
     img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
     if img is None:
         raise FileNotFoundError(path)
@@ -60,8 +81,11 @@ def _read_cv2(path: str) -> np.ndarray:
 
 def load_image_rgb(path: str) -> np.ndarray:
     """uint8 HWC RGB; RGBA is composited onto white, gray is replicated. PNG
-    goes through the stdlib codec; other formats need cv2."""
-    img = read_png(path) if path.lower().endswith(".png") else _read_cv2(path)
+    and JPEG decode without cv2 (`read_image`); other formats need it."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    known = head.startswith(_PNG_SIGNATURE) or is_jpeg(head)
+    img = read_image(path) if known else _read_cv2(path)
     if img.shape[-1] == 1:
         return np.repeat(img, 3, axis=-1)
     if img.shape[-1] == 2:  # gray + alpha

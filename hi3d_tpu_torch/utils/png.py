@@ -12,67 +12,39 @@ reads one held in memory (a tar member).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
 import struct
-import subprocess
-import tempfile
 import threading
 import zlib
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
+
+from . import cbuild
+from .jpeg import is_jpeg
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG colour type → samples per pixel
 _PALETTE = 3  # colour type of indexed-colour images
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "png_unfilter.c"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
-_CFLAGS = ["-O3", "-shared", "-fPIC"]
+_BUILD_DIR = cbuild.BUILD_DIR
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
 
 def _native() -> ctypes.CDLL:
-    """The C unfilter (`csrc/png_unfilter.c`), compiled once per source hash
-    with the host C compiler into build/host/ and loaded with ctypes. One
-    thread of a process builds it while the others wait; the library is
-    written under a name of its own and renamed into place, so processes
-    that build it at once do not race."""
+    """The C unfilter (`csrc/png_unfilter.c`), built at first use by
+    `utils.cbuild` into `_BUILD_DIR` (one build per source hash; one thread
+    builds while the others wait)."""
     global _lib
     with _lib_lock:
         if _lib is not None:
             return _lib
-        src = _SOURCE.read_bytes()
-        digest = hashlib.sha256(src + " ".join(_CFLAGS).encode()).hexdigest()[:16]
-        out = _BUILD_DIR / f"libhi3d_png_{digest}.so"
-        if not out.exists():
-            cc = os.environ.get("CC") or shutil.which("cc") or shutil.which("gcc")
-            if cc is None:
-                raise RuntimeError("read_png: no C compiler (cc, gcc or $CC) to build "
-                                   f"{_SOURCE.name}")
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(prefix=f"{out.name}.", suffix=".tmp", dir=_BUILD_DIR)
-            os.close(fd)
-            try:
-                done = subprocess.run([cc, *_CFLAGS, "-o", tmp, str(_SOURCE)],
-                                      capture_output=True, text=True)
-                if done.returncode != 0:
-                    raise RuntimeError(f"read_png: building {_SOURCE.name} failed:\n"
-                                       f"{done.stderr}")
-                os.replace(tmp, out)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-        lib = ctypes.CDLL(str(out))
+        lib = cbuild.load("png_unfilter.c", "hi3d_png", "read_png", _BUILD_DIR)
         lib.hi3d_png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                           ctypes.c_long, ctypes.c_int]
         lib.hi3d_png_unfilter.restype = ctypes.c_int
         _lib = lib
-        return lib
+    return _lib
 
 
 def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
@@ -150,9 +122,6 @@ def _expand_palette(rows: np.ndarray, w: int, depth: int, plte: bytes,
     return table[idx, :3]
 
 
-_JPEG_SIGNATURE = b"\xff\xd8\xff"
-
-
 def read_png(path: str) -> np.ndarray:
     """uint8 (H, W, C): C = 1, 2, 3 or 4 samples as stored, or a palette
     expanded to 3 (RGB) or, with a tRNS chunk, 4 (RGBA)."""
@@ -162,10 +131,10 @@ def read_png(path: str) -> np.ndarray:
 
 def decode_png(blob: bytes, name: str = "<bytes>") -> np.ndarray:
     """`read_png` on an encoded PNG held in memory (a tar member, say);
-    `name` labels the errors. A JPEG raises: the port decodes PNG only."""
-    if blob.startswith(_JPEG_SIGNATURE):
-        raise ValueError(f"{name}: a JPEG; the port decodes PNG images only (no JPEG decoder "
-                         "without cv2), so re-encode it as PNG")
+    `name` labels the errors. A JPEG raises: `utils.jpeg.decode_jpeg` reads
+    it (`utils.image.decode_image` reads either)."""
+    if is_jpeg(blob):
+        raise ValueError(f"{name}: a JPEG, not a PNG; decode it with utils.jpeg.decode_jpeg")
     if not blob.startswith(_SIGNATURE):
         raise ValueError(f"{name}: not a PNG file")
     pos = len(_SIGNATURE)

@@ -1099,3 +1099,106 @@ def test_antialiased_resize_on_the_card_matches_the_cpu(cuda, method):
             assert (got - want).abs().max().item() <= 1e-6
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow
+
+
+# ------------------------------------------------------ warping, JPEG, the VideoUNet options
+WARP_TOL = 1e-5  # fp32 on the card against float64 on the CPU, of the largest entry
+
+
+def _warp_rel_err(got, want):
+    return ((got.double().cpu() - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["sum", "avg", "linear", "soft", "soft-clipeps"])
+def test_softsplat_on_the_card_matches_the_cpu(cuda, mode):
+    """softsplat forward and its input, flow and metric gradients on the
+    card (scatter-add on atomics) against float64 on the CPU; the flow is
+    quantised to 1/1024 px so both land on the same grid cells."""
+    from hi3d_tpu_torch.ops.softsplat import softsplat
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.rand(2, 3, 40, 56, generator=g)
+    flow = torch.round((torch.rand(2, 2, 40, 56, generator=g) - 0.5) * 12 * 1024) / 1024
+    metric = 0.5 + torch.rand(2, 1, 40, 56, generator=g)  # positive: linear's normaliser
+    cot = torch.randn(2, 3, 40, 56, generator=g)
+    res = {}
+    for dev, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        a, f, m = (v.detach().to(dev, dtype).requires_grad_() for v in (x, flow, metric))
+        out = softsplat(a, f, m if mode.split("-")[0] in ("linear", "soft") else None, mode)
+        (out * cot.to(dev, dtype)).sum().backward()
+        res[str(dev)] = [out.detach(), a.grad, f.grad] + ([m.grad] if m.grad is not None else [])
+    for got, want in zip(res["cuda"], res["cpu"]):
+        assert _warp_rel_err(got, want) <= WARP_TOL
+
+
+@pytest.mark.gpu
+def test_correlation_on_the_card_matches_the_cpu(cuda):
+    from hi3d_tpu_torch.ops.correlation import correlation
+
+    g = torch.Generator().manual_seed(4)
+    one, two = (torch.randn(2, 32, 24, 20, generator=g) for _ in range(2))
+    cot = torch.randn(2, 81, 24, 20, generator=g)
+    res = {}
+    for dev, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        a, b = (v.detach().to(dev, dtype).requires_grad_() for v in (one, two))
+        out = correlation(a, b)
+        (out * cot.to(dev, dtype)).sum().backward()
+        res[str(dev)] = (out.detach(), a.grad, b.grad)
+    for got, want in zip(res["cuda"], res["cpu"]):
+        assert _warp_rel_err(got, want) <= WARP_TOL
+
+
+@pytest.mark.gpu
+def test_jpeg_fixtures_decode_to_their_goldens_on_the_card_host(cuda):
+    """The JPEG decoder on the card's host (no cv2 there) against the
+    committed cv2 goldens (tests/data/torch_jpeg/goldens.json)."""
+    import hashlib
+    import json
+    import os
+
+    from hi3d_tpu_torch.utils.jpeg import read_jpeg
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "torch_jpeg")
+    with open(os.path.join(root, "goldens.json")) as f:
+        goldens = json.load(f)
+    for name, want in goldens.items():
+        img = read_jpeg(os.path.join(root, name))
+        assert [list(img.shape), hashlib.sha256(img.tobytes()).hexdigest()] == \
+            [want["shape"], want["sha256"]], name
+
+
+@pytest.mark.gpu
+def test_frame_self_context_launches_the_frame_kernel_twice(cuda):
+    """A VideoUNet without the spatial context, called without a
+    time_context, attends over the frames twice in every temporal block:
+    twice K2's launches of the same UNet with it; without the temporal
+    cross-attention once. The counts come from the modules
+    (`frame_self_attentions`)."""
+    from hi3d_tpu_torch.models.unet import VideoUNet
+    from hi3d_tpu_torch.models.video_attention import SpatialVideoTransformer
+
+    kw = dict(in_channels=8, out_channels=4, model_channels=64, num_res_blocks=1,
+              channel_mult=[1, 2], attention_resolutions=[1, 2], num_head_channels=64,
+              context_dim=48, num_classes="sequential", adm_in_channels=16,
+              use_linear_in_transformer=True, extra_ff_mix_layer=True)
+    x = torch.randn(2 * 4, 8, 8, 8, device=cuda, dtype=torch.bfloat16)
+    ts = torch.rand(8, device=cuda)
+    ctx = torch.randn(2, 1, 48, device=cuda, dtype=torch.bfloat16)
+    y = torch.randn(2, 16, device=cuda, dtype=torch.bfloat16)
+    got = {}
+    for name, opts in (("spatial", dict(use_spatial_context=True)),
+                       ("self", dict(use_spatial_context=False)),
+                       ("none", dict(use_spatial_context=False,
+                                     disable_temporal_crossattention=True))):
+        net = VideoUNet(**kw, **opts).to(cuda, torch.bfloat16).eval()
+        want = sum(m.frame_self_attentions() for m in net.modules()
+                   if isinstance(m, SpatialVideoTransformer))
+        ta.temporal_attention.launches = 0
+        with torch.no_grad():
+            out = net(x, ts, context=ctx, y=y, num_video_frames=4,
+                      image_only_indicator=torch.zeros(2, 4, device=cuda))
+        assert torch.isfinite(out).all()
+        got[name] = ta.temporal_attention.launches
+        assert got[name] == want
+    assert got["self"] == 2 * got["spatial"] and got["none"] == got["spatial"] > 0

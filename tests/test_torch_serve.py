@@ -154,8 +154,8 @@ def test_serve_cli_two_stage_mode_pads_and_drops(tmp_path):
 def test_non_png_input_without_cv2_raises(tmp_path, monkeypatch):
     from hi3d_tpu_torch.utils.image import load_image_rgb
 
-    path = tmp_path / "x.jpg"
-    path.write_bytes(b"\xff\xd8\xff")
+    path = tmp_path / "x.webp"
+    path.write_bytes(b"RIFF\x00\x00\x00\x00WEBPVP8 ")
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(RuntimeError, match="only PNG decodes without cv2"):
+    with pytest.raises(RuntimeError, match="only PNG and JPEG decode without cv2"):
         load_image_rgb(str(path))

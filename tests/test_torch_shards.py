@@ -101,18 +101,42 @@ def test_tar_sample_matches_jax(tmp_path, stage2, size, target):
             assert got["fps_id"] == 7 and got["motion_bucket_id"] == 127
 
 
-def test_jpeg_member_raises(tmp_path):
-    """JAX decodes a JPEG member with cv2; the port reads PNG only and says so."""
+def test_jpeg_members_decode_as_jax(tmp_path):
+    """JPEG members decode as JAX's cv2 decodes them (`utils.jpeg`): a shard
+    of cv2-encoded JPEG frames samples what JAX's tar dataset samples."""
+    import cv2
+
+    from hi3d_tpu.data.video_dataset import TarShardVideoDataset as JaxTarShardVideoDataset
     from hi3d_tpu_torch.data.video_dataset import TarShardVideoDataset
 
-    path = str(tmp_path / "jpeg.tar")
+    rnd = np.random.RandomState(4)
+    good = str(tmp_path / "jpeg.tar")
+    with tarfile.open(good, "w") as tf:
+        for i in range(16):
+            frame = rnd.randint(0, 256, (16, 16, 3)).astype(np.uint8)
+            data = cv2.imencode(".jpg", frame, [cv2.IMWRITE_JPEG_QUALITY, 70 + i])[1].tobytes()
+            info = tarfile.TarInfo(f"obj0/{i:03d}.jpg")
+            info.size = len(data)
+            tf.addfile(info, io.BytesIO(data))
+    got = TarShardVideoDataset(good, 16, 16).sample(np.random.RandomState(0))
+    want = JaxTarShardVideoDataset(good, 16, 16).sample(np.random.RandomState(0))
+    assert got["caption"] == want["caption"]
+    np.testing.assert_array_equal(got["video"].transpose(0, 2, 3, 1), want["video"])
+
+
+def test_jpeg_member_raises(tmp_path):
+    """A JPEG member that is no whole JPEG raises a ValueError that names
+    it."""
+    from hi3d_tpu_torch.data.video_dataset import TarShardVideoDataset
+
+    path = str(tmp_path / "bad.tar")
     with tarfile.open(path, "w") as tf:
         for i in range(16):
             data = b"\xff\xd8\xff\xe0" + bytes(16)
             info = tarfile.TarInfo(f"obj0/{i:03d}.jpg")
             info.size = len(data)
             tf.addfile(info, io.BytesIO(data))
-    with pytest.raises(ValueError, match="obj0/0.*JPEG.*PNG"):
+    with pytest.raises(ValueError, match="obj0/0.*JPEG"):
         TarShardVideoDataset(path, 16, 16).sample(np.random.RandomState(0))
 
 

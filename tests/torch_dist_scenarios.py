@@ -324,3 +324,84 @@ def run(rank: int, world: int, ports, workdir: str, inp: dict) -> None:
     os.environ.update(MASTER_PORT=str(ports[2]))
     dist.init_process_group("gloo", rank=rank, world_size=world, timeout=TIMEOUT)
     torch.save(failure(inp, rank, workdir), os.path.join(workdir, f"failure{rank}.pt"))
+
+
+# ------------------------------------------------------------------- FSDP
+def _resident(step) -> dict:
+    """What a rank holds of the trained state between steps, in elements."""
+    opt = step.optimizer
+    return {"flat_param_bytes": opt.flat_param.untyped_storage().nbytes(),
+            "flat_grad_bytes": opt.flat_grad.untyped_storage().nbytes(),
+            "shard": opt.shard.numel(), "shard_grad": opt.shard.grad is not None,
+            "ema": None if step.ema_shard is None else step.ema_shard.numel(),
+            "moments": opt.state[opt.shard]["exp_avg"].numel(),
+            "resident_bytes": step.resident_bytes()}
+
+
+def fsdp_mlp(inp: dict, rank: int, world: int, sharding: str, steps: int) -> dict:
+    """The toy MLP of tests/test_training.py: `steps` steps of this rank's
+    rows of the global batch (AdamW 1e-2, EMA 0.9999) with the parameters
+    sharded as `sharding` says: the loss of each step, what the rank holds
+    between steps, and the full parameters and EMA after each step."""
+    from hi3d_tpu_torch.training.state import build_optimizer
+    from hi3d_tpu_torch.training.step import TrainStep
+
+    w1 = torch.nn.Parameter(torch.from_numpy(inp["w1"]))
+    w2 = torch.nn.Parameter(torch.from_numpy(inp["w2"]))
+    rows = len(inp["x"]) // world
+    batch = {k: torch.from_numpy(inp[k][rank * rows:(rank + 1) * rows]) for k in ("x", "y")}
+
+    def loss_fn(b, g):
+        return ((torch.tanh(b["x"] @ w1) @ w2 - b["y"]) ** 2).mean()
+
+    step = TrainStep(loss_fn, [w1, w2], build_optimizer([w1, w2], 1e-2), ema_decay=0.9999,
+                     param_sharding=sharding)
+    out = {"loss": [], "resident": [], "params": [], "ema": [], "numel": step.optimizer.numel,
+           "shard_numel": step.optimizer.shard_numel}
+    for _ in range(steps):
+        out["loss"].append(float(step(batch)["loss"]))
+        if sharding == "fsdp":
+            out["resident"].append(_resident(step))
+        else:
+            out["resident"].append({"resident_bytes": step.resident_bytes()})
+        with step.gathered():
+            out["params"].append([w1.detach().clone(), w2.detach().clone()])
+            out["ema"].append([e.clone() for e in step.ema_params])
+    return out
+
+
+def fsdp_trainer(inp: dict, rank: int, workdir: str, sharding: str) -> dict:
+    """The tiny engine's Trainer, 2 steps on this rank's pinned video, its
+    TrainStep built with `sharding` before the first step: the rank-0
+    checkpoint (a consolidated one under either sharding) and the trained
+    parameters gathered."""
+    from hi3d_tpu_torch.training.step import TrainStep
+
+    engine = build_engine(run_config(inp["cfg"]), inp["state"])
+    pin(engine, inp["pinned"][rank])
+    trainer = _trainer(engine, os.path.join(workdir, f"trainer_{sharding}"), seed=5)
+    old = trainer.train_step
+    trainer.train_step = TrainStep(old.loss_fn, old.params, trainer.optimizer,
+                                   trainer.lr_scheduler, accum_steps=old.accum_steps,
+                                   ema_decay=old.ema_decay, param_sharding=sharding)
+    del old
+    steps = trainer.fit(host_batches(5), max_steps=2, resume=False)
+    state = trainer.state_dict()
+    with trainer.train_step.gathered():
+        params = named_params(engine)
+    return {"steps": steps, "state": state, "params": params}
+
+
+def fsdp_run(rank: int, world: int, port: int, workdir: str, inp: dict) -> None:
+    """A spawned rank of tests/test_torch_fsdp.py: join a gloo group on
+    `port`, run the FSDP scenarios and their replicated counterparts, save
+    the results to `<workdir>/fsdp<rank>.pt`."""
+    torch.set_num_threads(2)
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    dist.init_process_group("gloo", rank=rank, world_size=world, timeout=TIMEOUT)
+    out = {f"mlp_{s}": fsdp_mlp(inp["mlp"], rank, world, s, steps=2)
+           for s in ("fsdp", "replicated")}
+    out.update({f"trainer_{s}": fsdp_trainer(inp, rank, workdir, s)
+                for s in ("fsdp", "replicated")})
+    dist.destroy_process_group()
+    torch.save(out, os.path.join(workdir, f"fsdp{rank}.pt"))
