@@ -1,6 +1,6 @@
 """GPU smoke run of the PyTorch port's inference, training (stage 1 and 2; one process,
-and in a process group), serving, autoencoder, text-to-image and module-surface paths on
-one NVIDIA H100.
+and in a process group), serving (one process, and in a process group), autoencoder,
+text-to-image and module-surface paths on one NVIDIA H100.
 
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --profile-serve  # only a 2-step profile of the serve batch
@@ -24,6 +24,7 @@ one NVIDIA H100.
     python3 chip_smoke.py --t2i            # only main paths 14 and 15 with their phases
     python3 chip_smoke.py --module-surface # only main path 16 (16 random frames stand in
                                            # for path 1's)
+    python3 chip_smoke.py --serve-dist     # only main path 17 (multi-GPU serving)
 
 1. prints the card (nvidia-smi name and power limit) and fails without CUDA;
 2. builds the kernels from this checkout (`hi3d_tpu_torch/csrc`);
@@ -63,11 +64,12 @@ one NVIDIA H100.
    the launch counts;
 8. main path 4: `hi3d_tpu_torch.pipelines.serve.main` in orbit mode on two
    images (demo/3.png and a rolled copy) at full width, 2 assets × 48 frames
-   × 512² in one batch, 25 steps; checks the frames and the launch counts
+   × 512² in one batch, 4 steps (cut from 25 to pay for main path 17); checks the frames
+   and the launch counts
    (#6 on every frame-axis site, K2 none);
 9. main path 5: `hi3d_tpu_torch.pipelines.full.main` at full width on
    demo/3.png (configs/inference-v01.yaml → configs/inference-v02.yaml, 16 ×
-   512² → 16 × 1024², 25 steps each, random weights), background removal by
+   512² → 16 × 1024², 10 steps each, random weights), background removal by
    a full U²-Net with random weights saved under outputs/ and named by
    HI3D_U2NET_CKPT; checks rgba.png and white.png, that stage 2 read
    white.png, the refined frames, 16 finite scores of each kind in
@@ -75,9 +77,9 @@ one NVIDIA H100.
    counts (i2v + v2v + the ViewScorer's ViT-L); prints the stage seconds,
    the U²-Net's ms at 320² and the peak memory;
 10. main path 6: `serve.main --mode two_stage` on the two images of path 4,
-   --batch 1 (two batches handed from stage 1 to stage 2), 16 frames, 25
-   steps each stage, both engines resident: 2 × 16 × 1024² frames, the
-   launch counts, peak memory, s/asset;
+   --batch 1 (two batches handed from stage 1 to stage 2), 16 frames, 4
+   steps each stage (cut from 25), both engines resident: 2 × 16 × 1024²
+   frames, the launch counts, peak memory, s/asset;
 11. main path 7: `i2v.main --cfg_interval 0.3 6` as path 1 (CFG on steps
    15–19, one conditioned pass of 16 frames on the other 20) on
    tests/data/torch_jpeg/demo3_q90.jpg (demo/3.png as a JPEG); main path 8:
@@ -91,7 +93,8 @@ one NVIDIA H100.
    path 1's or 3's (path 8 also its peak memory);
 12. main path 10: `hi3d_tpu_torch.train.main` on configs/train-v02.yaml at
    full width (1 video × 16 × 1024² a step, all parameters trained, random
-   weights) for 3 steps on 96 RGBA 1024² renders made from demo/3.png; the
+   weights) for 3 steps on 96 RGBA 1024² renders made from demo/3.png, its
+   image logger's dump sampling 5 steps (cut from the config's 25); the
    conditioning video is degraded on the card (data/degradation.py). Checks
    finite losses and gradient norms, that out.2 moved, step 1's degraded
    video (finite, in [-1, 1], frame 0 clean, background white, the other
@@ -148,7 +151,21 @@ one NVIDIA H100.
    fp32 on both sides, and every other new embedder once (finite, JAX's
    shapes); launches equal to `towers_launches` (`--t2i` runs paths 14–15
    alone);
-18. prints the kernel JSON line (launches per path and summed, errors, times,
+18. main path 17: multi-GPU serving (`serve_dist_path`; `--serve-dist` runs
+   it alone) at full width, configs/inference-v01.yaml and -v02.yaml with 2
+   sampler steps a stage: (a) `serve.main` under a world-1 NCCL group
+   (`torchrun_env(1)`) in orbit and two-stage mode with `--parallel
+   latency`, so that the frame-parallel code and its NCCL calls run with the
+   regroups as identities: frames and launches (a time-stack norm = #9's
+   moments mode + K3 with given statistics); (b) two processes on the one
+   card in a gloo group (NCCL refuses two ranks a device), both engines a
+   rank with the UNets' zero-initialised leaves seeded: rank 0 first runs
+   the one-process outputs, then the pair runs latency (B = 1), throughput
+   (B = 2) and `TwoStageServer.generate_stream` (one rank a stage, 2
+   batches of 1), each within `SERVE_DIST_REL_L2` of one process and with
+   each rank's launches equal to its plan (`serve_dist_plans`); prints
+   per-rank seconds, collectives (`CollectiveProbe`) and peaks;
+19. prints the kernel JSON line (launches per path and summed, errors, times,
    bounds), the card line, and the contract line last.
 
 The training paths log metrics every step (`metrics_every_step`; the CLI
@@ -573,7 +590,56 @@ def kernel_phase() -> Results:
                f"x{tuple(shape)} fp32 (mean, inv_std up to {scale:.3f})",
                time_ms(lambda: torch.var_mean(xg, dim=-1, correction=0)),
                x.numel() * 4 + shape[0] * 32 * 2 * 4, 3 * x.numel())
+
+    # main path 17's split time-stack GroupNorm (latency serving at W = 2:
+    # every frame of a CFG-doubled video over half the 64² locations, bf16),
+    # printed, not in the JSON sums: #9's moments mode ((mean, M2), two
+    # passes) within 1e-4 of the plain float64 moments' largest magnitude;
+    # K3 applying given statistics within K3's 6e-2 (|y| < 8). Library:
+    # torch.var_mean over the group view (the moments up to the count)
+    for shape in SPLIT_NORM_CASES:
+        x = (torch.randn(shape, generator=gen, device=dev) * 3 + 1).to(bf16)
+        mean, m2 = gn.group_moments(x, 32)
+        rm, rm2 = gn.group_moments_reference(x.double(), 32)
+        torch.cuda.synchronize()
+        err = max(((a.double() - b).abs().max() / b.abs().max()).item()
+                  for a, b in ((mean, rm), (m2, rm2)))
+        xg = x.view(shape[0], 32, -1)
+        record("group_stats", err, 1e-4, time_ms(lambda: gn.group_moments(x, 32)),
+               time_ms(lambda: gn.group_moments_reference(x, 32), reps=3),
+               f"x{tuple(shape)} bf16 moments mode (mean, M2; relative error)",
+               time_ms(lambda: torch.var_mean(xg, dim=-1, correction=0)),
+               x.numel() * 2 + shape[0] * 32 * 2 * 4, 5 * x.numel(), summed=False)
+        w = 1 + 0.1 * torch.randn((shape[1],), generator=gen, device=dev)
+        bia = 0.1 * torch.randn((shape[1],), generator=gen, device=dev)
+        stats = torch.stack([mean, torch.rsqrt(m2 / (x[0].numel() // 32) + 1e-5)]).contiguous()
+        out = gn.group_norm_apply(x, w, bia, 32, stats, "silu")
+        ref = gn.group_norm_apply_reference(x, w, bia, 32, stats, "silu")
+        torch.cuda.synchronize()
+        record("group_norm", (out.float() - ref.float()).abs().max().item(), 6e-2,
+               time_ms(lambda: gn.group_norm_apply(x, w, bia, 32, stats, "silu")),
+               time_ms(lambda: gn.group_norm_apply_reference(x, w, bia, 32, stats, "silu"),
+                       reps=3),
+               f"x{tuple(shape)} act=silu, given statistics", None,
+               *group_norm_work(shape), summed=False)
+    # K2 on a block of the locations (the layout latency serving hands it)
+    # is K2 on every location, sliced: bit for bit
+    q, k, v = (torch.randn((2, 16, 4096, 320), generator=gen, device=dev, dtype=bf16)
+               .view(2, 16, 4096, 5, 64) for _ in range(3))
+    whole = ta.temporal_attention(q, k, v)
+    block = ta.temporal_attention(*(y[:, :, 2048:].contiguous() for y in (q, k, v)))
+    torch.cuda.synchronize()
+    if not torch.equal(block, whole[:, :, 2048:]):
+        raise AssertionError("temporal_attention on a location block differs from the whole")
+    print("[kernel] temporal_attention on locations 2048–4095 of B=2 T=16 S=4096 C=320: "
+          "bit-equal to the whole call's block", flush=True)
     return results
+
+
+# main path 17's split time-stack norms: (2 CFG copies, C, T 16, a location
+# block, 1), the (3, 1, 1) convolution's view, at W = 2: half of 64² (C 320)
+# and of 16² (C 1280)
+SPLIT_NORM_CASES = ((2, 320, 16, 2048, 1), (2, 1280, 16, 128, 1))
 
 
 # #7's shapes: the serve path's four frame-axis sites, a ragged T = 33, T = 64
@@ -1032,7 +1098,8 @@ def unet_calls(sampler: str, steps: int, encoder_reuse: int = 0):
 
 
 def expected_launches(config_path: str, steps: int, path: str, clip_size=None,
-                      assets: int = 1, sampler=None, encoder_reuse: int = 0) -> dict:
+                      assets: int = 1, sampler=None, encoder_reuse: int = 0, rows=None,
+                      split_norms: bool = False) -> dict:
     """Launches per kernel that the model's plan predicts for one run of
     `path` ("i2v", "train", "v2v", "serve": `assets` assets of `clip_size`
     frames in one batch, "refine": stage 2 on `assets` videos in one batch,
@@ -1064,7 +1131,14 @@ def expected_launches(config_path: str, steps: int, path: str, clip_size=None,
     call (frames in chunks of `en_and_decode_n_samples_a_time`) and of the
     DPT (one call on all 16 frames). Stage-2 training encodes every frame
     twice (the engine's latents, the conditioner's cond-video latents), in
-    chunks of 1 each."""
+    chunks of 1 each.
+
+    One rank of a serving group ("serve" or "refine"): every rank
+    conditions the whole batch, the engine's encode (refine) and the decode
+    take the rank's `rows` frames (all of them by default); with
+    `split_norms` (latency mode) each time-stack GroupNorm is #9's moments
+    mode, then K3 with the combined statistics: one #9 launch more a
+    time-stack norm, K3's count unchanged."""
     from hi3d_tpu_torch.config import load_config
     from hi3d_tpu_torch.models.unet import _build_plan
 
@@ -1138,11 +1212,13 @@ def expected_launches(config_path: str, steps: int, path: str, clip_size=None,
             **_frame_kernels(route, attn, 0),
             "group_norm": whole * (4 * n_res + n_attn + 1) + dec * (4 * dec_res + dec_attn + 1)}
     unet_ln = whole * sites["unet"] + dec * sites["unet_dec"]
+    split = 2 * (whole * n_res + dec * dec_res) if split_norms else 0
+    rows = assets * t if rows is None else rows
     if path in ("i2v", "serve"):  # the conditioner encodes each asset's frame 0; the
         # engine decodes the assets' T frames
         return {**unet,
                 "group_stats": sites["encoder"] * _chunks(assets, enc_chunk)
-                + sites["decoder"] * _chunks(assets * t, engine_chunk),
+                + sites["decoder"] * _chunks(rows, engine_chunk) + split,
                 "layer_norm": unet_ln + sites["vit_h"] + sites["vit_l"]}
     # v2v, refine: the conditioner (DPT on all the frames in one call, then
     # the VAE embedder) and the engine each encode the assets' T frames; the
@@ -1150,8 +1226,8 @@ def expected_launches(config_path: str, steps: int, path: str, clip_size=None,
     frames = assets * t
     return {**unet,
             "group_stats": sites["dpt_gn"] + sites["encoder"] * (_chunks(frames, enc_chunk)
-                                                                 + _chunks(frames, engine_chunk))
-            + sites["decoder"] * _chunks(frames, engine_chunk),
+                                                                 + _chunks(rows, engine_chunk))
+            + sites["decoder"] * _chunks(rows, engine_chunk) + split,
             "layer_norm": unet_ln + sites["vit_h"] + sites["dpt_ln"]}
 
 
@@ -2329,9 +2405,8 @@ def stage2_training_path(steps: int = STAGE2_TRAIN_STEPS) -> dict:
     del unet0
     torch.cuda.empty_cache()
 
-    sampler_steps = cfg["model"]["params"]["sampler_config"]["params"]["num_steps"]
     expected = _sum_launches(expected_launches(config, steps, "train"),
-                             expected_launches(config, sampler_steps, "log_images"))
+                             expected_launches(config, DUMP2_STEPS, "log_images"))
     reset_launches()
     t0 = time.perf_counter()
     with (metrics_every_step(), DegradationProbe() as probe, DumpProbe() as dumps,
@@ -2339,7 +2414,8 @@ def stage2_training_path(steps: int = STAGE2_TRAIN_STEPS) -> dict:
         trainer = train.main(["--base", config, "--max_steps", str(steps), "--device", "cuda",
                               "--seed", str(seed), "--logdir", out_dir,
                               *_cli_defaults(config, steps, out_dir),
-                              f"data.params.base_folder={renders}", "data.params.num_workers=4"])
+                              f"data.params.base_folder={renders}", "data.params.num_workers=4",
+                              f"model.params.sampler_config.params.num_steps={DUMP2_STEPS}"])
     launches = read_launches(expected)
     wall = time.perf_counter() - t0
     run_peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2451,33 +2527,41 @@ class _timed:
 
 
 class CollectiveProbe:
-    """While active, the CUDA-event ms of every reduce-scatter and
-    all-gather into a tensor (the ZeRO step's two collectives), with their
-    bytes."""
+    """While active, the CUDA-event ms of every call of the named
+    `torch.distributed` functions (by default the ZeRO step's reduce-scatter
+    and all-gather into a tensor), with the bytes of its largest tensor. A
+    gloo collective on CUDA tensors blocks the host until its result is on
+    the card, so the events bracket it too."""
 
     NAMES = ("reduce_scatter_tensor", "all_gather_into_tensor")
+    SERVING = ("all_to_all_single", "all_gather_into_tensor", "gather", "all_reduce", "send",
+               "recv", "broadcast")  # main path 17's
+
+    def __init__(self, names=NAMES):
+        self.names = tuple(names)
 
     def __enter__(self):
         import torch
         import torch.distributed as dist
 
-        self.dist, self.orig, self.calls = dist, {n: getattr(dist, n) for n in self.NAMES}, []
+        self.dist, self.orig, self.calls = dist, {n: getattr(dist, n) for n in self.names}, []
         probe = self
 
         def timed(name):
             fn = self.orig[name]
 
-            def run(output, input, *args, **kwargs):
+            def run(*args, **kwargs):
                 a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 a.record()
-                out = fn(output, input, *args, **kwargs)
+                out = fn(*args, **kwargs)
                 b.record()
-                big = max(t.numel() * t.element_size() for t in (output, input))
+                big = max((t.numel() * t.element_size() for t in args
+                           if isinstance(t, torch.Tensor)), default=0)
                 probe.calls.append((name, a, b, big))
                 return out
             return run
 
-        for n in self.NAMES:
+        for n in self.names:
             setattr(dist, n, timed(n))
         return self
 
@@ -2490,9 +2574,18 @@ class CollectiveProbe:
         import torch
 
         torch.cuda.synchronize()
-        out = {n: [] for n in self.NAMES}
+        out = {n: [] for n in self.names}
         for name, a, b, _ in self.calls:
             out[name].append(a.elapsed_time(b))
+        return out
+
+    def summary(self) -> dict:
+        """{name: [calls, ms summed, MB summed]} of the names called."""
+        out = {}
+        for name, times in self.ms().items():
+            if times:
+                mb = sum(big for n, _, _, big in self.calls if n == name) / 1e6
+                out[name] = [len(times), round(sum(times), 1), round(mb, 1)]
         return out
 
 
@@ -3724,6 +3817,23 @@ def _splat_call(mode: str, inputs, dev: str, dtype) -> list:
     return [out.detach(), a.grad, f.grad] + ([m.grad] if m.grad is not None else [])
 
 
+def _host_flow_err(mode: str, inputs, ref) -> float:
+    """The host CPU's fp32 flow-gradient error against float64 `ref`, from
+    its second pass: torch's first call of a CPU reduction in a process can
+    return another result than the calls after it when the host's cores
+    are contended (ROADMAP §3), and the bound rests on the host's
+    steady arithmetic. A first pass that differs is printed."""
+    import torch
+
+    first = _splat_call(mode, inputs, "cpu", torch.float32)[2]
+    second = _splat_call(mode, inputs, "cpu", torch.float32)[2]
+    if not torch.equal(first, second):
+        print(f"[path16] softsplat {mode}: the host's first fp32 pass differs from its second "
+              f"by {(first - second).abs().max().item():.3e}; the bound uses the second",
+              flush=True)
+    return _warp_err(second, ref)
+
+
 def softsplat_phase(frames: np.ndarray) -> dict:
     """`ops.softsplat` in its four modes, forward and backward (input, flow
     and metric gradients of sum(out · cotangent)), on the 16 frames at 512²
@@ -3744,7 +3854,7 @@ def softsplat_phase(frames: np.ndarray) -> dict:
         errs[mode] = [_warp_err(g, r) for g, r in zip(res["cuda"], res["cpu"])]
         flow_bounds[mode] = WARP_TOL
         if errs[mode][2] > WARP_TOL:  # the host's fp32 pass is needed only past the floor
-            host = _warp_err(_splat_call(mode, inputs, "cpu", torch.float32)[2], res["cpu"][2])
+            host = _host_flow_err(mode, inputs, res["cpu"][2])
             flow_bounds[mode] = max(WARP_TOL, FLOW_GRAD_FACTOR * host)
         bounds = [WARP_TOL, WARP_TOL, flow_bounds[mode], WARP_TOL][:len(errs[mode])]
         if not all(torch.isfinite(v).all() for v in res["cuda"]) or any(
@@ -3780,7 +3890,7 @@ def flow_grad_readings(seeds=(0, 1, 2, 3, 4, 5)) -> dict:
             for mode in SPLAT_MODES:
                 ref = _splat_call(mode, inputs, "cpu", torch.float64)[2]
                 card = _warp_err(_splat_call(mode, inputs, "cuda", torch.float32)[2], ref)
-                host = _warp_err(_splat_call(mode, inputs, "cpu", torch.float32)[2], ref)
+                host = _host_flow_err(mode, inputs, ref)
                 out[f"{name} seed {seed} {mode}"] = (card, host)
                 print(f"[flowgrad] {name} seed {seed} {mode}: card fp32 {card:.3e}, "
                       f"host fp32 {host:.3e}", flush=True)
@@ -3997,6 +4107,12 @@ def module_surface_path(frames: np.ndarray) -> dict:
 
 SERVE_CLIP = 48  # a 48-view orbit: three times the 16 views, 7.5° apart
 SERVE_ASSETS = 2
+# the sampler steps of main paths 4 and 6, of main path 5 and of main path
+# 10's image-logger dump (each 25 before main path 17 came): cut to pay for
+# main path 17 within the call's time
+SERVE_STEPS = 4
+FULL_STEPS = 10
+DUMP2_STEPS = 5
 
 
 def write_serve_images(root: str) -> str:
@@ -4021,8 +4137,8 @@ def serve_path(steps: int) -> dict:
 
     from hi3d_tpu_torch.pipelines import serve
 
-    config = os.path.join(ROOT, "configs", "inference-v01.yaml")
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_serve_", dir=os.path.join(ROOT, "outputs"))
+    config = stepped_configs(out_dir, steps)[0]
     image_dir = write_serve_images(os.path.join(out_dir, "images"))
     expected = expected_launches(config, steps, "serve", clip_size=SERVE_CLIP, assets=SERVE_ASSETS)
     torch.cuda.reset_peak_memory_stats()
@@ -4179,9 +4295,8 @@ def two_stage_path(steps: int) -> dict:
 
     from hi3d_tpu_torch.pipelines import serve
 
-    stage1 = os.path.join(ROOT, "configs", "inference-v01.yaml")
-    stage2 = os.path.join(ROOT, "configs", "inference-v02.yaml")
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_two_stage_", dir=os.path.join(ROOT, "outputs"))
+    stage1, stage2 = stepped_configs(out_dir, steps)
     image_dir = write_serve_images(os.path.join(out_dir, "images"))
     expected = two_stage_launches(stage1, stage2, steps, batches=TWO_STAGE_ASSETS, assets=1,
                                   clip_size=FULL_CLIP)
@@ -4211,6 +4326,317 @@ def two_stage_path(steps: int) -> dict:
         _check_frames(os.path.join(out_dir, "views", name, "frames"), (FULL_CLIP, 1024, 1024, 3))
     _check_launches(launches, expected)
     return launches
+
+
+# main path 17: multi-GPU serving at full width, 2 sampler steps a stage
+SERVE_DIST_STEPS = 2
+SERVE_DIST_CLIP = 16
+# (b) against one process on the same inputs: the first UNet call of each
+# run (the first sampler step's denoiser call, whose inputs every run shares
+# bit for bit), relative L2 ‖W − 1‖ / ‖1‖ at most SERVE_DIST_REL_L2. The
+# ranks' bf16 UNets see other batch shapes (cuDNN may take other
+# algorithms) and, in latency mode, the time stacks' GroupNorm statistics
+# combined from the ranks' moments: bf16 roundings (4e-3 of a value). The
+# frames of the seeded random UNets are no yardstick: they are chaotic (an
+# input image moved by 1e-3 moves one process's own frames by relative L2
+# 0.29 on an H100), so the bound holds the UNet call and the frames are
+# checked for shape and finiteness
+SERVE_DIST_REL_L2 = 5e-2
+SERVE_DIST_TIMEOUT_S = 420  # the gloo pair's join; a hung collective fails the path
+
+
+def stepped_configs(root: str, steps: int):
+    """configs/inference-v01.yaml and -v02.yaml with `steps` sampler steps,
+    written to `root` (the serve CLI takes no step count)."""
+    import yaml
+
+    from hi3d_tpu_torch.config import load_config
+
+    paths = []
+    for name in ("inference-v01.yaml", "inference-v02.yaml"):
+        cfg = load_config(os.path.join(ROOT, "configs", name))
+        cfg["model"]["params"]["sampler_config"]["params"]["num_steps"] = steps
+        paths.append(os.path.join(root, name))
+        with open(paths[-1], "w") as f:
+            yaml.safe_dump(cfg, f, sort_keys=False)
+    return paths
+
+
+def serve_dist_plans(cfg1: str, cfg2: str) -> dict:
+    """The launches each rank's run of main path 17 plans, by run: (a) the
+    CLI at world 1 in latency mode (orbit: one asset; two-stage: one batch
+    of one asset), (b) the gloo pair: latency at B = 1 (8 frames a rank),
+    throughput at B = 2 (one asset a rank), the stream (rank 0 stage 1,
+    rank 1 stage 2, 2 batches of 1)."""
+    t, n = SERVE_DIST_CLIP, SERVE_DIST_STEPS
+
+    def serve(**kw):
+        return expected_launches(cfg1, n, "serve", clip_size=t, **kw)
+
+    def refine(**kw):
+        return expected_launches(cfg2, n, "refine", clip_size=t, **kw)
+
+    return {"a_orbit": serve(split_norms=True),
+            "a_two_stage": _sum_launches(serve(split_norms=True), refine(split_norms=True)),
+            "latency": serve(rows=t // 2, split_norms=True),
+            "throughput": serve(assets=2, rows=t),
+            "stream": [_sum_launches(serve(), serve()), _sum_launches(refine(), refine())]}
+
+
+class _FirstCall:
+    """While active, the fp32 output of the first forward of each module
+    given (a UNet: the first denoiser call of a run), by name; with `stop`,
+    the run ends there (`_FirstCall.Done` raised out of the forward, and
+    swallowed on leaving the block)."""
+
+    class Done(Exception):
+        pass
+
+    def __init__(self, stop: bool = False, **modules):
+        self.modules, self.stop, self.out, self.handles = modules, stop, {}, []
+
+    def __enter__(self):
+        for name, module in self.modules.items():
+            def hook(mod, args, output, name=name):
+                if name not in self.out:
+                    self.out[name] = output.detach().float().clone()
+                    if self.stop:
+                        raise _FirstCall.Done(name)
+            self.handles.append(module.register_forward_hook(hook))
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        for h in self.handles:
+            h.remove()
+        return exc_type is _FirstCall.Done
+
+
+def serve_dist_rank(rank: int, world: int, port: int, work: str, spec: dict) -> None:
+    """A process of main path 17 (b), on the one card with its peer: both
+    engines at full width; rank 0 first runs the one-process outputs (no
+    group), then both join a gloo group and run latency (B = 1), throughput
+    (B = 2) and `TwoStageServer.generate_stream` (one rank a stage, 2
+    batches of 1), each with its seconds, launches, collectives and peak.
+    Each run's first UNet call (the first sampler step's denoiser call, on
+    the same inputs in every run) is gathered to rank 0, which compares it
+    with the one-process run's (which stops there); each rank saves
+    `<work>/rank<r>.json`, the writer with its frames' shape and
+    finiteness."""
+    import datetime
+
+    import torch
+    import torch.distributed as tdist
+
+    sys.path.insert(0, ROOT)
+    torch.cuda.set_device(0)
+    from hi3d_tpu_torch.parallel import dist as pdist
+    from hi3d_tpu_torch.pipelines.common import load_inference_model
+    from hi3d_tpu_torch.pipelines.serve import OrbitServer, TwoStageServer, load_images
+
+    pdist.TIMEOUT = datetime.timedelta(seconds=spec["timeout"])
+    report = {"rank": rank}
+    t0 = time.perf_counter()
+    m1 = load_inference_model(spec["cfg1"], None, "cuda", tag="serve", seed=0,
+                              clip_size=SERVE_DIST_CLIP)
+    m2 = load_inference_model(spec["cfg2"], None, "cuda", tag="serve", seed=0,
+                              clip_size=SERVE_DIST_CLIP)
+    # the UNets' zero-initialised leaves (out convs, the time stacks' out
+    # convs, proj_out) get seeded random values, the same on both ranks:
+    # at zero the UNet's output would be 0 whatever the ranks compute
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    with torch.no_grad():
+        for m in (m1, m2):
+            for p in m.model.diffusion_model.parameters():
+                if not p.any():
+                    p.normal_(0.0, 0.02, generator=gen)
+    report["build_s"] = round(time.perf_counter() - t0, 1)
+    images = load_images(spec["images"], (512, 512))
+    unets = {"stage1": m1.model.diffusion_model, "stage2": m2.model.diffusion_model}
+
+    def jobs():
+        """(name, thunk) of each run; the thunks return the writer's videos."""
+        gen = lambda: torch.Generator(device="cuda").manual_seed(0)  # noqa: E731
+        orbit = OrbitServer(m1)
+        two = TwoStageServer(m1, m2)  # in the group: every rank builds both sub-groups
+        return [("latency", lambda: orbit.generate(images[:1], [0.0], generator=gen())),
+                ("throughput", lambda: orbit.generate(images, [0.0, 0.0], generator=gen())),
+                ("stream", lambda: [v for v in two.generate_stream(
+                    [images[:1], images[1:]], elevations=0.0, seed=0, stage2_hw=(1024, 1024))])]
+
+    want_first = {}
+    if rank == 0:  # the one-process first UNet calls, before the group exists
+        t1 = time.perf_counter()
+        for name, run in jobs()[:2]:  # latency, throughput: stage 1 up to its first call
+            with _FirstCall(stop=True, stage1=unets["stage1"]) as first:
+                run()
+            want_first[name] = first.out
+        # the stream's batch 0 with its generators: stage 1 whole, stage 2 up
+        # to its first call
+        two = TwoStageServer(m1, m2)
+        g1, g2 = two.stage_generators(0, 0)
+        with _FirstCall(stage1=unets["stage1"]) as first1:
+            videos = two.orbit.generate(images[:1], [0.0], generator=g1)
+        with _FirstCall(stop=True, stage2=unets["stage2"]) as first2:
+            two._stage2(videos, [0.0], g2, (1024, 1024), {}, "float32", None)
+        want_first["stream"] = {**first1.out, **first2.out}
+        report["one_process_s"] = round(time.perf_counter() - t1, 1)
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    tdist.init_process_group("gloo", rank=rank, world_size=world, timeout=pdist.TIMEOUT)
+    world_group = tdist.group.WORLD
+    try:
+        runs = {}
+        for name, run in jobs():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            with CollectiveProbe(CollectiveProbe.SERVING) as coll, _FirstCall(**unets) as first:
+                t1 = time.perf_counter()
+                got = run()
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t1
+            plan = spec["plans"][name]
+            plan = plan[rank] if isinstance(plan, list) else plan
+            launches = read_launches(plan)
+            # the first UNet call's rows, gathered in the batch's order
+            if name == "latency":
+                firsts = {"stage1": pdist.FrameShard.split(1, SERVE_DIST_CLIP, world_group)
+                          .gather_frames(first.out["stage1"])}
+            elif name == "throughput":
+                firsts = {"stage1": pdist.FrameShard.split(2, SERVE_DIST_CLIP, world_group)
+                          .gather_frames(first.out["stage1"])}
+            else:  # the stream: stage 1 on rank 0, stage 2 on rank 1 (the writer)
+                got = np.stack(got) if rank == 1 else None
+                if rank == 1:
+                    pdist.send_tensor(first.out["stage2"].cpu(), 0)
+                else:
+                    firsts = {"stage1": first.out["stage1"],
+                              "stage2": pdist.recv_tensor(1, "cuda")}
+            row = {"s": round(sec, 3), "launches": launches, "plan_ok": launches == plan,
+                   "plan": plan, "collectives": coll.summary(),
+                   "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2)}
+            if got is not None:  # the writer's videos
+                row.update(shape=list(np.shape(got)), finite=bool(np.isfinite(got).all()))
+            if rank == 0:
+                row["unet_rel_l2"] = {k: _rel_l2(v, want_first[name][k]) for k, v in firsts.items()}
+            runs[name] = row
+        report["runs"] = runs
+    finally:
+        tdist.destroy_process_group()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def serve_dist_path() -> dict:
+    """Main path 17: multi-GPU serving at full width (configs/inference-v01.yaml
+    and -v02.yaml at 16 × 512² and 16 × 1024², 2 sampler steps a stage,
+    random weights). (a) `serve.main` under a world-1 NCCL group
+    (`torchrun_env(1)`), orbit and two-stage, `--parallel latency`: the
+    frame-parallel code with its regroups as identities, frames and
+    launches checked. (b) a 2-process gloo group on the one card (NCCL
+    refuses two ranks a device): latency, throughput and the two-stage
+    stream against rank 0's one-process outputs (SERVE_DIST_REL_L2),
+    launches equal to each rank's plan; per-rank seconds, collectives and
+    peaks printed. The pair's speed is no figure of merit: gloo moves CUDA
+    tensors through host memory. Returns the launches of (a) and of (b)'s
+    group runs, summed over the ranks."""
+    import multiprocessing
+    import socket
+
+    import torch
+
+    from hi3d_tpu_torch.pipelines import serve
+
+    t_path = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_serve_dist_", dir=os.path.join(ROOT, "outputs"))
+    cfg1, cfg2 = stepped_configs(out_dir, SERVE_DIST_STEPS)
+    plans = serve_dist_plans(cfg1, cfg2)
+    image_dir = write_serve_images(os.path.join(out_dir, "images"))
+    one_dir = os.path.join(out_dir, "one")
+    os.makedirs(one_dir)
+    os.symlink(os.path.join(image_dir, "asset0.png"), os.path.join(one_dir, "asset0.png"))
+    total = {}
+
+    # (a) world 1 under NCCL, the frame-parallel code on
+    for mode, res in (("orbit", 512), ("two_stage", 1024)):
+        name = f"a_{mode}"
+        reset_launches()
+        t0 = time.perf_counter()
+        with torchrun_env(1), CollectiveProbe(CollectiveProbe.SERVING) as coll:
+            result = serve.main(["--image_dir", one_dir, "--output_dir",
+                                 os.path.join(out_dir, name), "--mode", mode, "--batch", "1",
+                                 "--clip_size", str(SERVE_DIST_CLIP), "--device", "cuda",
+                                 "--seed", "0", "--parallel", "latency",
+                                 "--stage1_config", cfg1, "--stage2_config", cfg2])
+        launches = read_launches(plans[name])
+        print(f"[serve_dist] (a) {mode} at world 1 (NCCL, --parallel latency): "
+              f"{time.perf_counter() - t0:.1f} s with the model builds; phases "
+              f"{json.dumps({k: round(v, 3) for k, v in result['phases'].items()})}; "
+              f"collectives {coll.summary()}; launches {launches}", flush=True)
+        _check_frames(os.path.join(out_dir, name, "asset0", "frames"),
+                      (SERVE_DIST_CLIP, res, res, 3))
+        _check_launches(launches, plans[name])
+        total = _sum_launches(launches, total) if total else launches
+    torch.cuda.empty_cache()
+
+    # (b) a gloo pair on the one card
+    work = os.path.join(out_dir, "pair")
+    os.makedirs(work)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    spec = {"cfg1": cfg1, "cfg2": cfg2, "timeout": SERVE_DIST_TIMEOUT_S // 2,
+            "images": [os.path.join(image_dir, f"asset{i}.png") for i in range(2)],
+            "plans": {k: plans[k] for k in ("latency", "throughput", "stream")}}
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=serve_dist_rank, args=(r, 2, port, work, spec))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SERVE_DIST_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    if hung or any(p.exitcode for p in procs):
+        raise AssertionError(f"main path 17 (b): ranks exited {[p.exitcode for p in procs]} "
+                             f"({len(hung)} killed after {SERVE_DIST_TIMEOUT_S} s)")
+    reports = []
+    for r in range(2):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    for rep in reports:
+        print(f"[serve_dist] (b) rank {rep['rank']}: engines {rep['build_s']} s"
+              + (f", one-process outputs {rep['one_process_s']} s" if "one_process_s" in rep
+                 else "") + "; "
+              + "; ".join(f"{k} {v['s']} s, peak {v['peak_gib']} GiB, collectives "
+                          f"{v['collectives']}" for k, v in rep["runs"].items()),
+              flush=True)
+    shapes = {"latency": [1, SERVE_DIST_CLIP, 512, 512, 3],
+              "throughput": [2, SERVE_DIST_CLIP, 512, 512, 3],
+              "stream": [2, 1, SERVE_DIST_CLIP, 1024, 1024, 3]}
+    for name in ("latency", "throughput", "stream"):
+        unet = reports[0]["runs"][name]["unet_rel_l2"]
+        writer = reports[1 if name == "stream" else 0]["runs"][name]
+        print(f"[serve_dist] (b) {name} on 2 gloo ranks against one process: first UNet call "
+              f"relative L2 {', '.join(f'{k} {v:.3e}' for k, v in unet.items())} (bound "
+              f"{SERVE_DIST_REL_L2}); the writer's frames {writer['shape']}, finite "
+              f"{writer['finite']}", flush=True)
+        if not (writer["finite"] and writer["shape"] == shapes[name]
+                and max(unet.values()) <= SERVE_DIST_REL_L2):
+            raise AssertionError(f"main path 17 (b) {name}: {unet}, {writer}")
+        for rep in reports:
+            run = rep["runs"][name]
+            if not run["plan_ok"]:
+                raise AssertionError(f"main path 17 (b) {name} rank {rep['rank']}: launches "
+                                     f"{run['launches']} != the rank's plan {run['plan']}")
+            total = _sum_launches(total, run["launches"])
+    print(f"[serve_dist] main path 17 {time.perf_counter() - t_path:.1f} s ((b) "
+          f"{time.perf_counter() - t0:.1f} s; the gloo pair's speed is no figure of merit: "
+          "it moves CUDA tensors through host memory)", flush=True)
+    return total
 
 
 OTHER_SAMPLERS = ("HeunEDMSampler", "EulerAncestralSampler", "DPMPP2SAncestralSampler",
@@ -4812,6 +5238,9 @@ def main() -> None:
     if sys.argv[1:] == ["--module-surface"]:
         module_surface_path(path1_frames(None))
         return
+    if sys.argv[1:] == ["--serve-dist"]:
+        serve_dist_path()
+        return
 
     measured = kernel_phase()
     print("[smoke] kernel phase ok", flush=True)
@@ -4831,17 +5260,17 @@ def main() -> None:
           "random weights, on main path 1's frames", flush=True)
     by_path["v2v"], phases3, peak3 = stage2_path(STAGE2_STEPS, stage1_dir)
     print(f"[smoke] main path 4: serve --mode orbit, configs/inference-v01.yaml, "
-          f"{SERVE_ASSETS} assets × {SERVE_CLIP}×512², {NUM_STEPS} steps, random weights",
+          f"{SERVE_ASSETS} assets × {SERVE_CLIP}×512², {SERVE_STEPS} steps, random weights",
           flush=True)
-    by_path["serve"] = serve_path(NUM_STEPS)
+    by_path["serve"] = serve_path(SERVE_STEPS)
     print(f"[smoke] main path 5: pipelines.full, configs/inference-v01.yaml → "
-          f"configs/inference-v02.yaml, 16×512² → 16×1024², {NUM_STEPS} steps each, random "
+          f"configs/inference-v02.yaml, 16×512² → 16×1024², {FULL_STEPS} steps each, random "
           "weights, U²-Net background removal", flush=True)
-    by_path["full"] = full_path(NUM_STEPS)
+    by_path["full"] = full_path(FULL_STEPS)
     print(f"[smoke] main path 6: serve --mode two_stage, {TWO_STAGE_ASSETS} assets × "
-          f"{FULL_CLIP}×1024² in batches of 1, {NUM_STEPS} steps each stage, random weights",
+          f"{FULL_CLIP}×1024² in batches of 1, {SERVE_STEPS} steps each stage, random weights",
           flush=True)
-    by_path["two_stage"] = two_stage_path(NUM_STEPS)
+    by_path["two_stage"] = two_stage_path(SERVE_STEPS)
     print(f"[smoke] main path 7: i2v --cfg_interval 0.3 6 on {os.path.relpath(PATH7_IMAGE, ROOT)}, "
           f"configs/inference-v01.yaml, 16×512², "
           f"{NUM_STEPS} steps (CFG on steps 15–19, single passes elsewhere), random weights",
@@ -4881,6 +5310,11 @@ def main() -> None:
     print("[smoke] main path 16: softsplat, correlation, transforms, JPEG, the logger, the "
           "VideoUNet's options, the σ-noised conditioning frames", flush=True)
     by_path["modules"] = module_surface_path(path1_frames(stage1_dir))
+    print(f"[smoke] main path 17: multi-GPU serving, configs/inference-v01.yaml and -v02.yaml, "
+          f"{SERVE_DIST_CLIP} × 512² and × 1024², {SERVE_DIST_STEPS} steps a stage: the CLI "
+          "under a world-1 NCCL group, then a 2-process gloo group on the card (latency, "
+          "throughput, the two-stage stream), random weights", flush=True)
+    by_path["serve_dist"] = serve_dist_path()
     print(f"[smoke] all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
 
     rows = []

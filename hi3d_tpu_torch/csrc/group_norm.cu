@@ -36,6 +36,13 @@
 //   L2), each written once with 16-byte stores.
 // Where a row or a stride is not a whole number of 16-byte vectors, the same
 // kernel works on single elements (VEC = false), correct and slow.
+//
+// Given statistics: with `stats` ((2, N·G) fp32: the mean of each group, then
+// its inv_std) the kernel skips its statistics pass and applies those, one
+// read of x and one write of y. The frame-parallel UNet's time stacks use
+// it: each rank holds a block of the locations of every frame, #9's
+// moments mode gives each rank's partial moments, the ranks combine them,
+// and this applies the group's statistics on every rank.
 
 #include <limits.h>
 #include <stdint.h>
@@ -81,6 +88,8 @@ struct GnArgs {
   int nranks;             // CTAs a group: the cluster
   float eps;
   int silu;
+  const float* stats;     // given (2, N·G) statistics: mean, then inv_std; null: computed
+  int groups;             // N·G
 };
 
 __device__ __forceinline__ float param_at(const void* p, int w_dtype, int i) {
@@ -188,70 +197,77 @@ group_norm_kernel(const T* __restrict__ x, T* __restrict__ y, const void* __rest
   T* yg = y + ((long long)n * a.C + (long long)g * a.cpg) * a.S1 * a.S2;
   const int e0 = (int)min((long long)rank * a.chunk, (long long)a.gvecs);
   const int count = (int)min((long long)a.chunk, (long long)a.gvecs - e0);
-  const int kept = min(a.res, count);
+  const bool given = a.stats != nullptr;
+  const int kept = given ? 0 : min(a.res, count);
   const int tid = threadIdx.x, nt = blockDim.x;
 
-  // resident vectors: every copy in flight at once
-  for (int i = tid; i < kept; i += nt) A::to_smem(keep + i, xg + locate<N>(e0 + i, a).xo);
-  if constexpr (VEC) asm volatile("cp.async.commit_group;\n" ::: "memory");
+  float mean, rstd;
+  if (given) {
+    mean = a.stats[group];
+    rstd = a.stats[a.groups + group];
+  } else {
+    // resident vectors: every copy in flight at once
+    for (int i = tid; i < kept; i += nt) A::to_smem(keep + i, xg + locate<N>(e0 + i, a).xo);
+    if constexpr (VEC) asm volatile("cp.async.commit_group;\n" ::: "memory");
 
-  // streamed vectors, U loads in flight a thread, summed as they arrive
-  float s1 = 0.f, s2 = 0.f;
-  for (int i = kept + tid; i < count; i += U * nt) {
-    Raw r[U];
+    // streamed vectors, U loads in flight a thread, summed as they arrive
+    float s1 = 0.f, s2 = 0.f;
+    for (int i = kept + tid; i < count; i += U * nt) {
+      Raw r[U];
 #pragma unroll
-    for (int u = 0; u < U; ++u)
-      if (i + u * nt < count) r[u] = A::load(xg + locate<N>(e0 + i + u * nt, a).xo);
+      for (int u = 0; u < U; ++u)
+        if (i + u * nt < count) r[u] = A::load(xg + locate<N>(e0 + i + u * nt, a).xo);
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (i + u * nt < count) {
-        float v[N];
-        A::unpack(r[u], v);
-        accumulate<N>(v, s1, s2);
+      for (int u = 0; u < U; ++u) {
+        if (i + u * nt < count) {
+          float v[N];
+          A::unpack(r[u], v);
+          accumulate<N>(v, s1, s2);
+        }
       }
     }
-  }
-  if constexpr (VEC) asm volatile("cp.async.wait_all;\n" ::: "memory");
-  for (int k = tid; k < kept; k += nt) {  // this thread's own copies
-    float v[N];
-    A::unpack(keep[k], v);
-    accumulate<N>(v, s1, s2);
-  }
+    if constexpr (VEC) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    for (int k = tid; k < kept; k += nt) {  // this thread's own copies
+      float v[N];
+      A::unpack(keep[k], v);
+      accumulate<N>(v, s1, s2);
+    }
 
-  s1 = warp_sum(s1);
-  s2 = warp_sum(s2);
-  if ((tid & 31) == 0) {
-    red[0][tid / 32] = s1;
-    red[1][tid / 32] = s2;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float p = 0.f, q = 0.f;
-    for (int k = 0; k < nt / 32; ++k) {
-      p += red[0][k];
-      q += red[1][k];
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if ((tid & 31) == 0) {
+      red[0][tid / 32] = s1;
+      red[1][tid / 32] = s2;
     }
-    part[0] = p;
-    part[1] = q;
-  }
-  if (a.nranks > 1) {
-    cg::this_cluster().sync();  // every rank's partial sums are in its shared memory
+    __syncthreads();
     if (tid == 0) {
-      const float2 sums = cluster_fold(part, a.nranks);
-      stat[0] = sums.x;
-      stat[1] = sums.y;
+      float p = 0.f, q = 0.f;
+      for (int k = 0; k < nt / 32; ++k) {
+        p += red[0][k];
+        q += red[1][k];
+      }
+      part[0] = p;
+      part[1] = q;
     }
-    // this rank is done reading its peers; it waits at the end of the kernel
-    // until every peer is, so that no shared memory goes while being read
-    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  } else if (tid == 0) {
-    stat[0] = part[0];
-    stat[1] = part[1];
+    if (a.nranks > 1) {
+      cg::this_cluster().sync();  // every rank's partial sums are in its shared memory
+      if (tid == 0) {
+        const float2 sums = cluster_fold(part, a.nranks);
+        stat[0] = sums.x;
+        stat[1] = sums.y;
+      }
+      // this rank is done reading its peers; it waits at the end of the kernel
+      // until every peer is, so that no shared memory goes while being read
+      asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    } else if (tid == 0) {
+      stat[0] = part[0];
+      stat[1] = part[1];
+    }
+    __syncthreads();
+    const float m = (float)((long long)a.cpg * a.S1 * a.S2);
+    mean = stat[0] / m;
+    rstd = rsqrtf(fmaxf(stat[1] / m - mean * mean, 0.f) + a.eps);
   }
-  __syncthreads();
-  const float m = (float)((long long)a.cpg * a.S1 * a.S2);
-  const float mean = stat[0] / m;
-  const float rstd = rsqrtf(fmaxf(stat[1] / m - mean * mean, 0.f) + a.eps);
   for (int c = tid; c < a.cpg; c += nt) {
     const float ca = param_at(w, a.w_dtype, g * a.cpg + c) * rstd;
     coef[2 * c] = ca;
@@ -290,7 +306,7 @@ group_norm_kernel(const T* __restrict__ x, T* __restrict__ y, const void* __rest
       }
     }
   }
-  if (a.nranks > 1) asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  if (a.nranks > 1 && !given) asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 template <typename T, bool VEC>
@@ -342,16 +358,18 @@ cudaError_t launch_gn(const void* x, void* y, const void* w, const void* b, cons
 // bytes, else one element. cluster (1–8) CTAs a group, each owning `chunk`
 // vectors (the last fewer), the first `res` of them kept in shared memory,
 // `threads` threads a CTA, as `plan_group_norm` chose them. silu != 0: SiLU
-// after the affine.
+// after the affine. stats != NULL: (2, N·G) fp32 given statistics (the mean of
+// each group, then its inv_std) applied without a statistics pass; res must
+// then be 0.
 extern "C" int hi3d_group_norm(const void* x, void* y, const void* w, const void* b, int N,
                                int C, int G, int S1, int S2, long long sN, long long sC,
                                long long sS1, int dtype, int w_dtype, int vec, int cluster,
                                int chunk, int res, int threads, float eps, int silu,
-                               void* stream) {
+                               const void* stats, void* stream) {
   if (N < 1 || C < 1 || G < 1 || C % G || S1 < 1 || S2 < 1 || cluster < 1 || cluster > 8 ||
       threads < 32 || threads > GN_MAX_THREADS || threads % 32 ||
       chunk < 1 || res < 0 || res > chunk || w_dtype < kF32 || w_dtype > kF16 ||
-      (long long)N * G * cluster > INT_MAX)
+      (long long)N * G * cluster > INT_MAX || (stats != nullptr && res != 0))
     return (int)cudaErrorInvalidValue;
   const int elem = dtype == kF32 ? 4 : 2;
   const int per = vec ? 16 / elem : 1;
@@ -376,6 +394,8 @@ extern "C" int hi3d_group_norm(const void* x, void* y, const void* w, const void
   a.nranks = cluster;
   a.eps = eps;
   a.silu = silu;
+  a.stats = static_cast<const float*>(stats);
+  a.groups = N * G;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int groups = N * G;
   switch (dtype * 2 + (vec != 0)) {

@@ -36,6 +36,18 @@
 // memory (distributed shared memory) in rank order and writes (mean, inv). No
 // scratch tensor, no second launch, no atomics: the result is deterministic.
 // The fold (`cluster_fold`, norm_common.cuh) is K3's too (group_norm.cu).
+//
+// #9's moments mode serves a GroupNorm whose groups are split over the ranks
+// of a process group (the frame-parallel UNet's time stacks, each rank
+// holding a block of the locations): per group it writes this tensor's
+// (mean, M2) in fp32, M2 = Σ(x − mean)², for the ranks to combine exactly
+// (Chan's pairwise formula) before K3 applies the statistics. Every CTA of a
+// cluster folds the first pass's Σx to the group's mean, streams its slice
+// again for Σ(x − m) and Σ(x − m)², and rank 0 folds those: mean = m + Σ(x −
+// m)/n, M2 = Σ(x − m)² − (Σ(x − m))²/n. Two reads of x instead of one: a
+// one-pass Σx² − n·mean² would lose the variance of a group whose mean is
+// large against its spread, and the ranks' sums cannot be shifted by a
+// common mean they do not know.
 
 #include <limits.h>
 #include <stdint.h>
@@ -272,37 +284,31 @@ cudaError_t launch_rows(const void* x, void* y, const void* w, const void* b, in
 // 16-byte boundary, 16-byte vectors (UNROLL in flight a thread), a scalar tail.
 constexpr int UNROLL = 8;
 
+// Σ(v − shift) and Σ(v − shift)² of one 16-byte vector into s1, s2 (shift
+// 0: the plain sums, bit for bit)
 template <typename T>
-__device__ __forceinline__ void accumulate(const uint4& raw, float& s1, float& s2) {
+__device__ __forceinline__ void accumulate(const uint4& raw, float shift, float& s1,
+                                           float& s2) {
   const T* t = reinterpret_cast<const T*>(&raw);
 #pragma unroll
   for (int i = 0; i < (int)(16 / sizeof(T)); ++i) {
-    const float v = to_f(t[i]);
+    const float v = to_f(t[i]) - shift;
     s1 += v;
     s2 = fmaf(v, v, s2);
   }
 }
 
+// This thread's share of Σ(x − shift) and Σ(x − shift)² over the n elements
+// at p: a scalar head up to the first 16-byte boundary, 16-byte vectors
+// (UNROLL in flight a thread), a scalar tail.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-group_moments_kernel(const T* __restrict__ x, float* __restrict__ mean_out,
-                     float* __restrict__ inv_out, long long group_size, long long chunk,
-                     int nranks, float eps) {
+__device__ __forceinline__ void slice_sums(const T* __restrict__ p, long long n, float shift,
+                                           float& s1, float& s2) {
   constexpr int VEC = 16 / sizeof(T);
-  constexpr int WARPS = THREADS / 32;
-  __shared__ float red[2][WARPS];
-  __shared__ float part[2];
-  const int rank = (int)(blockIdx.x % (unsigned)nranks);
-  const long long group = blockIdx.x / (unsigned)nranks;
-  const long long start = min((long long)rank * chunk, group_size);
-  const long long n = min(start + chunk, group_size) - start;
-  const T* p = x + group * group_size + start;
-
-  float s1 = 0.f, s2 = 0.f;
   const long long head =
       min((long long)(((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15) / sizeof(T)), n);
   if (threadIdx.x < head) {
-    const float v = to_f(p[threadIdx.x]);
+    const float v = to_f(p[threadIdx.x]) - shift;
     s1 += v;
     s2 = fmaf(v, v, s2);
   }
@@ -314,16 +320,24 @@ group_moments_kernel(const T* __restrict__ x, float* __restrict__ mean_out,
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) raw[u] = __ldg(q + i + u * THREADS);
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) accumulate<T>(raw[u], s1, s2);
+    for (int u = 0; u < UNROLL; ++u) accumulate<T>(raw[u], shift, s1, s2);
   }
-  for (; i < nvec; i += THREADS) accumulate<T>(__ldg(q + i), s1, s2);
+  for (; i < nvec; i += THREADS) accumulate<T>(__ldg(q + i), shift, s1, s2);
   const long long tail = head + nvec * VEC + threadIdx.x;  // fewer than VEC remain
   if (tail < n) {
-    const float v = to_f(p[tail]);
+    const float v = to_f(p[tail]) - shift;
     s1 += v;
     s2 = fmaf(v, v, s2);
   }
+}
 
+// The CTA's (s1, s2) summed in a fixed order into out[0], out[1] by thread 0
+// (through the warp shuffles and red); red is free again after the next
+// __syncthreads or cluster barrier.
+constexpr int GS_WARPS = THREADS / 32;
+
+__device__ __forceinline__ void block_sums(float s1, float s2, float (&red)[2][GS_WARPS],
+                                           float* out) {
   s1 = warp_sum(s1);
   s2 = warp_sum(s2);
   const int warp = threadIdx.x / 32;
@@ -335,12 +349,66 @@ group_moments_kernel(const T* __restrict__ x, float* __restrict__ mean_out,
   if (threadIdx.x == 0) {
     float a = 0.f, c = 0.f;
 #pragma unroll
-    for (int k = 0; k < WARPS; ++k) {
+    for (int k = 0; k < GS_WARPS; ++k) {
       a += red[0][k];
       c += red[1][k];
     }
-    part[0] = a;
-    part[1] = c;
+    out[0] = a;
+    out[1] = c;
+  }
+}
+
+// moments == 0: (mean, inv_std) a group. moments != 0: (mean, M2) a group,
+// written to mean_out and inv_out (see the notes above).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+group_moments_kernel(const T* __restrict__ x, float* __restrict__ mean_out,
+                     float* __restrict__ inv_out, long long group_size, long long chunk,
+                     int nranks, float eps, int moments) {
+  __shared__ float red[2][GS_WARPS];
+  __shared__ float part[2];
+  __shared__ float dev[2];
+  __shared__ float shift;
+  const int rank = (int)(blockIdx.x % (unsigned)nranks);
+  const long long group = blockIdx.x / (unsigned)nranks;
+  const long long start = min((long long)rank * chunk, group_size);
+  const long long n = min(start + chunk, group_size) - start;
+  const T* p = x + group * group_size + start;
+
+  float s1 = 0.f, s2 = 0.f;
+  slice_sums<T>(p, n, 0.f, s1, s2);
+  block_sums(s1, s2, red, part);
+  if (moments) {
+    // every rank folds Σx to the group's mean, then sums its slice's
+    // deviations from it; rank 0 folds those
+    if (nranks > 1) {
+      cg::this_cluster().sync();  // every rank's partial sums are in its shared memory
+      if (threadIdx.x == 0) shift = cluster_fold(part, nranks).x / (float)group_size;
+    } else if (threadIdx.x == 0) {
+      shift = part[0] / (float)group_size;
+    }
+    __syncthreads();
+    const float m = shift;
+    float d1 = 0.f, d2 = 0.f;
+    slice_sums<T>(p, n, m, d1, d2);
+    block_sums(d1, d2, red, dev);
+    if (nranks > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();  // every rank's deviations are written and its reads of `part` done
+      float2 sums;
+      if (rank == 0 && threadIdx.x == 0) sums = cluster_fold(dev, nranks);
+      cluster.sync();  // no CTA leaves while rank 0 may still read its shared memory
+      if (rank == 0 && threadIdx.x == 0) {
+        dev[0] = sums.x;
+        dev[1] = sums.y;
+      }
+    }
+    if (rank == 0 && threadIdx.x == 0) {
+      const float gs = (float)group_size;
+      mean_out[group] = m + dev[0] / gs;
+      inv_out[group] = fmaxf(dev[1] - dev[0] * dev[0] / gs, 0.f);
+    }
+    return;
   }
   if (nranks > 1) {
     cg::cluster_group cluster = cg::this_cluster();
@@ -364,7 +432,7 @@ group_moments_kernel(const T* __restrict__ x, float* __restrict__ mean_out,
 template <typename T>
 cudaError_t launch_groups(const void* x, void* mean, void* inv, long long groups,
                           long long group_size, long long chunk, int cluster, float eps,
-                          cudaStream_t stream) {
+                          int moments, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(groups * cluster));
   cfg.blockDim = dim3(THREADS);
@@ -380,7 +448,7 @@ cudaError_t launch_groups(const void* x, void* mean, void* inv, long long groups
   const cudaError_t err =
       cudaLaunchKernelEx(&cfg, group_moments_kernel<T>, static_cast<const T*>(x),
                          static_cast<float*>(mean), static_cast<float*>(inv), group_size, chunk,
-                         cluster, eps);
+                         cluster, eps, moments);
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
@@ -415,22 +483,24 @@ extern "C" int hi3d_layer_norm(const void* x, void* y, const void* w, const void
 // x: `groups` contiguous runs of group_size elements (dtype as above); mean,
 // inv: (groups,) fp32. cluster (1–8) CTAs a group, each owning `chunk`
 // elements of it (the last fewer), as `plan_group_stats` chose them.
+// moments != 0: (mean, M2) instead of (mean, inv_std), M2 written to `inv`.
 extern "C" int hi3d_group_stats(const void* x, void* mean, void* inv, long long groups,
                                 long long group_size, long long chunk, int cluster, int dtype,
-                                float eps, void* stream) {
+                                float eps, int moments, void* stream) {
   if (groups < 1 || group_size < 1 || cluster < 1 || cluster > 8 || chunk < 1 ||
       chunk * cluster < group_size || groups * cluster > INT_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return (int)launch_groups<float>(x, mean, inv, groups, group_size, chunk, cluster, eps, st);
+      return (int)launch_groups<float>(x, mean, inv, groups, group_size, chunk, cluster, eps,
+                                       moments, st);
     case kBF16:
       return (int)launch_groups<__nv_bfloat16>(x, mean, inv, groups, group_size, chunk, cluster,
-                                               eps, st);
+                                               eps, moments, st);
     case kF16:
       return (int)launch_groups<__half>(x, mean, inv, groups, group_size, chunk, cluster, eps,
-                                        st);
+                                        moments, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,7 +1,10 @@
 """Classifier-free guidance (counterpart of hi3d_tpu/diffusion/guiders.py).
 
 The batch doubles as cat([uc, c]) along dim 0; the guider splits the network
-output back into its halves and blends them."""
+output back into its halves and blends them. `frames` (a
+`parallel.dist.FrameShard`) says which frames of the batch the rows are when
+a rank holds only some of them: the per-frame scale then follows each row's
+frame within its video."""
 
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ def _merge_cond(c: Dict, uc: Dict, extra_keys=()) -> Dict:
 
 
 class IdentityGuider:
-    def __call__(self, x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor, sigma: torch.Tensor, frames=None) -> torch.Tensor:
         return x
 
     def prepare_inputs(self, x, s, c: Dict, uc: Dict):
@@ -34,7 +37,7 @@ class VanillaCFG:
     def __init__(self, scale: float):
         self.scale = float(scale)
 
-    def __call__(self, x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor, sigma: torch.Tensor, frames=None) -> torch.Tensor:
         x_u, x_c = x.chunk(2, dim=0)
         return x_u + self.scale * (x_c - x_u)
 
@@ -55,8 +58,12 @@ class LinearPredictionGuider:
         keys = additional_cond_keys or []
         self.additional_cond_keys = tuple([keys] if isinstance(keys, str) else keys)
 
-    def __call__(self, x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor, sigma: torch.Tensor, frames=None) -> torch.Tensor:
         x_u, x_c = x.chunk(2, dim=0)
+        if frames is not None:  # this rank's rows: each takes its own frame's scale
+            idx = frames.frame_index(frames.copies(x_u.shape[0]), x.device)
+            scale = append_dims(self.scale.to(x.device)[idx], x_u.ndim).to(x_u.dtype)
+            return x_u + scale * (x_c - x_u)
         t = self.num_frames
         b = x_u.shape[0] // t
         x_u = x_u.reshape((b, t) + x_u.shape[1:])

@@ -16,10 +16,16 @@ The denoiser is `denoiser(x, sigma, cond) -> denoised`; with
 cond, cache) -> (denoised, cache)` (engine.DiffusionEngine.sample). Every
 random draw of a sampler (churn, ancestral noise) goes through `_noise`.
 `steps_per_launch` is accepted for YAML parity and ignored: in the JAX
-package it splits the jitted scan for the XLA compile cache."""
+package it splits the jitted scan for the XLA compile cache.
+
+Within `use_frames(frames)` (a `parallel.dist.FrameShard`) x holds only
+this rank's rows of the batch: each draw takes the whole batch's numbers
+from the generator and keeps the rank's rows, as one process would draw
+them, and the guider scales each row by its own frame."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -79,6 +85,8 @@ def get_ancestral_step(sigma_from, sigma_to, eta: float = 1.0):
 
 
 class BaseDiffusionSampler:
+    frames = None  # the FrameShard of the rows x holds (`use_frames`), or None: every row
+
     def __init__(self, discretization_config: Dict, num_steps: Optional[int] = None,
                  guider_config: Optional[Dict] = None, verbose: bool = False,
                  device: Optional[str] = None, steps_per_launch: Optional[int] = None):
@@ -107,9 +115,22 @@ class BaseDiffusionSampler:
         """A host coefficient broadcast against x, in x's dtype."""
         return append_dims(self._sigma(x, value), x.ndim).to(x.dtype)
 
-    @staticmethod
-    def _noise(x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-        """Every random draw of a sampler: unit normal noise of x's shape and dtype."""
+    @contextlib.contextmanager
+    def use_frames(self, frames):
+        """Within: x holds the rows of `frames` (a FrameShard) alone."""
+        self.frames = frames
+        try:
+            yield
+        finally:
+            del self.frames
+
+    def _noise(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Every random draw of a sampler: unit normal noise of x's shape and
+        dtype (this rank's rows of the whole batch's draw within
+        `use_frames`)."""
+        if self.frames is not None:
+            return self.frames.randn((self.frames.total,) + tuple(x.shape[1:]), generator,
+                                     x.device, x.dtype)
         return torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
 
     def denoise(self, x, denoiser, sigma, cond, uc, use_cfg: bool = True):
@@ -118,7 +139,7 @@ class BaseDiffusionSampler:
             # guider bypassed (≡ CFG scale 1 at this step)
             return denoiser(x, sigma, cond)
         x_in, sigma_in, cond_in = self.guider.prepare_inputs(x, sigma, cond, uc)
-        return self.guider(denoiser(x_in, sigma_in, cond_in), sigma)
+        return self.guider(denoiser(x_in, sigma_in, cond_in), sigma, frames=self.frames)
 
 
 class SingleStepDiffusionSampler(BaseDiffusionSampler):

@@ -35,9 +35,12 @@ from .utils.misc import append_dims, default
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
-def _fit_indicator(indicator: torch.Tensor, x: torch.Tensor, num_video_frames: int):
-    """A CFG-doubled (2b, t) indicator for an un-doubled x takes its c half."""
-    b = x.shape[0] // num_video_frames
+def _fit_indicator(indicator: torch.Tensor, x: torch.Tensor, num_video_frames: int,
+                   frames=None):
+    """A CFG-doubled (2b, t) indicator for an un-doubled x takes its c half
+    (b: the videos of x, or with `frames` of the batch whose rows x holds)."""
+    b = (frames.videos * frames.copies(x.shape[0]) if frames is not None
+         else x.shape[0] // num_video_frames)
     return indicator[b:] if indicator.shape[0] == 2 * b else indicator
 
 
@@ -167,17 +170,20 @@ class DiffusionEngine(nn.Module):
         return self._chunked(dec, z.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
     def make_denoiser_fn(self, num_video_frames: int, image_only_indicator: torch.Tensor,
-                     cached: bool = False):
+                     cached: bool = False, frame_shard=None):
         """denoiser(x, sigma, cond) over the UNet with the bound frame count and
         indicator (its conditioned half on an un-doubled x); `cached`:
         denoiser(x, sigma, cond, cache) → (denoised, cache), where cache None
         runs the whole UNet and returns its fresh (skips, middle h) and a
-        given cache decodes from it and is passed through (encoder reuse)."""
+        given cache decodes from it and is passed through (encoder reuse).
+        `frame_shard` (latency mode): x holds this rank's rows of the batch,
+        the indicator is the whole batch's, and the UNet runs frame-parallel."""
         t = num_video_frames
+        shard_kw = {} if frame_shard is None else {"frame_shard": frame_shard}
 
         def bound(xx, **kw):
-            return dict(num_video_frames=t,
-                        image_only_indicator=_fit_indicator(image_only_indicator, xx, t), **kw)
+            return dict(num_video_frames=t, image_only_indicator=_fit_indicator(
+                image_only_indicator, xx, t, frame_shard), **shard_kw, **kw)
 
         if not cached:
             return lambda xx, sigma, c: self.denoiser(self.model, xx, sigma, c, **bound(xx))
@@ -203,10 +209,18 @@ class DiffusionEngine(nn.Module):
                image_only_indicator: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None, randn=None,
                num_steps: Optional[int] = None, encoder_reuse: int = 0,
-               cfg_interval: Optional[Tuple[float, float]] = None) -> torch.Tensor:
+               cfg_interval: Optional[Tuple[float, float]] = None,
+               frames=None) -> torch.Tensor:
         """Run the sampling loop. `shape` and `randn` (optional initial unit
         noise) are channels-last (T, h, w, 4); so is the result. `generator`
         draws the initial noise and the sampler's own (churn, ancestral).
+
+        `frames` (a `parallel.dist.FrameShard`): this process runs the rows
+        it holds of the (B·T) batch that `shape` and `randn` describe, and
+        returns those rows; every draw is the whole batch's, cut to them. With
+        a group (latency mode) the UNet runs frame-parallel over it and the
+        indicator is the whole batch's; without one the rows are whole
+        videos and the UNet sees them alone.
 
         `encoder_reuse=k`: the UNet encoder runs only every k-th step
         (approximate for k ≥ 2); `cfg_interval=(lo, hi)`: CFG only where
@@ -219,8 +233,12 @@ class DiffusionEngine(nn.Module):
         else:
             randn = torch.as_tensor(randn, device=device, dtype=torch.float32)
         t = default(num_video_frames, randn.shape[0])
+        parallel = frames is not None and frames.group is not None
+        videos = (randn.shape[0] if parallel or frames is None else frames.count) // t
+        if frames is not None:
+            randn = frames.take(randn)
         if image_only_indicator is None:
-            image_only_indicator = torch.zeros((2 * (randn.shape[0] // t), t), device=device)
+            image_only_indicator = torch.zeros((2 * videos, t), device=device)
         x = randn.permute(0, 3, 1, 2).to(self.compute_dtype).contiguous()
         params = _sampler_call_params(type(self.sampler))
         if encoder_reuse and cfg_interval is not None:
@@ -234,9 +252,11 @@ class DiffusionEngine(nn.Module):
             if name not in params:
                 raise ValueError(f"sampler {type(self.sampler).__name__} does not support "
                                  f"{name} (EDM Euler/Heun family only)")
-        denoiser = self.make_denoiser_fn(t, image_only_indicator, cached=bool(encoder_reuse))
-        out = self.sampler(denoiser, x, cond, uc=uc, num_steps=num_steps, generator=generator,
-                           **kw)
+        denoiser = self.make_denoiser_fn(t, image_only_indicator, cached=bool(encoder_reuse),
+                                         frame_shard=frames if parallel else None)
+        with self.sampler.use_frames(frames):
+            out = self.sampler(denoiser, x, cond, uc=uc, num_steps=num_steps,
+                               generator=generator, **kw)
         return out.permute(0, 2, 3, 1)
 
     def log_conditionings(self, batch: Dict, n: int) -> Dict[str, np.ndarray]:

@@ -16,7 +16,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.group_norm import group_norm, group_norm_backward, group_stats, reads_in_place
+from ..ops.group_norm import (
+    group_moments,
+    group_norm,
+    group_norm_apply,
+    group_norm_backward,
+    group_stats,
+    reads_in_place,
+)
 
 
 def timestep_embedding(
@@ -51,7 +58,18 @@ class GroupNorm32(nn.GroupNorm):
         super().__init__(math.gcd(num_channels, num_groups), num_channels, eps=eps)
         self.act = act
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        """`shard` (a `parallel.dist.FrameShard`): x holds this rank's block
+        of the locations and the groups span the ranks; the statistics are
+        #9's moments of x, combined over the ranks, then K3 applies them
+        (inference only)."""
+        if shard is not None:
+            if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad):
+                raise NotImplementedError("the split GroupNorm is inference-only")
+            x = x.contiguous()  # #9 reads a group as one contiguous run
+            mean, m2 = group_moments(x, self.num_groups)
+            stats = shard.combine_moments(mean, m2, x[0].numel() // self.num_groups, self.eps)
+            return group_norm_apply(x, self.weight, self.bias, self.num_groups, stats, self.act)
         # K3 reads strided views such as the time stack's permuted input in
         # place; any other layout is made contiguous first
         if not reads_in_place(x):
@@ -135,13 +153,21 @@ class ResBlock(nn.Module):
             else conv(channels, out_channels, 1)
         )
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        h = self.in_layers(x)
+    def forward(self, x: torch.Tensor, emb: torch.Tensor, shard=None) -> torch.Tensor:
+        """`shard`: the norms' groups span the ranks of a frame-parallel
+        run (`GroupNorm32`)."""
+        if shard is None:
+            h = self.in_layers(x)
+        else:
+            h = self.in_layers[2](self.in_layers[0](x, shard))
         emb_out = self.emb_layers(emb).to(h.dtype)
         if self.exchange_temb_dims:
             emb_out = emb_out.transpose(1, 2)  # (B, T, C) → (B, C, T)
         emb_out = emb_out[(...,) + (None,) * (h.ndim - emb_out.ndim)]
-        h = self.out_layers(h + emb_out)
+        if shard is None:
+            h = self.out_layers(h + emb_out)
+        else:
+            h = self.out_layers[3](self.out_layers[0](h + emb_out, shard))
         return self.skip_connection(x) + h
 
 

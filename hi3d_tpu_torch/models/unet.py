@@ -16,6 +16,17 @@ With weights already in `dtype` (the inference cast) nothing is autocast.
 `use_checkpoint` recomputes each VideoResBlock and SpatialVideoTransformer
 (UNetModel: each ResBlock and SpatialTransformer) in the backward pass (`torch.utils.checkpoint`, non-reentrant), as the JAX UNet
 wraps them in `nn.remat`; it only acts while gradients are recorded.
+
+Frame-parallel VideoUNet (serving's latency mode, inference only): with a
+`frame_shard` (`parallel.dist.FrameShard`) x holds this rank's rows of the
+(copies·B·T) batch, which may straddle videos, and `context`, `y` and the
+indicator are the whole batch's, per video. Everything that reads one
+frame runs on the rank's rows as is; what reads several frames crosses the
+ranks: every time-stack ResBlock and temporal transformer regroups its input
+to all the frames of a block of the locations (`FrameShard.to_locations`)
+and back after, the time stacks' GroupNorms combine the ranks' moments, the
+time stacks' per-frame embedding is gathered once a call, and the
+positional embedding takes each row's frame within its video.
 """
 
 from __future__ import annotations
@@ -52,10 +63,17 @@ class VideoResBlock(ResBlock):
                                    kernel_size=video_kernel_size, exchange_temb_dims=True)
         self.time_mixer = AlphaBlender(merge_factor, merge_strategy, layout="video5d")
 
-    def forward(self, x, emb, num_video_frames: int, image_only_indicator=None):
+    def forward(self, x, emb, num_video_frames: int, image_only_indicator=None, shard=None,
+                emb_all=None):
+        """`shard` (frame-parallel): x and emb are this rank's rows, the
+        indicator (1, rows) theirs, and `emb_all` every row's embedding; the
+        time stack runs on all the frames of this rank's block of the
+        locations, its norms' statistics combined over the ranks."""
         x = super().forward(x, emb)
         bt, c, h, w = x.shape
         t = num_video_frames
+        if shard is not None:
+            return self._split_time_stack(x, emb_all, t, image_only_indicator, shard)
         b = bt // t
         x5 = x.view(b, t, c, h, w)
         # the time stack takes the (B, C, T, H, W) view as it lies: its first
@@ -65,6 +83,19 @@ class VideoResBlock(ResBlock):
         )
         x5 = self.time_mixer(x5, x_temporal.permute(0, 2, 1, 3, 4), image_only_indicator)
         return x5.reshape(bt, c, h, w)
+
+    def _split_time_stack(self, x, emb_all, t, indicator, shard):
+        rows, c, h, w = x.shape
+        xl = shard.to_locations(x.view(rows, c, h * w), 2)  # (copies·B·T, C, S_r)
+        vids = xl.shape[0] // t
+        # (copies·B, C, T, S_r, 1): the (3, 1, 1) convolution's view of a block
+        x5 = xl.view(vids, t, c, -1).permute(0, 2, 1, 3).unsqueeze(-1)
+        x_temporal = self.time_stack(x5, emb_all.view(vids, t, -1), shard=shard)
+        x_temporal = x_temporal.squeeze(-1).permute(0, 2, 1, 3).reshape(vids * t, c, -1)
+        x_temporal = shard.to_frames(x_temporal, 2, h * w).reshape(rows, c, h, w)
+        out = self.time_mixer(x.view(1, rows, c, h, w), x_temporal.view(1, rows, c, h, w),
+                              indicator)
+        return out.reshape(rows, c, h, w)
 
 
 def _heads_for(ch: int, num_heads: int, num_head_channels: int) -> Tuple[int, int]:
@@ -221,13 +252,18 @@ class VideoUNet(nn.Module):
             zero_module(nn.Conv2d(model_channels, out_channels, 3, padding=1)),
         )
 
-    def _run(self, layers, h, emb, context, t, indicator, time_context=None):
+    def _run(self, layers, h, emb, context, t, indicator, time_context=None, shard=None,
+             emb_all=None, video_context=None):
         remat = self.use_checkpoint and torch.is_grad_enabled()
         for layer in layers:
             if isinstance(layer, VideoResBlock):
                 args = (h, emb, t, indicator)
+                if shard is not None:
+                    args += (shard, emb_all)
             elif isinstance(layer, SpatialVideoTransformer):
                 args = (h, context, t, indicator, time_context)
+                if shard is not None:
+                    args += (shard, video_context)
             else:
                 h = layer(h)
                 continue
@@ -237,24 +273,33 @@ class VideoUNet(nn.Module):
     def forward(self, x, timesteps, context=None, y=None,
                 num_video_frames: Optional[int] = None, image_only_indicator=None,
                 encoder_cache: Optional[Tuple[Tuple[torch.Tensor, ...], torch.Tensor]] = None,
-                return_encoder_cache: bool = False, time_context=None):
+                return_encoder_cache: bool = False, time_context=None, frame_shard=None):
         """`encoder_cache` / `return_encoder_cache` serve encoder propagation
         (diffusion/encoder_reuse.py): a forward can return its (skip
         activations, middle h), and a forward given them skips the input and
         middle blocks and decodes from them. Exact when the cache comes from
-        the same (x, timesteps)."""
+        the same (x, timesteps). `frame_shard`: the frame-parallel forward
+        (module docstring); `context`, `y` and `time_context` are then per
+        video and `image_only_indicator` the whole batch's."""
         weight_dtype = self.time_embed[0].weight.dtype
         dtype = self.dtype or weight_dtype
+        if frame_shard is not None and torch.is_grad_enabled():
+            raise NotImplementedError("the frame-parallel VideoUNet is inference-only")
         with torch.autocast(x.device.type, dtype=dtype, enabled=dtype != weight_dtype):
             return self._forward(x, timesteps, context, y, num_video_frames,
                                  image_only_indicator, dtype, encoder_cache, return_encoder_cache,
-                                 time_context)
+                                 time_context, frame_shard)
 
     def _forward(self, x, timesteps, context, y, num_video_frames, image_only_indicator, dtype,
-                 encoder_cache=None, return_encoder_cache=False, time_context=None):
+                 encoder_cache=None, return_encoder_cache=False, time_context=None,
+                 frame_shard=None):
         bt = x.shape[0]
         t = num_video_frames
         emb = self.time_embed(timestep_embedding(timesteps, self.model_channels).to(dtype))
+        split = {}
+        if frame_shard is not None:
+            y, context, image_only_indicator, split = self._split_inputs(
+                frame_shard, x, y, context, image_only_indicator, time_context)
         # per-video → per-frame broadcast (reference video_model.py:459-465)
         if y is not None and y.shape[0] != bt and bt // y.shape[0] == t:
             y = y.repeat_interleave(t, dim=0)
@@ -266,8 +311,13 @@ class VideoUNet(nn.Module):
             time_context = time_context.to(dtype)
         if self.num_classes is not None:
             emb = emb + self.label_emb(y.to(dtype))
+        if frame_shard is not None:
+            split["emb_all"] = frame_shard.gather_frames(emb)
+            if split["video_context"] is not None:
+                split["video_context"] = split["video_context"].to(dtype)
         run = functools.partial(self._run, emb=emb, context=context, t=t,
-                                indicator=image_only_indicator, time_context=time_context)
+                                indicator=image_only_indicator, time_context=time_context,
+                                **split)
         if encoder_cache is None:
             h = x.to(dtype)
             skips = []
@@ -283,6 +333,25 @@ class VideoUNet(nn.Module):
             h = run(block, torch.cat([h, skips.pop()], dim=1))
         out = self.out(h)
         return (out, cache) if return_encoder_cache else out
+
+    @staticmethod
+    def _split_inputs(shard, x, y, context, indicator, time_context):
+        """The frame-parallel forward's inputs: each row's own `y` and
+        `context` from the per-video ones, the indicator's entries of this
+        rank's rows as (1, rows), and the per-video context the temporal
+        blocks attend to (`video_context`)."""
+        k = shard.copies(x.shape[0])
+        vids = k * shard.videos
+        index = shard.video_index(k, device=x.device)
+        for name, v in (("y", y), ("context", context), ("time_context", time_context)):
+            if v is not None and v.shape[0] != vids:
+                raise ValueError(f"the frame-parallel VideoUNet takes a per-video {name} "
+                                 f"({vids} rows), got {v.shape[0]}")
+        video_context = context
+        y = None if y is None else y[index]
+        context = None if context is None else context[index]
+        indicator = indicator.reshape(-1)[shard.rows(k, device=indicator.device)].view(1, -1)
+        return y, context, indicator, {"shard": shard, "video_context": video_context}
 
 
 class UNetModel(nn.Module):

@@ -118,14 +118,21 @@ class SpatialVideoTransformer(nn.Module):
         own = not self.use_spatial_context and not time_context
         return sum(1 + (block.has_attn2 and own) for block in self.time_stack)
 
-    def forward(self, x, context, timesteps: int, image_only_indicator=None, time_context=None):
+    def forward(self, x, context, timesteps: int, image_only_indicator=None, time_context=None,
+                shard=None, video_context=None):
+        """`shard` (frame-parallel, a `parallel.dist.FrameShard`): x,
+        `context` and the indicator ((1, rows)) are this rank's rows,
+        `video_context` the per-video context; each temporal block runs on
+        every frame of this rank's block of the locations."""
         bt, c, h, w = x.shape
         t = timesteps
         b = bt // t
         x_in = x
-        if self.use_spatial_context:
+        if shard is not None and self.use_spatial_context:
+            time_context = video_context  # each video's context, as its first frame has it
+        elif self.use_spatial_context:
             time_context = context.view(b, t, *context.shape[1:])[:, 0]
-        elif time_context is not None and time_context.ndim == 2:
+        if time_context is not None and time_context.ndim == 2:
             time_context = time_context[:, None, :]
 
         y = self.norm(x)
@@ -134,13 +141,21 @@ class SpatialVideoTransformer(nn.Module):
         else:
             y = self.proj_in(y)
             tokens = y.permute(0, 2, 3, 1).reshape(bt, h * w, y.shape[1])
-        frame_idx = torch.arange(t, dtype=torch.float32, device=x.device).repeat(b)
+        if shard is None:
+            frame_idx = torch.arange(t, dtype=torch.float32, device=x.device).repeat(b)
+        else:
+            frame_idx = shard.frame_index(shard.copies(bt), x.device).float()
         t_emb = timestep_embedding(frame_idx, c, max_period=self.max_time_embed_period)
         emb = self.time_pos_embed(t_emb.to(self.proj_in.weight.dtype))[:, None, :]
 
         for block, mix_block in zip(self.transformer_blocks, self.time_stack):
             tokens = block(tokens, context=context)
-            mix = mix_block(tokens + emb.to(tokens.dtype), context=time_context, timesteps=t)
+            mix = tokens + emb.to(tokens.dtype)
+            if shard is None:
+                mix = mix_block(mix, context=time_context, timesteps=t)
+            else:  # all the frames of this rank's block of the locations
+                mix = shard.to_frames(mix_block(shard.to_locations(mix, 1),
+                                                context=time_context, timesteps=t), 1, h * w)
             tokens = self.time_mixer(tokens, mix, image_only_indicator)
 
         if self.use_linear:

@@ -48,9 +48,9 @@ SIGNATURES = {
     "hi3d_block_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _STRIDES, _F, _P),
     "hi3d_layer_norm": (_P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _F, _P),
-    "hi3d_group_stats": (_P, _P, _P, _L, _L, _L, _I, _I, _F, _P),
+    "hi3d_group_stats": (_P, _P, _P, _L, _L, _L, _I, _I, _F, _I, _P),
     "hi3d_group_norm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I, _I, _I, _I, _I, _I,
-                        _I, _F, _I, _P),
+                        _I, _F, _I, _P, _P),
 }
 
 # the dtype codes of csrc/norm_common.cuh

@@ -30,6 +30,17 @@ VAE's and the DPT's fp32 GroupNorms, `models.layers.FoldedGroupNorm`) apply
 the folded affine themselves. The split matters there: one 1024² VAE frame
 has only 32 groups of 4.19 M elements each.
 
+Split groups: the frame-parallel UNet's time stacks hold, on each rank of a
+process group, every frame of a block of the locations, so a group's
+statistics span the ranks. `group_moments` is #9 in its moments mode: this
+tensor's fp32 (mean, M2) a group, two passes over x (M2 = Σ(x − mean)², not
+Σx² − n·mean², so that the ranks' moments combine exactly, by Chan's
+formula in `parallel.dist.FrameShard.combine_moments`). `group_norm_apply`
+is K3 with the combined statistics given: one launch that reads x once and
+writes y, with the same folded affine and SiLU. Each has a plain version
+that CPU tensors take, and counts its launches in its kernel's counter
+(`group_stats.launches`, `group_norm.launches`).
+
 Training: when x, γ or β needs a gradient, `group_norm` runs as an autograd
 Function that saves x, γ and β. Its backward is `group_norm_backward`, plain
 PyTorch that recomputes the statistics from the saved x in fp32, as the JAX
@@ -221,8 +232,10 @@ def reads_in_place(x: torch.Tensor) -> bool:
     return layout is not None and _vectorized(x, layout)
 
 
-def _launch(x, weight, bias, num_groups, eps, act):
-    """One K3 launch on a CUDA tensor, as `plan_group_norm` plans it."""
+def _launch(x, weight, bias, num_groups, eps, act, stats=None):
+    """One K3 launch on a CUDA tensor, as `plan_group_norm` plans it; with
+    `stats` ((2, N, G) fp32 mean and inv_std) it applies those instead of
+    computing them, keeping nothing in shared memory."""
     if not x.is_cuda:
         raise ValueError(f"group_norm: unsupported device {x.device}")
     code = build.DTYPE_CODES.get(x.dtype)
@@ -259,10 +272,18 @@ def _launch(x, weight, bias, num_groups, eps, act):
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     cluster, chunk, res, threads = plan_group_norm(n * num_groups, gvecs, per * x.element_size(),
                                                    cpg)
+    stats_ptr = None
+    if stats is not None:
+        if (stats.dtype != torch.float32 or stats.shape != (2, n, num_groups)
+                or not stats.is_contiguous() or stats.get_device() != dev):
+            raise ValueError(f"group_norm: given statistics {stats.dtype}{tuple(stats.shape)} on "
+                             f"{stats.device}, want contiguous float32 (2, {n}, {num_groups}) "
+                             f"on {x.device}")
+        res, stats_ptr = 0, stats.data_ptr()
     err = build.launch(build.load_library().hi3d_group_norm, dev, x.data_ptr(), y.data_ptr(),
                        weight.data_ptr(), bias.data_ptr(), n, c, num_groups, s1, s2,
                        *_strides(x, s1, ss1), code, w_code, int(vec), cluster, chunk, res,
-                       threads, float(eps), int(act == "silu"))
+                       threads, float(eps), int(act == "silu"), stats_ptr)
     build.check(err, "group_norm")
     return y
 
@@ -339,7 +360,14 @@ def group_stats(x: torch.Tensor, num_groups: int, eps: float) -> Tuple[torch.Ten
     GroupNorm backward."""
     if x.device.type == "cpu":
         return group_stats_reference(x, num_groups, eps)
-    group_size = _check_groups(x, num_groups, "group_stats")
+    return _stats_launch(x, num_groups, eps, moments=False)
+
+
+def _stats_launch(x: torch.Tensor, num_groups: int, eps: float,
+                  moments: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One #9 launch on a contiguous CUDA tensor: (mean, inv_std), or with
+    `moments` (mean, M2), each (N, G) fp32."""
+    group_size = _check_groups(x, num_groups, "group_moments" if moments else "group_stats")
     n = x.shape[0]
     groups = n * num_groups
     cluster, chunk = plan_group_stats(groups, group_size, 16 // x.element_size())
@@ -347,11 +375,63 @@ def group_stats(x: torch.Tensor, num_groups: int, eps: float) -> Tuple[torch.Ten
     ptr = stats.data_ptr()
     err = build.launch(build.load_library().hi3d_group_stats, x.get_device(), x.data_ptr(), ptr,
                        ptr + 4 * groups, groups, group_size, chunk, cluster,
-                       build.DTYPE_CODES[x.dtype], eps)
+                       build.DTYPE_CODES[x.dtype], eps, int(moments))
     build.check(err, "group_stats")
     group_stats.launches += 1
-    mean, inv = stats.unbind(0)
-    return mean, inv
+    first, second = stats.unbind(0)
+    return first, second
 
 
 group_stats.launches = 0
+
+
+def group_moments_reference(x: torch.Tensor, num_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of #9's moments mode: fp32 (N, G) mean and M2 = Σ(x −
+    mean)² of (N, C, *spatial), two passes."""
+    xf = x.float().reshape(x.shape[0], num_groups, -1)
+    mean = xf.mean(-1)
+    return mean, ((xf - mean[..., None]) ** 2).sum(-1)
+
+
+def group_moments(x: torch.Tensor, num_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 per-group (mean, M2), each (N, G), of a contiguous (N, C,
+    *spatial) tensor: #9 in its moments mode (one launch, counted in
+    `group_stats.launches`) on CUDA tensors, `group_moments_reference` on
+    CPU tensors. The moments of a group split over ranks combine in
+    `parallel.dist.FrameShard.combine_moments`."""
+    if x.device.type == "cpu":
+        return group_moments_reference(x, num_groups)
+    return _stats_launch(x, num_groups, 0.0, moments=True)
+
+
+def group_norm_apply_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                               num_groups: int, stats: torch.Tensor,
+                               act: Optional[str] = None) -> torch.Tensor:
+    """Plain version of K3 with given statistics (`stats`: (2, N, G) fp32
+    mean and inv_std): the folded affine a = γ·inv, b = β − mean·a per
+    (sample, channel), y = act(x·a + b) in fp32, then the cast."""
+    n, c = x.shape[:2]
+    g = num_groups
+    mean, inv_std = stats[0], stats[1]
+    a = weight.float().reshape(1, g, c // g) * inv_std[:, :, None]
+    b = bias.float().reshape(1, g, c // g) - mean[:, :, None] * a
+    y = x.float().reshape(n, g, c // g, -1) * a[..., None] + b[..., None]
+    if act == "silu":
+        y = y * torch.sigmoid(y)
+    elif act is not None:
+        raise ValueError(f"unknown activation {act!r}")
+    return y.reshape(x.shape).to(x.dtype)
+
+
+def group_norm_apply(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int,
+                     stats: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
+    """GroupNorm(+SiLU) of (N, C, *spatial) with given statistics (`stats`:
+    contiguous (2, N, G) fp32, the mean and inv_std of each group): K3
+    without its statistics pass (one launch, counted in
+    `group_norm.launches`) on CUDA tensors, output contiguous;
+    `group_norm_apply_reference` on CPU tensors. Forward only."""
+    if x.device.type == "cpu":
+        return group_norm_apply_reference(x, weight, bias, num_groups, stats, act)
+    y = _launch(x, weight, bias, num_groups, 0.0, act, stats=stats)
+    group_norm.launches += 1
+    return y

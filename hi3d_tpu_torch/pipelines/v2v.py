@@ -85,9 +85,19 @@ def blend_refine_batch(
     cfg_interval=None,  # (lo, hi): CFG only where σ ∈ [lo, hi] (turbo)
     output_dtype: str = "float32",
     timer: Optional[PhaseTimer] = None,
-) -> np.ndarray:
+    frames=None,
+):
     """Stage-2 latent-blending refinement of B videos → (B, T, H, W, 3),
-    float32 in [-1, 1] or uint8 (`output_dtype`).
+    float32 in [-1, 1] or uint8 (`output_dtype`), a numpy array.
+
+    With `frames` (a `parallel.dist.FrameShard`, serving across ranks) this
+    process refines the rows of the B·T frames it holds and returns them,
+    decoded, (rows, H, W, 3) fp32 on the model's device, for the caller to
+    check and convert across the ranks: the conditioner runs
+    on every video, its per-frame outputs cut to the rows; the VAE encode,
+    the α-blend and the decode take the rows alone; every draw is the whole
+    batch's, cut to the rows; the UNet runs frame-parallel when the shard
+    has a group (latency mode).
 
     Phases go to `timer`: conditioner (without the DPT), dpt (the
     DepthEmbedder), vae_encode, sampler, vae_decode, to_host."""
@@ -128,35 +138,49 @@ def blend_refine_batch(
             h.remove()
     timer.mark("conditioner")
 
-    frames = video.reshape(b * t, *video.shape[2:]).permute(0, 2, 3, 1)
-    z = model.encode_first_stage(frames).float().permute(0, 3, 1, 2)  # (B·T, 4, h, w)
+    rows = video.reshape(b * t, *video.shape[2:]).permute(0, 2, 3, 1)
+    if frames is not None:
+        rows = frames.take(rows)
+        c, uc = frames.take_cond(c), frames.take_cond(uc)
+    z = model.encode_first_stage(rows).float().permute(0, 3, 1, 2)  # (B·T, 4, h, w)
     timer.mark("vae_encode")
 
+    full = (b * t,) + tuple(z.shape[1:])
     if init_noise is None:
-        noise = torch.randn(z.shape, generator=generator, device=device)
+        noise = (torch.randn(full, generator=generator, device=device) if frames is None
+                 else frames.randn(full, generator, device))
     else:
         noise = torch.as_tensor(np.asarray(init_noise), dtype=torch.float32,
                                 device=device).permute(0, 3, 1, 2)
+        noise = noise if frames is None else frames.take(noise)
     lat = noise * torch.sqrt(1.0 + sigmas[0] ** 2.0)
     dtype = model.compute_dtype
-    denoiser = model.make_denoiser_fn(t, torch.zeros((2 * b, t), device=device),
-                                  cached=bool(encoder_reuse))
+    parallel = frames is not None and frames.group is not None
+    videos = z.shape[0] // t if frames is not None and not parallel else b
+    denoiser = model.make_denoiser_fn(t, torch.zeros((2 * videos, t), device=device),
+                                      cached=bool(encoder_reuse),
+                                      frame_shard=frames if parallel else None)
     reuse = reuse_flags(num_steps, encoder_reuse) if encoder_reuse else None
     cache = None
-    for s0, s1, use_cfg in _flag_segments(cfg_on):
-        for i in range(s0, s1):
-            alpha = blend_alpha(i, num_steps)
-            lat = lat * (1.0 - alpha) + (noise * sigmas[i] + z) * alpha
-            den = denoiser
-            if reuse is not None:
-                den, cell = step_denoiser(denoiser, cache if reuse[i] else None)
-            lat = sampler.step_call(den, lat.to(dtype), i, sig, c, uc, use_cfg=use_cfg).float()
-            if reuse is not None:
-                cache = cell["cache"]
+    with sampler.use_frames(frames):
+        for s0, s1, use_cfg in _flag_segments(cfg_on):
+            for i in range(s0, s1):
+                alpha = blend_alpha(i, num_steps)
+                lat = lat * (1.0 - alpha) + (noise * sigmas[i] + z) * alpha
+                den = denoiser
+                if reuse is not None:
+                    den, cell = step_denoiser(denoiser, cache if reuse[i] else None)
+                lat = sampler.step_call(den, lat.to(dtype), i, sig, c, uc,
+                                        use_cfg=use_cfg).float()
+                if reuse is not None:
+                    cache = cell["cache"]
     cache = cell = den = None  # free the encoder cache (every skip activation) before the decode
     timer.mark("sampler")
 
     decoded = model.decode_first_stage(lat.to(dtype).permute(0, 2, 3, 1))
+    if frames is not None:  # the serving caller checks and converts across the ranks
+        timer.mark("vae_decode")
+        return decoded
     if not bool(torch.isfinite(decoded).all()):
         raise FloatingPointError("VAE decode produced non-finite values")
     timer.mark("vae_decode")

@@ -1202,3 +1202,94 @@ def test_frame_self_context_launches_the_frame_kernel_twice(cuda):
         got[name] = ta.temporal_attention.launches
         assert got[name] == want
     assert got["self"] == 2 * got["spatial"] and got["none"] == got["spatial"] > 0
+
+
+@pytest.mark.gpu
+def test_group_moments_kernel_matches_plain(cuda):
+    """#9's moments mode ((mean, M2) a group, two passes) at the time
+    stacks' location-split shapes of latency serving (2 CFG copies × C ×
+    T 16 × half the 64² or 16² locations, bf16), an fp32 group whose mean is
+    far from its spread, clusters of 8 and a ragged group; a second call is
+    bitwise the same; the launch counts as #9's."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    for shape, dtype, offset in (((2, 320, 16, 2048, 1), torch.bfloat16, 0.0),
+                                 ((2, 1280, 16, 128, 1), torch.bfloat16, 0.0),
+                                 ((1, 128, 16, 8192, 1), torch.float32, 100.0),
+                                 ((3, 64, 5, 7, 1), torch.float32, 1.0)):
+        x = (torch.randn(shape, generator=g, device=cuda) * 3 + offset).to(dtype)
+        before = gn.group_stats.launches
+        mean, m2 = gn.group_moments(x, 32)
+        assert gn.group_stats.launches == before + 1
+        ref_mean, ref_m2 = gn.group_moments_reference(x.double(), 32)
+        assert _close_rel(mean.double(), ref_mean) and _close_rel(m2.double(), ref_m2), shape
+        again = gn.group_moments(x, 32)
+        assert torch.equal(again[0], mean) and torch.equal(again[1], m2)
+
+
+@pytest.mark.gpu
+def test_group_norm_apply_kernel_matches_plain(cuda):
+    """K3 with given statistics against its plain version on the same
+    statistics: the time stack's permuted (N, C, T, S, 1) view in bf16 with
+    SiLU, a contiguous fp32 tensor, an uneven location block (ragged rows);
+    one launch, counted as K3's."""
+    g = torch.Generator(device=cuda).manual_seed(22)
+    for shape, dtype, perm, act in (((2, 16, 320, 2048, 1), torch.bfloat16, True, "silu"),
+                                    ((2, 640, 16, 512, 1), torch.float32, False, None),
+                                    ((2, 64, 16, 21, 1), torch.bfloat16, False, "silu")):
+        x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+        if perm:
+            x = x.permute(0, 2, 1, 3, 4)
+        c = x.shape[1]
+        w, b = (torch.randn((c,), generator=g, device=cuda) for _ in range(2))
+        stats = torch.stack([torch.randn((x.shape[0], 32), generator=g, device=cuda),
+                             torch.rand((x.shape[0], 32), generator=g, device=cuda) + 0.5])
+        before = gn.group_norm.launches
+        out = gn.group_norm_apply(x, w, b, 32, stats.contiguous(), act)
+        assert gn.group_norm.launches == before + 1
+        ref = gn.group_norm_apply_reference(x, w, b, 32, stats, act)
+        tol = 6e-2 if dtype == torch.bfloat16 else 1e-4
+        assert out.is_contiguous() and (out.float() - ref.float()).abs().max().item() < tol
+
+
+@pytest.mark.gpu
+def test_split_group_norm_and_location_block_attention(cuda):
+    """In a one-rank gloo group on the card: the time stack's GroupNorm
+    with its statistics from #9's moments, combined over the group, then
+    applied by K3, equals K3's GroupNorm of the whole tensor; and K2 on a
+    block of the locations (the layout latency serving hands it) equals
+    K2 on every location, sliced, bit for bit."""
+    import os
+    import socket
+
+    import torch.distributed as tdist
+
+    from hi3d_tpu_torch.models.layers import GroupNorm32
+    from hi3d_tpu_torch.parallel.dist import FrameShard
+
+    g = torch.Generator(device=cuda).manual_seed(23)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    tdist.init_process_group("gloo", rank=0, world_size=1)
+    try:
+        shard = FrameShard.split(2, 16, tdist.group.WORLD)
+        norm = GroupNorm32(320, act="silu").to(cuda, torch.bfloat16)
+        with torch.no_grad():
+            norm.weight.normal_(generator=g)
+            norm.bias.normal_(generator=g)
+            x = torch.randn((2, 16, 320, 1024), generator=g, device=cuda,
+                            dtype=torch.bfloat16).permute(0, 2, 1, 3).unsqueeze(-1)
+            k3, k9 = gn.group_norm.launches, gn.group_stats.launches
+            got = norm(x, shard=shard)
+            assert (gn.group_norm.launches - k3, gn.group_stats.launches - k9) == (1, 1)
+            want = norm(x)
+        assert (got.float() - want.float()).abs().max().item() < 6e-2
+    finally:
+        tdist.destroy_process_group()
+    q, k, v = (torch.randn((2, 16, 4096, 320), generator=g, device=cuda,
+                           dtype=torch.bfloat16).view(2, 16, 4096, 5, 64) for _ in range(3))
+    whole = ta.temporal_attention(q, k, v)
+    a, b = 1365, 2730  # the middle of three blocks: 1365 locations, not a multiple of 8
+    block = ta.temporal_attention(*(t[:, :, a:b].contiguous() for t in (q, k, v)))
+    assert torch.equal(block, whole[:, :, a:b])

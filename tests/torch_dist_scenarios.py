@@ -19,6 +19,10 @@ import torch
 import torch.distributed as dist
 
 TIMEOUT = datetime.timedelta(seconds=60)  # a collective that hangs fails the test
+# the serving groups' (tests/test_torch_serve_dist.py): up to 4 ranks of 9
+# processes at once on a CPU that the other test workers share, so a rank's
+# peers may wait on it for long; a hang still fails within the spawn's limit
+SERVE_TIMEOUT = datetime.timedelta(seconds=150)
 
 
 def _embedder_base():
@@ -405,3 +409,208 @@ def fsdp_run(rank: int, world: int, port: int, workdir: str, inp: dict) -> None:
                 for s in ("fsdp", "replicated")})
     dist.destroy_process_group()
     torch.save(out, os.path.join(workdir, f"fsdp{rank}.pt"))
+
+
+# ----------------------------------------------------------------- serving
+def _orbit_call(server, job: dict, seed_device="cpu"):
+    """OrbitServer.generate on a job of tests/test_torch_serve_dist.py: pinned
+    noise and cond draws when the job carries them, else a generator seeded
+    `job["seed"]` draws them."""
+    kw = dict(elevations=job["elev"], encoder_reuse=job.get("encoder_reuse", 0),
+              cfg_interval=job.get("cfg_interval"))
+    if "noise" in job:
+        kw.update(randn=job["noise"], batch_overrides={
+            "cond_frames": torch.from_numpy(job["cond_frames"]).permute(0, 3, 1, 2),
+            "cond_aug": torch.from_numpy(job["cond_aug"])})
+    else:
+        kw["generator"] = torch.Generator(device=seed_device).manual_seed(job["seed"])
+    server.model.num_samples = job["t"]
+    return server.generate(job["images"], **kw)
+
+
+def _refine_call(server, job: dict):
+    kw = dict(elevations=job["elev"], encoder_reuse=job.get("encoder_reuse", 0),
+              cfg_interval=job.get("cfg_interval"))
+    if "noise" in job:
+        kw.update(init_noise=job["noise"], batch_overrides={
+            "cond_frames": torch.from_numpy(job["cond_frames"]).permute(0, 3, 1, 2),
+            "cond_aug": torch.from_numpy(job["cond_aug"])})
+    else:
+        kw["generator"] = torch.Generator().manual_seed(job["seed"])
+    server.model.num_samples = job["videos"].shape[1]
+    return server.refine(job["videos"], **kw)
+
+
+def serve_engines(inp: dict, ranks=(None, None)):
+    """The tiny stage-1 and stage-2 engines (each None where `ranks` names
+    ranks that exclude this one), their samplers' ancestral variant kept
+    aside."""
+    me = dist.get_rank() if dist.is_initialized() else 0
+    m1 = None if ranks[0] is not None and me not in ranks[0] else build_engine(
+        inp["cfg1"], inp["state1"])
+    m2 = None if ranks[1] is not None and me not in ranks[1] else build_engine(
+        inp["cfg2"], inp["state2"])
+    return m1, m2
+
+
+@contextlib.contextmanager
+def _steps(model, steps):
+    """Within: the model's sampler takes `steps` steps (its own without)."""
+    old = model.sampler.num_steps
+    model.sampler.num_steps = steps or old
+    try:
+        yield
+    finally:
+        model.sampler.num_steps = old
+
+
+def _stream_by_parts(server, job) -> list:
+    """What generate_stream should give, computed by its parts: each batch's
+    orbit on the stage-1 servers with the batch's generators, the videos sent
+    from stage 1's first rank to every stage-2 rank, the refinement on the
+    stage-2 servers; the writer's videos (None elsewhere). In one process,
+    the two stages one after the other."""
+    from hi3d_tpu_torch.parallel import dist as pdist
+
+    outs = []
+    for i, images in enumerate(job["batches"]):
+        g1, g2 = server.stage_generators(job["seed"], i)
+        elev = [job["elev"]] * len(images)
+        videos = None
+        if server.orbit is not None:
+            videos = server.orbit.generate(images, elevations=elev, generator=g1)
+        if pdist.world() > 1:
+            leader = server.ranks[0][0]
+            if pdist.rank() == leader:
+                for dst in server.ranks[1]:
+                    pdist.send_tensor(torch.from_numpy(videos), dst)
+            elif server.refine is not None:
+                videos = pdist.recv_tensor(leader, "cpu")
+        out = None
+        if server.refine is not None:
+            out = server._stage2(videos, elev, g2, job["stage2_hw"], {}, "float32", None)
+
+        outs.append(out)
+    return outs
+
+
+def serve_jobs(inp: dict, jobs, m1, m2, split=None) -> dict:
+    """Run `jobs` ({name: job}) with the servers of this process (its group
+    when one is initialised): "orbit", "orbit_ancestral" (the sampler
+    swapped for EulerAncestralSampler), "refine" and "stream" (the
+    TwoStageServer over 2 batches, and `<name>_parts`, the same by its
+    parts); the results by name (None off the writer). `split` (world,
+    rank): in one process, the rows that rank of a throughput split holds,
+    as it computes them."""
+    from hi3d_tpu_torch.config import instantiate_from_config
+    from hi3d_tpu_torch.parallel.dist import FrameShard
+    from hi3d_tpu_torch.pipelines.serve import OrbitServer, RefineServer, TwoStageServer
+
+    def sharded(server):
+        if split is not None:
+            w, r = split
+            server.frames = lambda b, t: FrameShard(t, b * t, r * b * t // w, b * t // w)
+        return server
+
+    out = {}
+    for name, job in jobs.items():
+        kind = job["kind"]
+        if kind in ("orbit", "orbit_ancestral"):
+            server = sharded(OrbitServer(m1, mode=job.get("mode", "auto")))
+            old = m1.sampler
+            if kind == "orbit_ancestral":
+                m1.sampler = instantiate_from_config(inp["ancestral"])
+            try:
+                with _steps(m1, job.get("steps")):
+                    out[name] = _orbit_call(server, job)
+            finally:
+                m1.sampler = old
+        elif kind == "refine":
+            server = sharded(RefineServer(m2, mode=job.get("mode", "auto")))
+            with _steps(m2, job.get("steps")):
+                out[name] = _refine_call(server, job)
+        elif kind == "stream":
+            for m in (m1, m2):
+                if m is not None:
+                    m.num_samples = job["t"]
+            server = TwoStageServer(m1, m2, stage1_ranks=job.get("ranks1"),
+                                    stage2_ranks=job.get("ranks2"))
+            out[name] = list(server.generate_stream(
+                job["batches"], elevations=job["elev"], seed=job["seed"],
+                stage2_hw=job["stage2_hw"]))
+            out[name + "_parts"] = _stream_by_parts(server, job)
+        else:
+            raise ValueError(kind)
+    return out
+
+
+def regroup_checks(world: int, rank: int) -> dict:
+    """`FrameShard.to_locations` / `to_frames` round trips (2 copies of 2
+    videos × 3 frames, 7 and 16 locations: uneven blocks at 2–4 ranks) and
+    the split GroupNorm on this rank's block of the locations against the
+    whole tensor's GroupNorm: the largest errors."""
+    from hi3d_tpu_torch.models.layers import GroupNorm32
+    from hi3d_tpu_torch.parallel.dist import FrameShard
+
+    gen = torch.Generator().manual_seed(11)
+    out = {"roundtrip": 0.0, "locations": 0.0, "group_norm": 0.0}
+    for videos, frames in ((2, 3), (1, 6)):
+        if (videos * frames) % world:
+            continue
+        shard = FrameShard.split(videos, frames, dist.group.WORLD)
+        for s in (7, 16):
+            full = torch.randn(2 * videos * frames, 5, s, generator=gen)
+            mine = full.view(2, -1, 5, s)[:, shard.offset:shard.offset + shard.count]
+            mine = mine.reshape(-1, 5, s)
+            a, b = shard.location_block(s)
+            loc = shard.to_locations(mine, 2)
+            back = shard.to_frames(loc, 2, s)
+            out["locations"] = max(out["locations"], (loc - full[:, :, a:b]).abs().max().item())
+            out["roundtrip"] = max(out["roundtrip"], (back - mine).abs().max().item())
+        # GroupNorm over (N, C, T, S, 1) with the locations split
+        norm = GroupNorm32(8, num_groups=4, act="silu")
+        with torch.no_grad():
+            norm.weight.normal_(generator=gen)
+            norm.bias.normal_(generator=gen)
+        x = torch.randn(videos, 8, frames, 16, 1, generator=gen) * 3 + 1
+        a, b = shard.location_block(16)
+        with torch.no_grad():
+            want = norm(x)[:, :, :, a:b]
+            got = norm(x[:, :, :, a:b], shard=shard)
+        out["group_norm"] = max(out["group_norm"], (got - want).abs().max().item())
+    return out
+
+
+def serve_cli(inp: dict, rank: int, world: int, port: int, argv) -> dict:
+    """`hi3d_tpu_torch.pipelines.serve.main` as torchrun starts it (gloo,
+    --device cpu): the paths this rank wrote, and whether it left the
+    group."""
+    from hi3d_tpu_torch.parallel import dist as pdist
+    from hi3d_tpu_torch.pipelines import serve
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    pdist.TIMEOUT = SERVE_TIMEOUT
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        result = serve.main(list(argv) + ["--device", "cpu"])
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        os.environ.pop(k, None)
+    return {"outputs": result["outputs"], "phases": result["phases"], "text": text.getvalue(),
+            "group_left": not dist.is_initialized()}
+
+
+def serve_run(rank: int, world: int, ports, workdir: str, inp: dict) -> None:
+    """A spawned rank of tests/test_torch_serve_dist.py: join a `world`-rank
+    gloo group on `ports[0]`, run this world's serving jobs and checks, then
+    each CLI run of `inp["cli"][world]` in a group of its own (on
+    `ports[1:]`); save the results to `<workdir>/serve<world>_<rank>.pt`."""
+    torch.set_num_threads(1)
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(ports[0]))
+    dist.init_process_group("gloo", rank=rank, world_size=world, timeout=SERVE_TIMEOUT)
+    m1, m2 = serve_engines(inp)
+    out = {"jobs": serve_jobs(inp, inp["jobs"][world], m1, m2),
+           "regroup": regroup_checks(world, rank)}
+    dist.destroy_process_group()
+    out["cli"] = {name: serve_cli(inp, rank, world, port, argv)
+                  for port, (name, argv) in zip(ports[1:], inp["cli"].get(world, {}).items())}
+    torch.save(out, os.path.join(workdir, f"serve{world}_{rank}.pt"))
