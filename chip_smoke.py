@@ -63,9 +63,11 @@ text-to-image and module-surface paths on one NVIDIA H100.
    included) on the frames main path 1 wrote; checks the refined frames and
    the launch counts;
 8. main path 4: `hi3d_tpu_torch.pipelines.serve.main` in orbit mode on two
-   images (demo/3.png and a rolled copy) at full width, 2 assets × 48 frames
-   × 512² in one batch, 4 steps (cut from 25 to pay for main path 17); checks the frames
-   and the launch counts
+   committed images (tests/data/torch_jpeg/asset0.jpg, demo/3.png as a
+   progressive JPEG, and tests/data/torch_webp/asset1.webp, a rolled copy as a
+   lossy WebP with alpha), each decoded first against its cv2 golden, at
+   full width, 2 assets × 48 frames × 512² in one batch, 4 steps (cut from
+   25 to pay for main path 17); checks the frames and the launch counts
    (#6 on every frame-axis site, K2 none);
 9. main path 5: `hi3d_tpu_torch.pipelines.full.main` at full width on
    demo/3.png (configs/inference-v01.yaml → configs/inference-v02.yaml, 16 ×
@@ -180,6 +182,7 @@ import contextlib
 import functools
 import json
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -3749,6 +3752,9 @@ def path1_frames(stage1_dir) -> np.ndarray:
 
 
 JPEG_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_jpeg")
+# the image fixtures with cv2's goldens, by format (path 16 decodes them all)
+IMAGE_FIXTURES = {fmt: os.path.join(ROOT, "tests", "data", f"torch_{fmt.lower()}")
+                  for fmt in ("PNG", "JPEG", "WebP")}
 PATH7_IMAGE = os.path.join(JPEG_FIXTURES, "demo3_q90.jpg")  # path 7 reads a JPEG
 SPLAT_MODES = ("sum", "avg", "linear", "soft")
 # fp32 on the card against float64 on the CPU, relative to the largest entry
@@ -3989,29 +3995,86 @@ def transforms_phase() -> float:
     return secs
 
 
-def jpeg_phase() -> None:
-    """The JPEG fixtures decoded on this host (no cv2 here) against their
-    cv2 goldens (shape and SHA-256 of cv2's decode, tests/data/torch_jpeg),
-    and through `load_image_rgb`."""
+def _digest(img: np.ndarray) -> dict:
     import hashlib
 
-    from hi3d_tpu_torch.utils.image import load_image_rgb
-    from hi3d_tpu_torch.utils.jpeg import read_jpeg
+    return {"shape": list(img.shape), "sha256": hashlib.sha256(img.tobytes()).hexdigest()}
+
+
+def check_golden(path: str) -> np.ndarray:
+    """The port's decode of a committed image fixture (`utils.image`, no
+    cv2) held against its cv2 golden (shape and SHA-256 in the folder's
+    goldens.json); returns the decode."""
+    from hi3d_tpu_torch.utils.image import read_image
+
+    with open(os.path.join(os.path.dirname(path), "goldens.json")) as f:
+        want = json.load(f)[os.path.basename(path)]
+    img = read_image(path)
+    if _digest(img) != want:
+        raise AssertionError(f"{path}: decoded {_digest(img)}, cv2's golden {want}")
+    return img
+
+
+def decode_phase() -> None:
+    """Every PNG, JPEG and WebP fixture decoded on this host by the port
+    (cv2 plays no part) against its cv2 golden and through
+    `load_image_rgb`; then each format's
+    decode ms (median of 5, the host's CPU) at 512² and 517×389: PNGs the
+    port writes of demo/3.png and of the 389×517 JPEG fixture's decode,
+    the committed JPEGs (baseline, progressive) and WebPs (lossy with
+    alpha at 512², lossy at 517×389, lossless at 61×47)."""
+    from hi3d_tpu_torch.utils.image import decode_image, load_image_rgb
+    from hi3d_tpu_torch.utils.png import write_png
 
     t0 = time.perf_counter()
-    with open(os.path.join(JPEG_FIXTURES, "goldens.json")) as f:
-        goldens = json.load(f)
-    for name, want in sorted(goldens.items()):
-        path = os.path.join(JPEG_FIXTURES, name)
-        img = read_jpeg(path)
-        got = {"shape": list(img.shape), "sha256": hashlib.sha256(img.tobytes()).hexdigest()}
-        if got != want:
-            raise AssertionError(f"{name}: decoded {got}, cv2's golden {want}")
-        rgb = load_image_rgb(path)
-        if rgb.shape != img.shape[:2] + (3,) or not np.array_equal(rgb[..., :img.shape[2]], img):
-            raise AssertionError(f"{name}: load_image_rgb disagrees with the decode")
-    print(f"[path16] {len(goldens)} JPEG fixtures decoded bit-equal to their cv2 goldens "
-          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    count = 0
+    for fmt, folder in IMAGE_FIXTURES.items():
+        with open(os.path.join(folder, "goldens.json")) as f:
+            names = sorted(json.load(f))
+        for name in names:
+            path = os.path.join(folder, name)
+            img = check_golden(path)
+            rgb = load_image_rgb(path)
+            if rgb.shape != img.shape[:2] + (3,) or (img.shape[2] == 3 and
+                                                     not np.array_equal(rgb, img)):
+                raise AssertionError(f"{name}: load_image_rgb disagrees with the decode")
+            count += 1
+    print(f"[path16] {count} PNG, JPEG and WebP fixtures decoded bit-equal to their cv2 "
+          f"goldens ({time.perf_counter() - t0:.2f} s, the C decoders' builds included)",
+          flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_png_", dir=os.path.join(ROOT, "outputs"))
+    pngs = {}
+    for label, img in (("512x512", load_image_rgb(os.path.join(ROOT, "demo", "3.png"))),
+                       ("517x389", load_image_rgb(os.path.join(JPEG_FIXTURES,
+                                                               "demo3_q30_rst1_389x517.jpg")))):
+        pngs[label] = os.path.join(tmp, f"{label}.png")
+        write_png(pngs[label], img)
+    cases = [("PNG", "512x512 RGB", pngs["512x512"]), ("PNG", "517x389 RGB", pngs["517x389"]),
+             ("JPEG", "512x512 baseline 4:2:0", os.path.join(JPEG_FIXTURES, "demo3_q90.jpg")),
+             ("JPEG", "512x512 progressive", os.path.join(JPEG_FIXTURES, "asset0.jpg")),
+             ("JPEG", "517x389 baseline", os.path.join(JPEG_FIXTURES,
+                                                       "demo3_q30_rst1_389x517.jpg")),
+             ("JPEG", "517x389 progressive", os.path.join(JPEG_FIXTURES,
+                                                          "prog_q85_rst3_389x517.jpg")),
+             ("WebP", "512x512 lossy + alpha", os.path.join(IMAGE_FIXTURES["WebP"],
+                                                           "asset1.webp")),
+             ("WebP", "517x389 lossy", os.path.join(IMAGE_FIXTURES["WebP"],
+                                                   "lossy_q75_389x517.webp")),
+             ("WebP", "61x47 lossless", os.path.join(IMAGE_FIXTURES["WebP"],
+                                                    "lossless_61x47.webp"))]
+    times = {}
+    for fmt, label, path in cases:
+        with open(path, "rb") as f:
+            blob = f.read()
+        runs = []
+        for _ in range(5):
+            t = time.perf_counter()
+            decode_image(blob, path)
+            runs.append((time.perf_counter() - t) * 1e3)
+        times[f"{fmt} {label}"] = round(float(np.median(runs)), 3)
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[path16] decode ms on this host's CPU (median of 5): {json.dumps(times)}",
+          flush=True)
 
 
 def logger_phase(out_dir: str) -> None:
@@ -4079,8 +4142,8 @@ def cond_sigma_phase(frames: np.ndarray) -> dict:
 
 def module_surface_path(frames: np.ndarray) -> dict:
     """Main path 16: softsplat and correlation on the card against float64,
-    every transform on demo/3.png, the JPEG fixtures against their cv2
-    goldens, `setup_logger`, inference-v01's full-width VideoUNet with
+    every transform on demo/3.png, the PNG, JPEG and WebP fixtures against
+    their cv2 goldens (and each format's decode ms), `setup_logger`, inference-v01's full-width VideoUNet with
     UNET_OPTIONS at b 1, t 4, 32² on the card (launches equal to the
     module's count, finite) against the CPU in fp32 (within 1.5 × the plain
     bf16 error), and the σ-noised conditioning-frame embedder (#9 launches
@@ -4094,7 +4157,7 @@ def module_surface_path(frames: np.ndarray) -> dict:
     correlation_phase()
     torch.cuda.empty_cache()
     transforms_phase()
-    jpeg_phase()
+    decode_phase()
     logger_phase(out_dir)
     launches = unet_reference_phase(os.path.join(ROOT, "configs", "inference-v01.yaml"),
                                     overrides=UNET_OPTIONS, label=f" with {UNET_OPTIONS}",
@@ -4115,6 +4178,21 @@ FULL_STEPS = 10
 DUMP2_STEPS = 5
 
 
+def serve_inputs(root: str) -> str:
+    """Main path 4's inputs in `root`: the committed asset0.jpg (demo/3.png,
+    progressive) and asset1.webp (demo/3.png rolled by a quarter of its
+    width, lossy, its white background transparent), each decoded first by
+    the port and held against its cv2 golden."""
+    os.makedirs(root, exist_ok=True)
+    for path in (os.path.join(JPEG_FIXTURES, "asset0.jpg"),
+                 os.path.join(IMAGE_FIXTURES["WebP"], "asset1.webp")):
+        img = check_golden(path)
+        if img.shape[:2] != (512, 512):
+            raise AssertionError(f"{path}: {img.shape}, not 512²")
+        shutil.copy(path, root)
+    return root
+
+
 def write_serve_images(root: str) -> str:
     """demo/3.png and a copy of it rolled by a quarter of its width, as PNGs
     in `root`."""
@@ -4130,7 +4208,8 @@ def write_serve_images(root: str) -> str:
 
 def serve_path(steps: int) -> dict:
     """The serve CLI in orbit mode at full width (configs/inference-v01.yaml,
-    2 assets × 48 frames × 512² in one batch, random weights): 2 × 48 uint8
+    2 assets × 48 frames × 512² in one batch, random weights) on
+    `serve_inputs` (a progressive JPEG and a lossy WebP with alpha): 2 × 48 uint8
     frames, launch counts equal to the plan (every frame-axis site on #6),
     peak memory, s per batch, sampler s/step. Returns the launch counts."""
     import torch
@@ -4139,7 +4218,7 @@ def serve_path(steps: int) -> dict:
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_serve_", dir=os.path.join(ROOT, "outputs"))
     config = stepped_configs(out_dir, steps)[0]
-    image_dir = write_serve_images(os.path.join(out_dir, "images"))
+    image_dir = serve_inputs(os.path.join(out_dir, "images"))
     expected = expected_launches(config, steps, "serve", clip_size=SERVE_CLIP, assets=SERVE_ASSETS)
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() / 1e9
@@ -5260,8 +5339,8 @@ def main() -> None:
           "random weights, on main path 1's frames", flush=True)
     by_path["v2v"], phases3, peak3 = stage2_path(STAGE2_STEPS, stage1_dir)
     print(f"[smoke] main path 4: serve --mode orbit, configs/inference-v01.yaml, "
-          f"{SERVE_ASSETS} assets × {SERVE_CLIP}×512², {SERVE_STEPS} steps, random weights",
-          flush=True)
+          f"{SERVE_ASSETS} assets × {SERVE_CLIP}×512² (a progressive JPEG and a lossy WebP "
+          f"with alpha), {SERVE_STEPS} steps, random weights", flush=True)
     by_path["serve"] = serve_path(SERVE_STEPS)
     print(f"[smoke] main path 5: pipelines.full, configs/inference-v01.yaml → "
           f"configs/inference-v02.yaml, 16×512² → 16×1024², {FULL_STEPS} steps each, random "
@@ -5307,7 +5386,8 @@ def main() -> None:
           "from main path 1, conv-only and all, random weights", flush=True)
     by_path["svd_vae"] = svd_vae_path(stage1_dir)
     by_path.update(t2i_phases(os.path.join(stage1_dir, "first_step", "frames")))
-    print("[smoke] main path 16: softsplat, correlation, transforms, JPEG, the logger, the "
+    print("[smoke] main path 16: softsplat, correlation, transforms, PNG, JPEG and WebP "
+          "decodes, the logger, the "
           "VideoUNet's options, the σ-noised conditioning frames", flush=True)
     by_path["modules"] = module_surface_path(path1_frames(stage1_dir))
     print(f"[smoke] main path 17: multi-GPU serving, configs/inference-v01.yaml and -v02.yaml, "

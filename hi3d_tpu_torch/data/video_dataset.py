@@ -8,7 +8,7 @@ random start frame; the start frame's band gives the elevation and a cyclic
 JAX package's `_rgba_white` does (float, then truncation to uint8), frames
 are resized to the configured size when they differ (cv2 INTER_LINEAR
 sampling, utils/image.py) and scaled to [-1, 1]. Frames decode with the
-port's PNG reader or JPEG decoder (`utils.image.read_image`, by the file's
+port's PNG, JPEG and WebP decoders (`utils.image.read_image`, by the file's
 signature, as cv2 tells them apart): no cv2, no native loader.
 
 Stage 2 (`VideoTrainDatasetStage2`, `VideoDatasetStage2`) adds each frame's
@@ -19,12 +19,12 @@ device (data/degradation.py).
 
 Tar shards (`TarShardVideoDataset`, its stage-2 subclass,
 `pack_folder_to_shards`): `.tar` files whose members are
-`<object>/<frame>` images (PNG or JPEG), each object's frames contiguous, read in stream
+`<object>/<frame>` images (PNG, JPEG or WebP), each object's frames contiguous, read in stream
 mode; each process takes `order[process_index::process_count]` of the
 shards (all of them when that is empty), reshuffled every epoch with
 `seed + epoch`; by default the process's rank and the world size of its
-process group (0 and 1 outside one). PNG and JPEG members decode with the
-port's readers (`utils.image.decode_image`), as the JAX package's with
+process group (0 and 1 outside one). PNG, JPEG and WebP members decode with
+the port's readers (`utils.image.decode_image`), as the JAX package's with
 cv2.
 
 The eval set (`SyncDreamerEvalData`, `prepare_eval_input`) crops RGBA
@@ -326,6 +326,8 @@ def prepare_eval_input(image_path: str, elevation: float = 0.0, crop_size: int =
         raise ValueError(f"{image_path}: PNG colour type {colour}; the eval set reads 8-bit RGB "
                          "(2) and RGBA (6) images")
     image = decode_png(blob, image_path)
+    if colour == 2:  # PIL opens RGB with a tRNS key as mode RGB: the key is no alpha
+        image = image[..., :3]
     if crop_size != -1 and image.shape[-1] == 4:
         ys, xs = np.nonzero(image[:, :, 3])
         ref = image[ys.min():ys.max(), xs.min():xs.max()]

@@ -556,7 +556,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     p = argparse.ArgumentParser(description="Hi3D batched serving (PyTorch port): one GPU, or "
                                             "one process a GPU under torchrun")
     p.add_argument("--image_dir", required=True,
-                   help="directory of input images (png, jpg/jpeg; webp needs cv2)")
+                   help="directory of input images (png, jpg/jpeg, webp)")
     p.add_argument("--output_dir", required=True)
     p.add_argument("--mode", default="orbit", choices=["orbit", "two_stage"])
     p.add_argument("--batch", type=int, default=0,

@@ -1,7 +1,8 @@
 """Host-side image preprocessing for the CLIs (counterpart of
 hi3d_tpu/utils/image.py), on numpy, the port's PNG codec (utils/png.py) and
-its JPEG decoder (utils/jpeg.py): `read_image`/`decode_image` tell the two
-apart by their signature, as cv2 does; other formats (WebP) need cv2.
+its JPEG and WebP decoders (utils/jpeg.py, utils/webp.py):
+`read_image`/`decode_image` tell the three apart by their signature, as cv2
+does; other formats (BMP, TIFF, ...) need cv2.
 
 `remove_background` is the stage-1 CLI's background removal: the port's
 U²-Net (`models/u2net.py`) on the caller's device when a checkpoint is
@@ -29,6 +30,7 @@ import numpy as np
 from .jpeg import decode_jpeg, is_jpeg
 from .png import _SIGNATURE as _PNG_SIGNATURE
 from .png import decode_png, write_png
+from .webp import decode_webp, is_webp
 
 
 def center_crop(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
@@ -47,30 +49,50 @@ def composite_white(rgba: np.ndarray) -> np.ndarray:
     return out.round().astype(np.uint8)
 
 
-def decode_image(blob: bytes, name: str = "<bytes>") -> np.ndarray:
-    """An encoded PNG or JPEG → uint8 (H, W, C) as `read_png` and
-    `decode_jpeg` give it (C = 1–4); anything else raises."""
+def _decoder(blob: bytes):
+    """The port's decoder of an encoded image, by its signature; None for
+    a format it does not read."""
     if blob.startswith(_PNG_SIGNATURE):
-        return decode_png(blob, name)
+        return decode_png
     if is_jpeg(blob):
-        return decode_jpeg(blob, name)
-    raise ValueError(f"{name}: neither a PNG nor a JPEG")
+        return decode_jpeg
+    if is_webp(blob):
+        return decode_webp
+    return None
+
+
+def decode_image(blob: bytes, name: str = "<bytes>") -> np.ndarray:
+    """An encoded PNG, JPEG or WebP → uint8 (H, W, C) as `read_png`,
+    `decode_jpeg` and `decode_webp` give it (C = 1–4); anything else
+    raises."""
+    decode = _decoder(blob)
+    if decode is None:
+        raise ValueError(f"{name}: neither a PNG, a JPEG nor a WebP")
+    return decode(blob, name)
+
+
+def _decode_file(blob: bytes, path: str) -> np.ndarray:
+    """`decode_image` of a file's bytes, a JPEG as cv2.imread reads it (to
+    an EOI its libjpeg source supplies at the end of the file)."""
+    if is_jpeg(blob):
+        return decode_jpeg(blob, path, from_file=True)
+    return decode_image(blob, path)
 
 
 def read_image(path: str) -> np.ndarray:
-    """`decode_image` of a file."""
+    """`decode_image` of a file, as cv2.imread reads it."""
     with open(path, "rb") as f:
-        return decode_image(f.read(), path)
+        return _decode_file(f.read(), path)
 
 
 def _read_cv2(path: str) -> np.ndarray:
     """uint8 HWC in RGB(A) channel order, through cv2 (formats other than
-    PNG and JPEG)."""
+    PNG, JPEG and WebP: BMP, TIFF, ...)."""
     try:
         import cv2
     except ImportError:
-        raise RuntimeError(f"cannot read {path!r}: only PNG and JPEG decode without cv2, which "
-                           "does not import here; convert the image to PNG") from None
+        raise RuntimeError(f"cannot read {path!r}: only PNG, JPEG and WebP decode without cv2, "
+                           "which does not import here; convert the image to PNG") from None
     img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
     if img is None:
         raise FileNotFoundError(path)
@@ -80,12 +102,12 @@ def _read_cv2(path: str) -> np.ndarray:
 
 
 def load_image_rgb(path: str) -> np.ndarray:
-    """uint8 HWC RGB; RGBA is composited onto white, gray is replicated. PNG
-    and JPEG decode without cv2 (`read_image`); other formats need it."""
+    """uint8 HWC RGB; RGBA is composited onto white, gray is replicated.
+    PNG, JPEG and WebP decode without cv2 (`read_image`), even where cv2
+    imports; other formats need it."""
     with open(path, "rb") as f:
-        head = f.read(8)
-    known = head.startswith(_PNG_SIGNATURE) or is_jpeg(head)
-    img = read_image(path) if known else _read_cv2(path)
+        blob = f.read()
+    img = _decode_file(blob, path) if _decoder(blob) else _read_cv2(path)
     if img.shape[-1] == 1:
         return np.repeat(img, 3, axis=-1)
     if img.shape[-1] == 2:  # gray + alpha

@@ -6,21 +6,29 @@ hi3d_tpu/data/video_dataset.py:60-66 tar members, and the serve CLI's
 `decode_jpeg` gives what `cv2.imdecode(..., cv2.IMREAD_UNCHANGED)` gives
 with OpenCV's libjpeg-turbo, bit for bit, as RGB: (H, W, 3) uint8 for a
 colour image and (H, W, 1) for a grey one. Like cv2 under
-IMREAD_UNCHANGED it applies no EXIF orientation. Scope: baseline and
-extended sequential Huffman JPEGs of 8-bit samples (SOF0, SOF1), one or
-three components, chroma at 4:4:4, 4:2:2 or 4:2:0, interleaved or not,
-restart intervals, any size. A progressive, lossless, hierarchical or
-arithmetic-coded file, 12-bit samples, CMYK/YCCK (four components) and
-other chroma sampling raise a ValueError that names the format.
+IMREAD_UNCHANGED it applies no EXIF orientation. Scope: baseline, extended
+sequential and progressive Huffman JPEGs of 8-bit samples (SOF0, SOF1,
+SOF2), grey, YCbCr, RGB-coded (an Adobe marker with transform 0, or the
+component ids 'R', 'G', 'B' without JFIF) and CMYK (four components,
+returned as cv2's own CMYK→BGR conversion gives them, in RGB order); every
+integral sampling ratio from 1 to 4, interleaved or not, restart intervals,
+any size. A lossless, hierarchical or arithmetic-coded file, 12-bit
+samples, YCCK (Adobe transform 2), fractional sampling ratios and a
+progressive file that leaves coefficients unrefined (which libjpeg-turbo
+would smooth) raise a ValueError that names the format.
 
 The decode in four steps, as libjpeg-turbo's decompressor runs it:
 1. entropy decoding of each scan into quantised coefficients, in C
-   (`csrc/jpeg_decode.c`, built at first use by `utils.cbuild`);
+   (`csrc/jpeg_decode.c`, built at first use by `utils.cbuild`); the scans
+   of a progressive file add up in the same coefficient arrays;
 2. dequantisation and the integer ISLOW inverse DCT (jidctint.c), the
-   output saturated to [0, 255] as libjpeg-turbo's SIMD IDCT saturates it;
-3. "fancy" (triangle) chroma upsampling, h2v1 and h2v2 (jdsample.c), and
-   the plain replication libjpeg uses for chroma 2 samples wide or less;
-4. the fixed-point YCbCr→RGB of jdcolor.c.
+   output saturated to [0, 255] as libjpeg-turbo's SIMD IDCT saturates it
+   (and its 16-bit lanes for coefficients of damaged data);
+3. chroma upsampling as jdsample.c chooses it for each component: "fancy"
+   (triangle) h2v1, h1v2 and h2v2, plain replication for h2v1 and h2v2
+   chroma 2 samples wide or less and for every other integral ratio;
+4. the fixed-point YCbCr→RGB of jdcolor.c (none for RGB; cv2's
+   `icvCvt_CMYK2BGR_8u_C4C3R` for CMYK).
 Steps 2–4 are the functions below, in torch int32; the stage-2
 degradation's JPEG round trip (data/degradation.py) runs the same
 functions on the device after its forward DCT and quantisation.
@@ -54,16 +62,19 @@ def descale(x: torch.Tensor, n: int) -> torch.Tensor:
 
 def idct_1d(c, final: bool):
     """One pass of libjpeg's jpeg_idct_islow over 8 int32 tensors (its
-    all-zero-AC shortcuts give the same values)."""
+    all-zero-AC shortcuts give the same values), with the four sums that
+    libjpeg-turbo's SIMD version forms in 16-bit lanes (in0 ± in4, in7 +
+    in3, in5 + in1) wrapped as there: the same values for the coefficients
+    of valid data."""
     z1 = (c[2] + c[6]) * 4433
     tmp2 = z1 - c[6] * 15137
     tmp3 = z1 + c[2] * 6270
-    tmp0 = (c[0] + c[4]) << 13
-    tmp1 = (c[0] - c[4]) << 13
+    tmp0 = _wrap16(c[0] + c[4]) << 13
+    tmp1 = _wrap16(c[0] - c[4]) << 13
     tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
     tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
     tmp0, tmp1, tmp2, tmp3 = c[7], c[5], c[3], c[1]
-    z1, z2, z3, z4 = tmp0 + tmp3, tmp1 + tmp2, tmp0 + tmp2, tmp1 + tmp3
+    z1, z2, z3, z4 = tmp0 + tmp3, tmp1 + tmp2, _wrap16(tmp0 + tmp2), _wrap16(tmp1 + tmp3)
     z5 = (z3 + z4) * 9633
     z1, z2, z3, z4 = z1 * -7373, z2 * -20995, z3 * -16069 + z5, z4 * -3196 + z5
     tmp0 = tmp0 * 2446 + z1 + z3
@@ -73,6 +84,10 @@ def idct_1d(c, final: bool):
     sh = 18 if final else 11  # CONST_BITS + PASS1_BITS + 3, CONST_BITS - PASS1_BITS
     return [descale(a, sh) for a in (tmp10 + tmp3, tmp11 + tmp2, tmp12 + tmp1, tmp13 + tmp0,
                                      tmp13 - tmp0, tmp12 - tmp1, tmp11 - tmp2, tmp10 - tmp3)]
+
+
+def _wrap16(x: torch.Tensor) -> torch.Tensor:
+    return ((x + 32768) & 0xFFFF) - 32768
 
 
 def blocks(plane: torch.Tensor) -> torch.Tensor:
@@ -104,8 +119,15 @@ def dequantize_idct(coef: torch.Tensor, qt: torch.Tensor) -> torch.Tensor:
     """Quantised coefficients (T, hb, wb, 8, 8) int32 in natural order and
     their tables `qt` (T, 8, 8) → the decoder's samples (T, 8·hb, 8·wb) in
     [0, 255]: dequantisation, ISLOW inverse DCT (columns, then rows), the
-    level shift, saturated."""
-    out = transform_2d(coef * qt[:, None, None], idct_1d, rows_first=False)
+    level shift, saturated. The 16-bit lanes of libjpeg-turbo's SIMD IDCT,
+    which only coefficients past the range of valid data reach, come
+    along: the products wrap, the column pass saturates, and a block whose
+    rows 1–7 are zero takes its DC column shortcut (shifted, wrapping)."""
+    dq = _wrap16(coef * qt[:, None, None])
+    cols = torch.stack(idct_1d(list(dq.unbind(-2)), False), dim=-2).clamp(-32768, 32767)
+    dc_only = (coef[..., 1:, :] == 0).all(-1).all(-1)[..., None, None]
+    cols = torch.where(dc_only, _wrap16(dq[..., :1, :] << 2), cols)
+    out = torch.stack(idct_1d(list(cols.unbind(-1)), True), dim=-1)
     return unblocks((out + 128).clamp(0, 255))
 
 
@@ -120,6 +142,40 @@ def upsample_h2v1(p: torch.Tensor, w: int) -> torch.Tensor:
     right = torch.cat([p[..., 1:], p[..., -1:]], dim=-1)
     out = torch.stack([(3 * p + left + 1) >> 2, (3 * p + right + 2) >> 2], dim=-1)
     return out.reshape(t, h, 2 * wc)[..., :w]
+
+
+def upsample_h1v2(p: torch.Tensor, h: int) -> torch.Tensor:
+    """h1v2_fancy_upsample of (T, hc, W) chroma to (T, h, W): 3/4 of the
+    nearer row + 1/4 of the further one, rounding bias 1 (upper) then 2,
+    edge rows replicated."""
+    t, hc, w = p.shape
+    above = torch.cat([p[:, :1], p[:, :-1]], dim=1)
+    below = torch.cat([p[:, 1:], p[:, -1:]], dim=1)
+    out = torch.stack([(3 * p + above + 1) >> 2, (3 * p + below + 2) >> 2], dim=2)
+    return out.reshape(t, 2 * hc, w)[:, :h]
+
+
+def upsample(p: torch.Tensor, ratio: Tuple[int, int], h: int, w: int) -> torch.Tensor:
+    """A component's (T, hc, wc) samples at `ratio` (across, down) below the
+    image's (T, h, w), upsampled as jdsample.c's jinit_upsampler picks the
+    method: fancy h2v1, h1v2 and h2v2, plain replication (h2v1_upsample,
+    h2v2_upsample, int_upsample) otherwise."""
+    if ratio == (1, 1):
+        return p
+    if ratio == (2, 1) and p.shape[-1] > 2:
+        return upsample_h2v1(p, w)
+    if ratio == (1, 2):
+        return upsample_h1v2(p, h)
+    if ratio == (2, 2) and p.shape[-1] > 2:
+        return upsample_h2v2(p, h, w)
+    return p.repeat_interleave(ratio[1], dim=-2).repeat_interleave(ratio[0], dim=-1)[:, :h, :w]
+
+
+def cmyk_to_rgb(c, m, y, k) -> torch.Tensor:
+    """cv2's icvCvt_CMYK2BGR_8u_C4C3R on libjpeg's CMYK samples (T, H, W)
+    → (T, 3, H, W): each ink x becomes k - ((255 - x)·k >> 8); the BGR it
+    writes, in RGB order."""
+    return torch.stack([k - (((255 - x) * k) >> 8) for x in (c, m, y)], dim=1)
 
 
 def upsample_h2v2(p: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -162,16 +218,15 @@ def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor) -> torch.Ten
 
 # --------------------------------------------------------------- decoding
 
-_SCAN_ERRORS = {-1: "a Huffman code that no table holds", -2: "a run past the 64th coefficient",
-                -3: "a restart marker missing or out of sequence",
-                -4: "an empty or malformed Huffman table",
-                -5: "scan parameters out of range"}
+_SCAN_ERRORS = {-4: "an empty or malformed Huffman table", -5: "scan parameters out of range"}
+_SCAN_KINDS = {(False, False): "DC first", (False, True): "DC refinement",
+               (True, False): "AC first", (True, True): "AC refinement"}
 _ZIGZAG = np.array([
     0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34,
     27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44,
     51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 _UNSUPPORTED_SOF = {
-    0xC2: "a progressive JPEG (SOF2)", 0xC3: "a lossless JPEG (SOF3)",
+    0xC3: "a lossless JPEG (SOF3)",
     0xC5: "a hierarchical JPEG (SOF5)", 0xC6: "a hierarchical progressive JPEG (SOF6)",
     0xC7: "a hierarchical lossless JPEG (SOF7)", 0xC9: "an arithmetic-coded JPEG (SOF9)",
     0xCA: "an arithmetic-coded progressive JPEG (SOF10)",
@@ -180,6 +235,7 @@ _UNSUPPORTED_SOF = {
     0xCE: "an arithmetic-coded hierarchical progressive JPEG (SOF14)",
     0xCF: "an arithmetic-coded hierarchical lossless JPEG (SOF15)"}
 _MARKER = re.compile(b"\xff[^\x00\xff]")
+_FILE_END = b"\xff\xd9" * 32768  # more than the longest segment
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
@@ -194,6 +250,9 @@ def _native() -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int]
             lib.hi3d_jpeg_decode_scan.restype = ctypes.c_int
+            lib.hi3d_jpeg_decode_progressive.argtypes = \
+                lib.hi3d_jpeg_decode_scan.argtypes + [ctypes.c_int] * 4
+            lib.hi3d_jpeg_decode_progressive.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -211,6 +270,7 @@ class _Frame:
         self.comps: List[Dict] = []
         self.adobe_transform: Optional[int] = None
         self.jfif = False
+        self.progressive = False
 
     def fail(self, what: str):
         raise ValueError(f"{self.name}: {what}")
@@ -232,11 +292,10 @@ def _read_sof(fr: _Frame, body: bytes) -> None:
         fr.fail("a JPEG whose height comes in a DNL marker; not supported")
     if w == 0:
         fr.fail("a JPEG of width 0")
-    if n == 4:
-        fr.fail("a CMYK/YCCK JPEG (4 components); not supported")
-    if n not in (1, 3):
-        fr.fail(f"a JPEG of {n} components; 1 (grey) or 3 (colour) decode")
-    fr.need(body, 6 + 3 * n, "frame header")
+    if n not in (1, 3, 4):
+        fr.fail(f"a JPEG of {n} components; 1 (grey), 3 (colour) or 4 (CMYK) decode")
+    if len(body) != 6 + 3 * n:
+        fr.fail(f"a frame header of {len(body)} bytes for {n} components")
     for i in range(n):
         cid, hv, tq = body[6 + 3 * i:9 + 3 * i]
         c = {"id": cid, "h": hv >> 4, "v": hv & 15, "tq": tq}
@@ -251,25 +310,25 @@ def _read_sof(fr: _Frame, body: bytes) -> None:
 
 
 def _layout(fr: _Frame) -> None:
-    """Each component's coefficient array (whole MCUs) and sample size."""
+    """Each component's coefficient array (whole MCUs), sample size and
+    upsampling ratio; a ratio that is not whole raises, as libjpeg's
+    JERR_FRACT_SAMPLE_NOTIMPL."""
     h, w = fr.size
     hmax = max(c["h"] for c in fr.comps)
     vmax = max(c["v"] for c in fr.comps)
-    if len(fr.comps) == 3:
-        y, cb, cr = fr.comps
-        ratio = (y["h"] // cb["h"], y["v"] // cb["v"])
-        if (cb["h"], cb["v"]) != (cr["h"], cr["v"]) or ratio not in ((1, 1), (2, 1), (2, 2)) or \
-                y["h"] % cb["h"] or y["v"] % cb["v"]:
-            fr.fail("a JPEG with chroma sampling "
-                    + ", ".join(f"{c['h']}x{c['v']}" for c in fr.comps)
-                    + "; 4:4:4, 4:2:2 and 4:2:0 decode")
+    if any(hmax % c["h"] or vmax % c["v"] for c in fr.comps):
+        fr.fail("a JPEG with fractional sampling ratios ("
+                + ", ".join(f"{c['h']}x{c['v']}" for c in fr.comps)
+                + "); only whole ratios decode")
     fr.hmax, fr.vmax = hmax, vmax
     fr.mcus_x = -(-w // (8 * hmax))
     fr.mcus_y = -(-h // (8 * vmax))
     for c in fr.comps:
         c["width"] = -(-w * c["h"] // hmax)  # downsampled_width
         c["height"] = -(-h * c["v"] // vmax)
+        c["ratio"] = (hmax // c["h"], vmax // c["v"])
         c["coef"] = np.zeros((fr.mcus_y * c["v"], fr.mcus_x * c["h"], 64), np.int16)
+        c["bits"] = np.full(64, -1)  # libjpeg's coef_bits: the last scan's Al, -1 if none
 
 
 def _scan(fr: _Frame, header: bytes, data: memoryview) -> int:
@@ -278,7 +337,8 @@ def _scan(fr: _Frame, header: bytes, data: memoryview) -> int:
     n = header[0]
     if not 1 <= n <= len(fr.comps):
         fr.fail(f"a scan of {n} components in a frame of {len(fr.comps)}")
-    fr.need(header, 4 + 2 * n, "scan header")
+    if len(header) != 4 + 2 * n:
+        fr.fail(f"a scan header of {len(header)} bytes for {n} components")
     ids = {c["id"]: c for c in fr.comps}
     members, desc = [], []
     for i in range(n):
@@ -287,15 +347,31 @@ def _scan(fr: _Frame, header: bytes, data: memoryview) -> int:
             fr.fail(f"a scan of component {cid}, which the frame does not have")
         if any(c["id"] == cid for c in members):
             fr.fail(f"a scan that names component {cid} twice")
-        if tables >> 4 > 3 or tables & 15 > 3:
-            fr.fail(f"a scan of component {cid} with Huffman tables {tables >> 4} (DC) and "
-                    f"{tables & 15} (AC); tables 0-3 decode")
         members.append(ids[cid])
-        desc.append((tables >> 4, tables & 15))
+        desc.append([tables >> 4, tables & 15])
     ss, se, a = header[1 + 2 * n], header[2 + 2 * n], header[3 + 2 * n]
-    if (ss, se, a) != (0, 63, 0):
-        fr.fail("a scan of a spectral selection or successive approximation; "
-                "only sequential scans decode")
+    ah, al = a >> 4, a & 15
+    if fr.progressive:
+        # jdphuff.c's start_pass_phuff_decoder checks
+        if (ss == 0 and se != 0) or (ss > 0 and (se < ss or se > 63 or n != 1)) or \
+                (ah and al != ah - 1) or al > 13:
+            fr.fail(f"a progressive scan with impossible parameters Ss={ss}, Se={se}, "
+                    f"Ah={ah}, Al={al}")
+        used = (ss == 0 and ah == 0, ss > 0)  # the tables this kind of scan reads
+    else:  # libjpeg only warns about other values here and decodes the whole band
+        ss, se, ah, al = 0, 63, 0, 0
+        used = (True, True)
+    for c, d in zip(members, desc):
+        if (used[0] and d[0] > 3) or (used[1] and d[1] > 3):
+            fr.fail(f"a scan of component {c['id']} with Huffman tables {d[0]} (DC) and "
+                    f"{d[1]} (AC); tables 0-3 decode")
+        d[:] = [t if u else 0 for t, u in zip(d, used)]
+    for c in members:  # libjpeg latches a component's table at its first scan
+        if "qt" not in c:
+            if c["tq"] not in fr.qt:
+                fr.fail(f"no quantisation table {c['tq']}")
+            c["qt"] = fr.qt[c["tq"]]
+        c["bits"][ss:se + 1] = al
     if n == 1:
         c = members[0]
         mcus_x, mcus_y = -(-c["width"] // 8), -(-c["height"] // 8)
@@ -310,36 +386,79 @@ def _scan(fr: _Frame, header: bytes, data: memoryview) -> int:
     ptrs = (ctypes.c_void_p * n)(*[c["coef"].ctypes.data for c in members])
     buf = np.frombuffer(data, np.uint8)
     end = ctypes.c_long(0)
-    err = _native().hi3d_jpeg_decode_scan(
-        buf.ctypes.data, buf.size, ctypes.byref(end), n, table.ctypes.data, ptrs,
-        fr.bits.ctypes.data, fr.vals.ctypes.data, mcus_x, mcus_y, fr.restart)
+    args = (buf.ctypes.data, buf.size, ctypes.byref(end), n, table.ctypes.data, ptrs,
+            fr.bits.ctypes.data, fr.vals.ctypes.data, mcus_x, mcus_y, fr.restart)
+    if fr.progressive:
+        err = _native().hi3d_jpeg_decode_progressive(*args, ss, se, ah, al)
+    else:
+        err = _native().hi3d_jpeg_decode_scan(*args)
     if err:
-        fr.fail(f"corrupt JPEG data: {_SCAN_ERRORS.get(err, err)}")
+        kind = f" ({_SCAN_KINDS[ss > 0, ah > 0]} scan)" if fr.progressive else ""
+        fr.fail(f"corrupt JPEG data{kind}: {_SCAN_ERRORS.get(err, err)}")
     return end.value
 
 
+def _needs_smoothing(fr: _Frame) -> bool:
+    """libjpeg-turbo's jdcoefct.c smoothing_ok at the end of a progressive
+    file: every component's DC known, its DC and first 9 AC quantisers
+    nonzero, and some of those 9 AC coefficients unrefined (Al > 0) or
+    never sent."""
+    if not fr.progressive:
+        return False
+    first = _ZIGZAG[:10]
+    if any(c["bits"][0] < 0 or not c["qt"][first].all() for c in fr.comps):
+        return False
+    return any((c["bits"][1:10] != 0).any() for c in fr.comps)
+
+
 def _components(fr: _Frame) -> List[torch.Tensor]:
-    """Each component's samples (1, height, width) int32: dequantised,
-    inverse-transformed and cropped to its size."""
+    """Each component's samples (1, height, width) int32: dequantised
+    (with the table latched at its first scan), inverse-transformed and
+    cropped to its size."""
     out = []
     for c in fr.comps:
-        if c["tq"] not in fr.qt:
+        table = c.get("qt", fr.qt.get(c["tq"]))
+        if table is None:
             fr.fail(f"no quantisation table {c['tq']}")
         coef = torch.from_numpy(c["coef"].astype(np.int32)).reshape(
             1, *c["coef"].shape[:2], 8, 8)
-        qt = torch.from_numpy(fr.qt[c["tq"]].astype(np.int32)).reshape(1, 8, 8)
+        qt = torch.from_numpy(table.astype(np.int32)).reshape(1, 8, 8)
         out.append(dequantize_idct(coef, qt)[:, :c["height"], :c["width"]])
     return out
 
 
-def decode_jpeg(blob: bytes, name: str = "<bytes>") -> np.ndarray:
+def _colour_space(fr: _Frame) -> str:
+    """libjpeg's default_decompress_parms: JFIF means YCbCr; else an Adobe
+    marker's transform (3 components: 0 RGB, else YCbCr; 4: 0 CMYK, else
+    YCCK); else the component ids ('R', 'G', 'B' is RGB) or CMYK."""
+    n = len(fr.comps)
+    if n == 1:
+        return "grey"
+    if n == 3:
+        if fr.jfif:
+            return "ycc"
+        if fr.adobe_transform is not None:
+            return "rgb" if fr.adobe_transform == 0 else "ycc"
+        return "rgb" if [c["id"] for c in fr.comps] == [82, 71, 66] else "ycc"
+    if fr.adobe_transform is None or fr.adobe_transform == 0:
+        return "cmyk"
+    return "ycck"
+
+
+def decode_jpeg(blob: bytes, name: str = "<bytes>", from_file: bool = False) -> np.ndarray:
     """uint8 (H, W, 3) RGB, or (H, W, 1) for a grey JPEG; `name` labels
-    the errors."""
+    the errors. Data that end too soon raise as `cv2.imdecode` fails on
+    them: a single-scan file whose scan runs to the end of the data, a
+    multi-scan (progressive) one without its EOI marker. With `from_file`
+    they decode as `cv2.imread` reads a file, whose libjpeg source supplies
+    an EOI at its end (the rest of a cut scan as libjpeg's zeros)."""
     fr = _Frame(name)
     if not blob.startswith(SIGNATURE):
         fr.fail("not a JPEG file")
+    if from_file:  # libjpeg's stdio source: past the end of a file, FF D9 for every read
+        blob = blob + _FILE_END
     view = memoryview(blob)
-    pos, scans = 2, 0
+    pos, scans, complete = 2, 0, False
     while True:
         m = _MARKER.search(blob, pos)
         if m is None:
@@ -347,20 +466,24 @@ def decode_jpeg(blob: bytes, name: str = "<bytes>") -> np.ndarray:
         kind = blob[m.start() + 1]
         pos = m.start() + 2
         if kind == 0xD9:  # EOI
+            complete = True
             break
         if 0xD0 <= kind <= 0xD7 or kind == 0x01:
             continue
+        if kind < 0xC0 or kind in (0xC8, 0xD8, 0xDE, 0xDF) or 0xF0 <= kind <= 0xFD:
+            fr.fail(f"an unknown or misplaced JPEG marker 0xFF{kind:02X}")
         length = int.from_bytes(blob[pos:pos + 2], "big")
         if length < 2 or pos + length > len(blob):
             fr.fail(f"a truncated JPEG: its 0xFF{kind:02X} segment runs past the end")
         body = blob[pos + 2:pos + length]
         pos += length
-        if kind in (0xC0, 0xC1):
+        if kind in (0xC0, 0xC1, 0xC2):
             _read_sof(fr, body)
+            fr.progressive = kind == 0xC2
             _layout(fr)
         elif kind in _UNSUPPORTED_SOF:
-            fr.fail(f"{_UNSUPPORTED_SOF[kind]}; only baseline and extended sequential "
-                    "Huffman JPEGs decode")
+            fr.fail(f"{_UNSUPPORTED_SOF[kind]}; only baseline, extended sequential and "
+                    "progressive Huffman JPEGs decode")
         elif kind == 0xC4:  # DHT
             i = 0
             while i < len(body):
@@ -393,42 +516,51 @@ def decode_jpeg(blob: bytes, name: str = "<bytes>") -> np.ndarray:
                 fr.qt[tq] = table
                 i += 1 + size
         elif kind == 0xDD:  # DRI
-            fr.need(body, 2, "restart interval")
-            fr.restart = int.from_bytes(body[:2], "big")
+            if len(body) != 2:
+                fr.fail(f"a restart interval segment of {len(body)} bytes (2 expected)")
+            fr.restart = int.from_bytes(body, "big")
         elif kind == 0xDA:  # SOS
             if fr.size is None:
                 fr.fail("a scan before the frame header")
+            single = not scans and not fr.progressive and body[:1] == bytes([len(fr.comps)])
             pos += _scan(fr, body, view[pos:])
             scans += 1
-        elif kind == 0xDC:
-            fr.fail("a DNL marker; not supported")
-        elif kind == 0xE0 and body[:5] == b"JFIF\x00":
+            if single:  # libjpeg outputs a file whose first scan has every component from it
+                if not from_file and _MARKER.search(blob, pos) is None:
+                    fr.fail("a truncated JPEG: its scan runs to the end of the data")
+                complete = True
+                break
+        elif kind == 0xE0 and len(body) >= 14 and body[:5] == b"JFIF\x00":
             fr.jfif = True
         elif kind == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
             fr.adobe_transform = body[11]
     if fr.size is None or not scans:
         fr.fail("a JPEG without a frame or a scan")
+    if not complete and not from_file:
+        fr.fail("a truncated JPEG: no EOI marker")
+    space = _colour_space(fr)
+    if space == "ycck":
+        fr.fail(f"a YCCK JPEG (Adobe transform {fr.adobe_transform}); not supported")
+    if _needs_smoothing(fr):
+        fr.fail("a progressive JPEG that leaves coefficients unrefined (Al > 0 at its end), "
+                "which libjpeg-turbo block-smooths; not supported")
     h, w = fr.size
-    planes = _components(fr)
-    if len(planes) == 1:
+    planes = [upsample(p, c["ratio"], h, w) for p, c in zip(_components(fr), fr.comps)]
+    if space == "grey":
         return planes[0][0].numpy().astype(np.uint8)[:, :, None]
-    rgb_ids = [c["id"] for c in fr.comps] == [82, 71, 66]  # 'R', 'G', 'B'
-    if fr.adobe_transform == 0 or (not fr.jfif and fr.adobe_transform is None and rgb_ids):
-        fr.fail("an RGB-coded JPEG (no YCbCr transform); not supported")
-    y, cb, cr = planes
-    ratio = (fr.comps[0]["h"] // fr.comps[1]["h"], fr.comps[0]["v"] // fr.comps[1]["v"])
-    if ratio == (2, 2):
-        cb, cr = (upsample_h2v2(p, h, w) for p in (cb, cr))
-    elif ratio == (2, 1):
-        cb, cr = (upsample_h2v1(p, w) for p in (cb, cr))
-    rgb = ycc_to_rgb(y, cb, cr)[0]
+    if space == "rgb":
+        rgb = torch.stack(planes, dim=1)[0]
+    elif space == "cmyk":
+        rgb = cmyk_to_rgb(*planes)[0]
+    else:
+        rgb = ycc_to_rgb(*planes)[0]
     return rgb.permute(1, 2, 0).numpy().astype(np.uint8)
 
 
 def read_jpeg(path: str) -> np.ndarray:
-    """`decode_jpeg` of a file."""
+    """`decode_jpeg` of a file, as cv2.imread reads it."""
     with open(path, "rb") as f:
-        return decode_jpeg(f.read(), path)
+        return decode_jpeg(f.read(), path, from_file=True)
 
 
 def is_jpeg(blob: bytes) -> bool:

@@ -2,11 +2,14 @@
 small C unfilter built at first use (`csrc/png_unfilter.c`).
 
 The GPU host has no cv2/PIL/imageio guarantee, so the port reads its input
-image and writes its frames with this module. Reader scope: non-interlaced,
-all five scanline filter types; 8-bit grayscale, gray+alpha, RGB and RGBA,
-and palette images at 1, 2, 4 and 8 bits, expanded to RGB (RGBA when a tRNS
-chunk is present), as cv2's `IMREAD_UNCHANGED` decodes them. `decode_png`
-reads one held in memory (a tar member).
+image and writes its frames with this module. Reader scope, as cv2's
+`IMREAD_UNCHANGED` decodes it (libpng): non-interlaced and Adam7-interlaced
+images, all five scanline filter types; grey at 1, 2, 4 and 8 bits (scaled
+to 8 bits; a tRNS chunk ignored), 8-bit gray+alpha, RGB (RGBA when a tRNS
+chunk names a key colour: alpha 0 on exactly its pixels) and RGBA, and
+palette images at 1, 2, 4 and 8 bits, expanded to RGB (RGBA when a tRNS
+chunk is present). 16-bit images raise. `decode_png` reads one held in
+memory (a tar member).
 """
 
 from __future__ import annotations
@@ -25,6 +28,9 @@ from .jpeg import is_jpeg
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG colour type → samples per pixel
 _PALETTE = 3  # colour type of indexed-colour images
+# Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
 
 _BUILD_DIR = cbuild.BUILD_DIR
 _lib: Optional[ctypes.CDLL] = None
@@ -101,17 +107,10 @@ def _unfilter_reference(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray
     return out
 
 
-def _expand_palette(rows: np.ndarray, w: int, depth: int, plte: bytes,
-                    trns: bytes) -> np.ndarray:
-    """Unfiltered index rows (H, stride) at `depth` bits → (H, W, 3) RGB, or
-    (H, W, 4) RGBA when the image has a tRNS chunk (entries past its end are
-    opaque). Indices past the end of PLTE read as black."""
-    if depth < 8:  # MSB-first sub-byte indices, each row padded to whole bytes
-        bits = np.unpackbits(rows, axis=1).reshape(rows.shape[0], -1, depth)
-        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
-        idx = (bits * weights).sum(axis=-1, dtype=np.uint8)[:, :w]
-    else:
-        idx = rows[:, :w]
+def _expand_palette(idx: np.ndarray, plte: bytes, trns: bytes) -> np.ndarray:
+    """Palette indices (H, W) → (H, W, 3) RGB, or (H, W, 4) RGBA when the
+    image has a tRNS chunk (entries past its end are opaque). Indices past
+    the end of PLTE read as black."""
     table = np.zeros((256, 4), np.uint8)
     table[:, 3] = 255
     n = min(len(plte) // 3, 256)
@@ -122,9 +121,32 @@ def _expand_palette(rows: np.ndarray, w: int, depth: int, plte: bytes,
     return table[idx, :3]
 
 
+def _samples(rows: np.ndarray, w: int, depth: int, ch: int) -> np.ndarray:
+    """Unfiltered rows (H, stride) → samples (H, W, ch) uint8 as stored: a
+    depth below 8 (one channel) is unpacked MSB first, each row padded to
+    whole bytes."""
+    if depth < 8:
+        bits = np.unpackbits(rows, axis=1).reshape(rows.shape[0], -1, depth)
+        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        return (bits * weights).sum(axis=-1, dtype=np.uint8)[:, :w, None]
+    return rows[:, :w * ch].reshape(rows.shape[0], w, ch)
+
+
+def _passes(w: int, h: int, interlace: int):
+    """(x0, y0, dx, dy, width, height) of each non-empty pass: the whole
+    image, or Adam7's seven sub-images (a pass of no pixels stores no
+    bytes, not even filter types)."""
+    grid = ((0, 0, 1, 1),) if interlace == 0 else _ADAM7
+    for x0, y0, dx, dy in grid:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw > 0 and ph > 0:
+            yield x0, y0, dx, dy, pw, ph
+
+
 def read_png(path: str) -> np.ndarray:
-    """uint8 (H, W, C): C = 1, 2, 3 or 4 samples as stored, or a palette
-    expanded to 3 (RGB) or, with a tRNS chunk, 4 (RGBA)."""
+    """uint8 (H, W, C): C = 1, 2, 3 or 4 samples as stored (grey below 8
+    bits scaled to 8), a palette expanded to 3 (RGB) or, with a tRNS chunk,
+    4 (RGBA), and RGB with a tRNS key as RGBA."""
     with open(path, "rb") as f:
         return decode_png(f.read(), path)
 
@@ -141,12 +163,24 @@ def decode_png(blob: bytes, name: str = "<bytes>") -> np.ndarray:
     idat = []
     header = None
     plte = trns = b""
-    while pos < len(blob):
+    while pos + 8 <= len(blob):
         (length,) = struct.unpack(">I", blob[pos:pos + 4])
         kind = blob[pos + 4:pos + 8]
+        if pos + 12 + length > len(blob):
+            raise ValueError(f"{name}: a truncated PNG: its {kind!r} chunk runs past the end")
         body = blob[pos + 8:pos + 8 + length]
+        crc = blob[pos + 8 + length:pos + 12 + length]
         pos += 12 + length
+        critical = not kind[0] & 0x20  # the case bit of its first letter
+        if int.from_bytes(crc, "big") != zlib.crc32(kind + body):
+            if critical:  # libpng: an error; an ancillary chunk is dropped
+                raise ValueError(f"{name}: a PNG {kind!r} chunk with a bad CRC")
+            continue
+        if critical and kind not in (b"IHDR", b"PLTE", b"IDAT", b"IEND"):
+            raise ValueError(f"{name}: an unknown critical PNG chunk {kind!r}")
         if kind == b"IHDR":
+            if length != 13:
+                raise ValueError(f"{name}: a PNG header of {length} bytes (13 expected)")
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":
             idat.append(body)
@@ -158,20 +192,46 @@ def decode_png(blob: bytes, name: str = "<bytes>") -> np.ndarray:
             break
     if header is None:
         raise ValueError(f"{name}: PNG without IHDR")
+    if kind != b"IEND":
+        raise ValueError(f"{name}: a truncated PNG: no IEND chunk")
     w, h, depth, ctype, _, _, interlace = header
     palette = ctype == _PALETTE and depth in (1, 2, 4, 8) and plte
-    if not (palette or (depth == 8 and ctype in _CHANNELS)) or interlace != 0:
+    grey = ctype == 0 and depth in (1, 2, 4, 8)
+    if not (palette or grey or (depth == 8 and ctype in _CHANNELS)) or interlace > 1:
         raise ValueError(
             f"{name}: unsupported PNG (bit depth {depth}, colour type {ctype}, "
-            f"interlace {interlace}); need non-interlaced 8-bit gray/RGB(A) or a "
-            "1/2/4/8-bit palette"
+            f"interlace {interlace}); need 8-bit gray+alpha/RGB(A), 1/2/4/8-bit gray or "
+            "palette, interlaced or not (16-bit PNGs do not decode)"
         )
-    raw = zlib.decompress(b"".join(idat))
+    if w == 0 or h == 0:
+        raise ValueError(f"{name}: a PNG of {w}×{h} pixels")
+    ch = 1 if palette else _CHANNELS[ctype]
+    passes = list(_passes(w, h, interlace))
+    strides = [(pw * depth * ch + 7) // 8 for *_, pw, _ in passes]
+    need = sum(ph * (s + 1) for (*_, ph), s in zip(passes, strides))
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"{name}: corrupt PNG image data ({e})") from None
+    if len(raw) != need:
+        raise ValueError(f"{name}: PNG data size {len(raw)} != the {need} bytes of a "
+                         f"{w}×{h} image")
+    samples = np.empty((h, w, ch), np.uint8)
+    start = 0
+    for (x0, y0, dx, dy, pw, ph), stride in zip(passes, strides):
+        size = ph * (stride + 1)
+        rows = _unfilter(raw[start:start + size], ph, stride, max(1, depth * ch // 8))
+        samples[y0::dy, x0::dx] = _samples(rows, pw, depth, ch)
+        start += size
     if palette:
-        rows = _unfilter(raw, h, (w * depth + 7) // 8, 1)
-        return _expand_palette(rows, w, depth, plte, trns)
-    ch = _CHANNELS[ctype]
-    return _unfilter(raw, h, w * ch, ch).reshape(h, w, ch)
+        return _expand_palette(samples[..., 0], plte, trns)
+    if grey and depth < 8:  # libpng's expand_gray_1_2_4_to_8; tRNS ignored, as cv2
+        return samples * np.uint8(255 // ((1 << depth) - 1))
+    if ctype == 2 and len(trns) >= 6:  # png_set_tRNS_to_alpha: the key's pixels clear
+        key = np.frombuffer(trns[:6], ">u2").astype(np.uint8)  # libpng's low bytes
+        alpha = np.where((samples == key).all(axis=-1), 0, 255).astype(np.uint8)
+        return np.concatenate([samples, alpha[..., None]], axis=-1)
+    return samples
 
 
 def png_colour_type(blob: bytes, name: str = "<bytes>") -> int:

@@ -1151,21 +1151,24 @@ def test_correlation_on_the_card_matches_the_cpu(cuda):
 
 @pytest.mark.gpu
 def test_jpeg_fixtures_decode_to_their_goldens_on_the_card_host(cuda):
-    """The JPEG decoder on the card's host (no cv2 there) against the
-    committed cv2 goldens (tests/data/torch_jpeg/goldens.json)."""
+    """The port's PNG, JPEG and WebP decoders (no cv2) on the card's host
+    against the committed cv2 goldens (tests/data/torch_{png,jpeg,webp}/
+    goldens.json), and `load_image_rgb` on each."""
     import hashlib
     import json
     import os
 
-    from hi3d_tpu_torch.utils.jpeg import read_jpeg
+    from hi3d_tpu_torch.utils.image import load_image_rgb, read_image
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "torch_jpeg")
-    with open(os.path.join(root, "goldens.json")) as f:
-        goldens = json.load(f)
-    for name, want in goldens.items():
-        img = read_jpeg(os.path.join(root, name))
-        assert [list(img.shape), hashlib.sha256(img.tobytes()).hexdigest()] == \
-            [want["shape"], want["sha256"]], name
+    for kind in ("torch_png", "torch_jpeg", "torch_webp"):
+        root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", kind)
+        with open(os.path.join(root, "goldens.json")) as f:
+            goldens = json.load(f)
+        for name, want in goldens.items():
+            img = read_image(os.path.join(root, name))
+            assert [list(img.shape), hashlib.sha256(img.tobytes()).hexdigest()] == \
+                [want["shape"], want["sha256"]], name
+            assert load_image_rgb(os.path.join(root, name)).shape == img.shape[:2] + (3,), name
 
 
 @pytest.mark.gpu

@@ -1,10 +1,11 @@
 """The port's JPEG decoder (hi3d_tpu_torch/utils/jpeg.py) against cv2's
 `imdecode(..., IMREAD_UNCHANGED)` (OpenCV's libjpeg-turbo), bit for bit, on
-JPEGs that cv2 encodes: qualities 10–100, 4:4:4, 4:2:2 and 4:2:0 chroma,
-grey, restart intervals, sizes from 1×1 to 517×389; the formats it refuses;
-the readers that take JPEGs now (load_image_rgb, the folder and tar
-datasets, serve's input glob); and the new modules with jax, cv2 and PIL
-blocked.
+JPEGs that cv2 encodes: qualities 10–100, 4:4:4, 4:2:2, 4:2:0, 4:1:1 and
+4:4:0 chroma, grey, restart intervals, sequential and progressive, sizes
+from 1×1 to 517×389; on PIL's progressive, CMYK (Adobe-inverted) and
+RGB-coded JPEGs; the formats it refuses; the readers that take JPEGs now
+(load_image_rgb, the folder and tar datasets, serve's input glob); and the
+new modules with jax, cv2 and PIL blocked.
 
 tests/data/torch_jpeg/ holds the committed fixtures (the chip smoke decodes
 them on a machine without cv2) and goldens.json, the shape and SHA-256 of
@@ -13,6 +14,7 @@ from demo/3.png with `FIXTURES`' settings.
 """
 
 import hashlib
+import io
 import json
 import os
 import subprocess
@@ -28,16 +30,28 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE_DIR = os.path.join(ROOT, "tests", "data", "torch_jpeg")
 SAMPLING = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
             "422": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
-            "420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420}
-# name: (height, width, quality, sampling or "gray", restart interval)
+            "420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+            "411": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411,
+            "440": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440}
+# name: (height, width, quality, sampling or "gray" (cv2) or a PIL mode, restart
+# interval, progressive)
 FIXTURES = {
-    "demo3_q90.jpg": (512, 512, 90, "420", 0),
-    "demo3_q30_rst1_389x517.jpg": (389, 517, 30, "420", 1),
-    "c444_q95_17x33.jpg": (17, 33, 95, "444", 0),
-    "c422_q50_rst2_31x45.jpg": (31, 45, 50, "422", 2),
-    "c420_q10_3x5.jpg": (3, 5, 10, "420", 0),
-    "c420_q100_1x1.jpg": (1, 1, 100, "420", 0),
-    "gray_q75_29x37.jpg": (29, 37, 75, "gray", 0),
+    "demo3_q90.jpg": (512, 512, 90, "420", 0, False),
+    "demo3_q30_rst1_389x517.jpg": (389, 517, 30, "420", 1, False),
+    "c444_q95_17x33.jpg": (17, 33, 95, "444", 0, False),
+    "c422_q50_rst2_31x45.jpg": (31, 45, 50, "422", 2, False),
+    "c420_q10_3x5.jpg": (3, 5, 10, "420", 0, False),
+    "c420_q100_1x1.jpg": (1, 1, 100, "420", 0, False),
+    "gray_q75_29x37.jpg": (29, 37, 75, "gray", 0, False),
+    "prog_q85_rst3_389x517.jpg": (389, 517, 85, "420", 3, True),
+    "prog_gray_q70_61x45.jpg": (61, 45, 70, "gray", 0, True),
+    "c411_q75_29x61.jpg": (29, 61, 75, "411", 0, False),
+    "c440_q60_45x31.jpg": (45, 31, 60, "440", 0, True),
+    "pil_prog_q80_45x61.jpg": (45, 61, 80, "RGB", 0, True),
+    "pil_cmyk_q85_40x56.jpg": (40, 56, 85, "CMYK", 0, False),
+    "pil_rgb_q90_33x17.jpg": (33, 17, 90, "keep_rgb", 0, False),
+    # main path 4's first serve input: demo/3.png itself, progressive
+    "asset0.jpg": (512, 512, 90, "420", 0, True),
 }
 
 
@@ -51,9 +65,10 @@ def _demo(h, w, seed=0):
     return np.clip(img.astype(int) + noise, 0, 255).astype(np.uint8)
 
 
-def encode(img, quality, sampling, restart=0):
+def encode(img, quality, sampling, restart=0, progressive=False):
     """cv2's JPEG of a BGR (or grey) image."""
-    params = [cv2.IMWRITE_JPEG_QUALITY, quality, cv2.IMWRITE_JPEG_RST_INTERVAL, restart]
+    params = [cv2.IMWRITE_JPEG_QUALITY, quality, cv2.IMWRITE_JPEG_RST_INTERVAL, restart,
+              cv2.IMWRITE_JPEG_PROGRESSIVE, int(progressive)]
     if sampling != "gray":
         params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[sampling]]
     ok, buf = cv2.imencode(".jpg", img, params)
@@ -61,10 +76,29 @@ def encode(img, quality, sampling, restart=0):
     return buf.tobytes()
 
 
+def encode_pil(img, quality, mode, progressive=False):
+    """PIL's JPEG of a BGR image as `mode`: "RGB", "L", "CMYK" (Adobe
+    marker, inverted inks) or "keep_rgb" (RGB-coded, Adobe transform 0)."""
+    from PIL import Image
+
+    im = Image.fromarray(np.ascontiguousarray(img[..., ::-1]))
+    extra = {"keep_rgb": True} if mode == "keep_rgb" else {}
+    if mode in ("L", "CMYK"):
+        im = im.convert(mode)
+    out = io.BytesIO()
+    im.save(out, "JPEG", quality=quality, progressive=progressive, **extra)
+    return out.getvalue()
+
+
 def make_fixture(name):
-    h, w, q, sampling, rst = FIXTURES[name]
-    img = _demo(h, w)
-    return encode(img[..., 1] if sampling == "gray" else img, q, sampling, rst)
+    h, w, q, sampling, rst, prog = FIXTURES[name]
+    if name == "asset0.jpg":
+        img = cv2.imread(os.path.join(ROOT, "demo", "3.png"), cv2.IMREAD_COLOR)
+    else:
+        img = _demo(h, w)
+    if sampling in ("RGB", "CMYK", "keep_rgb"):
+        return encode_pil(img, q, sampling, prog)
+    return encode(img[..., 1] if sampling == "gray" else img, q, sampling, rst, prog)
 
 
 def cv2_rgb(blob):
@@ -89,14 +123,16 @@ def write_fixtures():
         json.dump(goldens, f, indent=1, sort_keys=True)
 
 
-@pytest.mark.parametrize("sampling", ["444", "422", "420", "gray"])
+SIZES = [(1, 1), (2, 3), (5, 4), (7, 9), (8, 8), (16, 16), (17, 33), (31, 30), (389, 517)]
+
+
+@pytest.mark.parametrize("sampling", ["444", "422", "420", "411", "440", "gray"])
 @pytest.mark.parametrize("restart", [0, 3])
 def test_decode_matches_cv2(sampling, restart):
     """Bit-equal to cv2 across qualities 10–100 and sizes 1×1 to 517×389."""
     from hi3d_tpu_torch.utils.jpeg import decode_jpeg
 
-    sizes = [(1, 1), (2, 3), (5, 4), (7, 9), (8, 8), (16, 16), (17, 33), (31, 30), (389, 517)]
-    for i, (h, w) in enumerate(sizes):
+    for i, (h, w) in enumerate(SIZES):
         for q in ((10, 30, 50, 75, 90, 100) if h < 100 else (10, 85)):
             img = _demo(h, w, seed=i)
             blob = encode(img[..., 0] if sampling == "gray" else img, q, sampling, restart)
@@ -104,6 +140,41 @@ def test_decode_matches_cv2(sampling, restart):
             want = cv2_rgb(blob)
             assert got.dtype == np.uint8 and got.shape == want.shape, (h, w, q)
             np.testing.assert_array_equal(got, want, err_msg=f"{h}x{w} q{q}")
+
+
+@pytest.mark.parametrize("sampling", ["444", "422", "420", "411", "440", "gray"])
+@pytest.mark.parametrize("restart", [0, 2])
+def test_progressive_matches_cv2(sampling, restart):
+    """Progressive JPEGs (libjpeg's scan script: DC first and refinement,
+    AC first with EOB runs, AC refinement, components in their own block
+    grids), with and without restarts: bit-equal to cv2."""
+    from hi3d_tpu_torch.utils.jpeg import decode_jpeg
+
+    for i, (h, w) in enumerate(SIZES):
+        for q in ((10, 60, 100) if h < 100 else (85,)):
+            img = _demo(h, w, seed=i)
+            blob = encode(img[..., 0] if sampling == "gray" else img, q, sampling, restart, True)
+            assert b"\xff\xc2" in blob
+            np.testing.assert_array_equal(decode_jpeg(blob), cv2_rgb(blob),
+                                          err_msg=f"{h}x{w} q{q}")
+
+
+@pytest.mark.parametrize("mode,progressive", [("RGB", True), ("L", True), ("CMYK", False),
+                                              ("CMYK", True), ("keep_rgb", False),
+                                              ("keep_rgb", True)])
+def test_pil_jpegs_match_cv2(mode, progressive):
+    """PIL's progressive colour and grey JPEGs, its CMYK JPEGs (4
+    components, an Adobe marker, inverted inks: cv2 converts them to BGR
+    itself) and its RGB-coded ones (Adobe transform 0: no colour
+    transform): bit-equal to cv2."""
+    from hi3d_tpu_torch.utils.jpeg import decode_jpeg
+
+    for i, (h, w) in enumerate(SIZES):
+        for q in ((10, 80) if h < 100 else (75,)):
+            blob = encode_pil(_demo(h, w, seed=i), q, mode, progressive)
+            got = decode_jpeg(blob)
+            assert got.shape == (h, w, 1 if mode == "L" else 3)
+            np.testing.assert_array_equal(got, cv2_rgb(blob), err_msg=f"{h}x{w} q{q}")
 
 
 def test_fixtures_decode_to_their_goldens():
@@ -129,28 +200,109 @@ def _patched(blob, marker, offset, value):
     return blob[:i + offset] + bytes([value]) + blob[i + offset + 1:]
 
 
+def _first_scans(blob, n):
+    """A progressive JPEG cut after its first `n` scans (EOI appended)."""
+    starts = [i for i in range(len(blob) - 1) if blob[i:i + 2] == b"\xff\xda"]
+    return blob[:starts[n]] + b"\xff\xd9"
+
+
 def test_unsupported_jpegs_raise():
-    """Progressive, arithmetic-coded (SOF9), 12-bit and CMYK files raise a
-    ValueError that names the format; so do bytes that are no JPEG."""
+    """Arithmetic-coded (SOF9), lossless (SOF3), hierarchical (SOF5),
+    12-bit, YCCK (Adobe transform 2) and fractionally sampled files, and a
+    progressive file whose coefficients end unrefined (libjpeg-turbo would
+    smooth its blocks), raise a ValueError that names the format; so do
+    bytes that are no JPEG. The whole progressive file decodes."""
     from hi3d_tpu_torch.utils.jpeg import decode_jpeg
 
     img = _demo(24, 40)
-    ok, prog = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(ValueError, match="progressive JPEG"):
-        decode_jpeg(prog.tobytes())
+    prog = encode(img, 75, "420", 0, True)
+    np.testing.assert_array_equal(decode_jpeg(prog), cv2_rgb(prog))
+    with pytest.raises(ValueError, match="progressive JPEG that leaves coefficients unrefined"):
+        decode_jpeg(_first_scans(prog, 2))
     base = encode(img, 80, "420")
-    with pytest.raises(ValueError, match="arithmetic-coded JPEG"):
-        decode_jpeg(_patched(base, b"\xff\xc0", 1, 0xC9))
+    for sof, what in [(0xC9, "arithmetic-coded JPEG"), (0xC3, "lossless JPEG"),
+                      (0xC5, "hierarchical JPEG")]:
+        with pytest.raises(ValueError, match=what):
+            decode_jpeg(_patched(base, b"\xff\xc0", 1, sof))
     with pytest.raises(ValueError, match="12-bit JPEG"):
         decode_jpeg(_patched(base, b"\xff\xc0", 4, 12))
-    sof = (b"\xff\xc0\x00\x14\x08\x00\x10\x00\x10\x04" + b"\x01\x11\x00\x02\x11\x00"
-           + b"\x03\x11\x00\x04\x11\x00")
-    with pytest.raises(ValueError, match="CMYK"):
-        decode_jpeg(b"\xff\xd8" + sof + b"\xff\xd9")
+    cmyk = encode_pil(img, 80, "CMYK")
+    with pytest.raises(ValueError, match="YCCK JPEG"):
+        decode_jpeg(_patched(cmyk, b"Adobe", 11, 2))
+    with pytest.raises(ValueError, match="fractional sampling"):
+        decode_jpeg(_patched(_patched(base, b"\xff\xc0", 11, 0x32), b"\xff\xc0", 14, 0x22))
     with pytest.raises(ValueError, match="not a JPEG"):
         decode_jpeg(b"\x89PNG\r\n\x1a\n")
     with pytest.raises(ValueError, match="x.jpg: .*without a frame"):
         decode_jpeg(b"\xff\xd8\xff\xd9", "x.jpg")
+
+
+def _damaged(blob, rnd):
+    """(label, bytes) of `blob` damaged: cut at random points with and
+    without an EOI after, bytes of its scans changed, a restart marker
+    dropped, renumbered or after garbage."""
+    sos = blob.index(b"\xff\xda")
+    out = []
+    for _ in range(4):
+        cut = rnd.randint(sos + 10, len(blob) - 2)
+        out += [(f"cut at {cut}", blob[:cut]), (f"cut at {cut} + EOI", blob[:cut] + b"\xff\xd9")]
+    for _ in range(6):
+        bad = bytearray(blob)
+        for _ in range(rnd.randint(1, 4)):
+            bad[rnd.randint(sos + 12, len(bad) - 2)] = rnd.randint(256)
+        out.append(("bytes changed", bytes(bad)))
+    rst = [i for i in range(sos, len(blob) - 1)
+           if blob[i] == 0xFF and 0xD0 <= blob[i + 1] <= 0xD7]
+    if rst:
+        i = rst[len(rst) // 2]
+        out += [("a restart dropped", blob[:i] + blob[i + 2:]),
+                ("a restart renumbered", blob[:i + 1] + bytes([0xD0 + (blob[i + 1] + 3) % 8])
+                 + blob[i + 2:]),
+                ("garbage before a restart", blob[:i] + b"\x12\x34\xff\x00" + blob[i:])]
+    return out
+
+
+@pytest.mark.parametrize("progressive", [False, True])
+def test_damaged_jpegs_decode_as_cv2(tmp_path, progressive):
+    """Damaged files decode as cv2 decodes them, or raise where it fails:
+    bytes as `cv2.imdecode` (a cut file raises), a file as `cv2.imread`
+    (libjpeg's source ends it with EOI, the rest of a cut scan reads as
+    zeros, the rest of its restart interval stays zero); restart markers
+    out of order resynchronise as libjpeg does; changed bytes (codes no
+    table holds, runs past the block, coefficients past libjpeg-turbo's
+    16-bit SIMD lanes, unknown markers) decode alike. Only a progressive
+    file cut before its refinement, which libjpeg-turbo would block-smooth,
+    raises where cv2 decodes."""
+    from hi3d_tpu_torch.utils.jpeg import decode_jpeg, read_jpeg
+
+    rnd = np.random.RandomState(int(progressive))
+    path = str(tmp_path / "damaged.jpg")
+    seen = {"equal": 0, "both fail": 0, "smoothing": 0}
+    for (h, w), sampling, restart in [((37, 53), "420", 0), ((64, 80), "420", 2),
+                                      ((17, 9), "gray", 1), ((40, 24), "444", 3)]:
+        img = _demo(h, w, seed=h)
+        blob = encode(img[..., 0] if sampling == "gray" else img, 75, sampling, restart,
+                      progressive)
+        for label, bad in _damaged(blob, rnd):
+            with open(path, "wb") as f:
+                f.write(bad)
+            for want, read in [(cv2.imdecode(np.frombuffer(bad, np.uint8), cv2.IMREAD_UNCHANGED),
+                                lambda: decode_jpeg(bad)),
+                               (cv2.imread(path, cv2.IMREAD_UNCHANGED), lambda: read_jpeg(path))]:
+                try:
+                    got = read()
+                except ValueError as e:
+                    if want is None:
+                        seen["both fail"] += 1
+                        continue
+                    assert progressive and "block-smooths" in str(e), (h, w, label, e)
+                    seen["smoothing"] += 1
+                    continue
+                assert want is not None, (h, w, label, "cv2 fails")
+                want = want[..., None] if want.ndim == 2 else want[..., ::-1]
+                np.testing.assert_array_equal(got, want, err_msg=f"{h}x{w} {label}")
+                seen["equal"] += 1
+    assert seen["equal"] > 30 and seen["both fail"] > 10, seen
 
 
 def _fixture(name):
@@ -179,6 +331,16 @@ MALFORMED = [
 ]
 
 
+# a progressive file's first scan (DC first of 3 components): Ss at 11, Se
+# at 12, Ah/Al at 13 bytes from its 0xFF
+MALFORMED += [
+    (b"\xff\xda", 12, 5, "progressive scan with impossible parameters Ss=0, Se=5"),
+    (b"\xff\xda", 13, 0x15, "impossible parameters Ss=0, Se=0, Ah=1, Al=5"),
+    (b"\xff\xda", 13, 0x0E, "impossible parameters .*Al=14"),
+    (b"\xff\xda", 11, 1, "impossible parameters Ss=1, Se=0"),
+]
+
+
 @pytest.mark.parametrize("marker,offset,value,match", MALFORMED)
 def test_malformed_headers_raise(marker, offset, value, match):
     """A header byte out of range (a scan's component count or table ids, a
@@ -187,15 +349,17 @@ def test_malformed_headers_raise(marker, offset, value, match):
     it reaches the C decoder."""
     from hi3d_tpu_torch.utils.jpeg import decode_jpeg
 
-    blob = _fixture("c422_q50_rst2_31x45.jpg")
+    blob = _fixture("prog_q85_rst3_389x517.jpg" if "progressive" in match or "impossible" in match
+                    else "c422_q50_rst2_31x45.jpg")
     with pytest.raises(ValueError, match=f"bad.jpg: .*{match}"):
         decode_jpeg(_patched(blob, marker, offset, value), "bad.jpg")
 
 
 def test_scan_decoder_checks_its_arguments():
-    """The C entry point refuses a component count, table id, sampling or
-    block grid outside its arrays (its second guard behind the header
-    checks) and writes nothing."""
+    """The C entry points refuse a component count, table id, sampling or
+    block grid outside its arrays, and the progressive one a spectral band
+    or successive approximation jdphuff.c refuses (its second guard behind
+    the header checks), and write nothing."""
     import ctypes
 
     from hi3d_tpu_torch.utils.jpeg import _native
@@ -220,6 +384,20 @@ def test_scan_decoder_checks_its_arguments():
                              (1, [0, 1, 0, 0, 2, 2], (2, 2)), (1, [1, 5, 0, 0, 2, 2], (2, 2)),
                              (1, good, (3, 2)), (1, good, (2, 3)), (1, good, (-1, 2))]:
         assert call(ncomp, row, mcus) == -5, (ncomp, row, mcus)
+
+    def progressive(ncomp, band):
+        desc = np.array([good] * ncomp, np.int32)
+        return lib.hi3d_jpeg_decode_progressive(
+            data.ctypes.data, data.size, ctypes.byref(end), ncomp, desc.ctypes.data, ptrs,
+            bits.ctypes.data, vals.ctypes.data, 2, 2, 0, *band)
+
+    assert progressive(1, (0, 0, 0, 1)) == -4  # DC first: the empty DC table
+    assert progressive(1, (0, 0, 1, 0)) == 0  # DC refinement reads bits only
+    coef[:] = 0
+    for ncomp, band in [(1, (0, 5, 0, 0)), (2, (1, 5, 0, 0)), (1, (6, 5, 0, 0)),
+                        (1, (1, 64, 0, 0)), (1, (1, 5, 2, 0)), (1, (1, 5, 0, 14)),
+                        (1, (1, 5, -1, 0)), (5, (0, 0, 0, 0))]:
+        assert progressive(ncomp, band) == -5, (ncomp, band)
     assert not coef.any()
 
 
@@ -237,6 +415,9 @@ def test_readers_take_jpegs(tmp_path):
     gray = os.path.join(FIXTURE_DIR, "gray_q75_29x37.jpg")
     np.testing.assert_array_equal(load_image_rgb(gray), jax_load_image_rgb(gray))
     assert read_image(gray).shape == (29, 37, 1)
+    for name in FIXTURES:  # progressive, 4:1:1, 4:4:0, CMYK, RGB-coded among them
+        path = os.path.join(FIXTURE_DIR, name)
+        np.testing.assert_array_equal(load_image_rgb(path), jax_load_image_rgb(path))
 
     folder = tmp_path / "renders" / "obj"
     folder.mkdir(parents=True)
@@ -255,15 +436,28 @@ def test_readers_take_jpegs(tmp_path):
 
 def test_new_modules_run_without_jax_cv2_or_pil():
     """The modules this slice adds (and the readers they touch) import and
-    run in a process where jax, hi3d_tpu, cv2 and PIL cannot import."""
+    run in a process where jax, hi3d_tpu, cv2 and PIL cannot import: every
+    PNG, JPEG and WebP fixture decodes to its cv2 golden, and
+    load_image_rgb reads each without cv2."""
     code = f"""
 import sys
 for name in ("jax", "hi3d_tpu", "cv2", "PIL"):
     sys.modules[name] = None
 sys.path.insert(0, {ROOT!r})
+import hashlib, json, os
 import numpy as np, torch, tempfile
 from hi3d_tpu_torch.utils.jpeg import read_jpeg
-from hi3d_tpu_torch.utils.image import load_image_rgb
+from hi3d_tpu_torch.utils.image import load_image_rgb, read_image
+from hi3d_tpu_torch.utils.webp import read_webp
+for kind in ("torch_jpeg", "torch_png", "torch_webp"):
+    folder = os.path.join({ROOT!r}, "tests", "data", kind)
+    with open(os.path.join(folder, "goldens.json")) as f:
+        goldens = json.load(f)
+    for name, want in goldens.items():
+        img = read_image(os.path.join(folder, name))
+        got = {{"shape": list(img.shape), "sha256": hashlib.sha256(img.tobytes()).hexdigest()}}
+        assert got == want, name
+        assert load_image_rgb(os.path.join(folder, name)).shape == img.shape[:2] + (3,), name
 from hi3d_tpu_torch.utils.logger import setup_logger
 from hi3d_tpu_torch.ops.softsplat import softsplat
 from hi3d_tpu_torch.ops.correlation import correlation

@@ -152,10 +152,17 @@ def test_serve_cli_two_stage_mode_pads_and_drops(tmp_path):
 
 
 def test_non_png_input_without_cv2_raises(tmp_path, monkeypatch):
+    """Without cv2 a format the port does not decode (BMP) raises and names
+    the three it does; a WebP goes to the port's decoder, whose error names
+    the file."""
     from hi3d_tpu_torch.utils.image import load_image_rgb
 
-    path = tmp_path / "x.webp"
-    path.write_bytes(b"RIFF\x00\x00\x00\x00WEBPVP8 ")
+    path = tmp_path / "x.bmp"
+    path.write_bytes(b"BM" + bytes(60))
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(RuntimeError, match="only PNG and JPEG decode without cv2"):
+    with pytest.raises(RuntimeError, match="only PNG, JPEG and WebP decode without cv2"):
         load_image_rgb(str(path))
+    webp = tmp_path / "x.webp"
+    webp.write_bytes(b"RIFF\x00\x00\x00\x00WEBPVP8 ")
+    with pytest.raises(ValueError, match="x.webp: a WebP of 16 bytes"):
+        load_image_rgb(str(webp))
