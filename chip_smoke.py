@@ -37,7 +37,8 @@ text-to-image and module-surface paths on one NVIDIA H100.
    CUDA-event times),
    beside the one PyTorch call that computes the same function, where there
    is one (`library_ms`), and the least time the card could take (`bound_ms`);
-4. runs the full-width stage-1 UNet once at a small input on the card and
+4. runs the full-width stage-1 UNet (one res block a level: depth cut, the
+   widths kept) once at a small input (1 × 4 frames) on the card and
    holds its output, then its parameter gradient, against the same weights
    on the CPU (plain versions, fp32 and bf16); the same for the output and
    the gradient of the full-width stage-2 UNet (17 input channels), and for
@@ -45,7 +46,9 @@ text-to-image and module-surface paths on one NVIDIA H100.
    33-frame clip (every frame-axis site on #6/#7);
 5. main path 1: `hi3d_tpu_torch.pipelines.i2v.main` on `demo/3.png` at full
    width (configs/inference-v01.yaml, 16×512², random weights); checks the
-   frames and every kernel's launch count against the model's plan;
+   frames, first.mp4 (`mp4_check`: frame count and rate, the port's decode
+   equal to the encoder's reconstruction, PSNR bounds, ffmpeg's luma where
+   cv2 imports) and every kernel's launch count against the model's plan;
 6. main path 2: `hi3d_tpu_torch.train.main` on configs/train-v01.yaml at
    full width (2 videos × 16 × 512² per step, random weights, renders made
    from demo/3.png) for 4 steps with the JAX CLI's defaults: the image
@@ -55,26 +58,30 @@ text-to-image and module-surface paths on one NVIDIA H100.
    a reloadable checkpoint, every media file of the dump (`_check_dump`),
    that the test pass ended as JAX's does, the export's keys and a sample of
    its values (`_check_export`) and the launch counts (training plus one
-   `log_images`); then 3 steps on one video of 48 frames a step (a dense
+   `log_images`; every video of the dump also as an mp4); then 2 steps on
+   one video of 48 frames a step (a dense
    ring of renders, `long_clip_config`, `--no_test True`): finite losses and
    launch counts with #6/#7 on every frame-axis site;
 7. main path 3: `hi3d_tpu_torch.pipelines.v2v.main` at full width
    (configs/inference-v02.yaml, 16×1024², 25 steps, random weights, the DPT's
-   included) on the frames main path 1 wrote; checks the refined frames and
+   included) on JAX's default input, the first.mp4 main path 1 wrote (no
+   --video_path); checks the refined frames, second.mp4 (`mp4_check`) and
    the launch counts;
 8. main path 4: `hi3d_tpu_torch.pipelines.serve.main` in orbit mode on two
    committed images (tests/data/torch_jpeg/asset0.jpg, demo/3.png as a
    progressive JPEG, and tests/data/torch_webp/asset1.webp, a rolled copy as a
    lossy WebP with alpha), each decoded first against its cv2 golden, at
    full width, 2 assets × 48 frames × 512² in one batch, 4 steps (cut from
-   25 to pay for main path 17); checks the frames and the launch counts
-   (#6 on every frame-axis site, K2 none);
+   25 to pay for main path 17); checks the frames, each orbit.mp4
+   (`mp4_check`) and the launch counts (#6 on every frame-axis site, K2
+   none);
 9. main path 5: `hi3d_tpu_torch.pipelines.full.main` at full width on
    demo/3.png (configs/inference-v01.yaml → configs/inference-v02.yaml, 16 ×
-   512² → 16 × 1024², 10 steps each, random weights), background removal by
+   512² → 16 × 1024², 4 steps each, random weights), background removal by
    a full U²-Net with random weights saved under outputs/ and named by
    HI3D_U2NET_CKPT; checks rgba.png and white.png, that stage 2 read
-   white.png, the refined frames, 16 finite scores of each kind in
+   white.png and the ViewScorer second.mp4, the refined frames and
+   second.mp4 (`mp4_check`), 16 finite scores of each kind in
    metrics.json, the memory released between the stages and the launch
    counts (i2v + v2v + the ViewScorer's ViT-L); prints the stage seconds,
    the U²-Net's ms at 320² and the peak memory;
@@ -85,8 +92,8 @@ text-to-image and module-surface paths on one NVIDIA H100.
 11. main path 7: `i2v.main --cfg_interval 0.3 6` as path 1 (CFG on steps
    15–19, one conditioned pass of 16 frames on the other 20) on
    tests/data/torch_jpeg/demo3_q90.jpg (demo/3.png as a JPEG); main path 8:
-   `v2v.main --encoder_reuse 3` on path 1's frames (9 whole UNet calls, 16
-   from the encoder cache); main path 9: `generate_orbit` on one stage-1
+   `v2v.main --encoder_reuse 3` on path 1's frames directory, 10 steps (4
+   whole UNet calls, 6 from the encoder cache); main path 9: `generate_orbit` on one stage-1
    engine with each other sampler (Heun, Euler ancestral, DPM++(2S) at η =
    1, LMS at order 4, DPM++(2M)), 4 steps each, then Heun with
    encoder_reuse=2. Each checks its frames, its UNet calls (`UNetProbe`: by
@@ -95,8 +102,8 @@ text-to-image and module-surface paths on one NVIDIA H100.
    path 1's or 3's (path 8 also its peak memory);
 12. main path 10: `hi3d_tpu_torch.train.main` on configs/train-v02.yaml at
    full width (1 video × 16 × 1024² a step, all parameters trained, random
-   weights) for 3 steps on 96 RGBA 1024² renders made from demo/3.png, its
-   image logger's dump sampling 5 steps (cut from the config's 25); the
+   weights) for 2 steps on 96 RGBA 1024² renders made from demo/3.png, its
+   image logger's dump sampling 2 steps (cut from the config's 25); the
    conditioning video is degraded on the card (data/degradation.py). Checks
    finite losses and gradient norms, that out.2 moved, step 1's degraded
    video (finite, in [-1, 1], frame 0 clean, background white, the other
@@ -167,8 +174,10 @@ text-to-image and module-surface paths on one NVIDIA H100.
    batches of 1), each within `SERVE_DIST_REL_L2` of one process and with
    each rank's launches equal to its plan (`serve_dist_plans`); prints
    per-rank seconds, collectives (`CollectiveProbe`) and peaks;
-19. prints the kernel JSON line (launches per path and summed, errors, times,
-   bounds), the card line, and the contract line last.
+19. prints the mp4 medians (encode and decode ms a frame on the host CPU,
+   bytes a frame, at 512² and 1024²) beside the card line, the kernel JSON
+   line (launches per path and summed, errors, times, bounds), the card
+   line, and the contract line last.
 
 The training paths log metrics every step (`metrics_every_step`; the CLI
 logs every 10th, as JAX's) so that every step's sec_per_step is read.
@@ -197,6 +206,11 @@ TRAIN_STEPS = 4  # optimizer steps of configs/train-v01.yaml
 # frames of the UNet checks on #6/#7: the shortest clip past K2's 32 frames
 # (the host CPU's fp32 and bf16 passes of the full-width UNet scale with it)
 LONG_UNET_CLIP = 33
+# res blocks a level of the reference phases' UNets (the configs' 2) and
+# videos of their 4-frame inputs (2 before): cuts of depth and batch, the
+# widths kept, that pay for the mp4 checks within the call
+REF_RES_BLOCKS = 1
+REF_VIDEOS = 1
 STAGE2_STEPS = 25  # the configured sampler steps (configs/inference-v02.yaml)
 
 
@@ -1458,24 +1472,43 @@ def unet_gradient_phase(config_path: str, b: int = 2, t: int = 4, outputs: bool 
     return launches
 
 
+def depth_cut_config(name: str, root: str) -> str:
+    """configs/`name` with its UNet at REF_RES_BLOCKS res blocks a level (its
+    widths unchanged), written to `root`."""
+    import yaml
+
+    from hi3d_tpu_torch.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, "configs", name))
+    cfg["model"]["params"]["network_config"]["params"]["num_res_blocks"] = REF_RES_BLOCKS
+    path = os.path.join(root, name)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+    return path
+
+
 def reference_phases() -> dict:
     """Phase 4: the full-width UNets of both stages on the card against the
     CPU, output and gradient, and the stage-1 UNet's gradient and output at
     a LONG_UNET_CLIP clip (every frame-axis site on #6 forward and #7
-    backward). Returns the gradient phases' launches by name."""
+    backward); each UNet at REF_RES_BLOCKS res blocks a level (the configs
+    have 2; the plans follow the cut configs). Returns the gradient phases'
+    launches by name."""
     t0 = time.perf_counter()
-    inference = os.path.join(ROOT, "configs", "inference-v01.yaml")
-    stage2 = os.path.join(ROOT, "configs", "inference-v02.yaml")
-    unet_reference_phase(inference)
-    unet_gradient_phase(inference)
-    unet_reference_phase(stage2)
-    by_path = {"unet_grad_stage2": unet_gradient_phase(stage2)}
+    root = tempfile.mkdtemp(prefix="chip_smoke_ref_", dir=os.path.join(ROOT, "outputs"))
+    inference = depth_cut_config("inference-v01.yaml", root)
+    stage2 = depth_cut_config("inference-v02.yaml", root)
+    unet_reference_phase(inference, b=REF_VIDEOS)
+    unet_gradient_phase(inference, b=REF_VIDEOS)
+    unet_reference_phase(stage2, b=REF_VIDEOS)
+    by_path = {"unet_grad_stage2": unet_gradient_phase(stage2, b=REF_VIDEOS)}
     # the long clip's output is held inside its gradient phase (the same
     # fp32 reference, the same bound), one full-width build and two CPU
     # forward passes fewer than a reference phase of its own
     by_path[f"unet_grad_t{LONG_UNET_CLIP}"] = unet_gradient_phase(inference, b=1,
                                                                   t=LONG_UNET_CLIP, outputs=True)
-    print(f"[smoke] reference phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[smoke] reference phases (UNets at {REF_RES_BLOCKS} res block a level): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return by_path
 
 
@@ -1487,6 +1520,97 @@ def _check_frames(frame_dir: str, shape) -> None:
           f"std {frames.std():.2f}", flush=True)
     if frames.shape != shape or frames.dtype != np.uint8:
         raise AssertionError(f"unexpected frames {frames.shape} {frames.dtype}, want {shape} uint8")
+
+
+MP4_FPS = 8  # the CLIs' default --fps
+MP4_Y_PSNR_MIN = 50.0  # dB: the decode's luma against the encoder's source luma, QP 5
+MP4_RGB_PSNR_SLACK = 1.0  # dB the RGB may lose beyond the 4:2:0 conversion alone
+MP4_READINGS: dict = {}  # "WxH" -> [(encode ms a frame, decode ms a frame, bytes a frame)]
+
+
+def _psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def mp4_check(path: str) -> None:
+    """Holds the mp4 a CLI wrote at `path` against the PNG frames beside it
+    (its `frames/`): its frame count is theirs (padded to whole seconds at
+    MP4_FPS) and its rate MP4_FPS; the frames encoded again give the same
+    samples (the encode is deterministic) and the port's decode equals that
+    encode's reconstruction bit for bit; the decode's luma is within
+    MP4_Y_PSNR_MIN of the encoder's source luma and its RGB within
+    MP4_RGB_PSNR_SLACK of the PSNR of the 4:2:0 conversion alone; where cv2
+    imports, ffmpeg's luma equals the port's bit for bit. Records the
+    encode and decode ms a frame (host CPU) and the bytes a frame."""
+    from hi3d_tpu_torch.utils import h264, mp4
+    from hi3d_tpu_torch.utils.video import import_video
+
+    name = os.path.relpath(path, ROOT)
+    pngs = import_video(os.path.join(os.path.dirname(path), "frames"))
+    n, h, w = pngs.shape[:3]
+    t0 = time.perf_counter()
+    track = mp4.read_mp4(path)
+    planes = h264.decode(track.sps, track.pps, track.samples, track.length_size)
+    rgb = np.stack([h264.to_rgb(*p) for p in planes])
+    dec_ms = (time.perf_counter() - t0) * 1000 / len(planes)
+    t0 = time.perf_counter()
+    enc = h264.encode(list(pngs), h264.quality_to_qp(9), MP4_FPS)
+    enc_ms = (time.perf_counter() - t0) * 1000 / n
+    if (len(track.samples), track.fps, track.width, track.height) != (n, MP4_FPS, w, h) or n % MP4_FPS:
+        raise AssertionError(f"{name}: {len(track.samples)} frames of {track.width}x"
+                             f"{track.height} at {track.fps} fps, want {n} (padded to whole "
+                             f"seconds) of {w}x{h} at {MP4_FPS}")
+    if enc.samples != track.samples:
+        raise AssertionError(f"{name}: encoding its PNG frames again gives another stream")
+    for i, (got, want) in enumerate(zip(planes, enc.recon)):
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name}: frame {i} decodes off the encoder's reconstruction")
+    src = [h264.rgb_to_yuv420(f) for f in pngs]
+    y_psnr = _psnr(np.stack([p[0] for p in planes]), np.stack([s[0] for s in src]))
+    rgb_psnr = _psnr(rgb, pngs)
+    yuv420_psnr = _psnr(np.stack([h264.to_rgb(*s) for s in src]), pngs)
+    if not (y_psnr >= MP4_Y_PSNR_MIN and rgb_psnr >= yuv420_psnr - MP4_RGB_PSNR_SLACK):
+        raise AssertionError(f"{name}: PSNR luma {y_psnr:.2f} dB (bound {MP4_Y_PSNR_MIN}), RGB "
+                             f"{rgb_psnr:.2f} dB (bound {yuv420_psnr - MP4_RGB_PSNR_SLACK:.2f})")
+    try:
+        import cv2
+    except ImportError:
+        ffmpeg = "ffmpeg check skipped: cv2 does not import on this host"
+    else:
+        log = getattr(getattr(cv2, "utils", None), "logging", None)
+        if log is not None:  # errors only: each raw yuv420p frame warns otherwise
+            log.setLogLevel(log.LOG_LEVEL_ERROR)
+        cap = cv2.VideoCapture(path)
+        cap.set(cv2.CAP_PROP_CONVERT_RGB, 0)
+        luma = []
+        while True:
+            ok, f = cap.read()
+            if not ok:
+                break
+            luma.append(np.asarray(f).reshape(-1)[:h * w].reshape(h, w))
+        cap.release()
+        if len(luma) != n or any(not np.array_equal(a, p[0]) for a, p in zip(luma, planes)):
+            raise AssertionError(f"{name}: ffmpeg's luma ({len(luma)} frames) is not the port's")
+        ffmpeg = f"ffmpeg check ran: cv2's luma of {n} frames bit-equal to the port's"
+    per_frame = sum(len(x) for x in track.samples) / n
+    MP4_READINGS.setdefault(f"{w}x{h}", []).append((enc_ms, dec_ms, per_frame))
+    print(f"[mp4] {name}: {n} frames of {w}x{h} at {track.fps} fps, decode = encoder's "
+          f"reconstruction bit for bit; PSNR luma {y_psnr:.2f} dB (bound {MP4_Y_PSNR_MIN}), RGB "
+          f"{rgb_psnr:.2f} dB (4:2:0 alone {yuv420_psnr:.2f}, bound "
+          f"{yuv420_psnr - MP4_RGB_PSNR_SLACK:.2f}); {ffmpeg}; encode {enc_ms:.2f} ms a frame, "
+          f"decode {dec_ms:.2f} ms a frame, {per_frame:.0f} bytes a frame (host CPU)", flush=True)
+
+
+def mp4_summary(card: str) -> None:
+    """Median encode and decode ms a frame and bytes a frame by size over
+    every mp4 `mp4_check` held, beside the card's line."""
+    parts = []
+    for size, rows in sorted(MP4_READINGS.items()):
+        enc, dec, nbytes = (float(np.median([r[i] for r in rows])) for i in range(3))
+        parts.append(f"{size}: encode {enc:.2f} ms a frame, decode {dec:.2f} ms a frame, "
+                     f"{nbytes:.0f} bytes a frame ({len(rows)} files)")
+    print(f"[mp4] the card machine's host CPU, medians: {'; '.join(parts)} | {card}", flush=True)
 
 
 def _check_launches(launches: dict, expected: dict) -> None:
@@ -1583,11 +1707,11 @@ def _run_printing_phases(tag: str, fn, argv) -> dict:
 def main_path(steps: int, flags=(), label: str = "1", want_calls=None,
               image: str = os.path.join(ROOT, "demo", "3.png")):
     """Stage-1 CLI at full width on `image` (with `flags`, path 7's
-    --cfg_interval; path 7 reads a JPEG); checks the frames, the UNet's
-    calls (`want_calls`: by kind and batch; 25 CFG-doubled calls of 32
-    frames by default) and the launches; returns the launch count of each
-    kernel, the output directory (its frames feed main paths 3 and 8) and
-    the phase seconds."""
+    --cfg_interval; path 7 reads a JPEG); checks the frames, first.mp4
+    (`mp4_check`), the UNet's calls (`want_calls`: by kind and batch; 25
+    CFG-doubled calls of 32 frames by default) and the launches; returns
+    the launch count of each kernel, the output directory (its first.mp4
+    feeds main path 3, its frames main path 8) and the phase seconds."""
     import torch
 
     from hi3d_tpu_torch.pipelines import i2v
@@ -1609,6 +1733,7 @@ def main_path(steps: int, flags=(), label: str = "1", want_calls=None,
           f"{probe.median_ms()}, launches {launches}", flush=True)
     torch.cuda.empty_cache()
     _check_frames(os.path.join(out_dir, "first_step", "frames"), (16, 512, 512, 3))
+    mp4_check(os.path.join(out_dir, "first_step", "first.mp4"))
     _check_calls(label, calls, want_calls or {"whole B32": steps})
     _check_launches(launches, expected)
     return launches, out_dir, phases
@@ -1616,12 +1741,15 @@ def main_path(steps: int, flags=(), label: str = "1", want_calls=None,
 
 def stage2_path(steps: int, stage1_dir: str, flags=(), label: str = "3", encoder_reuse: int = 0,
                 want_calls=None):
-    """Stage-2 CLI at full width on main path 1's frames (16×512² → 16×1024²,
-    random weights, the DPT's included; with `flags`, path 8's
-    --encoder_reuse, written to a directory of its own); checks the refined
-    frames, the UNet's calls (by kind and batch; 25 CFG-doubled whole calls
-    by default) and the launches; returns the launch count of each kernel,
-    the phase seconds and the peak allocated GB."""
+    """Stage-2 CLI at full width on main path 1's output (16×512² →
+    16×1024², random weights, the DPT's included): path 3 without
+    --video_path, so that it reads <output_dir>/first_step/first.mp4 as
+    JAX's default does; with `flags`, path 8's --encoder_reuse, on path 1's
+    frames directory, written to a directory of its own. Checks the refined
+    frames, second.mp4 (`mp4_check`), the UNet's calls (by kind and batch;
+    `steps` CFG-doubled whole calls by default) and the launches; returns
+    the launch count of each kernel, the phase seconds and the peak
+    allocated GB."""
     import torch
 
     from hi3d_tpu_torch.pipelines import v2v
@@ -1629,6 +1757,7 @@ def stage2_path(steps: int, stage1_dir: str, flags=(), label: str = "3", encoder
     config = os.path.join(ROOT, "configs", "inference-v02.yaml")
     out_dir = stage1_dir if not flags else tempfile.mkdtemp(
         prefix="chip_smoke_v2v_", dir=os.path.join(ROOT, "outputs"))
+    video = [] if not flags else ["--video_path", os.path.join(stage1_dir, "first_step", "frames")]
     expected = expected_launches(config, steps, "v2v", encoder_reuse=encoder_reuse)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1636,8 +1765,7 @@ def stage2_path(steps: int, stage1_dir: str, flags=(), label: str = "3", encoder
     with UNetProbe() as probe:
         phases = _run_printing_phases("v2v", v2v.main, [
             "--denoise_config", config, "--image_path", os.path.join(ROOT, "demo", "3.png"),
-            "--video_path", os.path.join(stage1_dir, "first_step", "frames"),
-            "--output_dir", out_dir, "--device", "cuda", "--seed", "0",
+            *video, "--output_dir", out_dir, "--device", "cuda", "--seed", "0",
             "--num_steps", str(steps), *flags])
     launches = read_launches(expected)
     calls = probe.counts()
@@ -1647,6 +1775,7 @@ def stage2_path(steps: int, stage1_dir: str, flags=(), label: str = "3", encoder
           f"a UNet call {probe.median_ms()}, launches {launches}", flush=True)
     torch.cuda.empty_cache()
     _check_frames(os.path.join(out_dir, "second_step_video", "frames"), (16, 1024, 1024, 3))
+    mp4_check(os.path.join(out_dir, "second_step_video", "second.mp4"))
     _check_calls(label, calls, want_calls or {"whole B32": steps})
     _check_launches(launches, expected)
     return launches, phases, peak
@@ -1765,10 +1894,12 @@ def _check_dump(probe: DumpProbe, trainer, steps: int, keys, frames: int, out: s
     against what the JAX CLI does: `keys` media of the first video, finite,
     those of `IN_RANGE` in [-1, 1] (the VAE's outputs are printed with their
     largest overshoot past it), each written under image_log/ (a video as
-    `frames` PNG frames in its own directory, the caption as one PNG); the
+    `frames` PNG frames and an mp4 of as many in its own directory, the
+    caption as one PNG); the
     test pass ran the logger on the eval set's first item, which
     `log_images` refused with KeyError('video'), printed as JAX prints it,
     and wrote nothing."""
+    from hi3d_tpu_torch.utils.mp4 import read_mp4
     from hi3d_tpu_torch.utils.png import read_png
 
     train_dumps = [d for d in probe.dumps if d["dir"] == os.path.join(trainer.logdir, "image_log")]
@@ -1801,6 +1932,12 @@ def _check_dump(probe: DumpProbe, trainer, steps: int, keys, frames: int, out: s
         if len(names) != frames or img.shape != tuple(shape[2:]):
             raise AssertionError(f"{frame_dir}: {len(names)} frames of {img.shape}, want "
                                  f"{frames} of {shape[2:]}")
+        track = read_mp4(os.path.join(dump["dir"], name, f"{name}.mp4"))
+        if (len(track.samples), track.height, track.width) != (frames, *shape[2:4]):
+            raise AssertionError(f"{name}.mp4: {len(track.samples)} frames of {track.width}x"
+                                 f"{track.height}, want {frames} of {shape[3]}x{shape[2]}")
+    if "[image_log] export failed" in out:
+        raise AssertionError("the image logger failed to write a video")
     if "[image_log] skipped at step 0: 'video'" not in out:
         raise AssertionError("the test pass did not end as JAX's: no \"[image_log] skipped at "
                              "step 0: 'video'\" line")
@@ -1967,7 +2104,7 @@ def training_path(steps: int):
 
 
 LONG_CLIP = 48  # frames a clip of the long-clip training run: a 48-view ring
-LONG_CLIP_STEPS = 3
+LONG_CLIP_STEPS = 2  # 3 before the mp4 checks came (cut to pay for them)
 
 
 def write_ring(root: str, frames: int = LONG_CLIP) -> str:
@@ -2084,7 +2221,7 @@ def long_clip_training_path(steps: int = LONG_CLIP_STEPS, frames: int = LONG_CLI
     return launches
 
 
-STAGE2_TRAIN_STEPS = 3  # optimizer steps of configs/train-v02.yaml (main path 10)
+STAGE2_TRAIN_STEPS = 2  # optimizer steps of main path 10 (3 before the mp4 checks came)
 
 
 def write_renders_1024(root: str, frames: int = 96) -> str:
@@ -4172,10 +4309,13 @@ SERVE_CLIP = 48  # a 48-view orbit: three times the 16 views, 7.5° apart
 SERVE_ASSETS = 2
 # the sampler steps of main paths 4 and 6, of main path 5 and of main path
 # 10's image-logger dump (each 25 before main path 17 came): cut to pay for
-# main path 17 within the call's time
+# main path 17 within the call's time, and paths 5 (10) and 10's dump (5)
+# again for the mp4 checks
 SERVE_STEPS = 4
-FULL_STEPS = 10
-DUMP2_STEPS = 5
+FULL_STEPS = 4
+DUMP2_STEPS = 2
+# main path 8's sampler steps (25, the config's, before the mp4 checks came)
+REUSE_STEPS = 10
 
 
 def serve_inputs(root: str) -> str:
@@ -4210,8 +4350,9 @@ def serve_path(steps: int) -> dict:
     """The serve CLI in orbit mode at full width (configs/inference-v01.yaml,
     2 assets × 48 frames × 512² in one batch, random weights) on
     `serve_inputs` (a progressive JPEG and a lossy WebP with alpha): 2 × 48 uint8
-    frames, launch counts equal to the plan (every frame-axis site on #6),
-    peak memory, s per batch, sampler s/step. Returns the launch counts."""
+    frames and each asset's orbit.mp4 (`mp4_check`), launch counts equal to
+    the plan (every frame-axis site on #6), peak memory, s per batch,
+    sampler s/step. Returns the launch counts."""
     import torch
 
     from hi3d_tpu_torch.pipelines import serve
@@ -4245,6 +4386,7 @@ def serve_path(steps: int) -> dict:
         raise AssertionError(f"serve wrote {result['outputs']}, want {SERVE_ASSETS} assets")
     for name in ("asset0", "asset1"):
         _check_frames(os.path.join(out_dir, "orbits", name, "frames"), (SERVE_CLIP, 512, 512, 3))
+        mp4_check(os.path.join(out_dir, "orbits", name, "orbit.mp4"))
     _check_launches(launches, expected)
     return launches
 
@@ -4292,8 +4434,9 @@ def full_path(steps: int) -> dict:
     16 × 512² → 16 × 1024², `steps` sampler steps each, random weights),
     background removal by a full U²-Net saved here with random weights and
     named by HI3D_U2NET_CKPT (restored afterwards). Checks temp_image's
-    rgba.png (4 channels) and white.png, that stage 2 read white.png, 16 ×
-    1024² uint8 frames, 16 finite clip_similarity and aesthetic scores, that
+    rgba.png (4 channels) and white.png, that stage 2 read white.png and the
+    ViewScorer second.mp4 (as JAX's), 16 × 1024² uint8 frames and
+    second.mp4 (`mp4_check`), 16 finite clip_similarity and aesthetic scores, that
     stage 1's release brought the allocated memory back within 0.5 GB, and
     launches equal to the plan. Prints the stage seconds, the U²-Net's ms at
     320² and the peak memory. Returns the launch counts."""
@@ -4307,16 +4450,20 @@ def full_path(steps: int) -> dict:
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_full_", dir=os.path.join(ROOT, "outputs"))
     ckpt = write_u2net(os.path.join(out_dir, "u2net.pth"))
     expected = full_launches(stage1, stage2, steps)
-    read = []
-    run_v2v = v2v.run_pipeline
+    read, scored = [], []
+    run_v2v, import_video = v2v.run_pipeline, full.import_video
 
     def spy(model, image_path, *args, **kwargs):
         read.append(image_path)
         return run_v2v(model, image_path, *args, **kwargs)
 
+    def spy_import(path, *args, **kwargs):
+        scored.append(path)
+        return import_video(path, *args, **kwargs)
+
     old_env = os.environ.get("HI3D_U2NET_CKPT")
     os.environ["HI3D_U2NET_CKPT"] = ckpt
-    v2v.run_pipeline = spy
+    v2v.run_pipeline, full.import_video = spy, spy_import
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
@@ -4326,7 +4473,7 @@ def full_path(steps: int) -> dict:
                             "--output_dir", out_dir, "--clip_size", str(FULL_CLIP), "--seed", "0",
                             "--num_steps", str(steps), "--device", "cuda"])
     finally:
-        v2v.run_pipeline = run_v2v
+        v2v.run_pipeline, full.import_video = run_v2v, import_video
         if old_env is None:
             del os.environ["HI3D_U2NET_CKPT"]
         else:
@@ -4351,7 +4498,11 @@ def full_path(steps: int) -> dict:
         raise AssertionError(f"background removal wrote rgba {rgba.shape}")
     if read != [white]:
         raise AssertionError(f"stage 2 read {read}, want {white}")
+    second = os.path.join(out_dir, "second_step_video", "second.mp4")
+    if scored != [second] or result["second_mp4"] != second:
+        raise AssertionError(f"the ViewScorer read {scored}, want {second}")
     _check_frames(os.path.join(out_dir, "second_step_video", "frames"), (16, 1024, 1024, 3))
+    mp4_check(second)
     for key in ("clip_similarity", "aesthetic"):
         if len(metrics[key]) != FULL_CLIP or not np.all(np.isfinite(metrics[key])):
             raise AssertionError(f"metrics {key} {metrics[key]}")
@@ -5359,14 +5510,16 @@ def main() -> None:
         image=PATH7_IMAGE)
     print(f"[smoke] sampler seconds, stage 1: path 7 {phases7['sampler']} s, path 1 "
           f"{phases1['sampler']} s", flush=True)
+    whole8, decoder8 = unet_calls("EulerEDMSampler", REUSE_STEPS, 3)
     print(f"[smoke] main path 8: v2v --encoder_reuse 3, configs/inference-v02.yaml, 16×1024², "
-          f"{STAGE2_STEPS} steps (9 whole, 16 decoder-only), random weights, on main path 1's "
-          "frames", flush=True)
+          f"{REUSE_STEPS} steps ({whole8} whole, {decoder8} decoder-only), random weights, on "
+          "main path 1's frames", flush=True)
     by_path["v2v_encoder_reuse"], phases8, peak8 = stage2_path(
-        STAGE2_STEPS, stage1_dir, ["--encoder_reuse", "3"], "8", 3,
-        {"whole B32": 9, "decoder B32": 16})
-    print(f"[smoke] stage 2: sampler path 8 {phases8['sampler']} s, path 3 {phases3['sampler']} "
-          f"s; peak allocated path 8 {peak8:.2f} GB, path 3 {peak3:.2f} GB", flush=True)
+        REUSE_STEPS, stage1_dir, ["--encoder_reuse", "3"], "8", 3,
+        {"whole B32": whole8, "decoder B32": decoder8})
+    print(f"[smoke] stage 2: sampler path 8 {phases8['sampler']} s ({REUSE_STEPS} steps), path 3 "
+          f"{phases3['sampler']} s ({STAGE2_STEPS}); peak allocated path 8 {peak8:.2f} GB, path 3 "
+          f"{peak3:.2f} GB", flush=True)
     print(f"[smoke] main path 9: generate_orbit with {', '.join(OTHER_SAMPLERS)}, then Heun with "
           f"encoder_reuse=2; configs/inference-v01.yaml, 16×512², {SAMPLER_STEPS} steps each, "
           "random weights", flush=True)
@@ -5395,6 +5548,7 @@ def main() -> None:
           "under a world-1 NCCL group, then a 2-process gloo group on the card (latency, "
           "throughput, the two-stage stream), random weights", flush=True)
     by_path["serve_dist"] = serve_dist_path()
+    mp4_summary(card)
     print(f"[smoke] all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
 
     rows = []

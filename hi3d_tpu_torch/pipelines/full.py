@@ -6,10 +6,11 @@ hi3d_tpu/pipelines/full.py).
 
 Stage 1 (`i2v.run_pipeline`, background removal included unless
 --skip_rembg) writes `<output_dir>/first_step/`; stage 2 (`v2v.run_pipeline`)
-reads those frames and `temp_image/white.png` (the input image when
+reads its `first.mp4` and `temp_image/white.png` (the input image when
 background removal was skipped or found no model) and writes
 `<output_dir>/second_step_video/`; `ViewScorer` scores the first
-`clip_size` refined views against the white image; `metrics.json` holds the
+`clip_size` refined views of `second.mp4` against the white image, as JAX
+reads them; `metrics.json` holds the
 paths, the stage seconds and the scores. A stage given as a factory is
 built when its turn comes and released after it, so the two engines are
 never resident together.

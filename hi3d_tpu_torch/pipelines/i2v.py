@@ -8,8 +8,8 @@ Background removal (U²-Net on the model's device, `utils.image.remove_backgroun
 (resize + center crop, T copies) → add_custom_cond → conditioner
 (c, uc) with the frame keys zeroed in uc → 25 Euler-EDM steps with per-frame
 linear CFG (bf16 UNet, fp32 σ-math) → fp32 VAE decode in chunks → uint8
-frames → `<output_dir>/first_step/frames/NNN.png` (+ first.mp4 when a video
-writer imports).
+frames → `<output_dir>/first_step/frames/NNN.png` and the H.264
+`first_step/first.mp4` (utils/video.export_to_video, on every host).
 """
 
 from __future__ import annotations
@@ -109,8 +109,7 @@ def run_pipeline(model, image_path: str, output_dir: str, elevation: float = 0.0
                  num_iter: int = 1, seed: Optional[int] = None, fps: int = 8,
                  skip_rembg: bool = False, num_steps: Optional[int] = None,
                  encoder_reuse: int = 0, cfg_interval=None) -> str:
-    """Full stage-1 CLI behaviour; returns the mp4 path (or the frames
-    directory when no video writer imports)."""
+    """Full stage-1 CLI behaviour; returns the mp4 path."""
     device = model.device
     timer = PhaseTimer(device)
     temp_dir = os.path.join(output_dir, "temp_image")

@@ -18,8 +18,7 @@ B videos, CFG-doubled) and a chunked VAE decode. `RefineServer` runs stage
 resident, stage 1 of batch N+1 in a producer thread while stage 2 refines
 batch N; over a group, each stage on its own sub-group of ranks, the two
 overlapping as processes. `main` is the CLI: a directory of images → per
-asset `<name>/frames/NNN.png`, and `<name>/orbit.mp4` when a video writer
-imports; `--mode orbit` writes stage 1's orbits, `--mode two_stage` stage
+asset `<name>/frames/NNN.png` and the H.264 `<name>/orbit.mp4`; `--mode orbit` writes stage 1's orbits, `--mode two_stage` stage
 2's refined views at `--stage2_resolution`.
 
 Over a group of W ranks (one process a GPU, `parallel.dist.init`), a server

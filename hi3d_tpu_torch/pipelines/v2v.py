@@ -3,8 +3,8 @@ video (counterpart of hi3d_tpu/pipelines/v2v.py).
 
     python -m hi3d_tpu_torch.pipelines.v2v --image_path demo/3.png --output_dir outputs/i2v
 
-1. read the stage-1 frames (`<output_dir>/first_step/frames`, as the port's
-   i2v writes them; an mp4 only where imageio or cv2 imports), keep the last
+1. read the stage-1 video (`<output_dir>/first_step/first.mp4`, the H.264
+   mp4 the port's i2v writes, as JAX's default; or a frames directory), keep the last
    `clip_size`, replace frame 0 with the clean image, resize to 1024²;
 2. add_custom_cond (cond_frames = the noise-augmented video) → conditioner
    (c, uc) with the frame keys zeroed in uc: CLIP ViT-H of frame 0, the DPT
@@ -16,8 +16,7 @@ video (counterpart of hi3d_tpu/pipelines/v2v.py).
    per-frame linear CFG (bf16 UNet, fp32 σ-math), through the sampler's
    `step_call` (so a Heun config's correction reaches the loop);
 5. fp32 VAE decode one frame at a time → uint8 frames →
-   `<output_dir>/second_step_video/frames/NNN.png` (+ second.mp4 when a
-   video writer imports).
+   `<output_dir>/second_step_video/frames/NNN.png` and `second.mp4`.
 
 `--encoder_reuse k` refreshes the UNet's encoder cache on the steps where
 `reuse_flags` is False and decodes from it elsewhere; `--cfg_interval LO HI`
@@ -213,8 +212,7 @@ def run_pipeline(model, image_path: str, video_path: str, output_dir: str,
                  seed: Optional[int] = None, fps: int = 8,
                  num_steps: Optional[int] = None, encoder_reuse: int = 0,
                  cfg_interval=None) -> str:
-    """Full stage-2 CLI behaviour; returns the mp4 path (or the frames
-    directory when no video writer imports)."""
+    """Full stage-2 CLI behaviour; returns the mp4 path."""
     device = model.device
     timer = PhaseTimer(device)
     generator = torch.Generator(device=device)
@@ -244,8 +242,8 @@ def main(argv: Optional[List[str]] = None) -> str:
     p.add_argument("--denoise_checkpoint", default="ckpts/second_stage.pt")
     p.add_argument("--image_path", required=True, help="clean (white-background) image")
     p.add_argument("--video_path", default=None,
-                   help="stage-1 frames directory (or an mp4 where imageio/cv2 import); "
-                        "default <output_dir>/first_step/frames")
+                   help="stage-1 video: an mp4 or a frames directory; "
+                        "default <output_dir>/first_step/first.mp4")
     p.add_argument("--output_dir", default="outputs/i2v")
     p.add_argument("--elevation", type=float, default=0)
     p.add_argument("--clip_size", type=int, default=16)
@@ -263,7 +261,7 @@ def main(argv: Optional[List[str]] = None) -> str:
 
     from .common import load_inference_model
 
-    video_path = args.video_path or os.path.join(args.output_dir, "first_step", "frames")
+    video_path = args.video_path or os.path.join(args.output_dir, "first_step", "first.mp4")
     t0 = time.perf_counter()
     model = load_inference_model(args.denoise_config, args.denoise_checkpoint, args.device,
                                  vae_bf16=args.vae_bf16, tag="v2v",

@@ -118,8 +118,8 @@ class ImageLogger:
     """Every `every_n_steps` steps, `engine.log_images` of the batch's first
     `max_videos` videos (noise from a generator seeded with the step) under
     `<logdir>/image_log/`: a video entry `key` of video i as PNG frames in
-    `step<step:08d>_<key>_<i>/frames/`, with an mp4 beside them when a
-    writer imports (utils/video.export_to_video), an image entry as
+    `step<step:08d>_<key>_<i>/frames/` with the H.264 mp4 beside them
+    (utils/video.export_to_video), an image entry as
     `step<step:08d>_<key>_<i>.png`. As in the JAX trainer, a failure is
     printed and never stops training."""
 

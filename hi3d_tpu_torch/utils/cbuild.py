@@ -1,7 +1,8 @@
 """Small C helpers of the host side (`csrc/png_unfilter.c`,
-`csrc/jpeg_decode.c`), compiled at first use with the host C compiler
-(`cc`, `gcc` or `$CC`, `-O3 -shared -fPIC`) into build/host/ under a name
-that carries the source's hash, and loaded with ctypes.
+`csrc/jpeg_decode.c`, `csrc/webp_decode.c`, `csrc/h264_{encode,decode}.c`),
+compiled at first use with the host C compiler (`cc`, `gcc` or `$CC`,
+`-O3 -shared -fPIC`) into build/host/ under a name that carries the hash of
+the source and of the `csrc/` headers it includes, and loaded with ctypes.
 
 One thread of a process builds a library while the others wait (the
 training loader reads from several threads); the library is written under a
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -32,7 +34,10 @@ def load(source: str, stem: str, user: str, build_dir: Path = BUILD_DIR) -> ctyp
     errors. The caller keeps the handle."""
     with _lock:
         path = CSRC / source
-        digest = hashlib.sha256(path.read_bytes() + " ".join(CFLAGS).encode()).hexdigest()[:16]
+        text = path.read_bytes()
+        headers = re.findall(rb'^#include "([^"]+)"', text, re.M)
+        digest = hashlib.sha256(b"".join([text, *((CSRC / h.decode()).read_bytes() for h in headers)])
+                                + " ".join(CFLAGS).encode()).hexdigest()[:16]
         out = build_dir / f"lib{stem}_{digest}.so"
         if not out.exists():
             cc = os.environ.get("CC") or shutil.which("cc") or shutil.which("gcc")

@@ -1,9 +1,11 @@
 """Frame conversion, import and export (counterpart of hi3d_tpu/utils/video.py).
 
-Frames are always written as PNGs with the stdlib codec; an mp4 is written
-besides only when `imageio` or `cv2` can be imported on the host. A video
-is read back from such a frames directory with the stdlib codec, or from an
-mp4 when one of those readers imports.
+A clip is written as PNG frames (stdlib codec) and as an H.264 mp4 with the
+port's own encoder and muxer (utils/h264.py, utils/mp4.py; no cv2 or
+imageio), on every host. It is read back from such a frames directory or
+mp4 with the same codecs; an mp4 the port's decoder does not take (the
+High-profile streams of libx264, cv2's MPEG-4 Part 2) goes to imageio or
+cv2 where they import, as JAX reads it.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from . import h264, mp4
 from .image import load_image_rgb
 from .png import write_png
 
@@ -47,35 +50,14 @@ def tensor2vid(
     return [(f * 255.0).round().astype(np.uint8) for f in video]
 
 
-def _write_mp4(frames: List[np.ndarray], path: str, fps: int) -> str:
-    """Returns the name of the writer used, or "" when none is usable."""
-    try:
-        import imageio
-
-        with imageio.get_writer(path, fps=fps, quality=9, pixelformat="yuv420p") as w:
-            for f in frames:
-                w.append_data(f)
-        return "imageio"
-    except (ImportError, ValueError):  # ValueError: imageio without an mp4 backend
-        pass
-    try:
-        import cv2
-    except ImportError:
-        return ""
-    h, w = frames[0].shape[:2]
-    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
-    for f in frames:
-        writer.write(np.ascontiguousarray(f[..., ::-1]))
-    writer.release()
-    return "cv2"
-
-
-def export_to_video(frames: List[np.ndarray], output_path: str, fps: int = 8) -> str:
-    """Write `frames/NNN.png` beside `output_path`, and the mp4 when a writer
-    imports. Both hold the clip padded with its last frame to a whole number
-    of seconds at `fps` (reference vtdm/util.py:44-47), so a reader of either
-    sees the same frames. Returns the mp4 path, or the frames directory
-    without one."""
+def export_to_video(frames: List[np.ndarray], output_path: str, fps: int = 8,
+                    quality: int = 9) -> str:
+    """Write `frames/NNN.png` beside `output_path` and the H.264 mp4 at
+    `output_path` (utils/h264.py, utils/mp4.py; QP from `quality` as
+    imageio-ffmpeg's CRF, 5 at the default 9). Both hold the clip padded
+    with its last frame to a whole number of seconds at `fps` (reference
+    vtdm/util.py:44-47), so a reader of either sees the same frames.
+    Returns the mp4 path, as JAX's export does; a failed encode raises."""
     out_dir = os.path.dirname(output_path) or "."
     frame_dir = os.path.join(out_dir, "frames")
     os.makedirs(frame_dir, exist_ok=True)
@@ -84,20 +66,35 @@ def export_to_video(frames: List[np.ndarray], output_path: str, fps: int = 8) ->
         padded += [padded[-1]] * (fps - len(padded) % fps)
     for i, f in enumerate(padded):
         write_png(os.path.join(frame_dir, f"{i:03d}.png"), f)
-    writers = ["png"]
-    mp4 = _write_mp4(padded, output_path, fps)
-    if mp4:
-        writers.append(f"mp4:{mp4}")
-    print(f"[video] wrote {len(frames)} frames, padded to {len(padded)}, to {frame_dir} "
-          f"(writers: {', '.join(writers)})")
-    return output_path if mp4 else frame_dir
+    h, w = padded[0].shape[:2]
+    enc = h264.encode(padded, h264.quality_to_qp(quality), fps)
+    size = mp4.write_mp4(output_path, enc.sps, enc.pps, enc.samples, w, h, fps)
+    print(f"[video] wrote {len(frames)} frames, padded to {len(padded)}, to {frame_dir} and "
+          f"{output_path} (H.264 QP {h264.quality_to_qp(quality)}, {size} bytes)")
+    return output_path
 
 
-def _read_mp4(path: str, max_frames: Optional[int] = None) -> List[np.ndarray]:
+def read_mp4(path: str, max_frames: Optional[int] = None) -> np.ndarray:
+    """(T, H, W, 3) uint8 RGB of the port's own H.264 mp4 streams (the
+    subset utils/h264.py decodes), the first `max_frames` only when given."""
+    track = mp4.read_mp4(path)
+    samples = track.samples[:max_frames] if max_frames is not None else track.samples
+    planes = h264.decode(track.sps, track.pps, samples, track.length_size,
+                         os.path.basename(path))
+    if not planes:
+        raise ValueError(f"{os.path.basename(path)}: no frames")
+    return np.stack([h264.to_rgb(*p) for p in planes])
+
+
+def _read_foreign(path: str, max_frames: Optional[int]) -> List[np.ndarray]:
+    """A stream the port's decoder refuses, read as JAX reads it: imageio's
+    ffmpeg plugin, then cv2; raises ImportError when neither imports. (Only
+    the ffmpeg plugin: without it imageio hands an mp4 to plugins that read
+    no frames of it.)"""
     try:
         import imageio
 
-        with imageio.get_reader(path) as r:
+        with imageio.get_reader(path, format="FFMPEG") as r:
             frames = []
             for f in r:
                 if max_frames is not None and len(frames) >= max_frames:
@@ -106,12 +103,8 @@ def _read_mp4(path: str, max_frames: Optional[int] = None) -> List[np.ndarray]:
             return frames
     except (ImportError, ValueError):  # ValueError: imageio without an mp4 backend
         pass
-    try:
-        import cv2
-    except ImportError:
-        raise RuntimeError(
-            f"cannot read {path!r}: no mp4 reader (imageio or cv2) imports here; pass the "
-            "stage-1 frames directory (<output_dir>/first_step/frames) instead") from None
+    import cv2
+
     cap = cv2.VideoCapture(path)
     frames = []
     try:
@@ -130,8 +123,10 @@ def _read_mp4(path: str, max_frames: Optional[int] = None) -> List[np.ndarray]:
 def import_video(path: str, max_frames: Optional[int] = None) -> np.ndarray:
     """(T, H, W, 3) uint8 RGB frames, the first `max_frames` only when given:
     a directory of frame PNGs (read in name order with the stdlib codec, as
-    `export_to_video` writes them) or an mp4 file (imageio or cv2; raises
-    when neither imports)."""
+    `export_to_video` writes them) or an mp4 file, read with the port's
+    H.264 decoder. A stream outside its subset (h264.Unsupported) is read
+    through imageio or cv2 where one imports, as JAX reads it, and raises
+    the refusal where neither does; a damaged file raises a ValueError."""
     if os.path.isdir(path):
         names = sorted(n for n in os.listdir(path) if n.lower().endswith(".png"))
         if not names:
@@ -139,4 +134,10 @@ def import_video(path: str, max_frames: Optional[int] = None) -> np.ndarray:
         return np.stack([load_image_rgb(os.path.join(path, n)) for n in names[:max_frames]])
     if not os.path.exists(path):
         raise FileNotFoundError(path)
-    return np.stack(_read_mp4(path, max_frames))
+    try:
+        return read_mp4(path, max_frames)
+    except h264.Unsupported as refusal:
+        try:
+            return np.stack(_read_foreign(path, max_frames))
+        except ImportError:
+            raise refusal from None

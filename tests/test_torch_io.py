@@ -7,10 +7,12 @@
   files written by PIL at 1, 2, 4 and 8 bits, with and without a tRNS chunk,
   must load identically through `load_image_rgb` (inference) and through the
   render reader of the training data (white composite).
-- Stage 2's default input: the port's v2v reads the stage-1 frames directory,
-  the JAX package the stage-1 mp4. Both must select the same frames when the
-  stage-1 clip is not a whole number of seconds at `fps`. The JAX mp4 is
-  captured as the padded frame list its `export_to_video` hands its writer.
+- Stage 2's default input: both packages' v2v read the stage-1 mp4 (the
+  port's own H.264 file). Both must select the same frames when the stage-1
+  clip is not a whole number of seconds at `fps`. The JAX mp4 is captured as
+  the padded frame list its `export_to_video` hands its writer, passed
+  through the port's codec (a deterministic encode: its reconstruction is
+  what the port's decoder returns).
 
 Exact comparisons: both sides decode the same bytes and resize flat frames.
 """
@@ -158,11 +160,13 @@ def test_palette_png_loads_as_in_jax(tmp_path, bits, trns):
 
 
 def test_stage2_default_input_selects_jax_frames(tmp_path, monkeypatch):
-    """31 stage-1 frames at fps 8, clip_size 20: the port's v2v on the
-    frames directory picks the frames JAX's v2v picks from the mp4."""
+    """31 stage-1 frames at fps 8, clip_size 20: the port's v2v on its
+    default input, first.mp4, picks the frames JAX's v2v picks from the
+    mp4."""
     from hi3d_tpu.pipelines import v2v as jax_v2v
     from hi3d_tpu.utils.video import export_to_video as jax_export_to_video
     from hi3d_tpu_torch.pipelines.v2v import prepare_inputs
+    from hi3d_tpu_torch.utils import h264
     from hi3d_tpu_torch.utils.png import write_png
     from hi3d_tpu_torch.utils.video import export_to_video
 
@@ -184,19 +188,21 @@ def test_stage2_default_input_selects_jax_frames(tmp_path, monkeypatch):
         def append_data(self, f):
             mp4.append(np.asarray(f))
 
-    with monkeypatch.context() as m:  # no mp4 writer on either side
+    with monkeypatch.context() as m:  # no cv2 or imageio writer on the port's side
         m.setitem(sys.modules, "cv2", None)
         m.setitem(sys.modules, "imageio", None)
-        frame_dir = export_to_video(frames, str(tmp_path / "first_step" / "first.mp4"), fps=fps)
+        first = export_to_video(frames, str(tmp_path / "first_step" / "first.mp4"), fps=fps)
         m.setitem(sys.modules, "imageio",
                   types.SimpleNamespace(get_writer=lambda *a, **kw: _Writer()))
         jax_export_to_video(frames, str(tmp_path / "jax" / "first.mp4"), fps=fps)
-    assert len(mp4) == 32
-    monkeypatch.setattr(jax_v2v, "import_video", lambda path: list(mp4))
+    assert len(mp4) == 32 and first.endswith("first.mp4")
+    coded = [h264.to_rgb(*r) for r in h264.encode(mp4, 5, fps).recon]
+    monkeypatch.setattr(jax_v2v, "import_video", lambda path: list(coded))
     want, want_masks = jax_v2v.prepare_inputs(clean, "first.mp4", clip, (res, res))
-    got, got_masks = prepare_inputs(clean, frame_dir, clip, (res, res))
+    got, got_masks = prepare_inputs(clean, first, clip, (res, res))
     assert got.shape == (clip, res, res, 3)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got_masks, want_masks)
-    np.testing.assert_array_equal(got[-1], frames[-1])  # the padded tail
-    np.testing.assert_array_equal(got[1], frames[32 - clip + 1])  # not frames[t - clip + 1]
+    np.testing.assert_array_equal(got[-1], coded[-1])  # the padded tail
+    np.testing.assert_array_equal(got[1], coded[32 - clip + 1])  # not frames[t - clip + 1]
+    assert np.abs(coded[32 - clip + 1].astype(int) - frames[32 - clip + 1]).max() <= 3

@@ -292,9 +292,11 @@ class _Media:
 
 def test_image_logger_files_match_jax(tmp_path, capsys):
     """Both loggers on the same media: JAX's `step…_{key}_{i}.mp4` becomes
-    the port's directory of that name holding its PNG frames (padded to whole
-    seconds at 8 fps, as JAX's export pads the mp4), the image entry the same
-    PNG; a failing log_images is printed, not raised."""
+    the port's directory of that name holding its PNG frames and that mp4
+    (padded to whole seconds at 8 fps, as JAX's export pads its mp4; the
+    port's decodes to the H.264 reconstruction of the PNGs, as many frames
+    as cv2 reads from JAX's), the image entry the same PNG; a failing
+    log_images is printed, not raised."""
     from hi3d_tpu.training.trainer import ImageLogger as JaxImageLogger
     from hi3d_tpu_torch.training.trainer import ImageLogger
     from hi3d_tpu_torch.utils.png import read_png
@@ -321,6 +323,16 @@ def test_image_logger_files_match_jax(tmp_path, capsys):
     assert len(got) == 8  # 3 frames padded with the last to one second at 8 fps
     np.testing.assert_array_equal(got[:3], want)
     np.testing.assert_array_equal(got[3:], np.repeat(want[-1:], 5, axis=0))
+    assert sorted(os.listdir(frames.parent)) == ["frames", "step00000010_samples_0.mp4"]
+    from hi3d_tpu_torch.utils import h264
+    from hi3d_tpu_torch.utils.video import import_video
+
+    video = import_video(str(frames.parent / "step00000010_samples_0.mp4"))
+    np.testing.assert_array_equal(video, [h264.to_rgb(*r) for r in h264.encode(got, 5, 8).recon])
+    import cv2
+
+    assert cv2.VideoCapture(str(ref / "step00000010_samples_0.mp4")).get(
+        cv2.CAP_PROP_FRAME_COUNT) == len(video)
 
     class Failing:
         device = torch.device("cpu")

@@ -57,11 +57,17 @@ def test_orbit_server_matches_jax_per_asset(models):  # noqa: F811
     np.testing.assert_allclose(out, ref, atol=2e-3, rtol=0)
 
 
-def test_serve_cli_orbit_mode_pads_and_drops(tmp_path):
+def test_serve_cli_orbit_mode_pads_and_drops(tmp_path, monkeypatch):
     """3 PNGs with --batch 2: two batches, the second padded with the last
-    image, and only the 3 real assets written, each under its own name."""
+    image, and only the 3 real assets written, each under its own name: its
+    PNG frames and its H.264 orbit.mp4, with cv2 and imageio hidden (the
+    port's own encoder writes it on any host)."""
     from hi3d_tpu_torch.pipelines import serve
     from hi3d_tpu_torch.utils.png import read_png, write_png
+    from hi3d_tpu_torch.utils.video import import_video
+
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    monkeypatch.setitem(sys.modules, "imageio", None)
 
     image_dir = tmp_path / "images"
     image_dir.mkdir()
@@ -87,6 +93,9 @@ def test_serve_cli_orbit_mode_pads_and_drops(tmp_path):
         frames = np.stack([read_png(str(frame_dir / f)) for f in names])
         assert frames.shape == (8, 32, 32, 3) and frames.dtype == np.uint8
         assert (frames[t:] == frames[t - 1]).all()
+        assert str(out_dir / name / "orbit.mp4") in result["outputs"]
+        video = import_video(str(out_dir / name / "orbit.mp4"))
+        assert video.shape == frames.shape and (video[t:] == video[t - 1]).all()
     assert {"conditioner", "sampler", "vae_decode", "io"} <= set(result["phases"])
 
 

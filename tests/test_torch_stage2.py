@@ -328,42 +328,55 @@ def test_stage2_training_branch_and_wide_decode_raise(models):
 
 
 def test_mp4_input_without_reader_raises(tmp_path, monkeypatch):
-    """A stage-1 mp4 is read only through imageio or cv2: without either the
-    import raises and names the frames directory, never falling back."""
+    """A stage-1 mp4 the port's decoder does not take (here an MPEG-4 Part 2
+    sample entry) is read only through imageio or cv2: without either the
+    import raises the decoder's refusal, never falling back; a file that is
+    no mp4 raises naming it."""
+    from hi3d_tpu_torch.utils import h264, mp4
     from hi3d_tpu_torch.utils.video import import_video
 
     path = tmp_path / "first.mp4"
     path.write_bytes(b"\x00" * 64)
     monkeypatch.setitem(sys.modules, "imageio", None)
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(RuntimeError, match="first_step/frames"):
+    with pytest.raises(ValueError, match="first.mp4: not an ISO BMFF file"):
+        import_video(str(path))
+    enc = h264.encode([np.zeros((32, 32, 3), np.uint8)], 26, 8)
+    mp4.write_mp4(str(path), enc.sps, enc.pps, enc.samples, 32, 32, 8)
+    blob = path.read_bytes()
+    entry = blob.index(b"avc1", blob.index(b"stsd"))
+    path.write_bytes(blob[:entry] + b"mp4v" + blob[entry + 4:])
+    with pytest.raises(h264.Unsupported, match="'mp4v' stream"):
         import_video(str(path))
 
 
 def test_v2v_cli_reads_stage1_frames(tmp_path):
-    """The port's v2v CLI on CPU at 64²: the tiny stage-2 config, a stage-1
-    frames directory (T + 2 PNGs; the last T are used) and a clean image,
-    PNG frames written under second_step_video/, phases printed."""
+    """The port's v2v CLI on CPU at 64²: the tiny stage-1 output as i2v
+    writes it (T + 2 frames padded to 8 at fps 8: the PNG frames directory
+    and first.mp4, which the CLI reads by default; the last T frames are
+    used), a clean image, PNG frames written under second_step_video/,
+    phases printed."""
     import yaml
 
     from hi3d_tpu_torch.utils.png import read_png, write_png
-    from hi3d_tpu_torch.utils.video import import_video
+    from hi3d_tpu_torch.utils.video import export_to_video, import_video
     from hi3d_tpu_torch.pipelines.v2v import prepare_inputs
 
     rnd = np.random.RandomState(7)
     out_dir = tmp_path / "out"
     frame_dir = out_dir / "first_step" / "frames"
-    frame_dir.mkdir(parents=True)
     video = rnd.randint(0, 255, (T + 2, 32, 32, 3)).astype(np.uint8)
-    for i, f in enumerate(video):
-        write_png(str(frame_dir / f"{i:03d}.png"), f)
+    first = export_to_video(list(video), str(out_dir / "first_step" / "first.mp4"), fps=8)
+    padded = np.concatenate([video, np.repeat(video[-1:], 8 - len(video), axis=0)])
     img = np.full((32, 32, 3), 255, np.uint8)
     img[8:24, 8:24] = [200, 30, 40]
     write_png(str(tmp_path / "clean.png"), img)
-    np.testing.assert_array_equal(import_video(str(frame_dir)), video)
-    frames, masks = prepare_inputs(str(tmp_path / "clean.png"), str(frame_dir), T, (RES, RES))
-    assert frames.shape == (T, RES, RES, 3) and masks.shape == (T, RES, RES)
-    assert masks[0, 32, 32] == 1.0 and masks[0, 2, 2] == 0.0  # frame 0 is the clean image
+    np.testing.assert_array_equal(import_video(str(frame_dir)), padded)
+    assert import_video(first).shape == padded.shape
+    for src in (str(frame_dir), first):
+        frames, masks = prepare_inputs(str(tmp_path / "clean.png"), src, T, (RES, RES))
+        assert frames.shape == (T, RES, RES, 3) and masks.shape == (T, RES, RES)
+        assert masks[0, 32, 32] == 1.0 and masks[0, 2, 2] == 0.0  # frame 0 is the clean image
 
     cfg = tmp_path / "tiny.yaml"
     cfg.write_text(yaml.safe_dump(
@@ -387,3 +400,5 @@ def test_v2v_cli_reads_stage1_frames(tmp_path):
     got = np.stack([read_png(str(out_frames / n)) for n in names])
     assert got.shape == (8, RES, RES, 3) and got.dtype == np.uint8
     assert (got[T:] == got[T - 1]).all()
+    second = import_video(str(out_dir / "second_step_video" / "second.mp4"))
+    assert second.shape == got.shape
