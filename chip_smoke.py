@@ -38,7 +38,7 @@ text-to-image and module-surface paths on one NVIDIA H100.
    beside the one PyTorch call that computes the same function, where there
    is one (`library_ms`), and the least time the card could take (`bound_ms`);
 4. runs the full-width stage-1 UNet (one res block a level: depth cut, the
-   widths kept) once at a small input (1 × 4 frames) on the card and
+   widths kept) once at a small input (1 × 4 frames, an 8² latent) on the card and
    holds its output, then its parameter gradient, against the same weights
    on the CPU (plain versions, fp32 and bf16); the same for the output and
    the gradient of the full-width stage-2 UNet (17 input channels), and for
@@ -51,7 +51,9 @@ text-to-image and module-surface paths on one NVIDIA H100.
    cv2 imports) and every kernel's launch count against the model's plan;
 6. main path 2: `hi3d_tpu_torch.train.main` on configs/train-v01.yaml at
    full width (2 videos × 16 × 512² per step, random weights, renders made
-   from demo/3.png) for 4 steps with the JAX CLI's defaults: the image
+   from demo/3.png, every other one a 32-bit BMP with alpha; one seeded
+   window's clip first held bit-equal to the same frames as PNGs) for 4
+   steps with the JAX CLI's defaults: the image
    logger dumps at the last step (`batch_frequency` set to the step count),
    the post-train test pass runs on an eval folder holding demo/3.png, and
    `--outckpt` exports the weights; checks finite losses, moved parameters,
@@ -76,7 +78,9 @@ text-to-image and module-surface paths on one NVIDIA H100.
    (`mp4_check`) and the launch counts (#6 on every frame-axis site, K2
    none);
 9. main path 5: `hi3d_tpu_torch.pipelines.full.main` at full width on
-   demo/3.png (configs/inference-v01.yaml → configs/inference-v02.yaml, 16 ×
+   tests/data/torch_tiff/demo3_lzw_pred2.tif (demo/3.png as cv2 writes an
+   LZW TIFF with the predictor, its decode first held bit-equal to the
+   PNG's) (configs/inference-v01.yaml → configs/inference-v02.yaml, 16 ×
    512² → 16 × 1024², 4 steps each, random weights), background removal by
    a full U²-Net with random weights saved under outputs/ and named by
    HI3D_U2NET_CKPT; checks rgba.png and white.png, that stage 2 read
@@ -174,7 +178,11 @@ text-to-image and module-surface paths on one NVIDIA H100.
    batches of 1), each within `SERVE_DIST_REL_L2` of one process and with
    each rank's launches equal to its plan (`serve_dist_plans`); prints
    per-rank seconds, collectives (`CollectiveProbe`) and peaks;
-19. prints the mp4 medians (encode and decode ms a frame on the host CPU,
+19. main path 16 also decodes every committed PNG, JPEG, WebP, BMP, TIFF,
+   GIF, PNM and Sun raster fixture (tests/data/torch_*/) against its cv2
+   golden through read_image, decode_image and load_image_rgb, and prints
+   each format's decode ms on the host CPU at 512² and 517×389;
+20. prints the mp4 medians (encode and decode ms a frame on the host CPU,
    bytes a frame, at 512² and 1024²) beside the card line, the kernel JSON
    line (launches per path and summed, errors, times, bounds), the card
    line, and the contract line last.
@@ -211,6 +219,11 @@ LONG_UNET_CLIP = 33
 # widths kept, that pay for the mp4 checks within the call
 REF_RES_BLOCKS = 1
 REF_VIDEOS = 1
+# and the latent side of their inputs: 8² (16² before), a cut of scale
+# that keeps the call within its time on slower hosts (the CPU passes' work
+# scales with the positions; every kernel site still runs, K1 down to one
+# position, #6/#7 at LONG_UNET_CLIP frames)
+REF_HW = 8
 STAGE2_STEPS = 25  # the configured sampler steps (configs/inference-v02.yaml)
 
 
@@ -1380,7 +1393,8 @@ def unet_reference_phase(config_path: str, b: int = 2, t: int = 4, hw: int = 16,
     return launches
 
 
-def unet_gradient_phase(config_path: str, b: int = 2, t: int = 4, outputs: bool = False) -> dict:
+def unet_gradient_phase(config_path: str, b: int = 2, t: int = 4, outputs: bool = False,
+                        hw: int = 16) -> dict:
     """The gradient of a loss on the full-width UNet (same set-up as
     `unet_reference_phase`) with respect to every parameter, training's way
     on the card — fp32 weights, bf16 compute under the UNet's autocast,
@@ -1404,7 +1418,7 @@ def unet_gradient_phase(config_path: str, b: int = 2, t: int = 4, outputs: bool 
     import torch
 
     t0 = time.perf_counter()
-    unet, inputs, t = _full_width_unet(config_path, b, t)
+    unet, inputs, t = _full_width_unet(config_path, b, t, hw)
     cpu = copy.deepcopy(unet).to("cpu")
     cpu.use_checkpoint = False
     gen = torch.Generator().manual_seed(5)
@@ -1459,7 +1473,7 @@ def unet_gradient_phase(config_path: str, b: int = 2, t: int = 4, outputs: bool 
         if not torch.isfinite(card_out).all() or not out_rel <= 1.5 * out_plain:
             raise AssertionError(f"UNet output on the card: error {out_rel} > 1.5 × plain bf16 "
                                  f"{out_plain}")
-    print(f"[smoke] full-width UNet gradient, {b}×{t} frames ({len(names)} tensors, "
+    print(f"[smoke] full-width UNet gradient, {b}×{t} frames at {hw}² ({len(names)} tensors, "
           f"{numel} values), loss card {card_loss:.6f} ref {ref_loss:.6f}: card relative L2 "
           f"error {rel:.3e}, plain bf16 {plain_rel:.3e} (tol {1.5 * plain_rel:.3e}); every "
           f"gradient finite, nonzero where the reference's is ({zero_ref} structurally zero in "
@@ -1498,15 +1512,15 @@ def reference_phases() -> dict:
     root = tempfile.mkdtemp(prefix="chip_smoke_ref_", dir=os.path.join(ROOT, "outputs"))
     inference = depth_cut_config("inference-v01.yaml", root)
     stage2 = depth_cut_config("inference-v02.yaml", root)
-    unet_reference_phase(inference, b=REF_VIDEOS)
-    unet_gradient_phase(inference, b=REF_VIDEOS)
-    unet_reference_phase(stage2, b=REF_VIDEOS)
-    by_path = {"unet_grad_stage2": unet_gradient_phase(stage2, b=REF_VIDEOS)}
+    unet_reference_phase(inference, b=REF_VIDEOS, hw=REF_HW)
+    unet_gradient_phase(inference, b=REF_VIDEOS, hw=REF_HW)
+    unet_reference_phase(stage2, b=REF_VIDEOS, hw=REF_HW)
+    by_path = {"unet_grad_stage2": unet_gradient_phase(stage2, b=REF_VIDEOS, hw=REF_HW)}
     # the long clip's output is held inside its gradient phase (the same
     # fp32 reference, the same bound), one full-width build and two CPU
     # forward passes fewer than a reference phase of its own
-    by_path[f"unet_grad_t{LONG_UNET_CLIP}"] = unet_gradient_phase(inference, b=1,
-                                                                  t=LONG_UNET_CLIP, outputs=True)
+    by_path[f"unet_grad_t{LONG_UNET_CLIP}"] = unet_gradient_phase(
+        inference, b=1, t=LONG_UNET_CLIP, outputs=True, hw=REF_HW)
     print(f"[smoke] reference phases (UNets at {REF_RES_BLOCKS} res block a level): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return by_path
@@ -1790,10 +1804,37 @@ def _demo_rgba() -> np.ndarray:
     return np.concatenate([img, alpha], axis=-1)
 
 
-def write_renders(root: str, folders: int = 2, frames: int = 96) -> str:
+def bmp_bytes(img: np.ndarray) -> bytes:
+    """A BMP of uint8 (H, W, 3) RGB (24 bits, BI_RGB) or (H, W, 4) RGBA (32
+    bits, BI_BITFIELDS in a V5 header with the B, G, R, A byte masks: the
+    header cv2 writes for 4 channels and reads back as 4), bottom-up."""
+    h, w, c = img.shape
+    rows = img[::-1, :, [2, 1, 0, 3][:c]].reshape(h, w * c)
+    pitch = (w * c + 3) & ~3
+    data = np.zeros((h, pitch), np.uint8)
+    data[:, :w * c] = rows
+    if c == 3:
+        info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, data.size, 2835, 2835, 0, 0)
+    else:
+        info = struct.pack("<IiiHHIIiiII", 124, w, h, 1, 32, 3, data.size, 2835, 2835, 0, 0)
+        info += struct.pack("<4I", 0xFF0000, 0xFF00, 0xFF, 0xFF000000) + b"sRGB"
+        info = info.ljust(124, b"\0")
+    offset = 14 + len(info)
+    return b"BM" + struct.pack("<IHHI", offset + data.size, 0, 0, offset) + info + \
+        data.tobytes()
+
+
+def _render(rgba: np.ndarray, f: int, i: int) -> np.ndarray:
+    band, az = divmod(i, 16)
+    return np.roll(rgba, (8 * band - 20, 32 * az + 13 * f), axis=(0, 1))
+
+
+def write_renders(root: str, folders: int = 2, frames: int = 96, bmp_every: int = 0) -> str:
     """Orbit-render stand-ins: `folders` folders of `frames` RGBA 512² PNGs
     made from demo/3.png (`_demo_rgba`), rolled by an amount that grows with
-    the azimuth and the elevation band, written with the port's PNG writer."""
+    the azimuth and the elevation band, written with the port's PNG writer;
+    with `bmp_every` k, frame i with i % k == 1 as a 32-bit BMP instead
+    (`bmp_bytes`)."""
     from hi3d_tpu_torch.utils.png import write_png
 
     rgba = _demo_rgba()
@@ -1801,10 +1842,49 @@ def write_renders(root: str, folders: int = 2, frames: int = 96) -> str:
         d = os.path.join(root, f"obj{f:02d}")
         os.makedirs(d, exist_ok=True)
         for i in range(frames):
-            band, az = divmod(i, 16)
-            write_png(os.path.join(d, f"{i:03d}.png"),
-                      np.roll(rgba, (8 * band - 20, 32 * az + 13 * f), axis=(0, 1)))
+            if bmp_every and i % bmp_every == 1:
+                with open(os.path.join(d, f"{i:03d}.bmp"), "wb") as out:
+                    out.write(bmp_bytes(_render(rgba, f, i)))
+            else:
+                write_png(os.path.join(d, f"{i:03d}.png"), _render(rgba, f, i))
     return root
+
+
+def bmp_clip_check(renders: str) -> None:
+    """Main path 2's renders mix PNG and BMP frames: a seeded window's clip
+    from the folder dataset equals, bit for bit, the clip of the same
+    frames written as PNGs only (a twin of obj00; its PNGs linked)."""
+    from hi3d_tpu_torch.data.video_dataset import VideoTrainDataset
+    from hi3d_tpu_torch.utils.png import write_png
+
+    t0 = time.perf_counter()
+    src = os.path.join(renders, "obj00")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pngs_", dir=os.path.dirname(renders))
+    twin = os.path.join(tmp, "pngs", "obj00")
+    os.makedirs(twin)
+    rgba = _demo_rgba()
+    for name in sorted(os.listdir(src)):
+        i = int(name[:3])
+        if name.endswith(".png"):
+            os.symlink(os.path.join(src, name), os.path.join(twin, name))
+        else:
+            write_png(os.path.join(twin, f"{i:03d}.png"), _render(rgba, 0, i))
+    mixed = os.path.join(tmp, "mixed")
+    os.makedirs(mixed)
+    os.symlink(src, os.path.join(mixed, "obj00"))
+    kw = dict(width=512, height=512, sample_frames=16)
+    rng = 5
+    with no_cv2():
+        got = VideoTrainDataset(mixed, **kw).sample(np.random.RandomState(rng))
+        want = VideoTrainDataset(os.path.dirname(twin), **kw).sample(np.random.RandomState(rng))
+    bmps = sum(n.endswith(".bmp") for n in os.listdir(src))
+    shutil.rmtree(tmp)
+    if got["caption"][:-4] != want["caption"][:-4] or not np.array_equal(got["video"],
+                                                                        want["video"]):
+        raise AssertionError(f"BMP renders: the clip of {got['caption']} differs from the PNGs'")
+    print(f"[train] {bmps} of obj00's frames are BMPs; the clip of seed {rng} "
+          f"({got['caption']}, {got['video'].shape}) equals the PNG frames' bit for bit "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
 @contextlib.contextmanager
@@ -2029,8 +2109,10 @@ def training_path(steps: int):
     cfg = load_config(config)
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=os.path.join(ROOT, "outputs"))
     t0 = time.perf_counter()
-    renders = write_renders(os.path.join(out_dir, "renders"))
-    print(f"[train] wrote 2×96 RGBA 512² renders in {time.perf_counter() - t0:.1f} s", flush=True)
+    renders = write_renders(os.path.join(out_dir, "renders"), bmp_every=2)
+    print(f"[train] wrote 2×96 RGBA 512² renders (every other one a 32-bit BMP) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    bmp_clip_check(renders)
 
     # the seeded initial UNet, built as train.main builds it, kept on the host
     seed = 0
@@ -3891,7 +3973,9 @@ def path1_frames(stage1_dir) -> np.ndarray:
 JPEG_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_jpeg")
 # the image fixtures with cv2's goldens, by format (path 16 decodes them all)
 IMAGE_FIXTURES = {fmt: os.path.join(ROOT, "tests", "data", f"torch_{fmt.lower()}")
-                  for fmt in ("PNG", "JPEG", "WebP")}
+                  for fmt in ("PNG", "JPEG", "WebP", "BMP", "TIFF", "GIF", "PNM")}
+# main path 5's input: demo/3.png as cv2 writes an LZW TIFF with the predictor
+PATH5_IMAGE = os.path.join(IMAGE_FIXTURES["TIFF"], "demo3_lzw_pred2.tif")
 PATH7_IMAGE = os.path.join(JPEG_FIXTURES, "demo3_q90.jpg")  # path 7 reads a JPEG
 SPLAT_MODES = ("sum", "avg", "linear", "soft")
 # fp32 on the card against float64 on the CPU, relative to the largest entry
@@ -3914,7 +3998,7 @@ PWC_LEVELS = ((196, 8), (128, 16), (96, 32), (64, 64), (32, 128))
 # 1×1-conv projections, an inert dropout
 UNET_OPTIONS = {"use_spatial_context": False, "use_linear_in_transformer": False,
                 "dropout": 0.1}
-OPTIONS_CHECK = dict(b=1, t=4, hw=32)  # the options' card-against-CPU call
+OPTIONS_CHECK = dict(b=1, t=4, hw=16)  # the options' card-against-CPU call (32² before)
 COND_SIGMA = {"target": "sgm.modules.diffusionmodules.sigma_sampling.EDMSampling",
               "params": {"p_mean": -3.0, "p_std": 0.5}}
 
@@ -4138,6 +4222,20 @@ def _digest(img: np.ndarray) -> dict:
     return {"shape": list(img.shape), "sha256": hashlib.sha256(img.tobytes()).hexdigest()}
 
 
+@contextlib.contextmanager
+def no_cv2():
+    """Within: `utils.image` hands no file to cv2, even where cv2 imports,
+    so that a decode the port cannot do fails the phase."""
+    from hi3d_tpu_torch.utils import image
+
+    found = image._cv2
+    image._cv2 = lambda: None
+    try:
+        yield
+    finally:
+        image._cv2 = found
+
+
 def check_golden(path: str) -> np.ndarray:
     """The port's decode of a committed image fixture (`utils.image`, no
     cv2) held against its cv2 golden (shape and SHA-256 in the folder's
@@ -4153,13 +4251,21 @@ def check_golden(path: str) -> np.ndarray:
 
 
 def decode_phase() -> None:
-    """Every PNG, JPEG and WebP fixture decoded on this host by the port
-    (cv2 plays no part) against its cv2 golden and through
-    `load_image_rgb`; then each format's
-    decode ms (median of 5, the host's CPU) at 512² and 517×389: PNGs the
-    port writes of demo/3.png and of the 389×517 JPEG fixture's decode,
-    the committed JPEGs (baseline, progressive) and WebPs (lossy with
-    alpha at 512², lossy at 517×389, lossless at 61×47)."""
+    with no_cv2():
+        _decode_phase()
+
+
+def _decode_phase() -> None:
+    """Every PNG, JPEG, WebP, BMP, TIFF, GIF, PNM and Sun raster fixture
+    decoded on this host by the port (cv2 plays no part) against its cv2
+    golden through `read_image` and `decode_image`, and through
+    `load_image_rgb`; then each format's decode ms (median of 5, the host's
+    CPU) at 512² and 517×389: PNGs the port writes of demo/3.png and of the
+    389×517 JPEG fixture's decode, the committed JPEGs (baseline,
+    progressive) and WebPs (lossy with alpha at 512², lossy at 517×389,
+    lossless at 61×47); at 512², demo/3.png as a 24-bit BMP and a PPM
+    written here, and the committed LZW + predictor TIFF, Deflate TIFF
+    and GIF."""
     from hi3d_tpu_torch.utils.image import decode_image, load_image_rgb
     from hi3d_tpu_torch.utils.png import write_png
 
@@ -4171,14 +4277,17 @@ def decode_phase() -> None:
         for name in names:
             path = os.path.join(folder, name)
             img = check_golden(path)
+            with open(path, "rb") as f:
+                if not np.array_equal(decode_image(f.read(), path), img):
+                    raise AssertionError(f"{name}: decode_image disagrees with read_image")
             rgb = load_image_rgb(path)
             if rgb.shape != img.shape[:2] + (3,) or (img.shape[2] == 3 and
                                                      not np.array_equal(rgb, img)):
                 raise AssertionError(f"{name}: load_image_rgb disagrees with the decode")
             count += 1
-    print(f"[path16] {count} PNG, JPEG and WebP fixtures decoded bit-equal to their cv2 "
-          f"goldens ({time.perf_counter() - t0:.2f} s, the C decoders' builds included)",
-          flush=True)
+    print(f"[path16] {count} PNG, JPEG, WebP, BMP, TIFF, GIF, PNM and Sun raster fixtures "
+          f"decoded bit-equal to their cv2 goldens ({time.perf_counter() - t0:.2f} s, the C "
+          "decoders' builds included)", flush=True)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_png_", dir=os.path.join(ROOT, "outputs"))
     pngs = {}
     for label, img in (("512x512", load_image_rgb(os.path.join(ROOT, "demo", "3.png"))),
@@ -4186,6 +4295,13 @@ def decode_phase() -> None:
                                                                "demo3_q30_rst1_389x517.jpg")))):
         pngs[label] = os.path.join(tmp, f"{label}.png")
         write_png(pngs[label], img)
+    demo = load_image_rgb(os.path.join(ROOT, "demo", "3.png"))
+    pngs["bmp"] = os.path.join(tmp, "512x512.bmp")
+    with open(pngs["bmp"], "wb") as f:
+        f.write(bmp_bytes(demo))
+    pngs["ppm"] = os.path.join(tmp, "512x512.ppm")
+    with open(pngs["ppm"], "wb") as f:
+        f.write(b"P6\n512 512\n255\n" + demo.tobytes())
     cases = [("PNG", "512x512 RGB", pngs["512x512"]), ("PNG", "517x389 RGB", pngs["517x389"]),
              ("JPEG", "512x512 baseline 4:2:0", os.path.join(JPEG_FIXTURES, "demo3_q90.jpg")),
              ("JPEG", "512x512 progressive", os.path.join(JPEG_FIXTURES, "asset0.jpg")),
@@ -4198,7 +4314,13 @@ def decode_phase() -> None:
              ("WebP", "517x389 lossy", os.path.join(IMAGE_FIXTURES["WebP"],
                                                    "lossy_q75_389x517.webp")),
              ("WebP", "61x47 lossless", os.path.join(IMAGE_FIXTURES["WebP"],
-                                                    "lossless_61x47.webp"))]
+                                                    "lossless_61x47.webp")),
+             ("BMP", "512x512 24-bit", pngs["bmp"]),
+             ("TIFF", "512x512 LZW + predictor", PATH5_IMAGE),
+             ("TIFF", "512x512 Deflate", os.path.join(IMAGE_FIXTURES["TIFF"],
+                                                      "demo3_deflate.tif")),
+             ("GIF", "512x512", os.path.join(IMAGE_FIXTURES["GIF"], "demo3_512.gif")),
+             ("PNM", "512x512 PPM", pngs["ppm"])]
     times = {}
     for fmt, label, path in cases:
         with open(path, "rb") as f:
@@ -4210,8 +4332,8 @@ def decode_phase() -> None:
             runs.append((time.perf_counter() - t) * 1e3)
         times[f"{fmt} {label}"] = round(float(np.median(runs)), 3)
     shutil.rmtree(tmp, ignore_errors=True)
-    print(f"[path16] decode ms on this host's CPU (median of 5): {json.dumps(times)}",
-          flush=True)
+    print(f"[path16] decode ms on this host's CPU (median of 5), card {card_line()}: "
+          f"{json.dumps(times)}", flush=True)
 
 
 def logger_phase(out_dir: str) -> None:
@@ -4430,7 +4552,9 @@ FULL_CLIP = 16
 
 def full_path(steps: int) -> dict:
     """Main path 5: `hi3d_tpu_torch.pipelines.full.main` at full width on
-    demo/3.png (configs/inference-v01.yaml → configs/inference-v02.yaml,
+    PATH5_IMAGE, demo/3.png as an LZW TIFF with the predictor (its decode
+    first held bit-equal to the PNG's) (configs/inference-v01.yaml →
+    configs/inference-v02.yaml,
     16 × 512² → 16 × 1024², `steps` sampler steps each, random weights),
     background removal by a full U²-Net saved here with random weights and
     named by HI3D_U2NET_CKPT (restored afterwards). Checks temp_image's
@@ -4443,10 +4567,18 @@ def full_path(steps: int) -> dict:
     import torch
 
     from hi3d_tpu_torch.pipelines import full, v2v
+    from hi3d_tpu_torch.utils.image import read_image
     from hi3d_tpu_torch.utils.png import read_png
 
     stage1 = os.path.join(ROOT, "configs", "inference-v01.yaml")
     stage2 = os.path.join(ROOT, "configs", "inference-v02.yaml")
+    with no_cv2():
+        png = read_image(os.path.join(ROOT, "demo", "3.png"))
+        tif = read_image(PATH5_IMAGE)
+    if not np.array_equal(tif, png):
+        raise AssertionError(f"{PATH5_IMAGE} does not decode to demo/3.png's pixels")
+    print(f"[full] {os.path.relpath(PATH5_IMAGE, ROOT)} decodes to demo/3.png's {png.shape} "
+          "pixels bit for bit", flush=True)
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_full_", dir=os.path.join(ROOT, "outputs"))
     ckpt = write_u2net(os.path.join(out_dir, "u2net.pth"))
     expected = full_launches(stage1, stage2, steps)
@@ -4469,7 +4601,7 @@ def full_path(steps: int) -> dict:
     t0 = time.perf_counter()
     try:
         result = full.main(["--stage1_config", stage1, "--stage2_config", stage2,
-                            "--image_path", os.path.join(ROOT, "demo", "3.png"),
+                            "--image_path", PATH5_IMAGE,
                             "--output_dir", out_dir, "--clip_size", str(FULL_CLIP), "--seed", "0",
                             "--num_steps", str(steps), "--device", "cuda"])
     finally:
@@ -5539,8 +5671,8 @@ def main() -> None:
           "from main path 1, conv-only and all, random weights", flush=True)
     by_path["svd_vae"] = svd_vae_path(stage1_dir)
     by_path.update(t2i_phases(os.path.join(stage1_dir, "first_step", "frames")))
-    print("[smoke] main path 16: softsplat, correlation, transforms, PNG, JPEG and WebP "
-          "decodes, the logger, the "
+    print("[smoke] main path 16: softsplat, correlation, transforms, PNG, JPEG, WebP, BMP, "
+          "TIFF, GIF, PNM and Sun raster decodes, the logger, the "
           "VideoUNet's options, the σ-noised conditioning frames", flush=True)
     by_path["modules"] = module_surface_path(path1_frames(stage1_dir))
     print(f"[smoke] main path 17: multi-GPU serving, configs/inference-v01.yaml and -v02.yaml, "

@@ -1,15 +1,17 @@
 """Orbit-render datasets and prefetching loader (counterpart of the folder
 datasets of hi3d_tpu/data/video_dataset.py).
 
-A render folder holds 96 PNG frames: 6 elevation bands
+A render folder holds 96 frames: 6 elevation bands
 (-10, 0, 10, 20, 30, 40) × 16 azimuths. A sample picks a random folder and a
 random start frame; the start frame's band gives the elevation and a cyclic
 16-frame window inside that band. RGBA is composited on white exactly as the
 JAX package's `_rgba_white` does (float, then truncation to uint8), frames
 are resized to the configured size when they differ (cv2 INTER_LINEAR
 sampling, utils/image.py) and scaled to [-1, 1]. Frames decode with the
-port's PNG, JPEG and WebP decoders (`utils.image.read_image`, by the file's
-signature, as cv2 tells them apart): no cv2, no native loader.
+port's decoders (`utils.image.read_image`, by the file's signature, as cv2
+tells them apart: PNG, JPEG, WebP, BMP, TIFF, GIF, PNM, Sun raster), with
+no cv2 and no native loader; a format they do not read goes to cv2 where
+it imports, as every file does in the JAX package.
 
 Stage 2 (`VideoTrainDatasetStage2`, `VideoDatasetStage2`) adds each frame's
 foreground mask — alpha / 255 resized with cv2's float INTER_LINEAR, then
@@ -19,13 +21,12 @@ device (data/degradation.py).
 
 Tar shards (`TarShardVideoDataset`, its stage-2 subclass,
 `pack_folder_to_shards`): `.tar` files whose members are
-`<object>/<frame>` images (PNG, JPEG or WebP), each object's frames contiguous, read in stream
+`<object>/<frame>` images, each object's frames contiguous, read in stream
 mode; each process takes `order[process_index::process_count]` of the
 shards (all of them when that is empty), reshuffled every epoch with
 `seed + epoch`; by default the process's rank and the world size of its
-process group (0 and 1 outside one). PNG, JPEG and WebP members decode with
-the port's readers (`utils.image.decode_image`), as the JAX package's with
-cv2.
+process group (0 and 1 outside one). Members decode with the port's
+readers (`utils.image.decode_image`), as the JAX package's with cv2.
 
 The eval set (`SyncDreamerEvalData`, `prepare_eval_input`) crops RGBA
 images to their alpha, resizes them with PIL's antialiased BICUBIC
@@ -123,7 +124,7 @@ class VideoTrainDataset:
         return len(self.folders)
 
     def _frame(self, img: np.ndarray) -> np.ndarray:
-        """A decoded PNG as (3, H, W) in [-1, 1] on white."""
+        """A decoded frame as (3, H, W) in [-1, 1] on white."""
         return _frame(img, self.width, self.height)
 
     def _load_frame(self, path: str) -> np.ndarray:

@@ -1,8 +1,18 @@
 """Host-side image preprocessing for the CLIs (counterpart of
-hi3d_tpu/utils/image.py), on numpy, the port's PNG codec (utils/png.py) and
-its JPEG and WebP decoders (utils/jpeg.py, utils/webp.py):
-`read_image`/`decode_image` tell the three apart by their signature, as cv2
-does; other formats (BMP, TIFF, ...) need cv2.
+hi3d_tpu/utils/image.py), on numpy and the port's image decoders.
+
+`read_image`, `decode_image` and `load_image_rgb` tell formats apart by one
+signature table (`_FORMATS`), as cv2 does, and decode without cv2 what
+cv2's `IMREAD_UNCHANGED` gives, bit for bit: PNG (utils/png.py), JPEG
+(utils/jpeg.py), WebP (utils/webp.py), BMP (utils/bmp.py), TIFF
+(utils/tiff.py), GIF (utils/gif.py), PNM (utils/pnm.py) and Sun raster
+(utils/sunras.py). A format or a variant the port does not decode (AVIF,
+JPEG 2000, PAM, CCITT TIFF, an arithmetic-coded JPEG, ...) raises
+`Unsupported`, which names it; where cv2 imports, every entry point (and so
+the training datasets) hands such a file to cv2 instead, as the JAX
+package reads every file. Images cv2 returns as uint16 or float (16-bit
+PNG, TIFF and PNM, float TIFF, PFM, Radiance HDR, OpenEXR) raise a
+ValueError on every host: the JAX package's / 255 mishandles them.
 
 `remove_background` is the stage-1 CLI's background removal: the port's
 U²-Net (`models/u2net.py`) on the caller's device when a checkpoint is
@@ -27,10 +37,37 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from .bmp import decode_bmp, is_bmp
+from .gif import decode_gif, is_gif
 from .jpeg import decode_jpeg, is_jpeg
 from .png import _SIGNATURE as _PNG_SIGNATURE
 from .png import decode_png, write_png
+from .pnm import decode_pnm, is_pnm
+from .raster import Unsupported
+from .sunras import decode_sunras, is_sunras
+from .tiff import decode_tiff
 from .webp import decode_webp, is_webp
+
+_FLOAT = object()  # formats cv2 returns as float32
+
+# (format, signature test, decoder); None: a format the port does not decode
+_FORMATS = (
+    ("PNG", lambda b: b.startswith(_PNG_SIGNATURE), decode_png),
+    ("JPEG", is_jpeg, decode_jpeg),
+    ("WebP", is_webp, decode_webp),
+    ("BMP", is_bmp, decode_bmp),
+    ("TIFF", lambda b: b[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"), decode_tiff),
+    ("GIF", is_gif, decode_gif),
+    ("PNM", is_pnm, decode_pnm),
+    ("Sun raster", is_sunras, decode_sunras),
+    ("AVIF", lambda b: b[4:8] == b"ftyp" and b[8:12] in (b"avif", b"avis"), None),
+    ("JPEG 2000", lambda b: b.startswith(b"\x00\x00\x00\x0cjP  \r\n\x87\n") or
+     b.startswith(b"\xff\x4f\xff\x51"), None),
+    ("PAM", lambda b: b[:2] == b"P7" and b[2:3].isspace(), None),
+    ("PFM", lambda b: b[:2] in (b"PF", b"Pf") and b[2:3].isspace(), _FLOAT),
+    ("Radiance HDR", lambda b: b.startswith((b"#?RADIANCE", b"#?RGBE")), _FLOAT),
+    ("OpenEXR", lambda b: b[:4] == b"\x76\x2f\x31\x01", _FLOAT),
+)
 
 
 def center_crop(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
@@ -49,65 +86,102 @@ def composite_white(rgba: np.ndarray) -> np.ndarray:
     return out.round().astype(np.uint8)
 
 
-def _decoder(blob: bytes):
-    """The port's decoder of an encoded image, by its signature; None for
-    a format it does not read."""
-    if blob.startswith(_PNG_SIGNATURE):
-        return decode_png
-    if is_jpeg(blob):
-        return decode_jpeg
-    if is_webp(blob):
-        return decode_webp
-    return None
+def _decode(blob: bytes, name: str, from_file: bool) -> np.ndarray:
+    """The port's decode of an encoded image, by its signature; a JPEG
+    from a file as cv2.imread reads it (to an EOI its libjpeg source
+    supplies at the end of the file)."""
+    for fmt, test, decode in _FORMATS:
+        if not test(blob):
+            continue
+        if decode is None:
+            raise Unsupported(f"{name}: a {fmt} image, which the port does not decode")
+        if decode is _FLOAT:
+            raise ValueError(f"{name}: a {fmt} image, which cv2 returns as float32 and the JAX "
+                             "package's / 255 mishandles; the port reads 8-bit images only")
+        if decode is decode_jpeg:
+            return decode_jpeg(blob, name, from_file=from_file)
+        return decode(blob, name)
+    raise Unsupported(f"{name}: an image format the port does not know (it starts "
+                      f"{blob[:8]!r})")
+
+
+def _from_cv2(img: Optional[np.ndarray], name: str, why: str) -> np.ndarray:
+    """cv2's IMREAD_UNCHANGED decode as the port's: uint8 (H, W, C) RGB(A);
+    `why` the port's reason for asking cv2."""
+    if img is None:
+        raise ValueError(f"{why}; cv2 cannot decode it either")
+    if img.dtype != np.uint8:
+        raise ValueError(f"{name}: cv2 decodes it as {img.dtype}, which the JAX package's "
+                         "/ 255 mishandles; the port reads 8-bit images only")
+    if img.ndim == 2:
+        return img[..., None]
+    return np.ascontiguousarray(img[..., [2, 1, 0, 3][:img.shape[-1]]])  # BGR(A) → RGB(A)
+
+
+def _cv2():
+    try:
+        import cv2
+    except ImportError:
+        return None
+    return cv2
+
+
+def _read_cv2(path: str, why: str) -> Optional[np.ndarray]:
+    """cv2.imread of a file the port does not decode, as `_from_cv2`
+    gives it; None where cv2 does not import."""
+    cv2 = _cv2()
+    if cv2 is None:
+        return None
+    try:
+        img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    except cv2.error:  # past its size limits
+        img = None
+    return _from_cv2(img, path, why)
+
+
+def _decode_cv2(blob: bytes, name: str, why: str) -> Optional[np.ndarray]:
+    """cv2.imdecode, as `_read_cv2`."""
+    cv2 = _cv2()
+    if cv2 is None:
+        return None
+    try:
+        img = cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_UNCHANGED) if blob else None
+    except cv2.error:  # past its size limits
+        img = None
+    return _from_cv2(img, name, why)
 
 
 def decode_image(blob: bytes, name: str = "<bytes>") -> np.ndarray:
-    """An encoded PNG, JPEG or WebP → uint8 (H, W, C) as `read_png`,
-    `decode_jpeg` and `decode_webp` give it (C = 1–4); anything else
-    raises."""
-    decode = _decoder(blob)
-    if decode is None:
-        raise ValueError(f"{name}: neither a PNG, a JPEG nor a WebP")
-    return decode(blob, name)
-
-
-def _decode_file(blob: bytes, path: str) -> np.ndarray:
-    """`decode_image` of a file's bytes, a JPEG as cv2.imread reads it (to
-    an EOI its libjpeg source supplies at the end of the file)."""
-    if is_jpeg(blob):
-        return decode_jpeg(blob, path, from_file=True)
-    return decode_image(blob, path)
+    """An encoded image → uint8 (H, W, C), C = 1-4, RGB(A) order, as
+    `cv2.imdecode(..., IMREAD_UNCHANGED)` gives it: the port's decoders,
+    else cv2 for what they do not decode (`Unsupported`, raised where cv2
+    does not import)."""
+    try:
+        return _decode(blob, name, from_file=False)
+    except Unsupported as e:
+        img = _decode_cv2(blob, name, str(e))
+        if img is None:
+            raise
+        return img
 
 
 def read_image(path: str) -> np.ndarray:
     """`decode_image` of a file, as cv2.imread reads it."""
     with open(path, "rb") as f:
-        return _decode_file(f.read(), path)
-
-
-def _read_cv2(path: str) -> np.ndarray:
-    """uint8 HWC in RGB(A) channel order, through cv2 (formats other than
-    PNG, JPEG and WebP: BMP, TIFF, ...)."""
+        blob = f.read()
     try:
-        import cv2
-    except ImportError:
-        raise RuntimeError(f"cannot read {path!r}: only PNG, JPEG and WebP decode without cv2, "
-                           "which does not import here; convert the image to PNG") from None
-    img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-    if img is None:
-        raise FileNotFoundError(path)
-    if img.ndim == 2:  # gray
-        return img[..., None]
-    return img[..., [2, 1, 0, 3][:img.shape[-1]]]  # BGR(A) → RGB(A)
+        return _decode(blob, path, from_file=True)
+    except Unsupported as e:
+        img = _read_cv2(path, str(e))
+        if img is None:
+            raise
+        return img
 
 
 def load_image_rgb(path: str) -> np.ndarray:
-    """uint8 HWC RGB; RGBA is composited onto white, gray is replicated.
-    PNG, JPEG and WebP decode without cv2 (`read_image`), even where cv2
-    imports; other formats need it."""
-    with open(path, "rb") as f:
-        blob = f.read()
-    img = _decode_file(blob, path) if _decoder(blob) else _read_cv2(path)
+    """uint8 HWC RGB (`read_image`); RGBA is composited onto white, gray is
+    replicated."""
+    img = read_image(path)
     if img.shape[-1] == 1:
         return np.repeat(img, 3, axis=-1)
     if img.shape[-1] == 2:  # gray + alpha

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from . import cbuild
+from .raster import Unsupported
 
 SIGNATURE = b"\xff\xd8\xff"
 
@@ -275,6 +276,9 @@ class _Frame:
     def fail(self, what: str):
         raise ValueError(f"{self.name}: {what}")
 
+    def unsupported(self, what: str):
+        raise Unsupported(f"{self.name}: {what}")
+
     def need(self, body: bytes, n: int, what: str):
         if len(body) < n:
             self.fail(f"a truncated {what}")
@@ -287,9 +291,9 @@ def _read_sof(fr: _Frame, body: bytes) -> None:
     precision, h, w, n = body[0], int.from_bytes(body[1:3], "big"), \
         int.from_bytes(body[3:5], "big"), body[5]
     if precision != 8:
-        fr.fail(f"a {precision}-bit JPEG; only 8-bit samples decode")
+        fr.unsupported(f"a {precision}-bit JPEG; only 8-bit samples decode")
     if h == 0:
-        fr.fail("a JPEG whose height comes in a DNL marker; not supported")
+        fr.unsupported("a JPEG whose height comes in a DNL marker; not supported")
     if w == 0:
         fr.fail("a JPEG of width 0")
     if n not in (1, 3, 4):
@@ -317,9 +321,9 @@ def _layout(fr: _Frame) -> None:
     hmax = max(c["h"] for c in fr.comps)
     vmax = max(c["v"] for c in fr.comps)
     if any(hmax % c["h"] or vmax % c["v"] for c in fr.comps):
-        fr.fail("a JPEG with fractional sampling ratios ("
-                + ", ".join(f"{c['h']}x{c['v']}" for c in fr.comps)
-                + "); only whole ratios decode")
+        fr.unsupported("a JPEG with fractional sampling ratios ("
+                       + ", ".join(f"{c['h']}x{c['v']}" for c in fr.comps)
+                       + "); only whole ratios decode")
     fr.hmax, fr.vmax = hmax, vmax
     fr.mcus_x = -(-w // (8 * hmax))
     fr.mcus_y = -(-h // (8 * vmax))
@@ -445,13 +449,18 @@ def _colour_space(fr: _Frame) -> str:
     return "ycck"
 
 
-def decode_jpeg(blob: bytes, name: str = "<bytes>", from_file: bool = False) -> np.ndarray:
+def decode_jpeg(blob: bytes, name: str = "<bytes>", from_file: bool = False,
+                colour: Optional[str] = None) -> np.ndarray:
     """uint8 (H, W, 3) RGB, or (H, W, 1) for a grey JPEG; `name` labels
     the errors. Data that end too soon raise as `cv2.imdecode` fails on
     them: a single-scan file whose scan runs to the end of the data, a
     multi-scan (progressive) one without its EOI marker. With `from_file`
     they decode as `cv2.imread` reads a file, whose libjpeg source supplies
-    an EOI at its end (the rest of a cut scan as libjpeg's zeros)."""
+    an EOI at its end (the rest of a cut scan as libjpeg's zeros).
+
+    `colour` overrides the colour space libjpeg would guess, as libtiff
+    sets it for the JPEG strips of a TIFF (utils/tiff.py): "ycc" converts
+    to RGB, "raw" returns the components as they are, (H, W, components)."""
     fr = _Frame(name)
     if not blob.startswith(SIGNATURE):
         fr.fail("not a JPEG file")
@@ -482,8 +491,8 @@ def decode_jpeg(blob: bytes, name: str = "<bytes>", from_file: bool = False) -> 
             fr.progressive = kind == 0xC2
             _layout(fr)
         elif kind in _UNSUPPORTED_SOF:
-            fr.fail(f"{_UNSUPPORTED_SOF[kind]}; only baseline, extended sequential and "
-                    "progressive Huffman JPEGs decode")
+            fr.unsupported(f"{_UNSUPPORTED_SOF[kind]}; only baseline, extended sequential "
+                           "and progressive Huffman JPEGs decode")
         elif kind == 0xC4:  # DHT
             i = 0
             while i < len(body):
@@ -538,17 +547,19 @@ def decode_jpeg(blob: bytes, name: str = "<bytes>", from_file: bool = False) -> 
         fr.fail("a JPEG without a frame or a scan")
     if not complete and not from_file:
         fr.fail("a truncated JPEG: no EOI marker")
-    space = _colour_space(fr)
+    space = colour or _colour_space(fr)
     if space == "ycck":
-        fr.fail(f"a YCCK JPEG (Adobe transform {fr.adobe_transform}); not supported")
+        fr.unsupported(f"a YCCK JPEG (Adobe transform {fr.adobe_transform}); not supported")
     if _needs_smoothing(fr):
-        fr.fail("a progressive JPEG that leaves coefficients unrefined (Al > 0 at its end), "
-                "which libjpeg-turbo block-smooths; not supported")
+        fr.unsupported("a progressive JPEG that leaves coefficients unrefined (Al > 0 at its "
+                       "end), which libjpeg-turbo block-smooths; not supported")
     h, w = fr.size
     planes = [upsample(p, c["ratio"], h, w) for p, c in zip(_components(fr), fr.comps)]
     if space == "grey":
         return planes[0][0].numpy().astype(np.uint8)[:, :, None]
-    if space == "rgb":
+    if space == "ycc" and len(planes) != 3:
+        fr.fail(f"a YCbCr JPEG of {len(planes)} components")
+    if space in ("rgb", "raw"):
         rgb = torch.stack(planes, dim=1)[0]
     elif space == "cmyk":
         rgb = cmyk_to_rgb(*planes)[0]

@@ -31,6 +31,7 @@ from typing import Optional
 import numpy as np
 
 from . import cbuild
+from .raster import Unsupported
 
 _ERRORS = {-1: "the data end before the image does", -2: "a code, size or value the format "
            "does not allow", -3: "out of memory", -4: "sizes that disagree"}
@@ -144,15 +145,15 @@ def decode_webp(blob: bytes, name: str = "<bytes>") -> np.ndarray:
         vp8x = (body[0], 1 + int.from_bytes(body[4:7], "little"),
                 1 + int.from_bytes(body[7:10], "little"))
         if vp8x[0] & _ANIMATION:
-            raise ValueError(f"{name}: an animated WebP (ANIM/ANMF); only still images decode")
+            raise Unsupported(f"{name}: an animated WebP (ANIM/ANMF); only still images decode")
         while True:  # ICC, EXIF, XMP and unknown chunks skipped; the last ALPH kept
             start = pos + 8
             kind, body, pos = chunk(pos)
             if kind in (b"VP8 ", b"VP8L"):
                 break
             if kind in (b"ANIM", b"ANMF"):
-                raise ValueError(f"{name}: an animated WebP (ANIM/ANMF); only still images "
-                                 "decode")
+                raise Unsupported(f"{name}: an animated WebP (ANIM/ANMF); only still images "
+                                  "decode")
             if kind == b"ALPH":
                 alph = body
     # cv2 takes the channels from WebPGetFeatures on the first 32 bytes: a VP8X

@@ -161,16 +161,22 @@ def test_serve_cli_two_stage_mode_pads_and_drops(tmp_path):
 
 
 def test_non_png_input_without_cv2_raises(tmp_path, monkeypatch):
-    """Without cv2 a format the port does not decode (BMP) raises and names
-    the three it does; a WebP goes to the port's decoder, whose error names
-    the file."""
+    """Without cv2 a format the port does not decode (PAM) raises
+    `Unsupported` naming it, as does a BMP header the port's decoder does
+    not read; a WebP goes to the port's decoder, whose error names the
+    file."""
     from hi3d_tpu_torch.utils.image import load_image_rgb
+    from hi3d_tpu_torch.utils.raster import Unsupported
 
-    path = tmp_path / "x.bmp"
-    path.write_bytes(b"BM" + bytes(60))
+    path = tmp_path / "x.pam"
+    path.write_bytes(b"P7\nWIDTH 1\nHEIGHT 1\nDEPTH 1\nMAXVAL 255\nENDHDR\n\x00")
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(RuntimeError, match="only PNG, JPEG and WebP decode without cv2"):
+    with pytest.raises(Unsupported, match="x.pam: a PAM image, which the port does not decode"):
         load_image_rgb(str(path))
+    bmp = tmp_path / "x.bmp"
+    bmp.write_bytes(b"BM" + bytes(60))
+    with pytest.raises(Unsupported, match="x.bmp: a BMP header of 0 bytes"):
+        load_image_rgb(str(bmp))
     webp = tmp_path / "x.webp"
     webp.write_bytes(b"RIFF\x00\x00\x00\x00WEBPVP8 ")
     with pytest.raises(ValueError, match="x.webp: a WebP of 16 bytes"):
