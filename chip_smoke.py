@@ -96,8 +96,10 @@ text-to-image and module-surface paths on one NVIDIA H100.
 11. main path 7: `i2v.main --cfg_interval 0.3 6` as path 1 (CFG on steps
    15–19, one conditioned pass of 16 frames on the other 20) on
    tests/data/torch_jpeg/demo3_q90.jpg (demo/3.png as a JPEG); main path 8:
-   `v2v.main --encoder_reuse 3` on path 1's frames directory, 10 steps (4
-   whole UNet calls, 6 from the encoder cache); main path 9: `generate_orbit` on one stage-1
+   `v2v.main --encoder_reuse 3` on tests/data/torch_mp4v/first.mp4 (the
+   JAX package's stage-1 file as its export writes it through cv2: MPEG-4
+   Part 2, read by utils/mpeg4.py with no fallback to imageio or cv2),
+   10 steps (4 whole UNet calls, 6 from the encoder cache); main path 9: `generate_orbit` on one stage-1
    engine with each other sampler (Heun, Euler ancestral, DPM++(2S) at η =
    1, LMS at order 4, DPM++(2M)), 4 steps each, then Heun with
    encoder_reuse=2. Each checks its frames, its UNet calls (`UNetProbe`: by
@@ -181,7 +183,11 @@ text-to-image and module-surface paths on one NVIDIA H100.
 19. main path 16 also decodes every committed PNG, JPEG, WebP, BMP, TIFF,
    GIF, PNM and Sun raster fixture (tests/data/torch_*/) against its cv2
    golden through read_image, decode_image and load_image_rgb, and prints
-   each format's decode ms on the host CPU at 512² and 517×389;
+   each format's decode ms on the host CPU at 512² and 517×389; and every
+   committed mp4v (tests/data/torch_mp4v/, cv2's MPEG-4 Part 2) through
+   mp4.read_mp4 and utils/mpeg4.py: luma bit-equal to cv2's, RGB the
+   golden's (within MP4V_RGB_TOL of cv2's), and decode ms a frame at 512²
+   and 1024²;
 20. prints the mp4 medians (encode and decode ms a frame on the host CPU,
    bytes a frame, at 512² and 1024²) beside the card line, the kernel JSON
    line (launches per path and summed, errors, times, bounds), the card
@@ -1725,7 +1731,7 @@ def main_path(steps: int, flags=(), label: str = "1", want_calls=None,
     (`mp4_check`), the UNet's calls (`want_calls`: by kind and batch; 25
     CFG-doubled calls of 32 frames by default) and the launches; returns
     the launch count of each kernel, the output directory (its first.mp4
-    feeds main path 3, its frames main path 8) and the phase seconds."""
+    feeds main path 3, its frames main paths 13 to 16) and the phase seconds."""
     import torch
 
     from hi3d_tpu_torch.pipelines import i2v
@@ -1758,8 +1764,10 @@ def stage2_path(steps: int, stage1_dir: str, flags=(), label: str = "3", encoder
     """Stage-2 CLI at full width on main path 1's output (16×512² →
     16×1024², random weights, the DPT's included): path 3 without
     --video_path, so that it reads <output_dir>/first_step/first.mp4 as
-    JAX's default does; with `flags`, path 8's --encoder_reuse, on path 1's
-    frames directory, written to a directory of its own. Checks the refined
+    JAX's default does; with `flags`, path 8's --encoder_reuse, on
+    PATH8_VIDEO (the JAX package's cv2-written stage-1 mp4v; no reader but
+    the port's may run, and its 16 frames must go through utils/mpeg4.py),
+    written to a directory of its own. Checks the refined
     frames, second.mp4 (`mp4_check`), the UNet's calls (by kind and batch;
     `steps` CFG-doubled whole calls by default) and the launches; returns
     the launch count of each kernel, the phase seconds and the peak
@@ -1771,17 +1779,24 @@ def stage2_path(steps: int, stage1_dir: str, flags=(), label: str = "3", encoder
     config = os.path.join(ROOT, "configs", "inference-v02.yaml")
     out_dir = stage1_dir if not flags else tempfile.mkdtemp(
         prefix="chip_smoke_v2v_", dir=os.path.join(ROOT, "outputs"))
-    video = [] if not flags else ["--video_path", os.path.join(stage1_dir, "first_step", "frames")]
+    video = [] if not flags else ["--video_path", PATH8_VIDEO]
     expected = expected_launches(config, steps, "v2v", encoder_reuse=encoder_reuse)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    with UNetProbe() as probe:
+    with UNetProbe() as probe, port_video_only() as read:
         phases = _run_printing_phases("v2v", v2v.main, [
             "--denoise_config", config, "--image_path", os.path.join(ROOT, "demo", "3.png"),
             *video, "--output_dir", out_dir, "--device", "cuda", "--seed", "0",
             "--num_steps", str(steps), *flags])
     launches = read_launches(expected)
+    if flags:
+        if read["mp4v_frames"] != 16:
+            raise AssertionError(f"main path {label} decoded {read['mp4v_frames']} mp4v frames of "
+                                 f"{os.path.relpath(PATH8_VIDEO, ROOT)}, want 16")
+        print(f"[smoke] main path {label} read {os.path.relpath(PATH8_VIDEO, ROOT)} through "
+              f"utils/mpeg4.py: {read['mp4v_frames']} frames, {read['mp4v_ms']:.1f} ms of decode "
+              "(host CPU)", flush=True)
     calls = probe.counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"[smoke] main path {label} {time.perf_counter() - t0:.1f} s, sampler "
@@ -1793,6 +1808,33 @@ def stage2_path(steps: int, stage1_dir: str, flags=(), label: str = "3", encoder
     _check_calls(label, calls, want_calls or {"whole B32": steps})
     _check_launches(launches, expected)
     return launches, phases, peak
+
+
+@contextlib.contextmanager
+def port_video_only():
+    """Within: `utils.video` hands no mp4 to imageio or cv2 (a refusal of
+    the port's decoders fails the phase), and the frames and ms of the
+    MPEG-4 Part 2 decodes are counted."""
+    from hi3d_tpu_torch.utils import mpeg4, video
+
+    read = {"mp4v_frames": 0, "mp4v_ms": 0.0}
+    foreign, decode = video._read_foreign, mpeg4.decode
+
+    def refuse(path, max_frames):
+        raise AssertionError(f"{path}: the port's decoders refused it; no fallback on this host")
+
+    def counted(*args, **kwargs):
+        t = time.perf_counter()
+        out = decode(*args, **kwargs)
+        read["mp4v_ms"] += (time.perf_counter() - t) * 1e3
+        read["mp4v_frames"] += len(out)
+        return out
+
+    video._read_foreign, mpeg4.decode = refuse, counted
+    try:
+        yield read
+    finally:
+        video._read_foreign, mpeg4.decode = foreign, decode
 
 
 def _demo_rgba() -> np.ndarray:
@@ -3977,6 +4019,11 @@ IMAGE_FIXTURES = {fmt: os.path.join(ROOT, "tests", "data", f"torch_{fmt.lower()}
 # main path 5's input: demo/3.png as cv2 writes an LZW TIFF with the predictor
 PATH5_IMAGE = os.path.join(IMAGE_FIXTURES["TIFF"], "demo3_lzw_pred2.tif")
 PATH7_IMAGE = os.path.join(JPEG_FIXTURES, "demo3_q90.jpg")  # path 7 reads a JPEG
+# cv2's MPEG-4 Part 2 mp4s with cv2's goldens (path 16 decodes them all); the
+# JAX package's stage-1 file among them is main path 8's --video_path
+MP4V_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_mp4v")
+PATH8_VIDEO = os.path.join(MP4V_FIXTURES, "first.mp4")
+MP4V_RGB_TOL = 3  # tests/test_torch_mpeg4.py's RGB_TOL: the port's RGB against cv2's
 SPLAT_MODES = ("sum", "avg", "linear", "soft")
 # fp32 on the card against float64 on the CPU, relative to the largest entry
 # of each tensor: sums of a few bilinear terms (the card's atomics add them
@@ -4336,6 +4383,57 @@ def _decode_phase() -> None:
           f"{json.dumps(times)}", flush=True)
 
 
+def mp4v_phase() -> dict:
+    """Every committed mp4v fixture (cv2's MPEG-4 Part 2; first.mp4 is the
+    JAX package's stage-1 file) through mp4.read_mp4 and utils/mpeg4.py on
+    this host, no other reader: frame count and fps those of the goldens,
+    every frame's luma bit-equal to cv2's, the RGB of `video.read_mp4` the
+    golden's, which lies within MP4V_RGB_TOL of cv2's; then the decode ms
+    a frame (median of 5) of the planes and of RGB at 512² and 1024².
+    Returns those times."""
+    from hi3d_tpu_torch.utils import h264, mp4, mpeg4
+    from hi3d_tpu_torch.utils.video import read_mp4
+
+    with open(os.path.join(MP4V_FIXTURES, "goldens.json")) as f:
+        goldens = json.load(f)
+    t0 = time.perf_counter()
+    count = 0
+    for name, want in sorted(goldens.items()):
+        path = os.path.join(MP4V_FIXTURES, name)
+        track = mp4.read_mp4(path)
+        planes = mpeg4.decode(track.config, track.samples, name)
+        rgb = read_mp4(path)
+        if (track.codec, len(planes), len(rgb), track.fps) != ("mp4v", len(want["frames"]),
+                                                              len(want["frames"]), want["fps"]):
+            raise AssertionError(f"{name}: {track.codec}, {len(planes)} frames at {track.fps} "
+                                 f"fps; the goldens hold {len(want['frames'])} at {want['fps']}")
+        for i, (p, img, g) in enumerate(zip(planes, rgb, want["frames"])):
+            if _digest(np.ascontiguousarray(p[0])) != g["luma"]:
+                raise AssertionError(f"{name}: frame {i}'s luma is not cv2's")
+            if _digest(img) != g["port_rgb"] or g["port_rgb_max_diff"] > MP4V_RGB_TOL:
+                raise AssertionError(f"{name}: frame {i}'s RGB is not the golden's (within "
+                                     f"{g['port_rgb_max_diff']} of cv2's, bound {MP4V_RGB_TOL})")
+        count += len(planes)
+    print(f"[path16] {len(goldens)} mp4v fixtures, {count} frames: luma bit-equal to cv2's, RGB "
+          f"the golden's (within {MP4V_RGB_TOL} of cv2's) ({time.perf_counter() - t0:.2f} s, the "
+          "decoder's build included)", flush=True)
+    times = {}
+    for label, name in (("512x512", "first.mp4"), ("1024x1024", "second_1024.mp4")):
+        track = mp4.read_mp4(os.path.join(MP4V_FIXTURES, name))
+        for kind in ("planes", "RGB"):
+            runs = []
+            for _ in range(5):
+                t = time.perf_counter()
+                planes = mpeg4.decode(track.config, track.samples, name)
+                if kind == "RGB":
+                    [h264.to_rgb(*p) for p in planes]
+                runs.append((time.perf_counter() - t) * 1e3 / len(planes))
+            times[f"{label} {kind}"] = round(float(np.median(runs)), 3)
+    print(f"[path16] mp4v decode ms a frame on this host's CPU (median of 5, 16 frames a file), "
+          f"card {card_line()}: {json.dumps(times)}", flush=True)
+    return times
+
+
 def logger_phase(out_dir: str) -> None:
     from hi3d_tpu_torch.utils.logger import setup_logger
 
@@ -4401,8 +4499,9 @@ def cond_sigma_phase(frames: np.ndarray) -> dict:
 
 def module_surface_path(frames: np.ndarray) -> dict:
     """Main path 16: softsplat and correlation on the card against float64,
-    every transform on demo/3.png, the PNG, JPEG and WebP fixtures against
-    their cv2 goldens (and each format's decode ms), `setup_logger`, inference-v01's full-width VideoUNet with
+    every transform on demo/3.png, the image fixtures against their cv2
+    goldens (and each format's decode ms), the mp4v fixtures against theirs
+    (`mp4v_phase`), `setup_logger`, inference-v01's full-width VideoUNet with
     UNET_OPTIONS at b 1, t 4, 32² on the card (launches equal to the
     module's count, finite) against the CPU in fp32 (within 1.5 × the plain
     bf16 error), and the σ-noised conditioning-frame embedder (#9 launches
@@ -4417,6 +4516,7 @@ def module_surface_path(frames: np.ndarray) -> dict:
     torch.cuda.empty_cache()
     transforms_phase()
     decode_phase()
+    mp4v_phase()
     logger_phase(out_dir)
     launches = unet_reference_phase(os.path.join(ROOT, "configs", "inference-v01.yaml"),
                                     overrides=UNET_OPTIONS, label=f" with {UNET_OPTIONS}",
@@ -5645,7 +5745,8 @@ def main() -> None:
     whole8, decoder8 = unet_calls("EulerEDMSampler", REUSE_STEPS, 3)
     print(f"[smoke] main path 8: v2v --encoder_reuse 3, configs/inference-v02.yaml, 16×1024², "
           f"{REUSE_STEPS} steps ({whole8} whole, {decoder8} decoder-only), random weights, on "
-          "main path 1's frames", flush=True)
+          f"{os.path.relpath(PATH8_VIDEO, ROOT)} (the JAX package's cv2-written stage-1 mp4v)",
+          flush=True)
     by_path["v2v_encoder_reuse"], phases8, peak8 = stage2_path(
         REUSE_STEPS, stage1_dir, ["--encoder_reuse", "3"], "8", 3,
         {"whole B32": whole8, "decoder B32": decoder8})
@@ -5672,7 +5773,7 @@ def main() -> None:
     by_path["svd_vae"] = svd_vae_path(stage1_dir)
     by_path.update(t2i_phases(os.path.join(stage1_dir, "first_step", "frames")))
     print("[smoke] main path 16: softsplat, correlation, transforms, PNG, JPEG, WebP, BMP, "
-          "TIFF, GIF, PNM and Sun raster decodes, the logger, the "
+          "TIFF, GIF, PNM, Sun raster and mp4v decodes, the logger, the "
           "VideoUNet's options, the σ-noised conditioning frames", flush=True)
     by_path["modules"] = module_surface_path(path1_frames(stage1_dir))
     print(f"[smoke] main path 17: multi-GPU serving, configs/inference-v01.yaml and -v02.yaml, "

@@ -1,6 +1,6 @@
 """Small C helpers of the host side (`csrc/png_unfilter.c`,
 `csrc/jpeg_decode.c`, `csrc/webp_decode.c`, `csrc/raster_decode.c`,
-`csrc/h264_{encode,decode}.c`),
+`csrc/h264_{encode,decode}.c`, `csrc/mpeg4_decode.c`),
 compiled at first use with the host C compiler (`cc`, `gcc` or `$CC`,
 `-O3 -shared -fPIC`) into build/host/ under a name that carries the hash of
 the source and of the `csrc/` headers it includes, and loaded with ctypes.

@@ -10,10 +10,13 @@ rate, `stsz`, `stsc` and `stco`, or `co64` when an offset passes 4 GiB).
 One sample a chunk; every sample a sync sample (no `stss`).
 
 `read_mp4` finds `moov` before or after `mdat`, skips unknown and `free`
-boxes, and returns the first video track's `avcC` parameter sets and its
-samples. A malformed or truncated file raises a ValueError that names the
-box; a track whose sample entry is not `avc1`/`avc3` (cv2's `mp4v`, HEVC,
-...) raises `h264.Unsupported`.
+boxes, and returns the first video track's codec, its decoder
+configuration and its samples: for `avc1`/`avc3` the `avcC` parameter sets,
+for `mp4v` (cv2's VideoWriter) the `esds` DecoderSpecificInfo of an
+MPEG-4 Visual stream (objectTypeIndication 0x20; utils/mpeg4.py decodes
+it). A malformed or truncated file raises a ValueError that names the box;
+any other sample entry (HEVC, AV1, ...) or an `mp4v` entry that carries
+another codec (MPEG-1/2 video, JPEG, ...) raises `h264.Unsupported`.
 """
 
 from __future__ import annotations
@@ -123,7 +126,9 @@ def write_mp4(path: str, sps: bytes, pps: bytes, samples: Sequence[bytes], width
 @dataclass
 class Track:
     """The first video track: its `avcC` parameter sets and NAL length
-    size, the samples, their width and height, and the frame rate."""
+    size (H.264), the samples, their width and height, the frame rate, the
+    sample entry's codec ("avc1", "avc3" or "mp4v") and, for "mp4v", the
+    `esds` DecoderSpecificInfo (the VOS, VO and VOL headers)."""
 
     sps: List[bytes]
     pps: List[bytes]
@@ -132,6 +137,8 @@ class Track:
     width: int
     height: int
     fps: float
+    codec: str = "avc1"
+    config: bytes = b""
 
 
 class _Boxes:
@@ -255,13 +262,23 @@ def _read_track(data, st: Dict[str, Tuple[int, int]], sw: str, timescale: int,
     if not entries:
         raise ValueError(f"{sw}/stsd: no sample entry")
     kind, ea, eb = entries[0]
-    if kind not in ("avc1", "avc3"):
-        raise Unsupported(f"{sw}/stsd: a '{kind}' stream ({_CODECS.get(kind, 'not H.264')}); "
-                          "only H.264 decodes here")
+    if kind not in ("avc1", "avc3", "mp4v"):
+        name = _CODECS.get(kind, "not H.264 or MPEG-4 Part 2")
+        raise Unsupported(f"{sw}/stsd: a '{kind}' stream ({name}); only H.264 and MPEG-4 Part 2 "
+                          "decode here")
     ew = f"{sw}/stsd/{kind}"
     width, height = _unpack(">24xHH", data, ea, eb, ew)
     inner = _children(data, ea + 78, eb, ew)
-    sps, pps, length_size = _parse_avcc(data, *_need(inner, "avcC", ew), f"{ew}/avcC")
+    sps: List[bytes] = []
+    pps: List[bytes] = []
+    length_size, config = 0, b""
+    if kind == "mp4v":
+        if "esds" not in inner:
+            raise Unsupported(f"{ew}: an 'mp4v' stream without an 'esds' box (its "
+                              "objectTypeIndication unknown)")
+        config = _parse_esds(data, *inner["esds"], f"{ew}/esds")
+    else:
+        sps, pps, length_size = _parse_avcc(data, *_need(inner, "avcC", ew), f"{ew}/avcC")
     sizes_box = _need(st, "stsz", sw)
     (fixed, n) = _unpack(">4xII", data, *sizes_box, f"{sw}/stsz")
     if fixed:
@@ -287,11 +304,77 @@ def _read_track(data, st: Dict[str, Tuple[int, int]], sw: str, timescale: int,
         raise ValueError(f"{sw}/stts: {frames} sample durations for {len(samples)} samples")
     fps = timescale * frames / ticks if ticks and timescale else 0.0
     return Track(sps, pps, length_size, samples, width, height,
-                 int(round(fps)) if abs(fps - round(fps)) < 1e-9 else fps)
+                 int(round(fps)) if abs(fps - round(fps)) < 1e-9 else fps, kind, config)
 
 
-_CODECS = {"mp4v": "MPEG-4 Part 2", "hvc1": "HEVC", "hev1": "HEVC", "av01": "AV1",
-           "vp09": "VP9", "mjpa": "Motion JPEG", "jpeg": "Motion JPEG"}
+_CODECS = {"hvc1": "HEVC", "hev1": "HEVC", "av01": "AV1", "vp09": "VP9",
+           "mjpa": "Motion JPEG", "jpeg": "Motion JPEG"}
+
+# objectTypeIndication (ISO/IEC 14496-1 Table 5) of the visual streams an
+# `mp4v` entry may carry; only 0x20 decodes here
+MPEG4_VISUAL = 0x20
+_OBJECT_TYPES = {0x21: "H.264", 0x60: "MPEG-2 video (Simple profile)",
+                 0x61: "MPEG-2 video (Main profile)", 0x62: "MPEG-2 video (SNR profile)",
+                 0x63: "MPEG-2 video (Spatial profile)", 0x64: "MPEG-2 video (High profile)",
+                 0x65: "MPEG-2 video (4:2:2 profile)", 0x6A: "MPEG-1 video", 0x6C: "JPEG",
+                 0x6D: "PNG", 0x6E: "JPEG 2000"}
+
+
+def _descriptor(data, pos: int, end: int, tag: int, where: str) -> Tuple[int, int]:
+    """The payload (start, end) of the descriptor with `tag` at `pos`: a
+    tag byte, then a size in 1-4 bytes of 7 bits (ISO/IEC 14496-1 8.3.3)."""
+    if pos >= end or data[pos] != tag:
+        raise ValueError(f"{where}: descriptor tag {data[pos] if pos < end else None}, want {tag}")
+    size, pos = 0, pos + 1
+    for _ in range(4):
+        if pos >= end:
+            raise ValueError(f"{where}: descriptor {tag} cut in its size")
+        byte = data[pos]
+        pos += 1
+        size = (size << 7) | (byte & 0x7F)
+        if not byte & 0x80:
+            break
+    else:
+        raise ValueError(f"{where}: descriptor {tag}'s size runs past 4 bytes")
+    if pos + size > end:
+        raise ValueError(f"{where}: descriptor {tag} of {size} bytes runs past its parent's "
+                         f"{end - pos}")
+    return pos, pos + size
+
+
+def _parse_esds(data, a: int, b: int, where: str) -> bytes:
+    """The DecoderSpecificInfo of the ES_Descriptor → DecoderConfigDescriptor
+    in an `esds` full box (empty when there is none)."""
+    if b - a < 4:
+        raise ValueError(f"{where}: truncated")
+    pos, end = _descriptor(data, a + 4, b, 3, where)  # ES_Descriptor
+    if end - pos < 3:
+        raise ValueError(f"{where}: an ES_Descriptor of {end - pos} bytes")
+    flags = data[pos + 2]
+    pos += 3
+    if flags & 0x80:  # streamDependenceFlag: dependsOn_ES_ID
+        pos += 2
+    if flags & 0x40:  # URL_Flag: URLlength, URLstring
+        if pos >= end:
+            raise ValueError(f"{where}: an ES_Descriptor cut in its URL")
+        pos += 1 + data[pos]
+    if flags & 0x20:  # OCRstreamFlag: OCR_ES_Id
+        pos += 2
+    if pos > end:
+        raise ValueError(f"{where}: an ES_Descriptor cut in its optional fields")
+    pos, end = _descriptor(data, pos, end, 4, f"{where}/DecoderConfigDescriptor")
+    if end - pos < 13:
+        raise ValueError(f"{where}: a DecoderConfigDescriptor of {end - pos} bytes")
+    kind = data[pos]
+    if kind != MPEG4_VISUAL:
+        raise Unsupported(f"{where}: objectTypeIndication 0x{kind:02X} "
+                          f"({_OBJECT_TYPES.get(kind, 'not MPEG-4 Visual')}); only MPEG-4 "
+                          "Visual (0x20) decodes in an 'mp4v' entry")
+    pos += 13
+    if pos == end or data[pos] != 5:
+        return b""
+    pos, stop = _descriptor(data, pos, end, 5, f"{where}/DecoderSpecificInfo")
+    return bytes(data[pos:stop])
 
 
 def _sample_offsets(stsc, chunks, sizes, where: str) -> List[int]:

@@ -3,9 +3,11 @@
 A clip is written as PNG frames (stdlib codec) and as an H.264 mp4 with the
 port's own encoder and muxer (utils/h264.py, utils/mp4.py; no cv2 or
 imageio), on every host. It is read back from such a frames directory or
-mp4 with the same codecs; an mp4 the port's decoder does not take (the
-High-profile streams of libx264, cv2's MPEG-4 Part 2) goes to imageio or
-cv2 where they import, as JAX reads it.
+mp4 with the same codecs, and an mp4 of cv2's `mp4v` (MPEG-4 Part 2, what
+the JAX package writes where imageio has no ffmpeg plugin) with
+utils/mpeg4.py; an mp4 the port's decoders do not take (the High-profile
+streams of libx264, ...) goes to imageio or cv2 where they import, as JAX
+reads it.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from . import h264, mp4
+from . import h264, mp4, mpeg4
 from .image import load_image_rgb
 from .png import write_png
 
@@ -75,12 +77,19 @@ def export_to_video(frames: List[np.ndarray], output_path: str, fps: int = 8,
 
 
 def read_mp4(path: str, max_frames: Optional[int] = None) -> np.ndarray:
-    """(T, H, W, 3) uint8 RGB of the port's own H.264 mp4 streams (the
-    subset utils/h264.py decodes), the first `max_frames` only when given."""
+    """(T, H, W, 3) uint8 RGB of an mp4's video track, the first
+    `max_frames` only when given: the port's own H.264 streams (the subset
+    utils/h264.py decodes) and cv2's `mp4v` MPEG-4 Part 2 streams (the
+    subset utils/mpeg4.py decodes), both turned to RGB by the BT.601
+    limited-range inverse (`h264.to_rgb`, the matrix swscale assumes for
+    streams that name none)."""
     track = mp4.read_mp4(path)
     samples = track.samples[:max_frames] if max_frames is not None else track.samples
-    planes = h264.decode(track.sps, track.pps, samples, track.length_size,
-                         os.path.basename(path))
+    if track.codec == "mp4v":
+        planes = mpeg4.decode(track.config, samples, os.path.basename(path))
+    else:
+        planes = h264.decode(track.sps, track.pps, samples, track.length_size,
+                             os.path.basename(path))
     if not planes:
         raise ValueError(f"{os.path.basename(path)}: no frames")
     return np.stack([h264.to_rgb(*p) for p in planes])
@@ -124,9 +133,10 @@ def import_video(path: str, max_frames: Optional[int] = None) -> np.ndarray:
     """(T, H, W, 3) uint8 RGB frames, the first `max_frames` only when given:
     a directory of frame PNGs (read in name order with the stdlib codec, as
     `export_to_video` writes them) or an mp4 file, read with the port's
-    H.264 decoder. A stream outside its subset (h264.Unsupported) is read
-    through imageio or cv2 where one imports, as JAX reads it, and raises
-    the refusal where neither does; a damaged file raises a ValueError."""
+    H.264 or MPEG-4 Part 2 decoder. A stream outside their subsets
+    (h264.Unsupported) is read through imageio or cv2 where one imports, as
+    JAX reads it, and raises the refusal where neither does; a damaged file
+    raises a ValueError."""
     if os.path.isdir(path):
         names = sorted(n for n in os.listdir(path) if n.lower().endswith(".png"))
         if not names:

@@ -14,9 +14,10 @@ against the JAX package's readers.
 - JAX: `hi3d_tpu.utils.video.import_video` (cv2 here: imageio has no ffmpeg
   plugin) and the port's `import_video` agree within RGB_TOL on a port mp4;
   JAX's and the port's `v2v.prepare_inputs` select the same frames of it.
-- Refusals: cv2's `mp4v`, CABAC, a P slice, the loop filter on, High
-  profile and interlace raise `h264.Unsupported` naming them when cv2 and
-  imageio are hidden (and an mp4v goes to cv2 where it imports).
+- Refusals: CABAC, a P slice, the loop filter on, High profile and
+  interlace raise `h264.Unsupported` naming them when cv2 and imageio are
+  hidden; cv2's `mp4v` reads without them (utils/mpeg4.py;
+  tests/test_torch_mpeg4.py holds that decoder).
 - Damage: truncated and bit-flipped files raise a ValueError or decode,
   never crash.
 """
@@ -32,7 +33,7 @@ import torch_threads  # noqa: F401
 from hi3d_tpu.pipelines import v2v as jax_v2v
 from hi3d_tpu.utils.video import import_video as jax_import_video
 from hi3d_tpu_torch.pipelines.v2v import prepare_inputs
-from hi3d_tpu_torch.utils import h264, mp4
+from hi3d_tpu_torch.utils import h264, mp4, mpeg4
 from hi3d_tpu_torch.utils.png import write_png
 from hi3d_tpu_torch.utils.video import export_to_video, import_video, read_mp4
 
@@ -244,16 +245,27 @@ def test_streams_outside_the_subset_are_refused(tmp_path, monkeypatch, good, cas
 
 
 def test_cv2_mp4v_is_refused_without_cv2_and_read_with_it(tmp_path, monkeypatch):
+    """cv2's `mp4v` (MPEG-4 Part 2), which the port refused until
+    utils/mpeg4.py: it reads the same with cv2 and imageio hidden as with
+    them, through the port's decoder both times; its luma is ffmpeg's bit
+    for bit and its RGB within RGB_TOL of cv2's."""
     path = str(tmp_path / "cv2.mp4")
     writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 8, (48, 32))
     for f in _clip(32, 48, 3):
         writer.write(np.ascontiguousarray(f[..., ::-1]))
     writer.release()
-    assert import_video(path).shape == (3, 32, 48, 3)  # JAX's readers take it here
+    rgb, fps, count = _cv2_read(path)
+    luma, _, _ = _cv2_read(path, convert_rgb=False)
+    with_cv2 = import_video(path)
     monkeypatch.setitem(sys.modules, "cv2", None)
     monkeypatch.setitem(sys.modules, "imageio", None)
-    with pytest.raises(h264.Unsupported, match="'mp4v' stream .MPEG-4 Part 2."):
-        import_video(path)
+    got = import_video(path)
+    np.testing.assert_array_equal(got, with_cv2)
+    track = mp4.read_mp4(path)
+    assert got.shape == (3, 32, 48, 3) and count == 3 and track.fps == fps == 8
+    for p, y in zip(mpeg4.decode(track.config, track.samples), luma):
+        np.testing.assert_array_equal(p[0], np.asarray(y).reshape(32, 48))
+    assert np.abs(np.stack(rgb)[..., ::-1].astype(int) - got.astype(int)).max() <= RGB_TOL
 
 
 def test_export_without_cv2_or_imageio(tmp_path, monkeypatch):
