@@ -47,8 +47,9 @@ text-to-image and module-surface paths on one NVIDIA H100.
 5. main path 1: `hi3d_tpu_torch.pipelines.i2v.main` on `demo/3.png` at full
    width (configs/inference-v01.yaml, 16×512², random weights); checks the
    frames, first.mp4 (`mp4_check`: frame count and rate, the port's decode
-   equal to the encoder's reconstruction, PSNR bounds, ffmpeg's luma where
-   cv2 imports) and every kernel's launch count against the model's plan;
+   equal to the encoder's reconstruction, PSNR bounds, ffmpeg's luma and
+   RGB where cv2 imports) and every kernel's launch count against the
+   model's plan;
 6. main path 2: `hi3d_tpu_torch.train.main` on configs/train-v01.yaml at
    full width (2 videos × 16 × 512² per step, random weights, renders made
    from demo/3.png, every other one a 32-bit BMP with alpha; one seeded
@@ -180,14 +181,21 @@ text-to-image and module-surface paths on one NVIDIA H100.
    batches of 1), each within `SERVE_DIST_REL_L2` of one process and with
    each rank's launches equal to its plan (`serve_dist_plans`); prints
    per-rank seconds, collectives (`CollectiveProbe`) and peaks;
-19. main path 16 also decodes every committed PNG, JPEG, WebP, BMP, TIFF,
-   GIF, PNM and Sun raster fixture (tests/data/torch_*/) against its cv2
-   golden through read_image, decode_image and load_image_rgb, and prints
-   each format's decode ms on the host CPU at 512² and 517×389; and every
+19. main path 16 also decodes every committed PNG, JPEG (smoothed
+   progressive ones among them), WebP (animated ones among them), BMP,
+   TIFF, GIF, PNM, PAM and Sun raster fixture (tests/data/torch_*/) against
+   its cv2 golden through read_image, decode_image and load_image_rgb, and
+   prints each format's decode ms on the host CPU at 512² and 517×389; every
    committed mp4v (tests/data/torch_mp4v/, cv2's MPEG-4 Part 2) through
-   mp4.read_mp4 and utils/mpeg4.py: luma bit-equal to cv2's, RGB the
-   golden's (within MP4V_RGB_TOL of cv2's), and decode ms a frame at 512²
-   and 1024²;
+   mp4.read_mp4 and utils/mpeg4.py: luma and RGB bit-equal to cv2's
+   goldens, and decode ms a frame at 512² and 1024²; and the yuv420p → RGB
+   conversion on every (Y, U, V) triple (`conversion_phase`): held to the
+   committed table's digest, and where cv2 imports to cv2's own conversion
+   of the same frame (every triple bit-equal when its swscale is the
+   goldens' 9.5.101, else within YUV_OTHER_SWSCALE_BOUND, the count of
+   triples that differ printed), with the conversion's ms a frame at 512²
+   and 1024². The host C decoders are built before the first path (the
+   [build] line), so no path's times hold a build;
 20. prints the mp4 medians (encode and decode ms a frame on the host CPU,
    bytes a frame, at 512² and 1024²) beside the card line, the kernel JSON
    line (launches per path and summed, errors, times, bounds), the card
@@ -1561,7 +1569,9 @@ def mp4_check(path: str) -> None:
     encode's reconstruction bit for bit; the decode's luma is within
     MP4_Y_PSNR_MIN of the encoder's source luma and its RGB within
     MP4_RGB_PSNR_SLACK of the PSNR of the 4:2:0 conversion alone; where cv2
-    imports, ffmpeg's luma equals the port's bit for bit. Records the
+    imports, ffmpeg's luma equals the port's bit for bit and its RGB too
+    (within YUV_OTHER_SWSCALE_BOUND where cv2's swscale is another version
+    than the conversion goldens'). Records the
     encode and decode ms a frame (host CPU) and the bytes a frame."""
     from hi3d_tpu_torch.utils import h264, mp4
     from hi3d_tpu_torch.utils.video import import_video
@@ -1612,7 +1622,21 @@ def mp4_check(path: str) -> None:
         cap.release()
         if len(luma) != n or any(not np.array_equal(a, p[0]) for a, p in zip(luma, planes)):
             raise AssertionError(f"{name}: ffmpeg's luma ({len(luma)} frames) is not the port's")
-        ffmpeg = f"ffmpeg check ran: cv2's luma of {n} frames bit-equal to the port's"
+        cap = cv2.VideoCapture(path)
+        theirs = []
+        while True:
+            ok, f = cap.read()
+            if not ok:
+                break
+            theirs.append(f[..., ::-1])
+        cap.release()
+        bound, version = yuv_bound(cv2)
+        worst = int(np.abs(np.stack(theirs).astype(np.int16) - rgb).max()) if theirs else None
+        if len(theirs) != n or worst > bound:
+            raise AssertionError(f"{name}: ffmpeg's RGB ({len(theirs)} frames) lies {worst} "
+                                 f"levels from the port's (swscale {version}, bound {bound})")
+        ffmpeg = (f"ffmpeg check ran: cv2's luma of {n} frames bit-equal to the port's, its RGB "
+                  f"within {worst} (bound {bound}, swscale {version})")
     per_frame = sum(len(x) for x in track.samples) / n
     MP4_READINGS.setdefault(f"{w}x{h}", []).append((enc_ms, dec_ms, per_frame))
     print(f"[mp4] {name}: {n} frames of {w}x{h} at {track.fps} fps, decode = encoder's "
@@ -1620,6 +1644,52 @@ def mp4_check(path: str) -> None:
           f"{rgb_psnr:.2f} dB (4:2:0 alone {yuv420_psnr:.2f}, bound "
           f"{yuv420_psnr - MP4_RGB_PSNR_SLACK:.2f}); {ffmpeg}; encode {enc_ms:.2f} ms a frame, "
           f"decode {dec_ms:.2f} ms a frame, {per_frame:.0f} bytes a frame (host CPU)", flush=True)
+
+
+def build_host_decoders() -> None:
+    """Builds (or loads) every host C library of the port's image and video
+    readers and writers before the first path, so that no path's times
+    hold a build (main path 8 reads the first mp4v, main path 16 decodes
+    every format)."""
+    from hi3d_tpu_torch.utils import h264, jpeg, mpeg4, png, raster, webp
+
+    t0 = time.perf_counter()
+    for module in (png, jpeg, webp, raster, h264, mpeg4):
+        module._native()
+    print(f"[build] host C libraries (PNG, JPEG, WebP, raster, H.264, MPEG-4 Part 2): "
+          f"{time.perf_counter() - t0:.1f} s, before the first path", flush=True)
+
+
+def yuv_to_rgb_ms(h264, reps: int = 20) -> dict:
+    """The ms a frame (median of `reps`) of `h264.to_rgb` at 512² and 1024²
+    on seeded planes."""
+    rnd = np.random.RandomState(0)
+    times = {}
+    for side in (512, 1024):
+        planes = [rnd.randint(0, 256, (side >> k, side >> k)).astype(np.uint8)
+                  for k in (0, 1, 1)]
+        runs = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            h264.to_rgb(*planes)
+            runs.append((time.perf_counter() - t) * 1e3)
+        times[f"{side}x{side}"] = round(float(np.median(runs)), 3)
+    return times
+
+
+def time_yuv_to_rgb(root: str = ROOT, reps: int = 20) -> None:
+    """`--time-yuv [root]`: the ms a frame (median of `reps`) of the port's
+    yuv420p → RGB (`h264.to_rgb`) at 512² and 1024² on seeded planes, with
+    the `hi3d_tpu_torch` of the checkout at `root` (default this one), its C
+    built first; to hold two versions of the conversion against each other
+    in one call."""
+    sys.path.insert(0, os.path.abspath(root))
+    from hi3d_tpu_torch.utils import h264
+
+    h264._native()
+    times = yuv_to_rgb_ms(h264, reps)
+    print(f"[time-yuv] {os.path.abspath(h264.__file__)}: ms a frame on this host's CPU (median "
+          f"of {reps}), card {card_line()}: {json.dumps(times)}", flush=True)
 
 
 def mp4_summary(card: str) -> None:
@@ -4015,7 +4085,7 @@ def path1_frames(stage1_dir) -> np.ndarray:
 JPEG_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_jpeg")
 # the image fixtures with cv2's goldens, by format (path 16 decodes them all)
 IMAGE_FIXTURES = {fmt: os.path.join(ROOT, "tests", "data", f"torch_{fmt.lower()}")
-                  for fmt in ("PNG", "JPEG", "WebP", "BMP", "TIFF", "GIF", "PNM")}
+                  for fmt in ("PNG", "JPEG", "WebP", "BMP", "TIFF", "GIF", "PNM", "PAM")}
 # main path 5's input: demo/3.png as cv2 writes an LZW TIFF with the predictor
 PATH5_IMAGE = os.path.join(IMAGE_FIXTURES["TIFF"], "demo3_lzw_pred2.tif")
 PATH7_IMAGE = os.path.join(JPEG_FIXTURES, "demo3_q90.jpg")  # path 7 reads a JPEG
@@ -4023,7 +4093,12 @@ PATH7_IMAGE = os.path.join(JPEG_FIXTURES, "demo3_q90.jpg")  # path 7 reads a JPE
 # JAX package's stage-1 file among them is main path 8's --video_path
 MP4V_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_mp4v")
 PATH8_VIDEO = os.path.join(MP4V_FIXTURES, "first.mp4")
-MP4V_RGB_TOL = 3  # tests/test_torch_mpeg4.py's RGB_TOL: the port's RGB against cv2's
+# the table of swscale's yuv420p → RGB over every (Y, U, V), from cv2 5.0.0
+# (swscale 9.5.101): its SHA-256 (tests/test_torch_yuv.py)
+YUV_GOLDENS = os.path.join(ROOT, "tests", "data", "torch_yuv", "goldens.json")
+# levels the port's RGB may lie from cv2's where cv2's swscale is another
+# version than the goldens' (the bound the port's own inverse held before)
+YUV_OTHER_SWSCALE_BOUND = 3
 SPLAT_MODES = ("sum", "avg", "linear", "soft")
 # fp32 on the card against float64 on the CPU, relative to the largest entry
 # of each tensor: sums of a few bilinear terms (the card's atomics add them
@@ -4303,16 +4378,17 @@ def decode_phase() -> None:
 
 
 def _decode_phase() -> None:
-    """Every PNG, JPEG, WebP, BMP, TIFF, GIF, PNM and Sun raster fixture
-    decoded on this host by the port (cv2 plays no part) against its cv2
-    golden through `read_image` and `decode_image`, and through
+    """Every PNG, JPEG, WebP, BMP, TIFF, GIF, PNM, PAM and Sun raster
+    fixture decoded on this host by the port (cv2 plays no part) against
+    its cv2 golden through `read_image` and `decode_image`, and through
     `load_image_rgb`; then each format's decode ms (median of 5, the host's
     CPU) at 512² and 517×389: PNGs the port writes of demo/3.png and of the
     389×517 JPEG fixture's decode, the committed JPEGs (baseline,
-    progressive) and WebPs (lossy with alpha at 512², lossy at 517×389,
-    lossless at 61×47); at 512², demo/3.png as a 24-bit BMP and a PPM
-    written here, and the committed LZW + predictor TIFF, Deflate TIFF
-    and GIF."""
+    progressive, progressive cut after 5 of its 10 scans and so
+    block-smoothed) and WebPs (lossy with alpha at 512², animated at 512²,
+    lossy at 517×389, lossless at 61×47); at 512², demo/3.png as a 24-bit
+    BMP, a PPM and an RGB PAM written here, and the committed LZW +
+    predictor TIFF, Deflate TIFF and GIF."""
     from hi3d_tpu_torch.utils.image import decode_image, load_image_rgb
     from hi3d_tpu_torch.utils.png import write_png
 
@@ -4332,9 +4408,9 @@ def _decode_phase() -> None:
                                                      not np.array_equal(rgb, img)):
                 raise AssertionError(f"{name}: load_image_rgb disagrees with the decode")
             count += 1
-    print(f"[path16] {count} PNG, JPEG, WebP, BMP, TIFF, GIF, PNM and Sun raster fixtures "
-          f"decoded bit-equal to their cv2 goldens ({time.perf_counter() - t0:.2f} s, the C "
-          "decoders' builds included)", flush=True)
+    print(f"[path16] {count} PNG, JPEG, WebP, BMP, TIFF, GIF, PNM, PAM and Sun raster fixtures "
+          f"decoded bit-equal to their cv2 goldens ({time.perf_counter() - t0:.2f} s; the C "
+          "decoders built before the first path)", flush=True)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_png_", dir=os.path.join(ROOT, "outputs"))
     pngs = {}
     for label, img in (("512x512", load_image_rgb(os.path.join(ROOT, "demo", "3.png"))),
@@ -4349,15 +4425,23 @@ def _decode_phase() -> None:
     pngs["ppm"] = os.path.join(tmp, "512x512.ppm")
     with open(pngs["ppm"], "wb") as f:
         f.write(b"P6\n512 512\n255\n" + demo.tobytes())
+    pngs["pam"] = os.path.join(tmp, "512x512.pam")
+    with open(pngs["pam"], "wb") as f:
+        f.write(b"P7\nWIDTH 512\nHEIGHT 512\nDEPTH 3\nMAXVAL 255\nTUPLTYPE RGB\nENDHDR\n"
+                + demo[..., ::-1].tobytes())
     cases = [("PNG", "512x512 RGB", pngs["512x512"]), ("PNG", "517x389 RGB", pngs["517x389"]),
              ("JPEG", "512x512 baseline 4:2:0", os.path.join(JPEG_FIXTURES, "demo3_q90.jpg")),
              ("JPEG", "512x512 progressive", os.path.join(JPEG_FIXTURES, "asset0.jpg")),
+             ("JPEG", "512x512 smoothed progressive", os.path.join(JPEG_FIXTURES,
+                                                                   "smooth_q90_512.jpg")),
              ("JPEG", "517x389 baseline", os.path.join(JPEG_FIXTURES,
                                                        "demo3_q30_rst1_389x517.jpg")),
              ("JPEG", "517x389 progressive", os.path.join(JPEG_FIXTURES,
                                                           "prog_q85_rst3_389x517.jpg")),
              ("WebP", "512x512 lossy + alpha", os.path.join(IMAGE_FIXTURES["WebP"],
                                                            "asset1.webp")),
+             ("WebP", "512x512 animated", os.path.join(IMAGE_FIXTURES["WebP"],
+                                                      "anim_512.webp")),
              ("WebP", "517x389 lossy", os.path.join(IMAGE_FIXTURES["WebP"],
                                                    "lossy_q75_389x517.webp")),
              ("WebP", "61x47 lossless", os.path.join(IMAGE_FIXTURES["WebP"],
@@ -4367,7 +4451,8 @@ def _decode_phase() -> None:
              ("TIFF", "512x512 Deflate", os.path.join(IMAGE_FIXTURES["TIFF"],
                                                       "demo3_deflate.tif")),
              ("GIF", "512x512", os.path.join(IMAGE_FIXTURES["GIF"], "demo3_512.gif")),
-             ("PNM", "512x512 PPM", pngs["ppm"])]
+             ("PNM", "512x512 PPM", pngs["ppm"]),
+             ("PAM", "512x512 RGB", pngs["pam"])]
     times = {}
     for fmt, label, path in cases:
         with open(path, "rb") as f:
@@ -4387,10 +4472,9 @@ def mp4v_phase() -> dict:
     """Every committed mp4v fixture (cv2's MPEG-4 Part 2; first.mp4 is the
     JAX package's stage-1 file) through mp4.read_mp4 and utils/mpeg4.py on
     this host, no other reader: frame count and fps those of the goldens,
-    every frame's luma bit-equal to cv2's, the RGB of `video.read_mp4` the
-    golden's, which lies within MP4V_RGB_TOL of cv2's; then the decode ms
-    a frame (median of 5) of the planes and of RGB at 512² and 1024².
-    Returns those times."""
+    every frame's luma and the RGB of `video.read_mp4` bit-equal to cv2's
+    goldens; then the decode ms a frame (median of 5) of the planes and of
+    RGB at 512² and 1024². Returns those times."""
     from hi3d_tpu_torch.utils import h264, mp4, mpeg4
     from hi3d_tpu_torch.utils.video import read_mp4
 
@@ -4410,13 +4494,12 @@ def mp4v_phase() -> dict:
         for i, (p, img, g) in enumerate(zip(planes, rgb, want["frames"])):
             if _digest(np.ascontiguousarray(p[0])) != g["luma"]:
                 raise AssertionError(f"{name}: frame {i}'s luma is not cv2's")
-            if _digest(img) != g["port_rgb"] or g["port_rgb_max_diff"] > MP4V_RGB_TOL:
-                raise AssertionError(f"{name}: frame {i}'s RGB is not the golden's (within "
-                                     f"{g['port_rgb_max_diff']} of cv2's, bound {MP4V_RGB_TOL})")
+            if _digest(img) != g["rgb"]:
+                raise AssertionError(f"{name}: frame {i}'s RGB is not cv2's")
         count += len(planes)
-    print(f"[path16] {len(goldens)} mp4v fixtures, {count} frames: luma bit-equal to cv2's, RGB "
-          f"the golden's (within {MP4V_RGB_TOL} of cv2's) ({time.perf_counter() - t0:.2f} s, the "
-          "decoder's build included)", flush=True)
+    print(f"[path16] {len(goldens)} mp4v fixtures, {count} frames: luma and RGB bit-equal to "
+          f"cv2's ({time.perf_counter() - t0:.2f} s; the decoders built before the first path)",
+          flush=True)
     times = {}
     for label, name in (("512x512", "first.mp4"), ("1024x1024", "second_1024.mp4")):
         track = mp4.read_mp4(os.path.join(MP4V_FIXTURES, name))
@@ -4432,6 +4515,102 @@ def mp4v_phase() -> dict:
     print(f"[path16] mp4v decode ms a frame on this host's CPU (median of 5, 16 frames a file), "
           f"card {card_line()}: {json.dumps(times)}", flush=True)
     return times
+
+
+def swscale_version(cv2) -> str | None:
+    """The libswscale version cv2 was built with (its build information),
+    or None where it has no FFMPEG backend."""
+    import re
+
+    found = re.search(r"swscale:\s*YES \(([^)]*)\)", cv2.getBuildInformation())
+    return found.group(1) if found else None
+
+
+def yuv_bound(cv2) -> tuple:
+    """(bound, swscale version): the levels the port's RGB may lie from
+    cv2's, 0 where cv2's swscale is the goldens' version."""
+    with open(YUV_GOLDENS) as f:
+        want = json.load(f)["swscale"]
+    version = swscale_version(cv2)
+    return (0 if version == want else YUV_OTHER_SWSCALE_BOUND), version
+
+
+def yuv_probe_planes():
+    """Y, U, V of a 4096² frame that holds every (Y, U, V) once
+    (tests/test_torch_yuv.py's): chroma sample (r, c) carries the pair
+    (r % 32) · 2048 + c (U its high byte), the 4 luma samples under it
+    4 · (r // 32) + 0..3."""
+    r, c = np.mgrid[0:2048, 0:2048]
+    pair = (r % 32) * 2048 + c
+    u, v = (pair >> 8).astype(np.uint8), (pair & 255).astype(np.uint8)
+    y = np.empty((4096, 4096), np.uint8)
+    for dy in range(2):
+        for dx in range(2):
+            y[dy::2, dx::2] = 4 * (r // 32) + 2 * dy + dx
+    return y, u, v
+
+
+def conversion_phase() -> dict:
+    """The port's yuv420p → RGB (`h264.to_rgb`, both mp4 readers') on the
+    frame that holds every (Y, U, V): its table held to the committed
+    digest (cv2 5.0.0's, swscale 9.5.101); where cv2 imports with its
+    FFMPEG backend, to cv2's own conversion of the same planes read from a
+    .y4m file: bit-equal on every triple when its swscale is the goldens'
+    version, else within YUV_OTHER_SWSCALE_BOUND, the triples that differ
+    and their largest difference printed. Then the conversion's ms a frame
+    (median of 20) at 512² and 1024². Returns the readings."""
+    import hashlib
+
+    from hi3d_tpu_torch.utils import h264
+
+    t0 = time.perf_counter()
+    with open(YUV_GOLDENS) as f:
+        goldens = json.load(f)
+    y, u, v = yuv_probe_planes()
+    rgb = h264.to_rgb(y, u, v)
+    table = np.zeros((256, 256, 256, 3), np.uint8)
+    table[y, np.repeat(np.repeat(u, 2, 0), 2, 1), np.repeat(np.repeat(v, 2, 0), 2, 1)] = rgb
+    if hashlib.sha256(table.tobytes()).hexdigest() != goldens["table_sha256"]:
+        raise AssertionError("yuv420p → RGB: the table of every triple is not the committed one")
+    del table
+    out = {"cv2": None, "swscale": None, "triples_differ": None, "max_diff": None}
+    try:
+        import cv2
+    except ImportError:
+        live = "cv2 does not import here: held to the committed table only"
+    else:
+        bound, version = yuv_bound(cv2)
+        out.update(cv2=cv2.__version__, swscale=version)
+        if version is None:
+            live = f"cv2 {cv2.__version__} has no FFMPEG backend: held to the committed table only"
+        else:
+            tmp = tempfile.mkdtemp(prefix="chip_smoke_yuv_", dir=os.path.join(ROOT, "outputs"))
+            path = os.path.join(tmp, "all_triples.y4m")
+            with open(path, "wb") as f:
+                f.write(b"YUV4MPEG2 W4096 H4096 F25:1 Ip A1:1 C420jpeg\nFRAME\n")
+                for plane in (y, u, v):
+                    f.write(plane.tobytes())
+            cap = cv2.VideoCapture(path, cv2.CAP_FFMPEG)
+            ok, bgr = cap.read()
+            cap.release()
+            shutil.rmtree(tmp, ignore_errors=True)
+            if not ok or bgr.shape != (4096, 4096, 3):
+                raise AssertionError("cv2 did not read the .y4m probe frame")
+            diff = np.abs(rgb.astype(np.int16) - bgr[..., ::-1]).max(-1)
+            out.update(triples_differ=int((diff > 0).sum()), max_diff=int(diff.max()))
+            if out["max_diff"] > bound:
+                raise AssertionError(f"yuv420p → RGB: {out['triples_differ']} triples differ from "
+                                     f"cv2's (swscale {version}), by up to {out['max_diff']} "
+                                     f"levels; bound {bound}")
+            live = (f"cv2 {cv2.__version__}, swscale {version}: {out['triples_differ']} of 2^24 "
+                    f"triples differ from cv2's conversion, by up to {out['max_diff']} levels "
+                    f"(bound {bound})")
+    out["ms"] = times = yuv_to_rgb_ms(h264)
+    print(f"[path16] yuv420p → RGB on every (Y, U, V): the table's SHA-256 the committed one; "
+          f"{live} ({time.perf_counter() - t0:.2f} s)", flush=True)
+    print(f"[path16] yuv420p → RGB ms a frame on this host's CPU (median of 20), card "
+          f"{card_line()}: {json.dumps(times)}", flush=True)
+    return out
 
 
 def logger_phase(out_dir: str) -> None:
@@ -4501,7 +4680,8 @@ def module_surface_path(frames: np.ndarray) -> dict:
     """Main path 16: softsplat and correlation on the card against float64,
     every transform on demo/3.png, the image fixtures against their cv2
     goldens (and each format's decode ms), the mp4v fixtures against theirs
-    (`mp4v_phase`), `setup_logger`, inference-v01's full-width VideoUNet with
+    (`mp4v_phase`), the yuv420p → RGB conversion on every triple
+    (`conversion_phase`), `setup_logger`, inference-v01's full-width VideoUNet with
     UNET_OPTIONS at b 1, t 4, 32² on the card (launches equal to the
     module's count, finite) against the CPU in fp32 (within 1.5 × the plain
     bf16 error), and the σ-noised conditioning-frame embedder (#9 launches
@@ -4517,6 +4697,7 @@ def module_surface_path(frames: np.ndarray) -> dict:
     transforms_phase()
     decode_phase()
     mp4v_phase()
+    conversion_phase()
     logger_phase(out_dir)
     launches = unet_reference_phase(os.path.join(ROOT, "configs", "inference-v01.yaml"),
                                     overrides=UNET_OPTIONS, label=f" with {UNET_OPTIONS}",
@@ -5654,6 +5835,9 @@ def main() -> None:
     if sys.argv[1:] == ["--time-png"]:
         time_png_decode()
         return
+    if sys.argv[1:2] == ["--time-yuv"]:
+        time_yuv_to_rgb(*sys.argv[2:3])
+        return
     if sys.argv[1:2] == ["--replay-degradation"]:
         os.makedirs(os.path.join(ROOT, "outputs"), exist_ok=True)
         replay_degradations(*map(int, sys.argv[2:3]))
@@ -5667,6 +5851,7 @@ def main() -> None:
     nvcc_s = build.build_seconds if build.build_seconds is not None else 0.0
     print(f"[build] {build.library_path().name}: nvcc {nvcc_s:.1f} s "
           f"(0 = reused), build+load {time.perf_counter() - t0:.1f} s", flush=True)
+    build_host_decoders()
     if sys.argv[1:] == ["--profile-serve"]:
         profile_serve()
         return
@@ -5773,8 +5958,8 @@ def main() -> None:
     by_path["svd_vae"] = svd_vae_path(stage1_dir)
     by_path.update(t2i_phases(os.path.join(stage1_dir, "first_step", "frames")))
     print("[smoke] main path 16: softsplat, correlation, transforms, PNG, JPEG, WebP, BMP, "
-          "TIFF, GIF, PNM, Sun raster and mp4v decodes, the logger, the "
-          "VideoUNet's options, the σ-noised conditioning frames", flush=True)
+          "TIFF, GIF, PNM, PAM, Sun raster and mp4v decodes, the yuv420p → RGB conversion, "
+          "the logger, the VideoUNet's options, the σ-noised conditioning frames", flush=True)
     by_path["modules"] = module_surface_path(path1_frames(stage1_dir))
     print(f"[smoke] main path 17: multi-GPU serving, configs/inference-v01.yaml and -v02.yaml, "
           f"{SERVE_DIST_CLIP} × 512² and × 1024², {SERVE_DIST_STEPS} steps a stage: the CLI "

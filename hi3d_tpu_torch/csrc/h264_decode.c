@@ -6,12 +6,17 @@
  * each slice's RBSP here with the bit position of its slice_data(); this
  * file checks its arguments again and every syntax element it reads.
  *
- * hi3d_h264_yuv_to_rgb converts the decoded planes with the inverse of the
- * encoder's BT.601 limited-range matrix (chroma repeated over its 2x2):
- *   C = Y - 16, D = Cb - 128, E = Cr - 128
- *   R = clip((298 C + 409 E + 128) >> 8)
- *   G = clip((298 C - 100 D - 208 E + 128) >> 8)
- *   B = clip((298 C + 516 D + 128) >> 8) */
+ * hi3d_h264_yuv_to_rgb converts the decoded planes as libswscale's unscaled
+ * yuv420p -> BGR24 path does (the conversion cv2's FFMPEG backend asks for,
+ * with the default BT.601 limited-range matrix): its x86 SIMD arithmetic in
+ * 16-bit lanes, chroma repeated over its 2x2, mulhi(a, b) = (a * b) >> 16:
+ *   y = mulhi(8 Y - 128, 9539), u = 8 Cb - 1024, v = 8 Cr - 1024
+ *   R = clip(y + mulhi(v, 13075))
+ *   G = clip(y + mulhi(u, -3209) + mulhi(v, -6660))
+ *   B = clip(y + mulhi(u, 16525))
+ * The coefficients are those ff_yuv2rgb_c_init_tables rounds from
+ * ff_yuv2rgb_coeffs[SWS_CS_DEFAULT] = {104597, 132201, 25675, 53279} and
+ * cy = 65536 * 255 / 219, each times 2^13 and rounded to 16 bits. */
 
 #include <stdint.h>
 #include <stdio.h>
@@ -339,17 +344,23 @@ int hi3d_h264_decode_slice(const uint8_t *rbsp, long size, long bit_pos, int mb_
 
 /* Planes (y: h x w of stride ys; u, v: h/2 x w/2 of stride cs) -> RGB
  * (h x w x 3, contiguous). Returns 0, -5 for a bad argument. */
+static inline int mulhi16(int a, int b) { return (a * b) >> 16; }
+
 int hi3d_h264_yuv_to_rgb(const uint8_t *y, const uint8_t *u, const uint8_t *v, int w, int h, int ys, int cs,
                          uint8_t *rgb) {
     if (!y || !u || !v || !rgb || w < 2 || h < 2 || (w & 1) || (h & 1) || ys < w || cs < w / 2) return -5;
     for (int j = 0; j < h; j++) {
         const uint8_t *py = y + (long)j * ys, *pu = u + (long)(j >> 1) * cs, *pv = v + (long)(j >> 1) * cs;
         uint8_t *o = rgb + (long)j * w * 3;
-        for (int i = 0; i < w; i++, o += 3) {
-            int c = 298 * (py[i] - 16) + 128, dd = pu[i >> 1] - 128, e = pv[i >> 1] - 128;
-            o[0] = clip1((c + 409 * e) >> 8);
-            o[1] = clip1((c - 100 * dd - 208 * e) >> 8);
-            o[2] = clip1((c + 516 * dd) >> 8);
+        for (int i = 0; i < w; i += 2, o += 6) {
+            int cu = pu[i >> 1] * 8 - 1024, cv = pv[i >> 1] * 8 - 1024;
+            int r = mulhi16(cv, 13075), g = mulhi16(cu, -3209) + mulhi16(cv, -6660), b = mulhi16(cu, 16525);
+            for (int k = 0; k < 2; k++) {
+                int l = mulhi16(py[i + k] * 8 - 128, 9539);
+                o[3 * k] = clip1(l + r);
+                o[3 * k + 1] = clip1(l + g);
+                o[3 * k + 2] = clip1(l + b);
+            }
         }
     }
     return 0;

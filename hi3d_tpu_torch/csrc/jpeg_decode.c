@@ -7,12 +7,15 @@
  * Built at first use with the host C compiler (`cc -O3 -shared -fPIC`) into
  * build/host/ and loaded with ctypes; plain C, no library.
  *
- * hi3d_jpeg_decode_scan(data, size, &end, ncomp, desc, coef, bits, vals,
+ * hi3d_jpeg_decode_scan(data, size, &end, &last, ncomp, desc, coef, bits, vals,
  *                       mcus_x, mcus_y, restart)
  *   data, size   the entropy-coded segment and what follows it (from the
  *                byte after the SOS header to the end of the file)
  *   end          out: offset of the marker that ended the scan (its 0xFF), or
  *                of the first byte not read
+ *   last         out: the last MCU decoded from data (-1 if none; an MCU
+ *                after the data ran short stays as it was), for the block
+ *                smoothing of a progressive file
  *   ncomp        components in the scan (1 for a non-interleaved scan)
  *   desc         ncomp × 6 ints: h, v (blocks of the component in an MCU;
  *                1, 1 for a non-interleaved scan), DC table, AC table
@@ -246,7 +249,7 @@ static long scan_end(const bits_t *b, const uint8_t *data) {
     return (long)((b->unread ? b->mark : b->p) - data);
 }
 
-int hi3d_jpeg_decode_scan(const uint8_t *data, long size, long *end, int ncomp,
+int hi3d_jpeg_decode_scan(const uint8_t *data, long size, long *end, long *last, int ncomp,
                           const int *desc, int16_t *const *coef, const uint8_t *bits,
                           const uint8_t *vals, int mcus_x, int mcus_y, int restart_every) {
     int err = check_args(size, ncomp, desc, mcus_x, mcus_y, restart_every);
@@ -256,6 +259,7 @@ int hi3d_jpeg_decode_scan(const uint8_t *data, long size, long *end, int ncomp,
     if (err) return err;
     bits_t b = {data, data + size, 0, 0, 0, 0, NULL, 0};
     int pred[4] = {0, 0, 0, 0};
+    *last = -1;
     long mcus = (long)mcus_x * mcus_y;
     int next_rst = 0;
     for (long m = 0; m < mcus; m++) {
@@ -264,6 +268,7 @@ int hi3d_jpeg_decode_scan(const uint8_t *data, long size, long *end, int ncomp,
             memset(pred, 0, sizeof pred);
         }
         if (b.insufficient) continue;  /* out of data: the MCU stays zero */
+        *last = m;
         long mx = m % mcus_x, my = m / mcus_x;
         for (int c = 0; c < ncomp; c++) {
             const int *d = desc + 6 * c;
@@ -367,7 +372,7 @@ static void progressive_block(bits_t *b, int16_t *blk, const huff_t *dct, const 
     }
 }
 
-int hi3d_jpeg_decode_progressive(const uint8_t *data, long size, long *end, int ncomp,
+int hi3d_jpeg_decode_progressive(const uint8_t *data, long size, long *end, long *last, int ncomp,
                                  const int *desc, int16_t *const *coef, const uint8_t *bits,
                                  const uint8_t *vals, int mcus_x, int mcus_y, int restart_every,
                                  int ss, int se, int ah, int al) {
@@ -383,6 +388,7 @@ int hi3d_jpeg_decode_progressive(const uint8_t *data, long size, long *end, int 
     if (err) return err;
     bits_t b = {data, data + size, 0, 0, 0, 0, NULL, 0};
     int pred[4] = {0, 0, 0, 0}, eobrun = 0, next_rst = 0;
+    *last = -1;
     long mcus = (long)mcus_x * mcus_y;
     for (long m = 0; m < mcus; m++) {
         if (restart_every && m && m % restart_every == 0) {
@@ -391,6 +397,7 @@ int hi3d_jpeg_decode_progressive(const uint8_t *data, long size, long *end, int 
             eobrun = 0;
         }
         if (b.insufficient) continue;  /* out of data: the MCU stays as it was */
+        *last = m;
         long mx = m % mcus_x, my = m / mcus_x;
         for (int c = 0; c < ncomp; c++) {
             const int *d = desc + 6 * c;
@@ -404,5 +411,152 @@ int hi3d_jpeg_decode_progressive(const uint8_t *data, long size, long *end, int 
         }
     }
     *end = scan_end(&b, data);
+    return 0;
+}
+
+/* One estimate of decompress_smooth_data: num / (q << 8), rounded half away
+ * from zero, its magnitude clamped below 1 << al when al > 0. */
+static int16_t smooth_pred(long num, long q, int al) {
+    long mag = ((q << 7) + (num >= 0 ? num : -num)) / (q << 8);
+    if (al > 0 && mag >= (1L << al)) mag = (1L << al) - 1;
+    return (int16_t)(num >= 0 ? mag : -mag);
+}
+
+/* hi3d_jpeg_smooth(coef, out, blocks_x, width_blocks, height_blocks, v,
+ *                  imcu_rows, qt, bits, prev_bits, last_good)
+ * libjpeg-turbo's block smoothing of one component of a progressive JPEG
+ * (jdcoefct.c decompress_smooth_data, 2.1 and later), which its
+ * decompressor applies in place of decompress_data when smoothing_ok:
+ * each block's unrefined coefficients among the first 10 in zigzag order,
+ * where still zero, are estimated from the DC values of the 5 x 5 blocks
+ * around it (rows and columns past the edge repeat the edge's), into `out`
+ * (a copy of `coef`, whose DC values the estimates read).
+ *   coef, out      int16 (imcu_rows * v) x blocks_x x 64, natural order
+ *   width_blocks,  the component's blocks across and down
+ *   height_blocks
+ *   v              its vertical sampling factor (block rows an iMCU row)
+ *   qt             its quantisation table, 64 ints in natural order
+ *   bits           coef_bits latched at the end of input: zigzag
+ *                  coefficients 0..9, the Al they were last sent with, -1
+ *                  if never
+ *   prev_bits      the same before the component's last scan
+ *   last_good      the last iMCU row that the last scan's data reached;
+ *                  the rows after it take prev_bits
+ * Row and column windows are those of the library, which for the last iMCU
+ * row counts block rows as if every iMCU row held as many as it does. Every
+ * index is checked against the array; returns 0 or ERR_ARGS. */
+int hi3d_jpeg_smooth(const int16_t *coef, int16_t *out, int blocks_x, int width_blocks,
+                     int height_blocks, int v, int imcu_rows, const int *qt, const int *bits,
+                     const int *prev_bits, long last_good) {
+    if (v < 1 || v > 4 || imcu_rows < 1 || width_blocks < 1 || width_blocks > blocks_x ||
+        height_blocks < 1 || height_blocks > (long)imcu_rows * v ||
+        height_blocks <= (long)(imcu_rows - 1) * v)
+        return ERR_ARGS;
+    for (int k = 0; k < 10; k++)
+        if (qt[natural_order[k]] == 0) return ERR_ARGS;
+    long q00 = qt[0], q01 = qt[1], q10 = qt[8], q20 = qt[16], q11 = qt[9], q02 = qt[2],
+         q03 = qt[3], q12 = qt[10], q21 = qt[17], q30 = qt[24];
+    int last_imcu = imcu_rows - 1, last_col = width_blocks - 1;
+    for (int imcu = 0; imcu < imcu_rows; imcu++) {
+        int block_rows = v;
+        if (imcu == last_imcu) {
+            block_rows = height_blocks % v;
+            if (block_rows == 0) block_rows = v;
+        }
+        const int *cb = imcu > last_good ? prev_bits : bits;
+        int change_dc = 1;
+        for (int k = 1; k < 10; k++) change_dc &= cb[k] == -1;
+        long image_block_rows = (long)block_rows * imcu_rows;
+        for (int br = 0; br < block_rows; br++) {
+            long row = (long)imcu * v + br, ibr = (long)imcu * block_rows + br;
+            long r[5];  /* the rows of the window, top to bottom */
+            r[2] = row;
+            r[1] = ibr > 0 ? row - 1 : row;
+            r[0] = ibr > 1 ? row - 2 : r[1];
+            r[3] = ibr < image_block_rows - 1 ? row + 1 : row;
+            r[4] = ibr < image_block_rows - 2 ? row + 2 : r[3];
+            for (int i = 0; i < 5; i++)
+                if (r[i] < 0 || r[i] >= (long)imcu_rows * v) return ERR_ARGS;
+            for (int col = 0; col <= last_col; col++) {
+                int dc[5][5];  /* DC01..DC25 of the library, row by row */
+                for (int i = 0; i < 5; i++) {
+                    for (int j = 0; j < 5; j++) {
+                        int x = col + j - 2;
+                        x = x < 0 ? 0 : x > last_col ? last_col : x;
+                        dc[i][j] = coef[(r[i] * blocks_x + x) * 64];
+                    }
+                }
+#define DC(n) ((long)dc[((n) - 1) / 5][((n) - 1) % 5])
+                int16_t *w = out + (row * blocks_x + col) * 64;
+                long num;
+                if (cb[1] != 0 && w[1] == 0) {
+                    num = q00 * (change_dc ?
+                        (-DC(1) - DC(2) + DC(4) + DC(5) - 3 * DC(6) + 13 * DC(7) - 13 * DC(9) +
+                         3 * DC(10) - 3 * DC(11) + 38 * DC(12) - 38 * DC(14) + 3 * DC(15) -
+                         3 * DC(16) + 13 * DC(17) - 13 * DC(19) + 3 * DC(20) - DC(21) - DC(22) +
+                         DC(24) + DC(25)) :
+                        (-7 * DC(11) + 50 * DC(12) - 50 * DC(14) + 7 * DC(15)));
+                    w[1] = smooth_pred(num, q01, cb[1]);
+                }
+                if (cb[2] != 0 && w[8] == 0) {
+                    num = q00 * (change_dc ?
+                        (-DC(1) - 3 * DC(2) - 3 * DC(3) - 3 * DC(4) - DC(5) - DC(6) + 13 * DC(7) +
+                         38 * DC(8) + 13 * DC(9) - DC(10) + DC(16) - 13 * DC(17) - 38 * DC(18) -
+                         13 * DC(19) + DC(20) + DC(21) + 3 * DC(22) + 3 * DC(23) + 3 * DC(24) +
+                         DC(25)) :
+                        (-7 * DC(3) + 50 * DC(8) - 50 * DC(18) + 7 * DC(23)));
+                    w[8] = smooth_pred(num, q10, cb[2]);
+                }
+                if (cb[3] != 0 && w[16] == 0) {
+                    num = q00 * (change_dc ?
+                        (DC(3) + 2 * DC(7) + 7 * DC(8) + 2 * DC(9) - 5 * DC(12) - 14 * DC(13) -
+                         5 * DC(14) + 2 * DC(17) + 7 * DC(18) + 2 * DC(19) + DC(23)) :
+                        (-DC(3) + 13 * DC(8) - 24 * DC(13) + 13 * DC(18) - DC(23)));
+                    w[16] = smooth_pred(num, q20, cb[3]);
+                }
+                if (cb[4] != 0 && w[9] == 0) {
+                    num = q00 * (change_dc ?
+                        (-DC(1) + DC(5) + 9 * DC(7) - 9 * DC(9) - 9 * DC(17) + 9 * DC(19) +
+                         DC(21) - DC(25)) :
+                        (DC(10) + DC(16) - 10 * DC(17) + 10 * DC(19) - DC(2) - DC(20) + DC(22) -
+                         DC(24) + DC(4) - DC(6) + 10 * DC(7) - 10 * DC(9)));
+                    w[9] = smooth_pred(num, q11, cb[4]);
+                }
+                if (cb[5] != 0 && w[2] == 0) {
+                    num = q00 * (change_dc ?
+                        (2 * DC(7) - 5 * DC(8) + 2 * DC(9) + DC(11) + 7 * DC(12) - 14 * DC(13) +
+                         7 * DC(14) + DC(15) + 2 * DC(17) - 5 * DC(18) + 2 * DC(19)) :
+                        (-DC(11) + 13 * DC(12) - 24 * DC(13) + 13 * DC(14) - DC(15)));
+                    w[2] = smooth_pred(num, q02, cb[5]);
+                }
+                if (change_dc) {
+                    if (cb[6] != 0 && w[3] == 0) {
+                        num = q00 * (DC(7) - DC(9) + 2 * DC(12) - 2 * DC(14) + DC(17) - DC(19));
+                        w[3] = smooth_pred(num, q03, cb[6]);
+                    }
+                    if (cb[7] != 0 && w[10] == 0) {
+                        num = q00 * (DC(7) - 3 * DC(8) + DC(9) - DC(17) + 3 * DC(18) - DC(19));
+                        w[10] = smooth_pred(num, q12, cb[7]);
+                    }
+                    if (cb[8] != 0 && w[17] == 0) {
+                        num = q00 * (DC(7) - DC(9) - 3 * DC(12) + 3 * DC(14) + DC(17) - DC(19));
+                        w[17] = smooth_pred(num, q21, cb[8]);
+                    }
+                    if (cb[9] != 0 && w[24] == 0) {
+                        num = q00 * (DC(7) + 2 * DC(8) + DC(9) - DC(17) - 2 * DC(18) - DC(19));
+                        w[24] = smooth_pred(num, q30, cb[9]);
+                    }
+                    num = q00 * (-2 * DC(1) - 6 * DC(2) - 8 * DC(3) - 6 * DC(4) - 2 * DC(5) -
+                                 6 * DC(6) + 6 * DC(7) + 42 * DC(8) + 6 * DC(9) - 6 * DC(10) -
+                                 8 * DC(11) + 42 * DC(12) + 152 * DC(13) + 42 * DC(14) -
+                                 8 * DC(15) - 6 * DC(16) + 6 * DC(17) + 42 * DC(18) +
+                                 6 * DC(19) - 6 * DC(20) - 2 * DC(21) - 6 * DC(22) -
+                                 8 * DC(23) - 6 * DC(24) - 2 * DC(25));
+                    w[0] = smooth_pred(num, q00, 0);
+                }
+#undef DC
+            }
+        }
+    }
     return 0;
 }

@@ -27,7 +27,8 @@
  * Each returns 0 or a negative error code (see webp.py's _ERRORS). The
  * sizes are checked here again (ERR_ARGS), so no read or write leaves its
  * buffer whatever the data hold: every read past the end of the data gives
- * zeros and ends in ERR_TRUNCATED.
+ * zeros and ends in ERR_TRUNCATED, except on libwebp's 8-bit alpha path,
+ * whose last code may read past the end (decode_pixels).
  *
  * The probability and quantiser tables are those of RFC 6386 (section 13.5
  * default_coeff_probs and coeff_update_probs; 14.1 dc_qlookup and
@@ -547,6 +548,7 @@ typedef struct {
     lbits_t br;
     transform_t transforms[4];
     int ntransforms, seen;
+    int alpha;  /* the headerless stream of an ALPH chunk */
 } vp8l_t;
 
 static inline uint32_t subsample(uint32_t size, int bits) {
@@ -607,8 +609,99 @@ static int read_transform(vp8l_t *d, int *xsize, int ysize) {
     return 0;
 }
 
+/* libwebp's VP8LBitReader near the end of the data, where the 8-bit alpha
+ * path (below) can read past the end and still succeed: a read at bit
+ * position p takes (uint32)(val_ >> (bit_pos_ & 63)) of a 64-bit window
+ * that holds the last 8 bytes once all are loaded, so bits past the end
+ * read as zeros while the read starts inside the window and as the
+ * window's own bits again from its start once it starts past it; the end
+ * of the data, when a check finds a bit read past it, restarts bit_pos_ at
+ * 0 (VP8LSetEndOfStream). Reads inside the data are the data's bits. */
+typedef struct {
+    uint64_t w;  /* the window: the last 8 bytes (fewer: all, zero-padded) */
+    long base;   /* the bit of the data at the window's bit 0 */
+    int eos, bit;  /* the end found, and bit_pos_ since */
+} ltail_t;
+
+static void tail_init(ltail_t *t, const lbits_t *br) {
+    long n = br->size < 8 ? br->size : 8;
+    t->w = 0;
+    for (long i = 0; i < n; i++) t->w |= (uint64_t)br->buf[br->size - n + i] << (8 * i);
+    t->base = 8 * (br->size - n);
+    t->eos = t->bit = 0;
+}
+
+static uint32_t tail_peek(const lbits_t *br, const ltail_t *t) {  /* VP8LPrefetchBits */
+    if (t->eos) return (uint32_t)(t->w >> (t->bit & 63));
+    long p = br->consumed;
+    if (p >= t->base) return (uint32_t)(t->w >> ((p - t->base) & 63));
+    uint32_t v = 0;  /* 32 bits inside the data, before the window */
+    for (int i = 0; i < 32; i++)
+        v |= (uint32_t)((br->buf[(p + i) >> 3] >> ((p + i) & 7)) & 1) << i;
+    return v;
+}
+
+static void tail_advance(lbits_t *br, ltail_t *t, int n) {  /* VP8LSetBitPos */
+    if (t->eos) t->bit += n;
+    else br->consumed += n;
+}
+
+static void tail_check(lbits_t *br, ltail_t *t, int at_least) {  /* ShiftBytes' end check */
+    if (t->eos ? t->bit >= at_least : br->consumed > 8 * br->size) {
+        t->eos = 1;
+        t->bit = 0;
+    }
+}
+
+static uint32_t tail_bits(lbits_t *br, ltail_t *t, int n) {  /* VP8LReadBits, n <= 24 */
+    if (t->eos) {
+        t->bit = 0;
+        return 0;
+    }
+    uint32_t v = tail_peek(br, t) & ((1u << n) - 1);
+    br->consumed += n;
+    tail_check(br, t, 0);
+    return v;
+}
+
+/* ReadSymbol: the root table's 8 bits, then a second prefetch for the rest
+ * of a longer code. */
+static int tail_symbol(lbits_t *br, ltail_t *t, const hcode_t *h) {
+    if (h->single >= 0) return h->single;
+    uint32_t v = tail_peek(br, t);
+    uint16_t e = h->lut[v & ((1 << LUT_BITS) - 1)];
+    if (e != 0xFFFF) {
+        tail_advance(br, t, e >> 12);
+        return e & 0xFFF;
+    }
+    tail_advance(br, t, LUT_BITS);
+    uint64_t bits = (v & ((1 << LUT_BITS) - 1)) | (uint64_t)tail_peek(br, t) << LUT_BITS;
+    int code = 0;
+    for (int l = 1; l <= MAX_CODE_LENGTH; l++) {
+        code = (code << 1) | (int)((bits >> (l - 1)) & 1);
+        int d = code - h->first[l];
+        if (d >= 0 && d < h->count[l]) {
+            tail_advance(br, t, l - LUT_BITS);
+            return h->sorted[h->offset[l] + d];
+        }
+    }
+    return -1;
+}
+
+static int tail_prefix(lbits_t *br, ltail_t *t, int symbol) {  /* GetCopyDistance */
+    if (symbol < 4) return symbol + 1;
+    int extra = (symbol - 2) >> 1;
+    return ((2 + (symbol & 1)) << extra) + (int)tail_bits(br, t, extra) + 1;
+}
+
+/* With `eight_bit` the image is decoded as libwebp's DecodeAlphaData
+ * decodes an alpha plane of palette indices (its 8-bit path): the end of the
+ * data counts only when it comes before the last pixel, so a stream whose
+ * last code reads past its end still decodes, and the last 256 bits are read
+ * through libwebp's reader (`tail_*`), which is what that code reads. */
 static int decode_pixels(vp8l_t *d, uint32_t *data, int width, int height, int cache_bits,
-                         const group_t *groups, const uint32_t *meta, int meta_bits) {
+                         const group_t *groups, const uint32_t *meta, int meta_bits,
+                         int eight_bit) {
     lbits_t *br = &d->br;
     uint32_t cache[1 << MAX_CACHE_BITS];
     long total = (long)width * height, pos = 0, last_cached = 0;
@@ -619,9 +712,42 @@ static int decode_pixels(vp8l_t *d, uint32_t *data, int width, int height, int c
     if (cache_bits) memset(cache, 0, sizeof(uint32_t) << cache_bits);
 #define GROUP_AT(c, r) (meta ? &groups[meta[((r) >> meta_bits) * meta_w + ((c) >> meta_bits)]] \
                              : groups)
+    ltail_t tail;
+    int in_tail = 0;
     while (pos < total) {
         if ((col & mask) == 0) g = GROUP_AT(col, row);
-        if (br->consumed > 8 * br->size + 64) return ERR_TRUNCATED;
+        if (eight_bit && !in_tail && 8 * br->size - br->consumed < 256) {
+            tail_init(&tail, br);
+            in_tail = 1;
+        }
+        if (in_tail) {  /* one step of DecodeAlphaData, through libwebp's reader */
+            tail_check(br, &tail, 32);  /* VP8LFillBitWindow */
+            int code = tail_symbol(br, &tail, &g->codes[0]);
+            if (code < 0) return ERR_BITSTREAM;
+            if (code < NUM_LITERAL_CODES) {
+                data[pos++] = ((uint32_t)g->codes[3].single << 24) |
+                              ((uint32_t)g->codes[1].single << 16) | ((uint32_t)code << 8) |
+                              (uint32_t)g->codes[2].single;
+                if (++col >= width) { col = 0; row++; }
+            } else if (code < NUM_LITERAL_CODES + NUM_LENGTH_CODES) {
+                int length = tail_prefix(br, &tail, code - NUM_LITERAL_CODES);
+                int dist_symbol = tail_symbol(br, &tail, &g->codes[4]);
+                if (dist_symbol < 0) return ERR_BITSTREAM;
+                tail_check(br, &tail, 32);
+                int dist = plane_distance(width, tail_prefix(br, &tail, dist_symbol));
+                if (pos < dist || total - pos < length) return ERR_BITSTREAM;
+                for (int i = 0; i < length; i++) data[pos + i] = data[pos + i - dist];
+                pos += length;
+                col += length;
+                while (col >= width) { col -= width; row++; }
+                if (pos < total && (col & mask)) g = GROUP_AT(col, row);
+            } else {
+                return ERR_BITSTREAM;
+            }
+            if (tail.eos || br->consumed > 8 * br->size) return pos < total ? ERR_TRUNCATED : 0;
+            continue;
+        }
+        if (eight_bit ? leos(br) : br->consumed > 8 * br->size + 64) return ERR_TRUNCATED;
         int code = read_symbol(br, &g->codes[0]);
         if (code < 0) return ERR_BITSTREAM;
         if (code < NUM_LITERAL_CODES) {
@@ -634,7 +760,7 @@ static int decode_pixels(vp8l_t *d, uint32_t *data, int width, int height, int c
             int dist_symbol = read_symbol(br, &g->codes[4]);
             if (dist_symbol < 0) return ERR_BITSTREAM;
             int dist = plane_distance(width, prefix_value(br, dist_symbol));
-            if (leos(br)) return ERR_TRUNCATED;
+            if (!eight_bit && leos(br)) return ERR_TRUNCATED;
             if (pos < dist || total - pos < length) return ERR_BITSTREAM;
             for (int i = 0; i < length; i++) data[pos + i] = data[pos + i - dist];
             pos += length;
@@ -659,7 +785,7 @@ static int decode_pixels(vp8l_t *d, uint32_t *data, int width, int height, int c
                 cache[(0x1e35a7bdu * data[last_cached]) >> (32 - cache_bits)] = data[last_cached];
     }
 #undef GROUP_AT
-    return leos(br) ? ERR_TRUNCATED : 0;
+    return !eight_bit && leos(br) ? ERR_TRUNCATED : 0;
 }
 
 static int decode_stream(vp8l_t *d, int xsize, int ysize, int level0, uint32_t **out,
@@ -719,7 +845,14 @@ static int decode_stream(vp8l_t *d, int xsize, int ysize, int level0, uint32_t *
     }
     data = (uint32_t *)malloc(sizeof(uint32_t) * (size_t)xsize * (size_t)ysize + 4);
     if (!data) { err = ERR_MEMORY; goto done; }
-    err = decode_pixels(d, data, xsize, ysize, cache_bits, groups, meta, meta_bits);
+    /* libwebp's Is8bOptimizable alpha: colour indexing alone, no cache, one
+     * symbol each for red, blue and alpha */
+    int eight_bit = level0 && d->alpha && d->ntransforms == 1 && d->transforms[0].type == 3 &&
+                    !cache_bits;
+    for (int i = 0; i < nused && eight_bit; i++)
+        eight_bit = groups[i].codes[1].single >= 0 && groups[i].codes[2].single >= 0 &&
+                    groups[i].codes[3].single >= 0;
+    err = decode_pixels(d, data, xsize, ysize, cache_bits, groups, meta, meta_bits, eight_bit);
 done:
     free(meta);
     free(map);
@@ -860,6 +993,7 @@ int hi3d_webp_lossless(const uint8_t *data, long size, int headerless, int width
     memset(&d, 0, sizeof d);
     d.br.buf = data;
     d.br.size = size;
+    d.alpha = headerless;
     if (!headerless) {
         if (size < 5) return ERR_TRUNCATED;
         if (lread(&d.br, 8) != 0x2f) return ERR_BITSTREAM;

@@ -5,9 +5,10 @@ hi3d_tpu/utils/image.py), on numpy and the port's image decoders.
 signature table (`_FORMATS`), as cv2 does, and decode without cv2 what
 cv2's `IMREAD_UNCHANGED` gives, bit for bit: PNG (utils/png.py), JPEG
 (utils/jpeg.py), WebP (utils/webp.py), BMP (utils/bmp.py), TIFF
-(utils/tiff.py), GIF (utils/gif.py), PNM (utils/pnm.py) and Sun raster
-(utils/sunras.py). A format or a variant the port does not decode (AVIF,
-JPEG 2000, PAM, CCITT TIFF, an arithmetic-coded JPEG, ...) raises
+(utils/tiff.py), GIF (utils/gif.py), PNM (utils/pnm.py), PAM
+(utils/pam.py) and Sun raster (utils/sunras.py). A format or a variant the
+port does not decode (AVIF, JPEG 2000, CCITT TIFF, an arithmetic-coded
+JPEG, ...) raises
 `Unsupported`, which names it; where cv2 imports, every entry point (and so
 the training datasets) hands such a file to cv2 instead, as the JAX
 package reads every file. Images cv2 returns as uint16 or float (16-bit
@@ -40,6 +41,7 @@ import numpy as np
 from .bmp import decode_bmp, is_bmp
 from .gif import decode_gif, is_gif
 from .jpeg import decode_jpeg, is_jpeg
+from .pam import decode_pam, is_pam
 from .png import _SIGNATURE as _PNG_SIGNATURE
 from .png import decode_png, write_png
 from .pnm import decode_pnm, is_pnm
@@ -59,11 +61,11 @@ _FORMATS = (
     ("TIFF", lambda b: b[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"), decode_tiff),
     ("GIF", is_gif, decode_gif),
     ("PNM", is_pnm, decode_pnm),
+    ("PAM", is_pam, decode_pam),
     ("Sun raster", is_sunras, decode_sunras),
     ("AVIF", lambda b: b[4:8] == b"ftyp" and b[8:12] in (b"avif", b"avis"), None),
     ("JPEG 2000", lambda b: b.startswith(b"\x00\x00\x00\x0cjP  \r\n\x87\n") or
      b.startswith(b"\xff\x4f\xff\x51"), None),
-    ("PAM", lambda b: b[:2] == b"P7" and b[2:3].isspace(), None),
     ("PFM", lambda b: b[:2] in (b"PF", b"Pf") and b[2:3].isspace(), _FLOAT),
     ("Radiance HDR", lambda b: b.startswith((b"#?RADIANCE", b"#?RGBE")), _FLOAT),
     ("OpenEXR", lambda b: b[:4] == b"\x76\x2f\x31\x01", _FLOAT),

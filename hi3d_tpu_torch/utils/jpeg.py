@@ -13,14 +13,16 @@ component ids 'R', 'G', 'B' without JFIF) and CMYK (four components,
 returned as cv2's own CMYK→BGR conversion gives them, in RGB order); every
 integral sampling ratio from 1 to 4, interleaved or not, restart intervals,
 any size. A lossless, hierarchical or arithmetic-coded file, 12-bit
-samples, YCCK (Adobe transform 2), fractional sampling ratios and a
-progressive file that leaves coefficients unrefined (which libjpeg-turbo
-would smooth) raise a ValueError that names the format.
+samples, YCCK (Adobe transform 2) and fractional sampling ratios raise a
+ValueError that names the format.
 
 The decode in four steps, as libjpeg-turbo's decompressor runs it:
 1. entropy decoding of each scan into quantised coefficients, in C
    (`csrc/jpeg_decode.c`, built at first use by `utils.cbuild`); the scans
-   of a progressive file add up in the same coefficient arrays;
+   of a progressive file add up in the same coefficient arrays, and one
+   that ends with coefficients unrefined (`_needs_smoothing`, a file cut
+   before its last refinement) is block-smoothed as jdcoefct.c's
+   decompress_smooth_data smooths it (`hi3d_jpeg_smooth` in C);
 2. dequantisation and the integer ISLOW inverse DCT (jidctint.c), the
    output saturated to [0, 255] as libjpeg-turbo's SIMD IDCT saturates it
    (and its 16-bit lanes for coefficients of damaged data);
@@ -247,13 +249,17 @@ def _native() -> ctypes.CDLL:
         if _lib is None:
             lib = cbuild.load("jpeg_decode.c", "hi3d_jpeg", "decode_jpeg")
             lib.hi3d_jpeg_decode_scan.argtypes = [
-                ctypes.c_void_p, ctypes.c_long, ctypes.POINTER(ctypes.c_long), ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_long, ctypes.POINTER(ctypes.c_long),
+                ctypes.POINTER(ctypes.c_long), ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int]
             lib.hi3d_jpeg_decode_scan.restype = ctypes.c_int
             lib.hi3d_jpeg_decode_progressive.argtypes = \
                 lib.hi3d_jpeg_decode_scan.argtypes + [ctypes.c_int] * 4
             lib.hi3d_jpeg_decode_progressive.restype = ctypes.c_int
+            lib.hi3d_jpeg_smooth.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + \
+                [ctypes.c_void_p] * 3 + [ctypes.c_long]
+            lib.hi3d_jpeg_smooth.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -272,6 +278,8 @@ class _Frame:
         self.adobe_transform: Optional[int] = None
         self.jfif = False
         self.progressive = False
+        self.scans = 0  # libjpeg's input_scan_number
+        self.last_good = 0  # the last iMCU row the last scan decoded from data
 
     def fail(self, what: str):
         raise ValueError(f"{self.name}: {what}")
@@ -333,6 +341,7 @@ def _layout(fr: _Frame) -> None:
         c["ratio"] = (hmax // c["h"], vmax // c["v"])
         c["coef"] = np.zeros((fr.mcus_y * c["v"], fr.mcus_x * c["h"], 64), np.int16)
         c["bits"] = np.full(64, -1)  # libjpeg's coef_bits: the last scan's Al, -1 if none
+        c["prev"] = np.full(64, -1)  # coef_bits before the component's last scan
 
 
 def _scan(fr: _Frame, header: bytes, data: memoryview) -> int:
@@ -375,6 +384,10 @@ def _scan(fr: _Frame, header: bytes, data: memoryview) -> int:
             if c["tq"] not in fr.qt:
                 fr.fail(f"no quantisation table {c['tq']}")
             c["qt"] = fr.qt[c["tq"]]
+        # jdphuff.c's start_pass_phuff_decoder keeps the bits it replaces (0 in
+        # the first scan) for the smoothing of rows the scan's data miss
+        lo, hi = min(ss, 1), max(se, 9) + 1
+        c["prev"][lo:hi] = c["bits"][lo:hi] if fr.scans else 0
         c["bits"][ss:se + 1] = al
     if n == 1:
         c = members[0]
@@ -390,7 +403,9 @@ def _scan(fr: _Frame, header: bytes, data: memoryview) -> int:
     ptrs = (ctypes.c_void_p * n)(*[c["coef"].ctypes.data for c in members])
     buf = np.frombuffer(data, np.uint8)
     end = ctypes.c_long(0)
-    args = (buf.ctypes.data, buf.size, ctypes.byref(end), n, table.ctypes.data, ptrs,
+    last = ctypes.c_long(0)  # the last MCU decoded from data
+    args = (buf.ctypes.data, buf.size, ctypes.byref(end), ctypes.byref(last), n,
+            table.ctypes.data, ptrs,
             fr.bits.ctypes.data, fr.vals.ctypes.data, mcus_x, mcus_y, fr.restart)
     if fr.progressive:
         err = _native().hi3d_jpeg_decode_progressive(*args, ss, se, ah, al)
@@ -399,14 +414,17 @@ def _scan(fr: _Frame, header: bytes, data: memoryview) -> int:
     if err:
         kind = f" ({_SCAN_KINDS[ss > 0, ah > 0]} scan)" if fr.progressive else ""
         fr.fail(f"corrupt JPEG data{kind}: {_SCAN_ERRORS.get(err, err)}")
+    fr.scans += 1
+    row = last.value // mcus_x  # -1 where no MCU was read from data
+    fr.last_good = row if n > 1 else row // members[0]["v"]
     return end.value
 
 
 def _needs_smoothing(fr: _Frame) -> bool:
     """libjpeg-turbo's jdcoefct.c smoothing_ok at the end of a progressive
-    file: every component's DC known, its DC and first 9 AC quantisers
-    nonzero, and some of those 9 AC coefficients unrefined (Al > 0) or
-    never sent."""
+    file, which selects decompress_smooth_data: every component's DC known,
+    its DC and first 9 AC quantisers nonzero, and some of those 9 AC
+    coefficients unrefined (Al > 0) or never sent."""
     if not fr.progressive:
         return False
     first = _ZIGZAG[:10]
@@ -415,17 +433,34 @@ def _needs_smoothing(fr: _Frame) -> bool:
     return any((c["bits"][1:10] != 0).any() for c in fr.comps)
 
 
-def _components(fr: _Frame) -> List[torch.Tensor]:
-    """Each component's samples (1, height, width) int32: dequantised
-    (with the table latched at its first scan), inverse-transformed and
-    cropped to its size."""
+def _smoothed(fr: _Frame, c: Dict, table: np.ndarray) -> np.ndarray:
+    """A component's coefficients as libjpeg-turbo's block smoothing leaves
+    them (csrc/jpeg_decode.c hi3d_jpeg_smooth)."""
+    out = c["coef"].copy()
+    qt = np.ascontiguousarray(table, np.int32)
+    # smoothing_ok latches the earlier bits only after more than one scan
+    bits, prev = (np.ascontiguousarray(b[:10], np.int32)
+                  for b in (c["bits"], c["prev"] if fr.scans > 1 else np.full(10, -1)))
+    err = _native().hi3d_jpeg_smooth(
+        c["coef"].ctypes.data, out.ctypes.data, out.shape[1], -(-c["width"] // 8),
+        -(-c["height"] // 8), c["v"], fr.mcus_y, qt.ctypes.data, bits.ctypes.data,
+        prev.ctypes.data, fr.last_good)
+    if err:
+        fr.fail(f"block smoothing failed ({err})")
+    return out
+
+
+def _components(fr: _Frame, smooth: bool = False) -> List[torch.Tensor]:
+    """Each component's samples (1, height, width) int32: block-smoothed
+    where `smooth`, dequantised (with the table latched at its first scan),
+    inverse-transformed and cropped to its size."""
     out = []
     for c in fr.comps:
         table = c.get("qt", fr.qt.get(c["tq"]))
         if table is None:
             fr.fail(f"no quantisation table {c['tq']}")
-        coef = torch.from_numpy(c["coef"].astype(np.int32)).reshape(
-            1, *c["coef"].shape[:2], 8, 8)
+        coef = _smoothed(fr, c, table) if smooth else c["coef"]
+        coef = torch.from_numpy(coef.astype(np.int32)).reshape(1, *coef.shape[:2], 8, 8)
         qt = torch.from_numpy(table.astype(np.int32)).reshape(1, 8, 8)
         out.append(dequantize_idct(coef, qt)[:, :c["height"], :c["width"]])
     return out
@@ -550,11 +585,9 @@ def decode_jpeg(blob: bytes, name: str = "<bytes>", from_file: bool = False,
     space = colour or _colour_space(fr)
     if space == "ycck":
         fr.unsupported(f"a YCCK JPEG (Adobe transform {fr.adobe_transform}); not supported")
-    if _needs_smoothing(fr):
-        fr.unsupported("a progressive JPEG that leaves coefficients unrefined (Al > 0 at its "
-                       "end), which libjpeg-turbo block-smooths; not supported")
     h, w = fr.size
-    planes = [upsample(p, c["ratio"], h, w) for p, c in zip(_components(fr), fr.comps)]
+    planes = [upsample(p, c["ratio"], h, w)
+              for p, c in zip(_components(fr, _needs_smoothing(fr)), fr.comps)]
     if space == "grey":
         return planes[0][0].numpy().astype(np.uint8)[:, :, None]
     if space == "ycc" and len(planes) != 3:

@@ -12,7 +12,8 @@ binary (P4-P6), as `cv2.imdecode(..., cv2.IMREAD_UNCHANGED)` reads them
 - (H, W, 1) for P1, P2, P4 and P5, (H, W, 3) RGB for P3 and P6.
 A maxval above 255 (cv2 returns uint16) raises a ValueError on every host,
 as the 16-bit PNGs do (ROADMAP §3: JAX's / 255 mishandles them). PAM (P7)
-and the float maps (PF, Pf) are other formats; `utils.image` names them.
+is utils/pam.py's; the float maps (PF, Pf) are another format, which
+`utils.image` names.
 """
 
 from __future__ import annotations

@@ -13,8 +13,14 @@ written from a grey image too.
 Scope: the RIFF container with a `VP8 ` (lossy), `VP8L` (lossless) or
 `VP8X` header, ALPH chunks (raw or lossless-compressed, with the
 horizontal, vertical or gradient filter), ICC, EXIF, XMP and unknown chunks
-skipped. An animated file (ANIM/ANMF) raises a ValueError that names it, as
-does any malformed or truncated one.
+skipped. An animated file (a VP8X with the animation flag, ANIM and ANMF
+chunks) gives its first frame as cv2 reads it through libwebp's
+WebPAnimDecoder: the frame (lossy, with or without ALPH, or lossless)
+decoded as RGBA into a transparent black canvas at its offset, the canvas
+RGBA when the VP8X alpha flag is set, else its RGB; every frame is checked
+as libwebp's demuxer checks it (ANIM before the frames, each frame's
+bitstream header and its place inside the canvas). A malformed or truncated
+file raises a ValueError.
 
 The bitstreams decode in C (`csrc/webp_decode.c`, built at first use by
 `utils.cbuild`): the VP8L decoder, which also reads the lossless alpha
@@ -31,11 +37,12 @@ from typing import Optional
 import numpy as np
 
 from . import cbuild
-from .raster import Unsupported
+from .raster import check_size
 
 _ERRORS = {-1: "the data end before the image does", -2: "a code, size or value the format "
            "does not allow", -3: "out of memory", -4: "sizes that disagree"}
 _ANIMATION, _ALPHA = 0x02, 0x10  # VP8X flags
+_VP8X_FLAGS = 0x3E  # the flags libwebp's demuxer knows: ICC, alpha, EXIF, XMP, animation
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
@@ -145,15 +152,14 @@ def decode_webp(blob: bytes, name: str = "<bytes>") -> np.ndarray:
         vp8x = (body[0], 1 + int.from_bytes(body[4:7], "little"),
                 1 + int.from_bytes(body[7:10], "little"))
         if vp8x[0] & _ANIMATION:
-            raise Unsupported(f"{name}: an animated WebP (ANIM/ANMF); only still images decode")
-        while True:  # ICC, EXIF, XMP and unknown chunks skipped; the last ALPH kept
+            return _first_frame(data, pos, vp8x, name)
+        # ICC, EXIF, XMP and unknown chunks skipped (ANIM and ANMF too, in a
+        # file without the animation flag); the last ALPH kept
+        while True:
             start = pos + 8
             kind, body, pos = chunk(pos)
             if kind in (b"VP8 ", b"VP8L"):
                 break
-            if kind in (b"ANIM", b"ANMF"):
-                raise Unsupported(f"{name}: an animated WebP (ANIM/ANMF); only still images "
-                                  "decode")
             if kind == b"ALPH":
                 alph = body
     # cv2 takes the channels from WebPGetFeatures on the first 32 bytes: a VP8X
@@ -184,6 +190,130 @@ def decode_webp(blob: bytes, name: str = "<bytes>") -> np.ndarray:
         if has_alpha:
             out[..., 3] = plane
     return out
+
+
+class _Chunks:
+    """A cursor over a RIFF body as libwebp's demuxer walks it: each chunk
+    header read from the cursor, its padded payload inside the data."""
+
+    def __init__(self, data: bytes, pos: int, name: str):
+        self.data, self.pos, self.name = data, pos, name
+
+    def fail(self, what: str):
+        raise ValueError(f"{self.name}: {what}")
+
+    def next(self):
+        """(kind, size, padded size) of the chunk at the cursor, which moves
+        past its header."""
+        if len(self.data) - self.pos < 8:
+            self.fail("a truncated WebP: a chunk header runs past the end")
+        kind = self.data[self.pos:self.pos + 4]
+        size = int.from_bytes(self.data[self.pos + 4:self.pos + 8], "little")
+        padded = size + (size & 1)
+        self.pos += 8
+        if padded > len(self.data) - self.pos:
+            self.fail(f"a truncated WebP: its {kind!r} chunk runs past the end")
+        return kind, size, padded
+
+    def more(self) -> bool:
+        """After a chunk: False at the end of the data; a partial chunk
+        header there fails."""
+        if self.pos == len(self.data):
+            return False
+        if len(self.data) - self.pos < 8:
+            self.fail("a truncated WebP: a chunk header runs past the end")
+        return True
+
+
+def _frame(c: _Chunks, payload: int, canvas, index: int):
+    """The chunks of an ANMF frame as libwebp's demuxer stores them (its
+    StoreFrame), from the cursor: an ALPH, then a VP8 or a VP8L chunk, the
+    walk ending at any other chunk, which the file's own walk then reads.
+    Returns (x, y, w, h, alpha, image kind, image payload padded), w and h
+    the bitstream's; None for a frame without chunks, which the demuxer
+    drops."""
+    where = f"WebP frame {index}"
+    head = c.data[c.pos:c.pos + 16]
+    x, y = 2 * int.from_bytes(head[0:3], "little"), 2 * int.from_bytes(head[3:6], "little")
+    c.pos += 16
+    start, alph, image = c.pos, None, None
+    if len(c.data) - start < max(payload, 8):
+        c.fail(f"a truncated WebP: {where} runs past the end")
+    while True:
+        at = c.pos
+        kind, size, padded = c.next()
+        if kind == b"ALPH" and alph is None and image is None:
+            alph = c.data[c.pos:c.pos + size]
+        elif kind in (b"VP8 ", b"VP8L") and image is None:
+            if kind == b"VP8L" and alph is not None:
+                c.fail(f"{where}: an ALPH chunk before a lossless image")
+            image = kind, c.data[c.pos:c.pos + padded], size
+        else:  # the frame ends here
+            c.pos = at
+            break
+        c.pos += padded
+        if not c.more():
+            break
+    if c.pos - start > payload:
+        c.fail(f"{where}: chunks past the end of its ANMF chunk")
+    if image is None:
+        if alph is not None:
+            c.fail(f"{where}: an ALPH chunk without an image")
+        return None
+    kind, body, size = image
+    if kind == b"VP8L":
+        w, h, _ = _vp8l_size(body[:size], c.name)
+    else:
+        w, h = _vp8_size(body[:size], c.name)
+    if x + w > canvas[0] or y + h > canvas[1]:
+        c.fail(f"{where}: {w}×{h} at ({x}, {y}) outside the {canvas[0]}×{canvas[1]} canvas")
+    return x, y, w, h, alph, kind, body
+
+
+def _first_frame(data: bytes, pos: int, vp8x, name: str) -> np.ndarray:
+    """An animated WebP's first frame as cv2 reads it: WebPAnimDecoder (its
+    demuxer's walk and checks of every chunk and frame, then the first
+    frame decoded as RGBA into a zeroed canvas), RGBA where the VP8X alpha
+    flag is set, else RGB."""
+    flags, cw, ch = vp8x
+    check_size(cw, ch, name, "an animated WebP canvas")
+    if flags & ~_VP8X_FLAGS:
+        raise ValueError(f"{name}: a WebP VP8X chunk with unknown flags 0x{flags:02x}")
+    c = _Chunks(data, pos, name)
+    frames, anim = [], False
+    while c.more():
+        kind, size, padded = c.next()
+        if kind in (b"VP8X", b"ALPH", b"VP8 ", b"VP8L"):
+            c.fail(f"an animated WebP with a {kind!r} chunk outside its frames")
+        if kind == b"ANMF":
+            if not anim:
+                c.fail("a WebP ANMF chunk before its ANIM chunk")
+            if padded < 16:
+                c.fail(f"a WebP ANMF chunk of {size} bytes (16 at least)")
+            frame = _frame(c, padded - 16, (cw, ch), len(frames) + 1)
+            if frame is not None:
+                frames.append(frame)
+            continue
+        if kind == b"ANIM" and padded < 6:
+            c.fail(f"a WebP ANIM chunk of {size} bytes (6 at least)")
+        anim |= kind == b"ANIM"
+        c.pos += padded
+    if not frames:
+        raise ValueError(f"{name}: an animated WebP without a frame")
+    x, y, w, h, alph, kind, payload = frames[0]
+    if kind == b"VP8L":
+        argb = _lossless(payload, w, h, False, name, "lossless frame")
+        rgba = np.stack([(argb >> s).astype(np.uint8) for s in (16, 8, 0, 24)], axis=-1)
+    else:
+        rgba = np.empty((h, w, 4), np.uint8)
+        buf = np.frombuffer(payload, np.uint8)
+        _check(_native().hi3d_webp_lossy(buf.ctypes.data, buf.size, w, h, rgba.ctypes.data, 4),
+               "lossy frame", name)
+        if alph is not None:
+            rgba[..., 3] = _alpha(alph, w, h, name)
+    canvas = np.zeros((ch, cw, 4), np.uint8)
+    canvas[y:y + h, x:x + w] = rgba
+    return canvas if flags & _ALPHA else np.ascontiguousarray(canvas[..., :3])
 
 
 def read_webp(path: str) -> np.ndarray:

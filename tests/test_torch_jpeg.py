@@ -3,9 +3,11 @@
 JPEGs that cv2 encodes: qualities 10–100, 4:4:4, 4:2:2, 4:2:0, 4:1:1 and
 4:4:0 chroma, grey, restart intervals, sequential and progressive, sizes
 from 1×1 to 517×389; on PIL's progressive, CMYK (Adobe-inverted) and
-RGB-coded JPEGs; the formats it refuses; the readers that take JPEGs now
-(load_image_rgb, the folder and tar datasets, serve's input glob); and the
-new modules with jax, cv2 and PIL blocked.
+RGB-coded JPEGs; progressive files cut before their last refinement,
+which libjpeg-turbo block-smooths (DC only, some AC bands unrefined, a scan
+cut in the middle); the formats it refuses; the readers that take JPEGs
+now (load_image_rgb, the folder and tar datasets, serve's input glob); and
+the new modules with jax, cv2 and PIL blocked.
 
 tests/data/torch_jpeg/ holds the committed fixtures (the chip smoke decodes
 them on a machine without cv2) and goldens.json, the shape and SHA-256 of
@@ -34,7 +36,8 @@ SAMPLING = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
             "411": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411,
             "440": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440}
 # name: (height, width, quality, sampling or "gray" (cv2) or a PIL mode, restart
-# interval, progressive)
+# interval, progressive[, the scans kept: a whole number of them, and of the
+# next a fraction of its bytes, the file then ended with EOI])
 FIXTURES = {
     "demo3_q90.jpg": (512, 512, 90, "420", 0, False),
     "demo3_q30_rst1_389x517.jpg": (389, 517, 30, "420", 1, False),
@@ -52,6 +55,14 @@ FIXTURES = {
     "pil_rgb_q90_33x17.jpg": (33, 17, 90, "keep_rgb", 0, False),
     # main path 4's first serve input: demo/3.png itself, progressive
     "asset0.jpg": (512, 512, 90, "420", 0, True),
+    # progressive files libjpeg-turbo block-smooths: demo/3.png after its DC
+    # scan alone (the 5×5 DC interpolation) and after 5 of its 10 scans
+    "smooth_dc_512.jpg": (512, 512, 90, "420", 0, True, 1),
+    "smooth_q90_512.jpg": (512, 512, 90, "420", 0, True, 5),
+    "smooth_cut_rst2_37x53.jpg": (37, 53, 75, "420", 2, True, 5.5),
+    "smooth_gray_61x45.jpg": (61, 45, 70, "gray", 0, True, 3),
+    "smooth_440_45x31.jpg": (45, 31, 60, "440", 0, True, 4.3),
+    "smooth_pil_45x61.jpg": (45, 61, 80, "RGB", 0, True, 2.5),
 }
 
 
@@ -91,14 +102,16 @@ def encode_pil(img, quality, mode, progressive=False):
 
 
 def make_fixture(name):
-    h, w, q, sampling, rst, prog = FIXTURES[name]
-    if name == "asset0.jpg":
+    h, w, q, sampling, rst, prog = FIXTURES[name][:6]
+    if name == "asset0.jpg" or (name.startswith("smooth_") and h == 512):  # demo/3.png
         img = cv2.imread(os.path.join(ROOT, "demo", "3.png"), cv2.IMREAD_COLOR)
     else:
         img = _demo(h, w)
     if sampling in ("RGB", "CMYK", "keep_rgb"):
-        return encode_pil(img, q, sampling, prog)
-    return encode(img[..., 1] if sampling == "gray" else img, q, sampling, rst, prog)
+        blob = encode_pil(img, q, sampling, prog)
+    else:
+        blob = encode(img[..., 1] if sampling == "gray" else img, q, sampling, rst, prog)
+    return _cut_scans(blob, *FIXTURES[name][6:])
 
 
 def cv2_rgb(blob):
@@ -159,6 +172,41 @@ def test_progressive_matches_cv2(sampling, restart):
                                           err_msg=f"{h}x{w} q{q}")
 
 
+SMOOTH_SIZES = [(1, 1), (8, 8), (9, 17), (17, 33), (37, 53), (64, 80), (130, 100)]
+
+
+@pytest.mark.parametrize("sampling", ["444", "422", "420", "411", "440", "gray"])
+@pytest.mark.parametrize("restart", [0, 2])
+def test_smoothed_progressive_matches_cv2(sampling, restart, tmp_path):
+    """Progressive files cut before their last refinement, which
+    libjpeg-turbo block-smooths (jdcoefct.c decompress_smooth_data): after
+    each of their scans and in the middle of each (EOI appended, as
+    `cv2.imdecode` reads them), and cut in the middle of a scan without EOI
+    (as `cv2.imread` reads a file): bit-equal to cv2. The DC-only files take
+    the 5×5 DC interpolation, the others the AC estimates."""
+    from hi3d_tpu_torch.utils import jpeg
+
+    path = str(tmp_path / "cut.jpg")
+    smoothed = 0
+    for i, (h, w) in enumerate(SMOOTH_SIZES):
+        img = _demo(h, w, seed=i)
+        blob = encode(img[..., 0] if sampling == "gray" else img, 30 + 10 * i, sampling,
+                      restart, True)
+        scans = blob.count(b"\xff\xda")
+        for cut in [n + f for n in range(scans - 1) for f in (0.0, 0.5)]:
+            part = _cut_scans(blob, cut + 1)
+            np.testing.assert_array_equal(jpeg.decode_jpeg(part), cv2_rgb(part),
+                                          err_msg=f"{h}x{w} {cut + 1} scans")
+            with open(path, "wb") as f:
+                f.write(part[:-2])
+            want = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+            want = want[..., None] if want.ndim == 2 else want[..., ::-1]
+            np.testing.assert_array_equal(jpeg.read_jpeg(path), want,
+                                          err_msg=f"{h}x{w} {cut + 1} scans, no EOI")
+            smoothed += 1
+    assert smoothed > 50
+
+
 @pytest.mark.parametrize("mode,progressive", [("RGB", True), ("L", True), ("CMYK", False),
                                               ("CMYK", True), ("keep_rgb", False),
                                               ("keep_rgb", True)])
@@ -195,6 +243,27 @@ def test_fixtures_decode_to_their_goldens():
     assert total < 300_000
 
 
+def test_smoothed_fixtures_are_smoothed(monkeypatch):
+    """Each smooth_* fixture decodes through the block smoothing, every
+    component of it (the chip smoke times smooth_q90_512.jpg as the 512²
+    smoothed JPEG), and not to what its coefficients give unsmoothed."""
+    from hi3d_tpu_torch.utils import jpeg
+
+    real = jpeg._smoothed
+    names = [n for n in FIXTURES if n.startswith("smooth_")]
+    assert len(names) == 6
+    for name in names:
+        path, calls = os.path.join(FIXTURE_DIR, name), []
+        with monkeypatch.context() as m:
+            m.setattr(jpeg, "_smoothed", lambda fr, c, t: calls.append(c["id"]) or real(fr, c, t))
+            got = jpeg.read_jpeg(path)
+        with monkeypatch.context() as m:
+            m.setattr(jpeg, "_needs_smoothing", lambda fr: False)
+            plain = jpeg.read_jpeg(path)
+        assert len(calls) == (1 if "gray" in name else 3), name
+        assert not np.array_equal(plain, got), name
+
+
 def _patched(blob, marker, offset, value):
     i = blob.index(marker)
     return blob[:i + offset] + bytes([value]) + blob[i + offset + 1:]
@@ -206,19 +275,35 @@ def _first_scans(blob, n):
     return blob[:starts[n]] + b"\xff\xd9"
 
 
+def _cut_scans(blob, scans=None):
+    """`blob` cut after int(scans) scans and `scans` % 1 of the next one's
+    entropy-coded bytes, EOI appended; None keeps it whole."""
+    if scans is None:
+        return blob
+    starts = [i for i in range(len(blob) - 1) if blob[i:i + 2] == b"\xff\xda"]
+    n = int(scans)
+    if n == scans:
+        return blob[:starts[n]] + b"\xff\xd9"
+    data = starts[n] + 2 + int.from_bytes(blob[starts[n] + 2:starts[n] + 4], "big")
+    end = data  # the first marker after the scan's data that is no RSTn
+    while not (blob[end] == 0xFF and blob[end + 1] not in b"\x00\xd0\xd1\xd2\xd3\xd4\xd5\xd6\xd7"):
+        end += 1
+    return blob[:data + int((scans - n) * (end - data))] + b"\xff\xd9"
+
+
 def test_unsupported_jpegs_raise():
     """Arithmetic-coded (SOF9), lossless (SOF3), hierarchical (SOF5),
-    12-bit, YCCK (Adobe transform 2) and fractionally sampled files, and a
-    progressive file whose coefficients end unrefined (libjpeg-turbo would
-    smooth its blocks), raise a ValueError that names the format; so do
-    bytes that are no JPEG. The whole progressive file decodes."""
+    12-bit, YCCK (Adobe transform 2) and fractionally sampled files raise a
+    ValueError that names the format; so do bytes that are no JPEG. The
+    whole progressive file decodes, and so does one whose coefficients end
+    unrefined, block-smoothed as libjpeg-turbo smooths it."""
     from hi3d_tpu_torch.utils.jpeg import decode_jpeg
 
     img = _demo(24, 40)
     prog = encode(img, 75, "420", 0, True)
     np.testing.assert_array_equal(decode_jpeg(prog), cv2_rgb(prog))
-    with pytest.raises(ValueError, match="progressive JPEG that leaves coefficients unrefined"):
-        decode_jpeg(_first_scans(prog, 2))
+    np.testing.assert_array_equal(decode_jpeg(_first_scans(prog, 2)),
+                                  cv2_rgb(_first_scans(prog, 2)))
     base = encode(img, 80, "420")
     for sof, what in [(0xC9, "arithmetic-coded JPEG"), (0xC3, "lossless JPEG"),
                       (0xC5, "hierarchical JPEG")]:
@@ -270,14 +355,15 @@ def test_damaged_jpegs_decode_as_cv2(tmp_path, progressive):
     zeros, the rest of its restart interval stays zero); restart markers
     out of order resynchronise as libjpeg does; changed bytes (codes no
     table holds, runs past the block, coefficients past libjpeg-turbo's
-    16-bit SIMD lanes, unknown markers) decode alike. Only a progressive
-    file cut before its refinement, which libjpeg-turbo would block-smooth,
-    raises where cv2 decodes."""
+    16-bit SIMD lanes, unknown markers) decode alike. A progressive file
+    cut before its refinement is block-smoothed as libjpeg-turbo smooths
+    it, the rows its last scan's data missed with the bits of the scans
+    before."""
     from hi3d_tpu_torch.utils.jpeg import decode_jpeg, read_jpeg
 
     rnd = np.random.RandomState(int(progressive))
     path = str(tmp_path / "damaged.jpg")
-    seen = {"equal": 0, "both fail": 0, "smoothing": 0}
+    seen = {"equal": 0, "both fail": 0}
     for (h, w), sampling, restart in [((37, 53), "420", 0), ((64, 80), "420", 2),
                                       ((17, 9), "gray", 1), ((40, 24), "444", 3)]:
         img = _demo(h, w, seed=h)
@@ -292,11 +378,8 @@ def test_damaged_jpegs_decode_as_cv2(tmp_path, progressive):
                 try:
                     got = read()
                 except ValueError as e:
-                    if want is None:
-                        seen["both fail"] += 1
-                        continue
-                    assert progressive and "block-smooths" in str(e), (h, w, label, e)
-                    seen["smoothing"] += 1
+                    assert want is None, (h, w, label, e)
+                    seen["both fail"] += 1
                     continue
                 assert want is not None, (h, w, label, "cv2 fails")
                 want = want[..., None] if want.ndim == 2 else want[..., ::-1]
@@ -370,10 +453,12 @@ def test_scan_decoder_checks_its_arguments():
     bits, vals = np.zeros((8, 17), np.uint8), np.zeros((8, 256), np.uint8)
     data = np.zeros(16, np.uint8)
     end = ctypes.c_long(0)
+    last = ctypes.c_long(0)
 
     def call(ncomp, row, mcus=(2, 2)):
         desc = np.array([row] * max(ncomp, 1), np.int32)
-        return lib.hi3d_jpeg_decode_scan(data.ctypes.data, data.size, ctypes.byref(end), ncomp,
+        return lib.hi3d_jpeg_decode_scan(data.ctypes.data, data.size, ctypes.byref(end),
+                                         ctypes.byref(last), ncomp,
                                          desc.ctypes.data, ptrs, bits.ctypes.data,
                                          vals.ctypes.data, mcus[0], mcus[1], 0)
 
@@ -388,7 +473,8 @@ def test_scan_decoder_checks_its_arguments():
     def progressive(ncomp, band):
         desc = np.array([good] * ncomp, np.int32)
         return lib.hi3d_jpeg_decode_progressive(
-            data.ctypes.data, data.size, ctypes.byref(end), ncomp, desc.ctypes.data, ptrs,
+            data.ctypes.data, data.size, ctypes.byref(end), ctypes.byref(last), ncomp,
+            desc.ctypes.data, ptrs,
             bits.ctypes.data, vals.ctypes.data, 2, 2, 0, *band)
 
     assert progressive(1, (0, 0, 0, 1)) == -4  # DC first: the empty DC table

@@ -8,11 +8,10 @@ against the JAX package's readers.
   64×48, 66×50 (cropped) and 512², QP 0, 5, 26 and 51, and over streams of
   several slices a picture, non-IDR I pictures and pic_order_cnt_type 0.
 - ffmpeg: cv2 reads the same frame count and fps; its luma
-  (CAP_PROP_CONVERT_RGB off) is bit-equal to the port's; its RGB is within
-  RGB_TOL of the port's reader (both invert BT.601 limited range; ffmpeg's
-  swscale rounds its own way).
+  (CAP_PROP_CONVERT_RGB off) and its RGB (libswscale's yuv420p → BGR24,
+  which h264.to_rgb ports) are bit-equal to the port's reader's.
 - JAX: `hi3d_tpu.utils.video.import_video` (cv2 here: imageio has no ffmpeg
-  plugin) and the port's `import_video` agree within RGB_TOL on a port mp4;
+  plugin) and the port's `import_video` agree bit for bit on a port mp4;
   JAX's and the port's `v2v.prepare_inputs` select the same frames of it.
 - Refusals: CABAC, a P slice, the loop filter on, High profile and
   interlace raise `h264.Unsupported` naming them when cv2 and imageio are
@@ -37,7 +36,6 @@ from hi3d_tpu_torch.utils import h264, mp4, mpeg4
 from hi3d_tpu_torch.utils.png import write_png
 from hi3d_tpu_torch.utils.video import export_to_video, import_video, read_mp4
 
-RGB_TOL = 3  # max |port − ffmpeg| in RGB levels (measured max 3, mean ≈ 0.7)
 
 
 def _smooth(h, w, t):
@@ -137,15 +135,14 @@ def test_ffmpeg_reads_the_port_mp4(tmp_path, size, fps):
     assert mp4.read_mp4(path).fps == fps
     for y, r in zip(luma, enc.recon):
         np.testing.assert_array_equal(np.asarray(y).reshape(-1)[:h * w].reshape(h, w), r[0])
-    diff = np.abs(np.stack(rgb)[..., ::-1].astype(int) - port.astype(int))
-    assert diff.max() <= RGB_TOL and diff.mean() < 1.5
+    np.testing.assert_array_equal(port, np.stack(rgb)[..., ::-1])
 
 
 def test_jax_import_video_and_prepare_inputs_agree(tmp_path, monkeypatch):
     """A 31-frame stage-1 clip exported by the port (padded to 32 at fps 8):
     JAX's import_video (through cv2: imageio without its ffmpeg plugin
     hands the file to a plugin that reads no frames, so it is hidden) and
-    the port's read it within RGB_TOL, and both prepare_inputs pick the same
+    the port's read it bit for bit, and both prepare_inputs pick the same
     last 20 frames (the padded tail included) with equal masks."""
     t, fps, clip, res = 31, 8, 20, 32
     colours = np.random.RandomState(3).permutation(256)[:t]
@@ -160,13 +157,13 @@ def test_jax_import_video_and_prepare_inputs_agree(tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, "imageio", None)
     ours, theirs = import_video(path), np.stack(jax_import_video(path))
     assert ours.shape == theirs.shape == (32, res, res, 3)
-    assert np.abs(ours.astype(int) - theirs.astype(int)).max() <= RGB_TOL
+    np.testing.assert_array_equal(ours, theirs)
     np.testing.assert_array_equal(import_video(path, max_frames=5), ours[:5])
 
     want, want_masks = jax_v2v.prepare_inputs(clean, path, clip, (res, res))
     got, got_masks = prepare_inputs(clean, path, clip, (res, res))
     assert got.shape == want.shape == (clip, res, res, 3)
-    assert np.abs(got.astype(int) - want.astype(int)).max() <= RGB_TOL
+    np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got_masks, want_masks)
     padded = frames + [frames[-1]]
     for i in range(1, clip):  # each selected frame is nearest to the one JAX selects
@@ -248,7 +245,7 @@ def test_cv2_mp4v_is_refused_without_cv2_and_read_with_it(tmp_path, monkeypatch)
     """cv2's `mp4v` (MPEG-4 Part 2), which the port refused until
     utils/mpeg4.py: it reads the same with cv2 and imageio hidden as with
     them, through the port's decoder both times; its luma is ffmpeg's bit
-    for bit and its RGB within RGB_TOL of cv2's."""
+    for bit and its RGB too."""
     path = str(tmp_path / "cv2.mp4")
     writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 8, (48, 32))
     for f in _clip(32, 48, 3):
@@ -265,7 +262,7 @@ def test_cv2_mp4v_is_refused_without_cv2_and_read_with_it(tmp_path, monkeypatch)
     assert got.shape == (3, 32, 48, 3) and count == 3 and track.fps == fps == 8
     for p, y in zip(mpeg4.decode(track.config, track.samples), luma):
         np.testing.assert_array_equal(p[0], np.asarray(y).reshape(32, 48))
-    assert np.abs(np.stack(rgb)[..., ::-1].astype(int) - got.astype(int)).max() <= RGB_TOL
+    np.testing.assert_array_equal(got, np.stack(rgb)[..., ::-1])
 
 
 def test_export_without_cv2_or_imageio(tmp_path, monkeypatch):

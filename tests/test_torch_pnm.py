@@ -148,8 +148,10 @@ def test_sixteen_bit_pnms_raise_with_or_without_cv2(monkeypatch, tmp_path):
 
 def test_refusals_name_the_variant(monkeypatch):
     """cv2 5.0 decodes no byte-encoded and no RGB-format Sun raster; the
-    port refuses them by name (`Unsupported`), and PAM (P7) as a format
-    it does not decode."""
+    port refuses them by name (`Unsupported`). PAM (P7), which it refused
+    as a format it did not decode, now decodes as cv2 decodes it
+    (utils/pam.py; tests/test_torch_pam.py), and cv2's RGBA PAM, which cv2
+    refuses, raises a ValueError that names it."""
     from hi3d_tpu_torch.utils.image import decode_image
     from hi3d_tpu_torch.utils.raster import Unsupported
     from hi3d_tpu_torch.utils.sunras import decode_sunras
@@ -162,8 +164,11 @@ def test_refusals_name_the_variant(monkeypatch):
         with pytest.raises(Unsupported, match=match):
             decode_sunras(blob, "x.ras")
     pam = cv2.imencode(".pam", img.copy())[1].tobytes()
-    with pytest.raises(Unsupported, match="x.pam: a PAM image"):
-        decode_image(pam, "x.pam")
+    np.testing.assert_array_equal(decode_image(pam, "x.pam"), R.cv2_rgb(pam))
+    rgba = cv2.imencode(".pam", np.concatenate([img, img[..., :1]], -1))[1].tobytes()
+    assert R.cv2_rgb(rgba) is None
+    with pytest.raises(ValueError, match="x.pam: a PAM of depth 4 without a TUPLTYPE"):
+        decode_image(rgba, "x.pam")
 
 
 @pytest.mark.parametrize("kind", ["p6", "p3", "p4", "sun24", "sun8_cmap"])

@@ -161,18 +161,22 @@ def test_serve_cli_two_stage_mode_pads_and_drops(tmp_path):
 
 
 def test_non_png_input_without_cv2_raises(tmp_path, monkeypatch):
-    """Without cv2 a format the port does not decode (PAM) raises
+    """Without cv2 a format the port does not decode (JPEG 2000) raises
     `Unsupported` naming it, as does a BMP header the port's decoder does
     not read; a WebP goes to the port's decoder, whose error names the
-    file."""
+    file. A PAM, which the port decodes since utils/pam.py, loads."""
     from hi3d_tpu_torch.utils.image import load_image_rgb
     from hi3d_tpu_torch.utils.raster import Unsupported
 
-    path = tmp_path / "x.pam"
-    path.write_bytes(b"P7\nWIDTH 1\nHEIGHT 1\nDEPTH 1\nMAXVAL 255\nENDHDR\n\x00")
+    path = tmp_path / "x.j2k"
+    path.write_bytes(b"\xff\x4f\xff\x51" + bytes(40))
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(Unsupported, match="x.pam: a PAM image, which the port does not decode"):
+    with pytest.raises(Unsupported,
+                       match="x.j2k: a JPEG 2000 image, which the port does not decode"):
         load_image_rgb(str(path))
+    pam = tmp_path / "x.pam"
+    pam.write_bytes(b"P7\nWIDTH 1\nHEIGHT 1\nDEPTH 1\nMAXVAL 255\nENDHDR\n\x07")
+    np.testing.assert_array_equal(load_image_rgb(str(pam)), np.full((1, 1, 3), 7, np.uint8))
     bmp = tmp_path / "x.bmp"
     bmp.write_bytes(b"BM" + bytes(60))
     with pytest.raises(Unsupported, match="x.bmp: a BMP header of 0 bytes"):

@@ -8,7 +8,10 @@ lossless (VP8L) files with every transform, colour caches and palettes of
 hand-built ALPH chunks of each compression and filter; grey input (3
 channels back, as cv2); the readers that take WebPs now (load_image_rgb,
 the folder and tar datasets, serve's input glob) against the JAX
-package's; animated, malformed, truncated and corrupted files.
+package's; animated files (PIL's, libwebp's muxer: lossy, lossless, with
+alpha, a first frame smaller than the canvas; and hand-built frames at
+offsets, with and without the alpha flag), whose first frame cv2 reads;
+malformed, truncated and corrupted files.
 
 tests/data/torch_webp/ holds the committed fixtures (the chip smoke decodes
 them on a machine without cv2; asset1.webp is main path 4's second serve
@@ -194,6 +197,54 @@ def serve_asset():
     return cv2_webp(np.concatenate([img, alpha[..., None]], -1), 85)
 
 
+def pil_anim(frames, lossless, quality=80):
+    """PIL's animated WebP (libwebp's WebPAnimEncoder) of RGB(A) frames."""
+    from PIL import Image
+
+    ims = [Image.fromarray(np.ascontiguousarray(f)) for f in frames]
+    out = io.BytesIO()
+    ims[0].save(out, "WEBP", save_all=True, append_images=ims[1:], lossless=lossless,
+                quality=quality, duration=100)
+    return out.getvalue()
+
+
+def anmf(x, y, w, h, frame):
+    """An ANMF chunk: the frame's chunks (ALPH, VP8 or VP8L) at (x, y),
+    its size as given, 100 ms, blending on."""
+    return chunk(b"ANMF", b"".join(v.to_bytes(3, "little") for v in
+                                   (x // 2, y // 2, w - 1, h - 1, 100)) + b"\0" + frame)
+
+
+def image_chunks(blob):
+    """A still WebP's ALPH, VP8 and VP8L chunks, as a frame holds them."""
+    return b"".join(chunk(k, b) for k, b in _chunks(blob) if k in (b"ALPH", b"VP8 ", b"VP8L"))
+
+
+def animated(canvas, frames, flags=0x12):
+    """An animated WebP of (x, y, still WebP) frames on a (w, h) canvas."""
+    anim = [anmf(x, y, *_vp8_dims(still), image_chunks(still)) for x, y, still in frames]
+    return riff(vp8x(*canvas, flags), chunk(b"ANIM", bytes(6)), *anim)
+
+
+def _vp8_dims(still):
+    h, w = cv2.imdecode(np.frombuffer(still, np.uint8), cv2.IMREAD_UNCHANGED).shape[:2]
+    return w, h
+
+
+def _anim_frames(h, w, alpha=False, seed=0):
+    """Three RGB(A) frames: demo/3.png, its negative and a shifted copy,
+    the alpha transparent at the top and left edges (which libwebp's muxer
+    crops from the first frame)."""
+    rgb = _demo(h, w, seed)[..., ::-1]
+    frames = [rgb, 255 - rgb, np.roll(rgb, 3, 1)]
+    if not alpha:
+        return frames
+    a = _alpha_plane(h, w, seed)
+    a[: h // 5] = 0
+    a[:, : w // 6] = 0
+    return [np.concatenate([f, a[..., None]], -1) for f in frames]
+
+
 FIXTURES = {
     "lossy_q75_389x517.webp": lambda: cv2_webp(_demo(389, 517), 75),
     "lossy_q5_1x1.webp": lambda: cv2_webp(_demo(1, 1), 5),
@@ -210,6 +261,17 @@ FIXTURES = {
     "alpha_vp8l_vertical_31x29.webp": lambda: alpha_webp(_demo(31, 29),
                                                          _alpha_plane(31, 29, 4), 1, 2),
     "asset1.webp": serve_asset,
+    # animated (cv2 reads the first frame): PIL's, its first frame cropped to
+    # 50×32 at (6, 8) by the muxer; lossless; hand-built frames at offsets,
+    # without the alpha flag; demo/3.png at 512², the chip smoke's timing
+    "anim_lossy_alpha_56x40.webp": lambda: pil_anim(_anim_frames(40, 56, True), False),
+    "anim_lossless_61x47.webp": lambda: pil_anim(_anim_frames(47, 61), True),
+    "anim_offsets_64x48.webp": lambda: animated((64, 48), [
+        (10, 6, alpha_webp(_demo(21, 35), _alpha_plane(21, 35, 6), 1, 1)),
+        (28, 26, cv2_webp(_demo(21, 35), 101))], flags=0x02),
+    "anim_512.webp": lambda: pil_anim([cv2.imread(os.path.join(ROOT, "demo", "3.png"))[..., ::-1],
+                                       cv2.imread(os.path.join(ROOT, "demo", "3.png"))[::-1]],
+                                      False, 75),
 }
 
 
@@ -349,6 +411,117 @@ def test_container_variants_match_cv2():
         _same(blob, label)
 
 
+@pytest.mark.parametrize("size", [(1, 1), (7, 9), (40, 56), (100, 77)])
+def test_animated_matches_cv2(size):
+    """Animated files: cv2 (WebPAnimDecoder) gives the first frame on its
+    canvas, RGBA when the VP8X alpha flag is set, else RGB; the port gives
+    the same bytes for PIL's animations (lossy and lossless, RGB and RGBA,
+    transparent edges cropped by the muxer) and for hand-built frames at
+    offsets on a larger canvas (lossy, lossy with raw or compressed ALPH,
+    lossless with alpha), the alpha flag on or off, unknown chunks around
+    them, and a frame size in the ANMF chunk that the bitstream overrides."""
+    h, w = size
+    for alpha in (False, True):
+        for lossless in (False, True):
+            _same(pil_anim(_anim_frames(h, w, alpha, seed=h), lossless),
+                  f"PIL {size} alpha {alpha} lossless {lossless}")
+    img = _demo(h, w, seed=w)
+    stills = {"lossy": cv2_webp(img, 70), "lossless": cv2_webp(img, 101),
+              "compressed ALPH": alpha_webp(img, _alpha_plane(h, w, 2), 1, 3),
+              "raw ALPH": alpha_webp(img, _alpha_plane(h, w, 2), 0, 1),
+              "lossless alpha": cv2_webp(np.concatenate([img, _alpha_plane(h, w, 3)[..., None]],
+                                                        -1), 101)}
+    cw, ch = w + 14, h + 9
+    for label, still in stills.items():
+        frame = image_chunks(still)
+        for x, y in ((0, 0), (4, 2), (14, 8)):
+            for flags in (0x12, 0x02, 0x3E):
+                _same(animated((cw, ch), [(x, y, still), (0, 0, still)], flags),
+                      f"{label} {size} at {x},{y} flags {flags:#x}")
+        _same(riff(vp8x(cw, ch, 0x12), chunk(b"ICCP", bytes(5)), chunk(b"ANIM", bytes(6)),
+                   chunk(b"ABCD", b"xyz"), anmf(2, 2, w, h, frame + chunk(b"WXYZ", bytes(2))),
+                   chunk(b"EXIF", bytes(4))), f"{label} {size} unknown chunks")
+        _same(riff(vp8x(cw, ch, 0x12), chunk(b"ANIM", bytes(6)),
+                   anmf(2, 2, w + 3, h + 5, frame)), f"{label} {size} ANMF size overridden")
+
+
+def test_animated_refusals_and_damage():
+    """What libwebp's demuxer refuses raises a ValueError that names it,
+    where cv2 fails too: no ANIM before the frames, a frame (the first or a
+    later one) past the canvas, an unknown VP8X flag, a short ANIM chunk, a
+    VP8 chunk outside the frames, an ALPH chunk before a lossless frame or
+    without an image. Cut and corrupted animations decode to cv2's pixels or
+    fail where it fails."""
+    from hi3d_tpu_torch.utils.webp import decode_webp
+
+    img = _demo(21, 35)
+    still = alpha_webp(img, _alpha_plane(21, 35, 1), 1, 3)
+    frame, lossless = image_chunks(still), image_chunks(cv2_webp(img, 101))
+    alph = chunk(b"ALPH", _chunks(still)[1][1])
+    head = [vp8x(64, 48, 0x12), chunk(b"ANIM", bytes(6))]
+    cases = [(riff(vp8x(64, 48, 0x12), anmf(0, 0, 35, 21, frame)), "ANMF chunk before its ANIM"),
+             (riff(*head, anmf(30, 0, 35, 21, frame)), r"frame 1: 35×21 at \(30, 0\) outside"),
+             (riff(*head, anmf(0, 0, 35, 21, frame), anmf(0, 28, 35, 21, frame)),
+              r"frame 2: 35×21 at \(0, 28\) outside"),
+             (riff(vp8x(64, 48, 0x13), chunk(b"ANIM", bytes(6)), anmf(0, 0, 35, 21, frame)),
+              "unknown flags 0x13"),
+             (riff(vp8x(64, 48, 0x12), chunk(b"ANIM", bytes(4)), anmf(0, 0, 35, 21, frame)),
+              "ANIM chunk of 4 bytes"),
+             (riff(*head, anmf(0, 0, 35, 21, frame), frame), "outside its frames"),
+             (riff(*head, anmf(0, 0, 35, 21, alph + lossless)), "ALPH chunk before a lossless"),
+             (riff(*head, anmf(0, 0, 35, 21, alph)), "ALPH chunk without an image")]
+    for blob, match in cases:
+        assert cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_UNCHANGED) is None, match
+        with pytest.raises(ValueError, match=f"bad.webp: .*{match}"):
+            decode_webp(blob, "bad.webp")
+    rnd = np.random.RandomState(7)
+    seen = {"equal": 0, "both fail": 0}
+    for blob in (pil_anim(_anim_frames(40, 56, True), False), pil_anim(_anim_frames(40, 56), True)):
+        cases = [blob[:4] + struct.pack("<I", cut - 8) + blob[8:cut]
+                 for cut in range(40, len(blob), len(blob) // 40)]
+        for _ in range(200):
+            bad = bytearray(blob)
+            for _ in range(rnd.randint(1, 4)):
+                bad[rnd.randint(12, len(bad))] = rnd.randint(256)
+            cases.append(bytes(bad))
+        for bad in cases:
+            want = cv2.imdecode(np.frombuffer(bad, np.uint8), cv2.IMREAD_UNCHANGED)
+            try:
+                got = decode_webp(bad, "bad.webp")
+            except ValueError as e:
+                assert str(e).startswith("bad.webp: ") and want is None, e
+                seen["both fail"] += 1
+                continue
+            assert want is not None
+            np.testing.assert_array_equal(got, want[..., [2, 1, 0, 3][:want.shape[-1]]])
+            seen["equal"] += 1
+    assert seen["equal"] > 100 and seen["both fail"] > 50, seen
+
+
+@pytest.mark.parametrize("size,seed", [((9, 130), 3), ((100, 3), 5), ((40, 56), 1)])
+def test_cut_alpha_streams_match_cv2(size, seed):
+    """An ALPH chunk of a few alpha levels (a palette: libwebp's 8-bit alpha
+    path, which lets its last code read past the data) cut at every length,
+    the chunk resized: cv2's pixels or a failure where cv2 fails. Past the
+    data libwebp's reader gives its window's bits again, not zeros
+    (`tail_*` in csrc/webp_decode.c), and the cuts fail there as in cv2."""
+    from hi3d_tpu_torch.utils.webp import decode_webp
+
+    h, w = size
+    blob = alpha_webp(_demo(h, w), (_alpha_plane(h, w, seed) // 64) * 64, 1, seed % 4)
+    chunks = _chunks(blob)
+    i = [k for k, _ in chunks].index(b"ALPH")
+    for cut in range(2, len(chunks[i][1])):
+        bad = riff(*(chunk(k, b[:cut] if j == i else b) for j, (k, b) in enumerate(chunks)))
+        want = cv2.imdecode(np.frombuffer(bad, np.uint8), cv2.IMREAD_UNCHANGED)
+        try:
+            got = decode_webp(bad, "cut.webp")
+        except ValueError as e:
+            assert want is None, (cut, e)
+            continue
+        np.testing.assert_array_equal(got, want[..., [2, 1, 0, 3]], err_msg=str(cut))
+
+
 def test_fixtures_decode_to_their_goldens():
     from hi3d_tpu_torch.utils.webp import read_webp
 
@@ -423,7 +596,7 @@ def _chunks(blob):
 
 
 def test_malformed_webps_raise():
-    """Animated files, a bad VP8X, a canvas that is not the image's size, a
+    """An animated file without frames, a bad VP8X, a canvas that is not the image's size, a
     bad ALPH header, a lossless header of another version and every
     truncation of a lossy, a lossless and an alpha file raise a ValueError
     that names the file; their bitstreams cut (their chunks resized) or with
@@ -435,9 +608,10 @@ def test_malformed_webps_raise():
     lossless = cv2_webp(_demo(21, 35), 101)
     alpha = alpha_webp(_demo(21, 35), _alpha_plane(21, 35, 0), 1, 3)
     vp8 = lossy[12:]
+    # ANIM and ANMF chunks in a file without the animation flag: skipped
+    _same(riff(vp8x(35, 21, 0), chunk(b"ANMF", bytes(16)), vp8))
     cases = [
-        (riff(vp8x(35, 21, 0x02), chunk(b"ANIM", bytes(6))), "animated WebP"),
-        (riff(vp8x(35, 21, 0), chunk(b"ANMF", bytes(16)), vp8), "animated WebP"),
+        (riff(vp8x(35, 21, 0x02), chunk(b"ANIM", bytes(6))), "animated WebP without a frame"),
         (riff(chunk(b"VP8X", bytes(8)), vp8), "VP8X chunk of 8 bytes"),
         (riff(vp8x(36, 21, 0), vp8), "canvas of 36×21 around an image of 35×21"),
         (riff(vp8x(35, 21), chunk(b"ALPH", b"\x03" + bytes(8)), vp8), "ALPH chunk with "

@@ -50,6 +50,8 @@ def cv2_rgb(blob: bytes):
         return None
     if img.ndim == 2:
         return img[..., None]
+    if img.shape[-1] == 2:  # grey and alpha
+        return img
     return np.ascontiguousarray(img[..., [2, 1, 0, 3][:img.shape[-1]]])
 
 
