@@ -1553,7 +1553,8 @@ def _check_frames(frame_dir: str, shape) -> None:
 MP4_FPS = 8  # the CLIs' default --fps
 MP4_Y_PSNR_MIN = 50.0  # dB: the decode's luma against the encoder's source luma, QP 5
 MP4_RGB_PSNR_SLACK = 1.0  # dB the RGB may lose beyond the 4:2:0 conversion alone
-MP4_READINGS: dict = {}  # "WxH" -> [(encode ms a frame, decode ms a frame, bytes a frame)]
+MP4_READINGS: dict = {}  # "WxH" -> [(encode ms, decode ms, bytes, intra-only bytes) a frame]
+MP4_FILTERED_QP = 26  # path 1's frames once more at this QP, where the deblocking filter acts
 
 
 def _psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -1561,7 +1562,48 @@ def _psnr(a: np.ndarray, b: np.ndarray) -> float:
     return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
 
 
-def mp4_check(path: str) -> None:
+def _ffmpeg_holds(path: str, planes, rgb: np.ndarray, n: int, h: int, w: int) -> str:
+    """Where cv2 imports, asserts that ffmpeg's luma of the mp4 at `path`
+    equals the port's decode (`planes`) bit for bit and its RGB the port's
+    `rgb` (bit-equal where its swscale is the conversion goldens' version,
+    else within YUV_OTHER_SWSCALE_BOUND); returns which check ran."""
+    name = os.path.relpath(path, ROOT)
+    try:
+        import cv2
+    except ImportError:
+        return "ffmpeg check skipped: cv2 does not import on this host"
+    log = getattr(getattr(cv2, "utils", None), "logging", None)
+    if log is not None:  # errors only: each raw yuv420p frame warns otherwise
+        log.setLogLevel(log.LOG_LEVEL_ERROR)
+    cap = cv2.VideoCapture(path)
+    cap.set(cv2.CAP_PROP_CONVERT_RGB, 0)
+    luma = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        luma.append(np.asarray(f).reshape(-1)[:h * w].reshape(h, w))
+    cap.release()
+    if len(luma) != n or any(not np.array_equal(a, p[0]) for a, p in zip(luma, planes)):
+        raise AssertionError(f"{name}: ffmpeg's luma ({len(luma)} frames) is not the port's")
+    cap = cv2.VideoCapture(path)
+    theirs = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        theirs.append(f[..., ::-1])
+    cap.release()
+    bound, version = yuv_bound(cv2)
+    worst = int(np.abs(np.stack(theirs).astype(np.int16) - rgb).max()) if theirs else None
+    if len(theirs) != n or worst > bound:
+        raise AssertionError(f"{name}: ffmpeg's RGB ({len(theirs)} frames) lies {worst} "
+                             f"levels from the port's (swscale {version}, bound {bound})")
+    return (f"ffmpeg check ran: cv2's luma of {n} frames bit-equal to the port's, its RGB "
+            f"within {worst} (bound {bound}, swscale {version})")
+
+
+def mp4_check(path: str, filtered_qp: int | None = None) -> None:
     """Holds the mp4 a CLI wrote at `path` against the PNG frames beside it
     (its `frames/`): its frame count is theirs (padded to whole seconds at
     MP4_FPS) and its rate MP4_FPS; the frames encoded again give the same
@@ -1571,8 +1613,11 @@ def mp4_check(path: str) -> None:
     MP4_RGB_PSNR_SLACK of the PSNR of the 4:2:0 conversion alone; where cv2
     imports, ffmpeg's luma equals the port's bit for bit and its RGB too
     (within YUV_OTHER_SWSCALE_BOUND where cv2's swscale is another version
-    than the conversion goldens'). Records the
-    encode and decode ms a frame (host CPU) and the bytes a frame."""
+    than the conversion goldens'). With `filtered_qp`, the frames are
+    encoded once more at that QP (where the deblocking filter acts) and
+    that stream is held the same way. Records the encode and decode ms a
+    frame (host CPU) and the bytes a frame of the stream (IDR + P) and of
+    an intra-only encode of the same frames."""
     from hi3d_tpu_torch.utils import h264, mp4
     from hi3d_tpu_torch.utils.video import import_video
 
@@ -1584,15 +1629,17 @@ def mp4_check(path: str) -> None:
     planes = h264.decode(track.sps, track.pps, track.samples, track.length_size)
     rgb = np.stack([h264.to_rgb(*p) for p in planes])
     dec_ms = (time.perf_counter() - t0) * 1000 / len(planes)
+    qp = h264.quality_to_qp(9)
     t0 = time.perf_counter()
-    enc = h264.encode(list(pngs), h264.quality_to_qp(9), MP4_FPS)
+    enc = h264.encode(list(pngs), qp, MP4_FPS)
     enc_ms = (time.perf_counter() - t0) * 1000 / n
     if (len(track.samples), track.fps, track.width, track.height) != (n, MP4_FPS, w, h) or n % MP4_FPS:
         raise AssertionError(f"{name}: {len(track.samples)} frames of {track.width}x"
                              f"{track.height} at {track.fps} fps, want {n} (padded to whole "
                              f"seconds) of {w}x{h} at {MP4_FPS}")
-    if enc.samples != track.samples:
-        raise AssertionError(f"{name}: encoding its PNG frames again gives another stream")
+    if enc.samples != track.samples or track.sync != [0]:
+        raise AssertionError(f"{name}: encoding its PNG frames again gives another stream, or its "
+                             f"sync samples {track.sync} are not the IDR alone")
     for i, (got, want) in enumerate(zip(planes, enc.recon)):
         if not all(np.array_equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"{name}: frame {i} decodes off the encoder's reconstruction")
@@ -1603,47 +1650,37 @@ def mp4_check(path: str) -> None:
     if not (y_psnr >= MP4_Y_PSNR_MIN and rgb_psnr >= yuv420_psnr - MP4_RGB_PSNR_SLACK):
         raise AssertionError(f"{name}: PSNR luma {y_psnr:.2f} dB (bound {MP4_Y_PSNR_MIN}), RGB "
                              f"{rgb_psnr:.2f} dB (bound {yuv420_psnr - MP4_RGB_PSNR_SLACK:.2f})")
-    try:
-        import cv2
-    except ImportError:
-        ffmpeg = "ffmpeg check skipped: cv2 does not import on this host"
-    else:
-        log = getattr(getattr(cv2, "utils", None), "logging", None)
-        if log is not None:  # errors only: each raw yuv420p frame warns otherwise
-            log.setLogLevel(log.LOG_LEVEL_ERROR)
-        cap = cv2.VideoCapture(path)
-        cap.set(cv2.CAP_PROP_CONVERT_RGB, 0)
-        luma = []
-        while True:
-            ok, f = cap.read()
-            if not ok:
-                break
-            luma.append(np.asarray(f).reshape(-1)[:h * w].reshape(h, w))
-        cap.release()
-        if len(luma) != n or any(not np.array_equal(a, p[0]) for a, p in zip(luma, planes)):
-            raise AssertionError(f"{name}: ffmpeg's luma ({len(luma)} frames) is not the port's")
-        cap = cv2.VideoCapture(path)
-        theirs = []
-        while True:
-            ok, f = cap.read()
-            if not ok:
-                break
-            theirs.append(f[..., ::-1])
-        cap.release()
-        bound, version = yuv_bound(cv2)
-        worst = int(np.abs(np.stack(theirs).astype(np.int16) - rgb).max()) if theirs else None
-        if len(theirs) != n or worst > bound:
-            raise AssertionError(f"{name}: ffmpeg's RGB ({len(theirs)} frames) lies {worst} "
-                                 f"levels from the port's (swscale {version}, bound {bound})")
-        ffmpeg = (f"ffmpeg check ran: cv2's luma of {n} frames bit-equal to the port's, its RGB "
-                  f"within {worst} (bound {bound}, swscale {version})")
+    ffmpeg = _ffmpeg_holds(path, planes, rgb, n, h, w)
     per_frame = sum(len(x) for x in track.samples) / n
-    MP4_READINGS.setdefault(f"{w}x{h}", []).append((enc_ms, dec_ms, per_frame))
-    print(f"[mp4] {name}: {n} frames of {w}x{h} at {track.fps} fps, decode = encoder's "
-          f"reconstruction bit for bit; PSNR luma {y_psnr:.2f} dB (bound {MP4_Y_PSNR_MIN}), RGB "
-          f"{rgb_psnr:.2f} dB (4:2:0 alone {yuv420_psnr:.2f}, bound "
+    intra = h264.encode(list(pngs), qp, MP4_FPS, pictures="idr")
+    intra_per_frame = sum(len(x) for x in intra.samples) / n
+    MP4_READINGS.setdefault(f"{w}x{h}", []).append((enc_ms, dec_ms, per_frame, intra_per_frame))
+    print(f"[mp4] {name}: {n} frames of {w}x{h} at {track.fps} fps (IDR + P, deblocking on), "
+          f"decode = encoder's reconstruction bit for bit; PSNR luma {y_psnr:.2f} dB (bound "
+          f"{MP4_Y_PSNR_MIN}), RGB {rgb_psnr:.2f} dB (4:2:0 alone {yuv420_psnr:.2f}, bound "
           f"{yuv420_psnr - MP4_RGB_PSNR_SLACK:.2f}); {ffmpeg}; encode {enc_ms:.2f} ms a frame, "
-          f"decode {dec_ms:.2f} ms a frame, {per_frame:.0f} bytes a frame (host CPU)", flush=True)
+          f"decode {dec_ms:.2f} ms a frame, {per_frame:.0f} bytes a frame (intra-only "
+          f"{intra_per_frame:.0f}) (host CPU)", flush=True)
+    if filtered_qp is None:
+        return
+    stats = {}
+    enc = h264.encode(list(pngs), filtered_qp, MP4_FPS, stats=stats)
+    again = os.path.join(os.path.dirname(path), f"qp{filtered_qp}.mp4")
+    mp4.write_mp4(again, enc.sps, enc.pps, enc.samples, w, h, MP4_FPS, enc.sync)
+    track = mp4.read_mp4(again)
+    planes = h264.decode(track.sps, track.pps, track.samples, track.length_size)
+    for i, (got, want) in enumerate(zip(planes, enc.recon)):
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{again}: frame {i} decodes off the encoder's reconstruction")
+    filtered = sum(stats[f"bs{k}"] for k in range(1, 5))
+    if not filtered:
+        raise AssertionError(f"{again}: the deblocking filter filtered no edge at QP {filtered_qp}")
+    ffmpeg = _ffmpeg_holds(again, planes, np.stack([h264.to_rgb(*p) for p in planes]), n, h, w)
+    print(f"[mp4] {os.path.relpath(again, ROOT)}: the same frames at QP {filtered_qp}, "
+          f"{sum(len(x) for x in track.samples) / n:.0f} bytes a frame, {filtered} luma edge "
+          f"segments filtered (bS 1-4: {[stats[f'bs{k}'] for k in range(1, 5)]}), "
+          f"{stats['skip']} P_Skip macroblocks; decode = encoder's reconstruction bit for bit; "
+          f"{ffmpeg}", flush=True)
 
 
 def build_host_decoders() -> None:
@@ -1693,13 +1730,14 @@ def time_yuv_to_rgb(root: str = ROOT, reps: int = 20) -> None:
 
 
 def mp4_summary(card: str) -> None:
-    """Median encode and decode ms a frame and bytes a frame by size over
-    every mp4 `mp4_check` held, beside the card's line."""
+    """Median encode and decode ms a frame and bytes a frame (the stream's
+    and an intra-only encode's) by size over every mp4 `mp4_check` held,
+    beside the card's line."""
     parts = []
     for size, rows in sorted(MP4_READINGS.items()):
-        enc, dec, nbytes = (float(np.median([r[i] for r in rows])) for i in range(3))
+        enc, dec, nbytes, intra = (float(np.median([r[i] for r in rows])) for i in range(4))
         parts.append(f"{size}: encode {enc:.2f} ms a frame, decode {dec:.2f} ms a frame, "
-                     f"{nbytes:.0f} bytes a frame ({len(rows)} files)")
+                     f"{nbytes:.0f} bytes a frame (intra-only {intra:.0f}) ({len(rows)} files)")
     print(f"[mp4] the card machine's host CPU, medians: {'; '.join(parts)} | {card}", flush=True)
 
 
@@ -1823,7 +1861,7 @@ def main_path(steps: int, flags=(), label: str = "1", want_calls=None,
           f"{probe.median_ms()}, launches {launches}", flush=True)
     torch.cuda.empty_cache()
     _check_frames(os.path.join(out_dir, "first_step", "frames"), (16, 512, 512, 3))
-    mp4_check(os.path.join(out_dir, "first_step", "first.mp4"))
+    mp4_check(os.path.join(out_dir, "first_step", "first.mp4"), MP4_FILTERED_QP)
     _check_calls(label, calls, want_calls or {"whole B32": steps})
     _check_launches(launches, expected)
     return launches, out_dir, phases

@@ -7,16 +7,18 @@ start): `mvhd`, and a `trak` of `tkhd`, `mdia` (`mdhd`, `hdlr vide`,
 `minf` with `vmhd`, `dinf`, and `stbl`: `stsd` holding `avc1` with its
 `avcC` and a `colr` nclx box of BT.601 limited range, `stts` at the clip's
 rate, `stsz`, `stsc` and `stco`, or `co64` when an offset passes 4 GiB).
-One sample a chunk; every sample a sync sample (no `stss`).
+One sample a chunk; an `stss` box lists the sync samples (the IDR
+pictures) where some samples are not (the P pictures).
 
 `read_mp4` finds `moov` before or after `mdat`, skips unknown and `free`
 boxes, and returns the first video track's codec, its decoder
-configuration and its samples: for `avc1`/`avc3` the `avcC` parameter sets,
-for `mp4v` (cv2's VideoWriter) the `esds` DecoderSpecificInfo of an
-MPEG-4 Visual stream (objectTypeIndication 0x20; utils/mpeg4.py decodes
-it). A malformed or truncated file raises a ValueError that names the box;
-any other sample entry (HEVC, AV1, ...) or an `mp4v` entry that carries
-another codec (MPEG-1/2 video, JPEG, ...) raises `h264.Unsupported`.
+configuration, its samples and its sync samples (`stss`, where present):
+for `avc1`/`avc3` the `avcC` parameter sets, for `mp4v` (cv2's
+VideoWriter) the `esds` DecoderSpecificInfo of an MPEG-4 Visual stream
+(objectTypeIndication 0x20; utils/mpeg4.py decodes it). A malformed or
+truncated file raises a ValueError that names the box; any other sample
+entry (HEVC, AV1, ...) or an `mp4v` entry that carries another codec
+(MPEG-1/2 video, JPEG, ...) raises `h264.Unsupported`.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from __future__ import annotations
 import os
 import struct
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from .h264 import Unsupported
 
@@ -48,7 +50,7 @@ def avcc(sps: bytes, pps: bytes) -> bytes:
 
 
 def _moov(sps: bytes, pps: bytes, width: int, height: int, fps: int, sizes: Sequence[int],
-          offsets: Sequence[int]) -> bytes:
+          offsets: Sequence[int], sync: Optional[Sequence[int]] = None) -> bytes:
     n = len(sizes)
     timescale, delta = fps * TIMESCALE_PER_FRAME, TIMESCALE_PER_FRAME
     movie_ms = n * 1000 // fps
@@ -65,7 +67,10 @@ def _moov(sps: bytes, pps: bytes, width: int, height: int, fps: int, sizes: Sequ
                full_box(b"stts", 0, 0, struct.pack(">III", 1, n, delta)),
                full_box(b"stsc", 0, 0, struct.pack(">IIII", 1, 1, 1, 1)),
                full_box(b"stsz", 0, 0, struct.pack(f">II{n}I", 0, n, *sizes)),
-               chunk_offsets)
+               chunk_offsets,
+               *([] if sync is None or len(sync) == n else
+                 [full_box(b"stss", 0, 0, struct.pack(f">I{len(sync)}I", len(sync),
+                                                      *(i + 1 for i in sync)))]))
     minf = box(b"minf", full_box(b"vmhd", 0, 1, bytes(8)),
                box(b"dinf", full_box(b"dref", 0, 0, struct.pack(">I", 1), full_box(b"url ", 0, 1))),
                stbl)
@@ -84,12 +89,17 @@ def _moov(sps: bytes, pps: bytes, width: int, height: int, fps: int, sizes: Sequ
 
 
 def write_mp4(path: str, sps: bytes, pps: bytes, samples: Sequence[bytes], width: int,
-              height: int, fps: int) -> int:
+              height: int, fps: int, sync: Optional[Sequence[int]] = None) -> int:
     """Writes the clip (samples: 4-byte length-prefixed NAL units, one
-    picture each) to `path` through a temporary file renamed into place;
-    returns the bytes written."""
+    picture each; `sync` the indices of the sync samples, all when None) to
+    `path` through a temporary file renamed into place; returns the bytes
+    written."""
     if not samples:
         raise ValueError("an mp4 needs at least one sample")
+    if sync is not None and (list(sync) != sorted(set(sync)) or not sync or sync[0] != 0
+                             or sync[-1] >= len(samples)):
+        raise ValueError(f"sync samples {list(sync)[:8]} must rise from 0 within the "
+                         f"{len(samples)} samples")
     if not isinstance(fps, int) or fps < 1:
         raise ValueError(f"fps must be a positive int; got {fps!r}")
     ftyp = box(b"ftyp", b"isom", struct.pack(">I", 512), b"isomiso2avc1mp41")
@@ -102,7 +112,7 @@ def write_mp4(path: str, sps: bytes, pps: bytes, samples: Sequence[bytes], width
         offsets = [len(ftyp) + len(moov) + mdat_head]
         for size in sizes[:-1]:
             offsets.append(offsets[-1] + size)
-        moov = _moov(sps, pps, width, height, fps, sizes, offsets)
+        moov = _moov(sps, pps, width, height, fps, sizes, offsets, sync)
     tmp = f"{path}.tmp{os.getpid()}"
     try:
         with open(tmp, "wb") as f:
@@ -127,8 +137,9 @@ def write_mp4(path: str, sps: bytes, pps: bytes, samples: Sequence[bytes], width
 class Track:
     """The first video track: its `avcC` parameter sets and NAL length
     size (H.264), the samples, their width and height, the frame rate, the
-    sample entry's codec ("avc1", "avc3" or "mp4v") and, for "mp4v", the
-    `esds` DecoderSpecificInfo (the VOS, VO and VOL headers)."""
+    sample entry's codec ("avc1", "avc3" or "mp4v"), for "mp4v" the `esds`
+    DecoderSpecificInfo (the VOS, VO and VOL headers), and the indices of
+    the sync samples (`stss`; None where the box is absent: every sample)."""
 
     sps: List[bytes]
     pps: List[bytes]
@@ -139,6 +150,7 @@ class Track:
     fps: float
     codec: str = "avc1"
     config: bytes = b""
+    sync: Optional[List[int]] = None
 
 
 class _Boxes:
@@ -303,8 +315,15 @@ def _read_track(data, st: Dict[str, Tuple[int, int]], sw: str, timescale: int,
     if frames != len(samples):
         raise ValueError(f"{sw}/stts: {frames} sample durations for {len(samples)} samples")
     fps = timescale * frames / ticks if ticks and timescale else 0.0
+    sync = None
+    if "stss" in st:
+        numbers = _table("I", data, *st["stss"], f"{sw}/stss")
+        if any(not 1 <= k <= len(samples) for k in numbers) or numbers != sorted(set(numbers)):
+            raise ValueError(f"{sw}/stss: sync samples {numbers[:8]} are not rising sample numbers "
+                             f"of 1..{len(samples)}")
+        sync = [k - 1 for k in numbers]
     return Track(sps, pps, length_size, samples, width, height,
-                 int(round(fps)) if abs(fps - round(fps)) < 1e-9 else fps, kind, config)
+                 int(round(fps)) if abs(fps - round(fps)) < 1e-9 else fps, kind, config, sync)
 
 
 _CODECS = {"hvc1": "HEVC", "hev1": "HEVC", "av01": "AV1", "vp09": "VP9",

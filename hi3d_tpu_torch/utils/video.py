@@ -1,8 +1,9 @@
 """Frame conversion, import and export (counterpart of hi3d_tpu/utils/video.py).
 
-A clip is written as PNG frames (stdlib codec) and as an H.264 mp4 with the
-port's own encoder and muxer (utils/h264.py, utils/mp4.py; no cv2 or
-imageio), on every host. It is read back from such a frames directory or
+A clip is written as PNG frames (stdlib codec) and as an H.264 mp4 (an IDR
+picture, then P pictures, deblocked) with the port's own encoder and muxer
+(utils/h264.py, utils/mp4.py; no cv2 or imageio), on every host. It is
+read back from such a frames directory or
 mp4 with the same codecs, and an mp4 of cv2's `mp4v` (MPEG-4 Part 2, what
 the JAX package writes where imageio has no ffmpeg plugin) with
 utils/mpeg4.py; an mp4 the port's decoders do not take (the High-profile
@@ -55,11 +56,14 @@ def tensor2vid(
 def export_to_video(frames: List[np.ndarray], output_path: str, fps: int = 8,
                     quality: int = 9) -> str:
     """Write `frames/NNN.png` beside `output_path` and the H.264 mp4 at
-    `output_path` (utils/h264.py, utils/mp4.py; QP from `quality` as
-    imageio-ffmpeg's CRF, 5 at the default 9). Both hold the clip padded
-    with its last frame to a whole number of seconds at `fps` (reference
-    vtdm/util.py:44-47), so a reader of either sees the same frames.
-    Returns the mp4 path, as JAX's export does; a failed encode raises."""
+    `output_path` (utils/h264.py, utils/mp4.py): an IDR picture, then P
+    pictures with quarter-sample motion, the deblocking filter on, one QP
+    for all from `quality` as imageio-ffmpeg's CRF (5 at the default 9),
+    slices of 4 macroblock rows; `stss` names the IDR sample. Both hold the
+    clip padded with its last frame to a whole number of seconds at `fps`
+    (reference vtdm/util.py:44-47), so a reader of either sees the same
+    frames. Returns the mp4 path, as JAX's export does; a failed encode
+    raises."""
     out_dir = os.path.dirname(output_path) or "."
     frame_dir = os.path.join(out_dir, "frames")
     os.makedirs(frame_dir, exist_ok=True)
@@ -70,9 +74,10 @@ def export_to_video(frames: List[np.ndarray], output_path: str, fps: int = 8,
         write_png(os.path.join(frame_dir, f"{i:03d}.png"), f)
     h, w = padded[0].shape[:2]
     enc = h264.encode(padded, h264.quality_to_qp(quality), fps)
-    size = mp4.write_mp4(output_path, enc.sps, enc.pps, enc.samples, w, h, fps)
+    size = mp4.write_mp4(output_path, enc.sps, enc.pps, enc.samples, w, h, fps, enc.sync)
     print(f"[video] wrote {len(frames)} frames, padded to {len(padded)}, to {frame_dir} and "
-          f"{output_path} (H.264 QP {h264.quality_to_qp(quality)}, {size} bytes)")
+          f"{output_path} (H.264 IDR + P, deblocking on, QP {h264.quality_to_qp(quality)}, "
+          f"{size} bytes)")
     return output_path
 
 

@@ -3,22 +3,25 @@ csrc/h264_{encode,decode}.c, utils/video.py) on the CPU, held against the
 encoder's own reconstruction, against ffmpeg's decoder (through cv2) and
 against the JAX package's readers.
 
-- Round trip: the port's decode of its mp4 equals the encoder's
-  reconstruction bit for bit, over random and smooth content, at 16²,
-  64×48, 66×50 (cropped) and 512², QP 0, 5, 26 and 51, and over streams of
-  several slices a picture, non-IDR I pictures and pic_order_cnt_type 0.
+- Round trip: the port's decode of its mp4 (IDR then P pictures, the loop
+  filter on) equals the encoder's reconstruction bit for bit, over random
+  and smooth content, at 16², 64×48, 66×50 (cropped) and 512², QP 0, 5, 26
+  and 51, and over streams of several slices a picture, non-IDR I pictures
+  and pic_order_cnt_type 0 (tests/test_torch_h264_inter.py holds the P
+  pictures' every path).
 - ffmpeg: cv2 reads the same frame count and fps; its luma
   (CAP_PROP_CONVERT_RGB off) and its RGB (libswscale's yuv420p → BGR24,
   which h264.to_rgb ports) are bit-equal to the port's reader's.
 - JAX: `hi3d_tpu.utils.video.import_video` (cv2 here: imageio has no ffmpeg
   plugin) and the port's `import_video` agree bit for bit on a port mp4;
   JAX's and the port's `v2v.prepare_inputs` select the same frames of it.
-- Refusals: CABAC, a P slice, the loop filter on, High profile and
-  interlace raise `h264.Unsupported` naming them when cv2 and imageio are
-  hidden; cv2's `mp4v` reads without them (utils/mpeg4.py;
-  tests/test_torch_mpeg4.py holds that decoder).
-- Damage: truncated and bit-flipped files raise a ValueError or decode,
-  never crash.
+- Refusals: CABAC, a B slice, weighted prediction, a long-term reference,
+  adaptive reference marking (MMCO), High profile and interlace raise
+  `h264.Unsupported` naming them when cv2 and imageio are hidden; cv2's
+  `mp4v` reads without them (utils/mpeg4.py; tests/test_torch_mpeg4.py
+  holds that decoder).
+- Damage: truncated and bit-flipped files (of P streams with the filter
+  on) raise a ValueError or decode, never crash.
 """
 
 import struct
@@ -103,8 +106,8 @@ def test_pcm_pictures_are_the_colour_conversion():
     np.testing.assert_array_equal(recon[0], y)
 
 
-@pytest.mark.parametrize("options", [dict(slice_rows=1), dict(all_idr=False),
-                                     dict(slice_rows=2, all_idr=False, poc_type=0)])
+@pytest.mark.parametrize("options", [dict(slice_rows=1), dict(pictures="i"),
+                                     dict(slice_rows=2, pictures="i", poc_type=0)])
 def test_stream_variants_against_ffmpeg(tmp_path, options):
     """Several slices a picture, non-IDR I pictures, POC type 0: the port's
     decode is the reconstruction and ffmpeg's luma."""
@@ -198,20 +201,44 @@ def _pps_cabac():
     return b"\x68" + h264.escape(w.rbsp())
 
 
-def _slice(slice_type=7, deblocking=1):
+def _pps_weighted(qp=26):
+    w = h264._BitWriter()
+    for v in (0, 0):
+        w.ue(v)
+    w.u(1, 0)
+    w.u(1, 0)
+    for v in (0, 0, 0):
+        w.ue(v)
+    w.u(1, 1)  # weighted_pred_flag
+    w.u(2, 0)
+    w.se(qp - 26)
+    w.se(0)
+    w.se(0)
+    w.u(1, 1)
+    w.u(1, 0)
+    w.u(1, 0)
+    return b"\x68" + h264.escape(w.rbsp())
+
+
+def _slice(slice_type=7, deblocking=1, idr=True, marking=(0, 0)):
+    """An I slice header (IDR: idr_pic_id 0; else frame_num 1) with the
+    dec_ref_pic_marking bits `marking` (IDR: no_output_of_prior_pics,
+    long_term_reference; else adaptive_ref_pic_marking_mode alone)."""
     w = h264._BitWriter()
     w.ue(0)
     w.ue(slice_type)
     w.ue(0)
-    w.u(4, 0)
-    w.ue(0)  # idr_pic_id
-    w.u(2, 0)
+    w.u(4, 0 if idr else 1)
+    if idr:
+        w.ue(0)  # idr_pic_id
+        w.u(1, marking[0])
+    w.u(1, marking[1])
     w.se(0)
     w.ue(deblocking)
     if deblocking != 1:
         w.se(0)
         w.se(0)
-    nal = b"\x65" + h264.escape(w.rbsp())
+    nal = (b"\x65" if idr else b"\x61") + h264.escape(w.rbsp())
     return struct.pack(">I", len(nal)) + nal
 
 
@@ -222,8 +249,11 @@ def good():
 
 REFUSALS = {
     "cabac": (lambda e: (e.sps, _pps_cabac(), e.samples), "CABAC"),
-    "p_slice": (lambda e: (e.sps, e.pps, [_slice(slice_type=5)]), "a P slice"),
-    "deblocking": (lambda e: (e.sps, e.pps, [_slice(deblocking=0)]), "deblocking filter on"),
+    "b_slice": (lambda e: (e.sps, e.pps, [_slice(slice_type=6)]), "a B slice"),
+    "weighted_pred": (lambda e: (e.sps, _pps_weighted(), e.samples), "weighted prediction"),
+    "long_term": (lambda e: (e.sps, e.pps, [_slice(marking=(0, 1))]), "long-term reference"),
+    "mmco": (lambda e: (e.sps, e.pps, [e.samples[0], _slice(idr=False, marking=(0, 1))]),
+             "adaptive reference picture marking"),
     "high_profile": (lambda e: (_sps_bits(100), e.pps, e.samples), "High profile"),
     "interlace": (lambda e: (_sps_bits(frame_mbs_only=0), e.pps, e.samples), "interlace"),
 }
@@ -315,19 +345,26 @@ def _damaged(blob, rnd, n_cuts=60, n_flips=120):
 
 def test_damaged_files_raise_or_decode(tmp_path, good):
     """Truncations raise a ValueError naming a box or the stream; bit flips
-    either decode to pictures of the clip's size or raise a ValueError."""
-    src = _write(tmp_path / "good.mp4", good, 48, 64)
-    blob = open(src, "rb").read()
-    rnd = np.random.RandomState(11)
-    path = tmp_path / "bad.mp4"
-    raised = decoded = 0
-    for kind, data in _damaged(blob, rnd):
-        path.write_bytes(data)
-        try:
-            frames = read_mp4(str(path))
-        except ValueError:
-            raised += 1
-            continue
-        assert kind == "flip" and frames.ndim == 4 and frames.shape[-1] == 3
-        decoded += 1
-    assert raised > 60 and raised + decoded == len(list(_damaged(blob, np.random.RandomState(11))))
+    either decode to pictures of the clip's size or raise a ValueError. The
+    streams: `good` (an IDR and a P picture, the filter on) and a P stream
+    of three references, mixed sub-partitions, two-row slices and the
+    filter's offsets."""
+    inter = h264.encode(_clip(64, 48, 5, seed=4), 30, 8, slice_rows=2, refs=3,
+                        partition="mixed", filter_offsets=(2, -1))
+    for name, enc in (("good", good), ("inter", inter)):
+        src = _write(tmp_path / f"{name}.mp4", enc, 48, 64)
+        blob = open(src, "rb").read()
+        rnd = np.random.RandomState(11)
+        path = tmp_path / "bad.mp4"
+        raised = decoded = 0
+        for kind, data in _damaged(blob, rnd):
+            path.write_bytes(data)
+            try:
+                frames = read_mp4(str(path))
+            except ValueError:
+                raised += 1
+                continue
+            assert kind == "flip" and frames.ndim == 4 and frames.shape[-1] == 3
+            decoded += 1
+        total = len(list(_damaged(blob, np.random.RandomState(11))))
+        assert raised > 60 and raised + decoded == total
